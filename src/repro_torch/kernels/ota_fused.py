@@ -1,0 +1,171 @@
+"""Packed OTA superpose / fold: the CUDA kernel ``csrc/ota_superpose.cu``
+and its plain PyTorch version.
+
+``ota_superpose`` replaces the TPU kernel ``ota_packed_2d`` and
+``ota_fold`` replaces ``ota_fold_2d`` (the JAX package's
+``kernels/ota_fused.py``). Both compute, per output column m,
+
+    y[m] = [acc[m] +] sum_k c_k * (s_k[m // qblock] * q_k[m]),
+    c_k  = w_k [* g_k]
+
+over one storage group's K_g rows: q (K_g, M) int8/int16/int32/f32
+symbols, or (K_g, M/2) uint8 int4 nibbles with ``packed4``; scale
+(K_g,)/(K_g, 1) per-row or the (K_g, n_blocks) blockwise matrix. The sum
+runs k = 0..K_g-1 in order, each op rounded on its own, so kernel and
+plain version agree bit for bit and fold(zeros, b) == superpose(b).
+
+Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
+launches the kernel or raises. The kernel is memory-bound (see the
+source's note).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.wire import unpack_int4_rows
+from repro_torch.kernels import _build
+
+_KIND_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
+_KIND_INT4 = 4
+
+
+def _scale_matrix(scale: torch.Tensor, K: int) -> torch.Tensor:
+    s = scale.to(torch.float32)
+    return s.reshape(K, 1) if s.dim() <= 1 else s
+
+
+def superpose_plain(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    gains: Optional[torch.Tensor] = None,
+    qblock: int = 0,
+    packed4: bool = False,
+    acc: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same ops in the same order."""
+    if packed4:
+        q = unpack_int4_rows(q)
+    K, M = q.shape
+    scales = _scale_matrix(scale, K)
+    nb = scales.shape[1]
+    blockwise = qblock > 0 and nb > 1
+    if blockwise:
+        bid = (torch.arange(M, device=q.device) // qblock).clamp_max(nb - 1)
+    c = w.to(torch.float32).reshape(K)
+    if gains is not None:
+        c = c * gains.to(torch.float32).reshape(K)
+    part = torch.zeros(M, dtype=torch.float32, device=q.device)
+    for k in range(K):
+        s_k = scales[k, bid] if blockwise else scales[k, 0]
+        part = part + (q[k].to(torch.float32) * s_k) * c[k]
+    return part if acc is None else acc.to(torch.float32) + part
+
+
+def _launch(acc, q, scale, w, gains, qblock, packed4) -> torch.Tensor:
+    dev = q.device
+    if q.dim() != 2 or q.shape[0] < 1 or q.shape[1] < 1:
+        raise ValueError(f"q must be (K, cols) with K, cols >= 1, got {tuple(q.shape)}")
+    K, cols = q.shape
+    if packed4:
+        if q.dtype != torch.uint8:
+            raise TypeError(f"packed4 rows must be uint8, got {q.dtype}")
+        kind, M = _KIND_INT4, 2 * cols
+    else:
+        if q.dtype not in _KIND_CODE:
+            raise TypeError(f"unsupported symbol dtype {q.dtype}")
+        kind, M = _KIND_CODE[q.dtype], cols
+    scales = _scale_matrix(scale, K)
+    if scales.dim() != 2 or scales.shape[0] != K:
+        raise ValueError(f"scale must be (K,) or (K, n_blocks), got {tuple(scale.shape)}")
+    if qblock <= 0 and scales.shape[1] != 1:
+        raise ValueError("a blockwise scale matrix needs qblock > 0")
+    wv = w.to(torch.float32).reshape(K)
+    gv = None if gains is None else gains.to(torch.float32).reshape(K)
+    av = None
+    if acc is not None:
+        if acc.shape != (M,) or acc.dtype != torch.float32:
+            raise ValueError(f"acc must be ({M},) float32, got {tuple(acc.shape)} {acc.dtype}")
+        av = acc
+    for name, t in (("q", q), ("scale", scales), ("w", wv), ("gains", gv), ("acc", av)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty(M, dtype=torch.float32, device=dev)
+    row_bytes = cols * q.element_size()
+    aligned = int(
+        q.data_ptr() % 16 == 0
+        and row_bytes % 16 == 0
+        and out.data_ptr() % 16 == 0
+        and (av is None or av.data_ptr() % 16 == 0)
+    )
+    lib = _build.library("ota_superpose")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ota_superpose_launch(
+            q.data_ptr(), kind, K, M, row_bytes,
+            scales.data_ptr(), scales.shape[1], int(qblock),
+            wv.data_ptr(), None if gv is None else gv.data_ptr(),
+            None if av is None else av.data_ptr(), out.data_ptr(), aligned, stream,
+        )
+    _build.check(rc, "ota_superpose_launch")
+    return out
+
+
+def _dispatch(q: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version
+    (CPU tensors); any other device raises."""
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {q.device}")
+
+
+def ota_superpose(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    gains: Optional[torch.Tensor] = None,
+    qblock: int = 0,
+    packed4: bool = False,
+) -> torch.Tensor:
+    """Dequant + weighted superpose of one storage group -> (M,) f32."""
+    if not _dispatch(q):
+        return superpose_plain(q, scale, w, gains=gains, qblock=qblock, packed4=packed4)
+    out = _launch(None, q, scale, w, gains, qblock, packed4)
+    ota_superpose.launches += 1
+    return out
+
+
+def ota_fold(
+    acc: torch.Tensor,
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    gains: Optional[torch.Tensor] = None,
+    qblock: int = 0,
+    packed4: bool = False,
+) -> torch.Tensor:
+    """acc + the group's superpose -> (M,) f32 (a new tensor)."""
+    if not _dispatch(q):
+        return superpose_plain(
+            q, scale, w, gains=gains, qblock=qblock, packed4=packed4, acc=acc
+        )
+    out = _launch(acc, q, scale, w, gains, qblock, packed4)
+    ota_fold.launches += 1
+    return out
+
+
+# launches of each kernel wrapper (plain-version calls do not count)
+ota_superpose.launches = 0
+ota_fold.launches = 0

@@ -1,0 +1,127 @@
+"""Batched cosine top-k: the CUDA kernel ``csrc/topk_cosine.cu`` and its
+plain PyTorch version.
+
+``topk_cosine`` replaces the TPU kernel ``topk_similarity_2d`` (the JAX
+package's ``kernels/topk_similarity.py``): scores of (Q, D) unit queries
+against an (Np, D) record slab — f32, or int8 dequantized with its
+(Np, D / qblock) block scales — with positions >= n scoring -inf, and
+each query's k best records under the tie contract (score descending,
+equal scores by ascending record index).
+
+Each score is the dot product accumulated over d = 0..D-1 in order, every
+product and sum rounded on its own; the plain version does exactly that
+and selects with a stable sort, so kernel and plain version return the
+same scores and indices bit for bit. Entries past the live count are
+-inf with ascending indices.
+
+Dispatch: CPU tensors run the plain version; CUDA tensors launch the
+kernel or raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+TILE_N = 256  # records per CTA; the arena's capacity is a multiple
+MAX_K = 256   # a chunk's list is at most its record count
+
+
+def _dequant(recs: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
+    if scales is None:
+        return recs.to(torch.float32)
+    qblock = recs.shape[1] // scales.shape[1]
+    return recs.to(torch.float32) * scales.to(torch.float32).repeat_interleave(qblock, dim=1)
+
+
+def topk_plain(
+    qm: torch.Tensor,
+    recs: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    n: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel -> (scores (Q, k), idx (Q, k))."""
+    rec = _dequant(recs, scales)
+    qf = qm.to(torch.float32)
+    Np, D = rec.shape
+    s = torch.zeros(qf.shape[0], Np, dtype=torch.float32, device=qf.device)
+    for d in range(D):
+        s = s + qf[:, d : d + 1] * rec[:, d]
+    pos = torch.arange(Np, device=qf.device)
+    s = torch.where(pos < int(n), s, torch.full_like(s, float("-inf")))
+    vals, order = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32).contiguous()
+
+
+def _launch(qm, recs, scales, n, k):
+    dev = qm.device
+    if qm.dim() != 2 or recs.dim() != 2 or qm.shape[1] != recs.shape[1]:
+        raise ValueError(f"shapes {tuple(qm.shape)} x {tuple(recs.shape)} do not match")
+    Q, D = qm.shape
+    Np = recs.shape[0]
+    if qm.dtype != torch.float32:
+        raise TypeError(f"queries must be float32, got {qm.dtype}")
+    if Np % TILE_N or Np == 0:
+        raise ValueError(f"slab rows {Np} must be a positive multiple of {TILE_N}")
+    if not 1 <= k <= MAX_K or Q < 1:
+        raise ValueError(f"need 1 <= k <= {MAX_K} and Q >= 1, got k={k}, Q={Q}")
+    is_int8 = recs.dtype == torch.int8
+    if is_int8:
+        if scales is None or scales.dim() != 2 or scales.shape[0] != Np:
+            raise ValueError("int8 records need an (Np, n_blocks) scale grid")
+        if D % scales.shape[1]:
+            raise ValueError(f"{scales.shape[1]} scale blocks do not divide D = {D}")
+        if scales.dtype != torch.float32:
+            raise TypeError(f"scales must be float32, got {scales.dtype}")
+    elif recs.dtype != torch.float32:
+        raise TypeError(f"records must be float32 or int8, got {recs.dtype}")
+    for name, t in (("qm", qm), ("recs", recs), ("scales", scales if is_int8 else None)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    chunks = Np // TILE_N
+    part_s = torch.empty((Q, chunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((Q, chunks, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    lib = _build.library("topk_cosine")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.topk_cosine_launch(
+            qm.data_ptr(), Q, D, recs.data_ptr(), int(is_int8),
+            scales.data_ptr() if is_int8 else None,
+            scales.shape[1] if is_int8 else 1, Np, int(n), k,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            stream,
+        )
+    _build.check(rc, "topk_cosine_launch")
+    return out_s, out_i
+
+
+def topk_cosine(
+    qm: torch.Tensor,
+    recs: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    n: int,
+    *,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) queries x (Np, D) slab -> (scores (Q, k) f32, idx (Q, k) int32)."""
+    if qm.device.type == "cpu":
+        return topk_plain(qm, recs, scales, n, k)
+    if qm.device.type != "cuda":
+        raise ValueError(f"no kernel or plain version for device {qm.device}")
+    out = _launch(qm, recs, scales, n, k)
+    topk_cosine.launches += 1
+    return out
+
+
+# launches of the kernel wrapper (plain-version calls do not count)
+topk_cosine.launches = 0

@@ -1,0 +1,146 @@
+"""Parity of the PyTorch port's retrieval and planning with the JAX
+reference, on the CPU: the top-k (the kernel's plain version here; the
+CUDA kernel is held against it on the card by ``chip_smoke.py``), the
+arena storage classes, the engine, and the RAG planner's cohort
+decisions across feedback rounds.
+
+Records with equal feature dicts embed to identical vectors, so exact
+score ties are common; the tie contract (score descending, equal scores
+by ascending index) is what makes the decisions agree.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.profiling import hardware as jhw
+from repro.core.profiling import planner as jplanner
+from repro.core.profiling import users as jusers
+from repro.kernels import ops as jops
+from repro.retrieval.arena import ArenaStore as JArena
+from repro.retrieval.engine import RetrievalEngine as JEngine
+from repro_torch.core.profiling import hardware as thw
+from repro_torch.core.profiling import planner as tplanner
+from repro_torch.core.profiling import users as tusers
+from repro_torch.kernels import topk_similarity as ttk
+from repro_torch.retrieval.arena import ArenaStore as TArena
+from repro_torch.retrieval.engine import RetrievalEngine as TEngine
+
+D = 256
+K = 32
+
+
+def _slab(storage, n, cap, seed):
+    """Unit vectors with duplicated records (exact ties) in both arenas."""
+    rng = np.random.RandomState(seed)
+    vec = rng.randn(n, D).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    vec[300:340] = vec[10:50]  # duplicates across 256-record chunks
+    vec[60:70] = vec[10:20]  # and inside one
+    ja = JArena(D, storage=storage, capacity=cap)
+    ta = TArena(D, storage=storage, capacity=cap)
+    ja.add_batch(vec)
+    ta.add_batch(vec)
+    q = rng.randn(12, D).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q[:4] = vec[10:14]  # queries equal to duplicated records
+    return ja, ta, q
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_arena_storage_exact(storage):
+    ja, ta, _ = _slab(storage, 700, 1024, 0)
+    jd, js = ja.raw()
+    td, ts = ta.raw()
+    np.testing.assert_array_equal(td, jd)
+    if storage == "int8":
+        np.testing.assert_array_equal(ts, js)
+    assert (ta.capacity, len(ta), ta.nbytes) == (ja.capacity, len(ja), ja.nbytes)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("n,cap", [(700, 1024), (1024, 1024), (1500, 2048)])
+def test_topk_matches_jitted_oracle(storage, n, cap):
+    """indices exact (ties included, n < Np), scores within 1e-6."""
+    ja, ta, q = _slab(storage, n, cap, n)
+    data, scales = ja.raw()
+    sj, ij = jops.topk_cosine(jnp.asarray(q), jnp.asarray(data),
+                              None if scales is None else jnp.asarray(scales),
+                              jnp.int32(n), k=K, use_kernel=False)
+    td, ts = ta.raw()
+    st, it = ttk.topk_cosine(torch.from_numpy(q), torch.from_numpy(td),
+                             None if ts is None else torch.from_numpy(ts), n, k=K)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=1e-6)
+    # the duplicated query's best hits are an exact tie, lowest index first
+    assert st[0, 0] == st[0, 1] and it[0, 0] < it[0, 1]
+
+
+def test_topk_matches_interpret_mode_kernel():
+    """The Pallas kernel itself (interpret mode) on one small slab."""
+    ja, ta, q = _slab("f32", 400, 512, 3)
+    data, _ = ja.raw()
+    sj, ij = jops.topk_cosine(jnp.asarray(q), jnp.asarray(data), None,
+                              jnp.int32(400), k=K, use_kernel=True)
+    td, _ = ta.raw()
+    st, it = ttk.topk_cosine(torch.from_numpy(q), torch.from_numpy(td), None, 400, k=K)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=1e-6)
+
+
+def test_plain_topk_tail_past_live_count():
+    """Entries past the live count are -inf with ascending indices."""
+    ta = TArena(D, capacity=256)
+    ta.add_batch(np.eye(D, dtype=np.float32)[:5])
+    td, _ = ta.raw()
+    s, i = ttk.topk_cosine(torch.eye(D)[:1], torch.from_numpy(td), None, 5, k=8)
+    assert i[0, :5].tolist() == [0, 1, 2, 3, 4]
+    assert torch.isinf(s[0, 5:]).all() and i[0, 5:].tolist() == [5, 6, 7]
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_engine_matches_numpy_engine(storage):
+    ja, ta, q = _slab(storage, 900, 1024, 7)
+    sj, ij = JEngine(ja, use_kernel=False).topk(q, K)
+    st, it = TEngine(ta, device="cpu").topk(q, K)
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6)
+    empty = TEngine(TArena(D), device="cpu").topk(q, K)
+    assert empty[0].shape == (12, 0) and empty[1].shape == (12, 0)
+
+
+def test_plan_cohort_decisions_exact_over_feedback_rounds():
+    """Same users, fleet and feedback -> identical bit plans, 3 rounds."""
+    n = 20
+    pj = jplanner.RAGPlanner(strategy="fedavg", seed=0)
+    pt = tplanner.RAGPlanner(strategy="fedavg", seed=0, device="cpu")
+    uj, sj = jusers.make_users(n, seed=0), jhw.make_fleet(n, seed=0)
+    ut, st = tusers.make_users(n, seed=0), thw.make_fleet(n, seed=0)
+    for rnd in range(3):
+        dj = jplanner.plan_round(pj.plan_cohort(uj, sj))
+        dt = tplanner.plan_round(pt.plan_cohort(ut, st))
+        assert [d.bits for d in dt] == [d.bits for d in dj], rnd
+        assert [d.user_id for d in dt] == [d.user_id for d in dj]
+        np.testing.assert_allclose([d.score_est for d in dt], [d.score_est for d in dj],
+                                   rtol=0, atol=1e-6)
+        for d, u, s in zip(dj, uj, sj):
+            pj.observe_feedback(u, s, d.bits, jusers.satisfaction_score(u, s, d.bits),
+                                jusers.true_performance(u, s, d.bits))
+        for d, u, s in zip(dt, ut, st):
+            pt.observe_feedback(u, s, d.bits, tusers.satisfaction_score(u, s, d.bits),
+                                tusers.true_performance(u, s, d.bits))
+    assert len(pt.cqf_db) == len(pj.cqf_db) == 3 * n
+    q = np.stack([np.asarray(pt.hqp_db.arena.vectors()[i]) for i in range(4)])
+    sj_, ij_ = pj.hqp_db.engine.topk(q, K)
+    st_, it_ = pt.hqp_db.engine.topk(q, K)
+    np.testing.assert_array_equal(it_, ij_)
+
+
+def test_engine_device_defaults_to_cuda():
+    """No device and no card: the engine refuses to run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TEngine(TArena(D))
+
