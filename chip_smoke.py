@@ -26,8 +26,33 @@ Phases, each of which fails the run on error:
              the card and must match the kernel path exactly; the byte
              accounting must match the wire format; params must be finite.
 
-Then one JSON line ``{"kernels": [...]}``, the card's name and power limit
-(``nvidia-smi``), and last the device line
+4. flat    — the one-shot f32 aggregation (``ota.ota_aggregate`` on update
+             trees): K = 20 DeepSpeech2-shaped f32 trees (full width, seeded,
+             values x 0.01) at the bits of the last barrier round with one
+             row forced to 32 bits, through the in-pass quantize-superpose
+             kernel, counters zeroed just before and read just after. The
+             kernel is held against its plain version on the same inputs
+             (aggregate exact; sum of squares within rtol 1e-5, and equal
+             across two launches) and timed beside its plain version, its
+             bound and ``torch.mv`` (the one library call for the all-32-bit
+             case).
+5. stream  — two ``StreamingFLServer`` rounds at full DeepSpeech2 width on
+             the fading channel (20 clients a round, fill 0.7, grace 8 s,
+             ``LatencyModel.with_tail(5.0)``, local_steps 1): each round has
+             an on-time wave, a late wave and lost rows. Per round the waves
+             are re-folded with the plain versions (exact), the counted rows
+             folded as one wave must equal ``ota_aggregate_packed``'s
+             pre-noise aggregate for the same draws and gains (exact), and
+             the superpose/fold launches must rise by the counts the waves'
+             storage groups imply.
+
+The ``kernels`` phase also holds the quantize-superpose kernel against its
+plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
+ragged M.
+
+Then one JSON line ``{"kernels": [...]}`` (launches summed over the paths
+that run each kernel, each path with the counters zeroed just before it),
+the card's name and power limit (``nvidia-smi``), and last the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or outside the repository, it exits non-zero and prints
 no result. ``--phases build,kernels`` runs a prefix of the phases (no result
@@ -47,6 +72,13 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
+# elementwise ops per (row, column) of the quantize-superpose kernel, each
+# integer or float op counted once against F32_FLOPS: the dither 12 (xor,
+# 3 x (shift, xor), 2 multiplies, shift, convert, scale), the quantizer 11
+# (divide, floor, subtract, compare, select, add, max, min, test, select,
+# multiply), the weighted add 2
+QS_OPS_PER_ELEMENT = 25
+STREAM_GRACE_S = 8.0
 
 
 def _fail(msg: str) -> None:
@@ -275,6 +307,47 @@ def check_topk(dev, timing: bool):
     return {"topk_cosine": worst}
 
 
+def check_qs(M: int, dev):
+    """The quantize-superpose kernel against its plain version: every width
+    2-31 and 32 (passthrough), K in {1, 7, 20}, the layout's M and a ragged
+    M + 3 (scalar edge path); the sum of squares must repeat bit for bit."""
+    import torch
+
+    from repro_torch.core import ota
+    from repro_torch.kernels import ota_fused as kota
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    widths = list(range(2, 33))
+    worst_acc, worst_ss, calls = 0.0, 0.0, 0
+    for K in (1, 7, 20):
+        for m in (M, M + 3):
+            for start in range(0, len(widths), K):
+                bits = [widths[(start + i) % len(widths)] for i in range(K)]
+                x = torch.randn((K, m), generator=gen, device=dev) * 0.01
+                scale, qmax = ota._client_grid(bits, x.abs().amax(dim=1))
+                w = torch.rand((K,), generator=gen, device=dev)
+                seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev))
+                acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, seed)
+                acc2, ss2 = kota.ota_quantize_superpose(x, scale, qmax, w, seed)
+                acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, seed)
+                torch.cuda.synchronize()
+                calls += 2
+                e = (acc - acc_p).abs().max().item()
+                rel = abs(ss.item() - ss_p.item()) / max(abs(ss_p.item()), 1e-30)
+                worst_acc, worst_ss = max(worst_acc, e), max(worst_ss, rel)
+                if e != 0.0 or not torch.isfinite(acc).all():
+                    _fail(f"quantize-superpose != plain: K={K} M={m} bits={bits} err={e}")
+                if rel > 1e-5:
+                    _fail(f"quantize-superpose sumsq rel err {rel} > 1e-5: K={K} M={m}")
+                if not (torch.equal(acc, acc2) and torch.equal(ss, ss2)):
+                    _fail(f"quantize-superpose differs between launches: K={K} M={m}")
+    print(f"ota_quantize_superpose: {calls} kernel calls vs plain, widths 2-32, K in {{1, 7, 20}}, "
+          f"M in {{{M}, {M + 3}}}: acc max_abs_err {worst_acc} (tolerance: exact), sumsq max "
+          f"rel err {worst_ss:.3e} (tolerance 1e-5), repeat launches identical")
+    return {"ota_quantize_superpose": worst_acc}
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -421,12 +494,221 @@ def time_round_kernels(srv, round_inputs, dev):
     return out
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+def phase_flat(dev, plan_bits):
+    """``ota.ota_aggregate`` on 20 full-width f32 update trees."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ota, packing
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.models.registry import build_model
+
+    K = 20
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    shapes = build_model(get_arch("deepspeech2")).init(gen, dev)
+    trees = [tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 0.01, shapes)
+             for _ in range(K)]
+    bits = [int(b) for b in plan_bits][:K]
+    if len(bits) != K:
+        _fail(f"the barrier round planned {len(bits)} rows, the flat phase needs {K}")
+    bits[-1] = 32  # one unquantized (passthrough) row
+    weights = (torch.rand((K,), generator=gen, device=dev) + 0.5).tolist()
+    draws = ota.TorchRoundDraws(777, dev)
+
+    kota.ota_quantize_superpose.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.enabled() as tracer:
+        agg, info = ota.ota_aggregate(draws, trees, bits, weights)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kota.ota_quantize_superpose.launches
+
+    layout = packing.make_layout(trees[0])
+    M = layout.padded_size
+    hist = {}
+    for b in bits:
+        hist[b] = hist.get(b, 0) + 1
+    spans = {k: round(v["total_us"] / 1e3, 3) for k, v in tracer.summary().items()}
+    print(f"flat: K={K} f32 DeepSpeech2 trees, M={M} ({4 * K * M} B of x), bits "
+          f"{dict(sorted(hist.items()))}, participating {info['n_participating']}, noise_std "
+          f"{info['noise_std']:.6g}, seconds {secs:.3f}, launches {launches}")
+    print(f"  stage ms (host clock, spans): {json.dumps(spans)}")
+    if launches != 1:
+        _fail(f"ota_quantize_superpose launched {launches} times on the flat path (want 1)")
+    leaves = tree_leaves(agg)
+    if [tuple(t.shape) for t in leaves] != [tuple(t.shape) for t in tree_leaves(trees[0])]:
+        _fail("flat aggregate has the wrong tree shapes")
+    if not all(bool(torch.isfinite(t).all()) for t in leaves) or not info["noise_std"] > 0:
+        _fail("flat aggregate is not finite or its noise_std is not positive")
+
+    X = packing.pack_batch(trees, layout)
+    w = ota.final_weights(info.participation, weights, dev)
+    scale, qmax = ota._client_grid(bits, X.abs().amax(dim=1))
+    seed = draws.sr_seed
+    main_acc = ota.ota_aggregate_packed.last_acc
+    acc, ss = kota.ota_quantize_superpose(X, scale, qmax, w, seed)
+    acc2, ss2 = kota.ota_quantize_superpose(X, scale, qmax, w, seed)
+    acc_p, ss_p = kota.quantize_superpose_plain(X, scale, qmax, w, seed)
+    torch.cuda.synchronize()
+    err = (acc - acc_p).abs().max().item()
+    rel = abs(ss.item() - ss_p.item()) / abs(ss_p.item())
+    print(f"  kernel vs plain on the path's inputs: acc max_abs_err {err} (tolerance: exact), "
+          f"sumsq {ss.item()!r} vs {ss_p.item()!r}, rel err {rel:.3e} (tolerance 1e-5)")
+    if not torch.equal(acc, main_acc):
+        _fail("the flat path's aggregate differs from a second kernel launch on its inputs")
+    if err != 0.0:
+        _fail(f"quantize-superpose != plain on the flat path: {err}")
+    if rel > 1e-5:
+        _fail(f"quantize-superpose sumsq rel err {rel} > 1e-5")
+    if not (torch.equal(acc, acc2) and torch.equal(ss, ss2)):
+        _fail("quantize-superpose differs between two launches")
+
+    # timing on the path's inputs, and the all-32-bit case beside torch.mv
+    nbytes = tensor_bytes(X, scale, qmax, w) + 4 * M
+    ops = float(QS_OPS_PER_ELEMENT) * K * M
+    ones, zeros, xt = torch.ones_like(scale), torch.zeros_like(qmax), X.t()
+    rec = {
+        "K": K, "M": M, "bits": bits,
+        "ms": cuda_ms(lambda: kota.ota_quantize_superpose(X, scale, qmax, w, seed)),
+        "plain_ms": cuda_ms(lambda: kota.quantize_superpose_plain(X, scale, qmax, w, seed), reps=5),
+        "bound_ms": bound_ms(nbytes, ops), "bound_by": bound_by(nbytes, ops),
+        "bound_bytes": nbytes, "bound_ops": ops,
+        "all32_ms": cuda_ms(lambda: kota.ota_quantize_superpose(X, ones, zeros, w, seed)),
+        "library_ms": cuda_ms(lambda: torch.mv(xt, w)),
+    }
+    lib = torch.mv(xt, w)
+    k32, _ = kota.ota_quantize_superpose(X, ones, zeros, w, seed)
+    rec["library_rel_diff"] = ((lib - k32).abs().max() / k32.abs().max()).item()
+    print("  flat timing " + json.dumps(rec))
+    return launches, err, rec
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def _expected_launches(waves):
+    """(superpose, fold) launches the waves' storage groups imply: the first
+    group of a fresh accumulator is a superpose, every other group a fold."""
+    from repro_torch.core.ota import _group_rows
+
+    sup = fold = 0
+    fresh = True
+    for wave in waves:
+        if not wave["rows"]:
+            continue
+        n_groups = len(_group_rows(wave["rows"])[0])
+        if fresh:
+            sup, fold, fresh = sup + 1, fold + n_groups - 1, False
+        else:
+            fold += n_groups
+    return sup, fold
+
+
+def phase_stream(dev):
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import QUANT_BLOCK, FLConfig
+    from repro_torch.core import channel, ota, packing
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import LatencyModel, StreamingFLServer
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+
+    cfg = FLConfig(n_clients=20, clients_per_round=20, seed=0, local_steps=1,
+                   channel_model="fading")
+    srv = StreamingFLServer(cfg, device=dev, fill_fraction=0.7, grace_s=STREAM_GRACE_S,
+                            latency=LatencyModel.with_tail(5.0))
+    M = srv.layout.padded_size
+    print(f"stream: DeepSpeech2 M={M}, K={cfg.clients_per_round}, fading (threshold "
+          f"{cfg.fade_threshold}, budget {cfg.tx_power_budget}), fill 0.7, grace "
+          f"{STREAM_GRACE_S} s, latency p95/p50 5.0, local_steps {cfg.local_steps}")
+    names = ("ota_superpose", "ota_fold", "topk_cosine")
+    fns = (kota.ota_superpose, kota.ota_fold, ktk.topk_cosine)
+    counts = dict.fromkeys(names, 0)
+    for rnd in range(2):
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.enabled() as tracer:
+            log = srv.run_round(rnd)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in zip(names, fns)}
+        for n in names:
+            counts[n] += got[n]
+        last = srv.last_round
+        waves = last["waves"]
+        hist = {}
+        for b in log.bits.values():
+            hist[b] = hist.get(b, 0) + 1
+        print(f"  round {rnd}: bits {dict(sorted(hist.items()))} on_time {log.n_on_time} late "
+              f"{log.n_late} lost {log.n_lost} truncated {srv.last_channel.n_truncated} uplink "
+              f"{log.uplink_bytes} B downlink {log.downlink_bytes} B participating "
+              f"{log.n_participating} loss {log.train_loss:.4f} sim_seconds "
+              f"{log.sim_seconds:.3f} seconds {secs:.2f} launches {got}")
+        spans = {k: round(v["total_us"] / 1e3, 3) for k, v in tracer.summary().items()}
+        print(f"    stage ms (host clock, spans): {json.dumps(spans)}")
+        if not (log.n_on_time and log.n_late and log.n_lost):
+            _fail("a stream round lacks an on-time wave, a late wave or lost rows")
+        if last["gains"] is None or any(wv["gains"] is None for wv in waves):
+            _fail("a fading round folded without its gains")
+        want = _expected_launches(waves)
+        if (got["ota_superpose"], got["ota_fold"]) != want:
+            _fail(f"superpose/fold launches {got} != the waves' groups {want}")
+        rows = last["rows"]
+        want_up = sum(packing.row_wire_bytes(r.bits, M, QUANT_BLOCK) for r in rows)
+        if log.uplink_bytes != want_up or log.downlink_bytes != 4 * M:
+            _fail(f"stream bytes {log.uplink_bytes}/{log.downlink_bytes} != wire format "
+                  f"{want_up}/{4 * M}")
+        # the waves re-folded with the plain versions
+        acc = None
+        for wv in waves:
+            w = wv["weights"]
+            if wv["staleness"] is not None:
+                w = w * torch.tensor(wv["staleness"], dtype=torch.float32, device=dev)
+            acc = ota.aggregate_plain(wv["rows"], w, wv["gains"], acc=acc)
+        err = (acc - last["acc"]).abs().max().item()
+        # the counted rows as one wave == the barrier aggregate
+        ocfg = ota.OTAConfig(snr_db=cfg.snr_db)
+        wc, gc = last["weights"], last["gains"]
+        one = ota.OtaAccumulator(srv.layout, ocfg).fold(
+            rows, channel.combine_weights(wc, gc), gains=gc).accumulator
+        ota.ota_aggregate_packed(last["draws"], rows, None, wc, srv.layout, ocfg, gains=gc)
+        torch.cuda.synchronize()
+        same = torch.equal(one, ota.ota_aggregate_packed.last_acc)
+        print(f"    {len(waves)} waves re-folded with the plain versions: max_abs_err {err} "
+              f"(tolerance: exact); one wave == barrier aggregate: {same}")
+        if err != 0.0:
+            _fail("stream accumulator differs from its plain re-fold")
+        if not same:
+            _fail("one-wave fold of the counted rows != ota_aggregate_packed")
+    print(f"  launches during the stream rounds: {counts}")
+    for n, c in counts.items():
+        if c <= 0:
+            _fail(f"{n} did not launch on the stream path")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(srv.params)):
+        _fail("non-finite params after the stream rounds")
+    return counts
+
+
 # ---------------------------------------------------------------- main
+
+
+PHASES = ("build", "kernels", "rounds", "flat", "stream")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernels,rounds")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -449,24 +731,39 @@ def main() -> None:
         M = _ds2_layout_size(dev)
         errs.update(check_ota(M, dev, timing=True))
         errs.update(check_topk(dev, timing=True))
-    if "rounds" not in phases:
+        errs.update(check_qs(M, dev))
+    plan_bits = [8] * 20
+    if "rounds" in phases:
+        srv, counts, round_inputs = phase_rounds(dev)
+        timings = time_round_kernels(srv, round_inputs, dev)
+        plan_bits = list(srv.round_logs[-1].bits.values())
+        del srv, round_inputs
+    if "flat" in phases:
+        qs_launches, qs_err, qs_rec = phase_flat(dev, plan_bits)
+    if "stream" in phases:
+        stream_counts = phase_stream(dev)
+    if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}) done in {time.perf_counter() - t_start:.1f} s")
         return
-    srv, counts, round_inputs = phase_rounds(dev)
-    timings = time_round_kernels(srv, round_inputs, dev)
 
     sources = {"ota_superpose": "src/repro_torch/csrc/ota_superpose.cu",
                "ota_fold": "src/repro_torch/csrc/ota_superpose.cu",
-               "topk_cosine": "src/repro_torch/csrc/topk_cosine.cu"}
+               "topk_cosine": "src/repro_torch/csrc/topk_cosine.cu",
+               "ota_quantize_superpose": "src/repro_torch/csrc/ota_quantize_superpose.cu"}
     replaces = {"ota_superpose": "src/repro/kernels/ota_fused.py:288",
                 "ota_fold": "src/repro/kernels/ota_fused.py:334",
-                "topk_cosine": "src/repro/kernels/topk_similarity.py:83"}
+                "topk_cosine": "src/repro/kernels/topk_similarity.py:83",
+                "ota_quantize_superpose": "src/repro/kernels/ota_fused.py:379"}
+    timings["ota_quantize_superpose"] = qs_rec
+    launches = {n: counts[n] + stream_counts[n] for n in counts}
+    launches["ota_quantize_superpose"] = qs_launches
+    errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)
     kernels = []
-    for name in ("ota_superpose", "ota_fold", "topk_cosine"):
+    for name in ("ota_superpose", "ota_fold", "topk_cosine", "ota_quantize_superpose"):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": counts[name],
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

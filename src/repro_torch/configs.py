@@ -78,6 +78,13 @@ class FLConfig:
     snr_db: float = 20.0
     quant_block: int = QUANT_BLOCK
     seed: int = 0
+    # physical OTA channel (core/channel.py): "ideal" is the coin-flip +
+    # AWGN path; "fading" draws per-client Rayleigh gains with truncated
+    # channel inversion under the transmit power budget
+    channel_model: str = "ideal"  # ideal | fading
+    fade_threshold: float = 0.1  # |h|^2 truncation threshold
+    tx_power_budget: float = 100.0  # per-client max transmit power P
+    pathloss_spread_db: float = 0.0  # log-normal shadowing std (dB)
     downlink_bits: int = 32
     downlink_block: int = QUANT_BLOCK
     dropout_prob: float = 0.0

@@ -32,6 +32,7 @@ __all__ = [
     "make_layout",
     "n_scale_blocks",
     "pack",
+    "pack_batch",
     "row_wire_bytes",
     "unpack",
     "wire_kind",
@@ -176,6 +177,11 @@ def pack(tree: Tree, layout: Layout) -> torch.Tensor:
     if layout.padding:
         flat.append(flat[0].new_zeros((layout.padding,)))
     return torch.cat(flat)
+
+
+def pack_batch(trees, layout: Layout) -> torch.Tensor:
+    """Stack K packed client updates into the ``(K, padded_size)`` matrix."""
+    return torch.stack([pack(t, layout) for t in trees])
 
 
 def unpack(flat: torch.Tensor, layout: Layout, *, cast: bool = True) -> Tree:

@@ -1,4 +1,22 @@
 from repro_torch.fl.client import FLClient, LatencyModel
-from repro_torch.fl.server import FLServer, RoundLog, make_planner
+from repro_torch.fl.server import (
+    FLServer,
+    RoundLog,
+    StreamingFLServer,
+    StreamPlan,
+    StreamRoundLog,
+    make_planner,
+    plan_stream,
+)
 
-__all__ = ["FLClient", "FLServer", "LatencyModel", "RoundLog", "make_planner"]
+__all__ = [
+    "FLClient",
+    "FLServer",
+    "LatencyModel",
+    "RoundLog",
+    "StreamPlan",
+    "StreamRoundLog",
+    "StreamingFLServer",
+    "make_planner",
+    "plan_stream",
+]

@@ -3,9 +3,11 @@ precision planning and packed OTA aggregation, then per-category eval.
 
     PYTHONPATH=src python -m repro_torch.fl --rounds 12
     PYTHONPATH=src python -m repro_torch.fl --device cpu --rounds 1 --clients 4 --per-round 2
+    PYTHONPATH=src python -m repro_torch.fl --device cpu --channel fading --rounds 2
 
 The flags are those of the JAX package's ``examples/train_fl_voice.py``
-(ideal channel only), plus ``--device`` (default: the CUDA card).
+(``--channel ideal|fading`` and ``--fade-threshold`` included), plus
+``--device`` (default: the CUDA card).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--strategy", default="fedavg", choices=["fedavg", "class_equal", "majority_centric"]
     )
+    ap.add_argument("--channel", default="ideal", choices=["ideal", "fading"],
+                    help="physical channel model")
+    ap.add_argument("--fade-threshold", type=float, default=0.1,
+                    help="|h|^2 truncation threshold (fading channel)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -34,10 +40,12 @@ def main(argv=None) -> None:
     cfg = FLConfig(
         n_clients=args.clients, clients_per_round=args.per_round,
         n_rounds=args.rounds, local_steps=args.local_steps, local_batch=6,
-        lr=2e-3, planner=args.planner, strategy=args.strategy, seed=args.seed,
+        lr=2e-3, planner=args.planner, strategy=args.strategy,
+        channel_model=args.channel, fade_threshold=args.fade_threshold, seed=args.seed,
     )
     srv = FLServer(cfg, shard_size=16, device=args.device)
-    print(f"planner={args.planner} strategy={args.strategy} device={srv.device} "
+    print(f"planner={args.planner} strategy={args.strategy} channel={args.channel} "
+          f"device={srv.device} "
           f"clients={args.clients} rounds={args.rounds}")
     t0 = time.time()
     srv.run(args.rounds, verbose=True)

@@ -111,6 +111,8 @@ class FLClient:
         sr_seed: Optional[int] = None,
         uplink_row: int = 0,
         quant_block: int = 0,
+        channel_gain: Optional[float] = None,
+        channel_habs: Optional[float] = None,
     ) -> Tuple[Any, Dict[str, float]]:
         """Run local steps; return (delta, metrics).
 
@@ -118,6 +120,8 @@ class FLClient:
         with ``sr_seed`` too it is the ``PackedRow`` wire row at ``bits``
         (row ``uplink_row`` of the round's dither stream, blockwise scales
         every ``quant_block`` symbols). Without ``layout``: the delta tree.
+        ``channel_gain``/``channel_habs``: this round's channel state for the
+        client, echoed into the metrics (the radio report beside the row).
         """
         step, opt = self._step_fn(bits, lr, fedprox_mu)
         device = tree_leaves(global_params)[0].device
@@ -156,4 +160,8 @@ class FLClient:
             "loss_last": losses[-1],
             "n_samples": len(utts),
         }
+        if channel_gain is not None:
+            metrics["channel_gain"] = float(channel_gain)
+        if channel_habs is not None:
+            metrics["channel_habs"] = float(channel_habs)
         return delta, metrics

@@ -1,14 +1,30 @@
-"""The MP-OTA-FL server (the JAX package's ``fl/server.py``, synchronous
-round): client selection, context/hardware drift, RAG precision
-planning, local training at the planned precision, packed OTA
-aggregation, the FedAvgM step with the wire-coded downlink broadcast, and
-feedback into the RAG databases.
+"""The MP-OTA-FL server (the JAX package's ``fl/server.py``): client
+selection, context/hardware drift, RAG precision planning, local training
+at the planned precision, packed OTA aggregation, the FedAvgM step with
+the wire-coded downlink broadcast, and feedback into the RAG databases.
+
+Two round loops share those stages:
+
+- ``FLServer.run_round``, the synchronous barrier: every client trains,
+  then one aggregation.
+- ``StreamingFLServer.run_round``, the buffered round: every uplink gets a
+  simulated arrival time (``fl/client.LatencyModel``), aggregation fires
+  on cohort-fill or deadline (``plan_stream``), rows inside the grace
+  window fold in late with a staleness discount, all into one
+  ``core/ota.OtaAccumulator``. With no deadline and a full fill target it
+  is the barrier round bit for bit.
+
+On the fading channel (``FLConfig.channel_model == "fading"``) the round
+samples a ``core/channel.ChannelState`` over the selected cohort before
+training: truncated clients skip the round, the survivors' receive gains
+ride inside the superpose/fold kernels, and each device's realised SNR
+and truncation rate become planner features for the next round.
 
 The round key of the reference becomes a round-draws seam
 (``core.ota.RoundDraws``): ``draws(seed * 131 + rnd, device)`` gives the
-round's dither seeds, channel coin-flip and AWGN normals. The default
-draws from a ``torch.Generator`` on the device; a caller may inject any
-other source, such as the reference's own draws.
+round's dither seeds, channel draws and AWGN normals. The default draws
+from ``torch.Generator`` streams; a caller may inject any other source,
+such as the reference's own draws.
 """
 
 from __future__ import annotations
@@ -16,14 +32,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import random
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.configs import ArchConfig, FLConfig, get_arch
+from repro_torch.core import channel as chanmod
 from repro_torch.core import ota, packing, wire
+from repro_torch.core.ota import mix_stream
 from repro_torch.core.profiling.hardware import make_fleet
 from repro_torch.core.profiling.planner import (
     BasePlanner,
@@ -41,7 +59,7 @@ from repro_torch.core.profiling.users import (
 from repro_torch.core.tree import tree_map
 from repro_torch.data.voice import Utterance, batchify, make_client_shard, make_eval_set
 from repro_torch.device import resolve_device
-from repro_torch.fl.client import FLClient
+from repro_torch.fl.client import FLClient, LatencyModel
 from repro_torch.models.deepspeech2 import ctc_loss, ds2_greedy_decode, ds2_logits
 from repro_torch.models.registry import build_model
 from repro_torch.optim.optimizers import state_nbytes
@@ -62,25 +80,14 @@ def make_planner(cfg: FLConfig, device=None) -> BasePlanner:
     raise ValueError(f"unknown planner {cfg.planner!r}")
 
 
-def _mix_stream(*parts: int) -> int:
-    """Hash-combine stream coordinates into one 32-bit RNG seed
-    (Boost-style avalanche mix)."""
-    h = 0
-    for p in parts:
-        h ^= (int(p) & 0xFFFFFFFF) + 0x9E3779B9 + \
-            ((h << 6) & 0xFFFFFFFF) + (h >> 2)
-        h &= 0xFFFFFFFF
-    return h
-
-
 def round_rng(seed: int, rnd: int, salt: int = 1237) -> np.random.RandomState:
     """Seeded per-round numpy RNG (dropout draws, latency draws, ...)."""
-    return np.random.RandomState(_mix_stream(seed, rnd, salt))
+    return np.random.RandomState(mix_stream(seed, rnd, salt))
 
 
 def round_drift_rng(seed: int, rnd: int) -> random.Random:
     """Seeded per-round stdlib RNG for the context/hardware drift stage."""
-    return random.Random(_mix_stream(seed, rnd, 7919))
+    return random.Random(mix_stream(seed, rnd, 7919))
 
 
 @dataclasses.dataclass
@@ -117,6 +124,7 @@ class FLServer:
     params tree (for example ``convert.params_from_numpy`` of the
     reference's weights); None draws random weights from ``cfg.seed``.
     ``draws``: the round-draws factory (default ``ota.TorchRoundDraws``).
+    ``last_round`` keeps the last aggregation's inputs for checks.
     """
 
     def __init__(
@@ -159,6 +167,20 @@ class FLServer:
         self._bcast = self._master
         self.last_broadcast: Optional[packing.PackedRow] = None
         self.last_downlink_bytes = 0
+        if fl_cfg.channel_model == "fading":
+            self.channel: Optional[chanmod.ChannelModel] = chanmod.ChannelModel(
+                chanmod.ChannelConfig(
+                    fade_threshold=fl_cfg.fade_threshold,
+                    power_budget=fl_cfg.tx_power_budget,
+                    pathloss_spread_db=fl_cfg.pathloss_spread_db,
+                )
+            )
+        elif fl_cfg.channel_model == "ideal":
+            self.channel = None
+        else:
+            raise ValueError(f"unknown channel_model {fl_cfg.channel_model!r}")
+        self._chan_hist: Dict[int, List[int]] = {}  # id -> [n_truncated, n_seen]
+        self.last_channel: Optional[chanmod.ChannelState] = None
         self.last_round: Dict[str, Any] = {}
         self.round_logs: List[RoundLog] = []
 
@@ -184,15 +206,33 @@ class FLServer:
         bits = {d.user_id: d.bits for d in decisions}
         return decisions, bits
 
-    def _train_cohort(self, decisions, ids: List[int], rnd: int, sr_seed: int):
+    def _train_cohort(self, decisions, ids: List[int], rnd: int, sr_seed: int,
+                      chan_state: Optional[chanmod.ChannelState] = None):
         """Local training at the planned precision (stragglers drop out).
-        Returns (deltas, weights, losses, active_ids), ``deltas[j]`` the
-        wire row of uplink row j."""
+
+        Returns (deltas, weights, losses, active_ids, row_gains),
+        ``deltas[j]`` the wire row of uplink row j. ``chan_state``: the
+        round's channel over the cohort (None: ideal); truncated clients
+        skip training, and ``row_gains[j]`` is row j's receive gain (None
+        on the ideal channel).
+        """
         deltas, weights, losses, active_ids = [], [], [], []
+        row_gains: Optional[List[float]] = None
+        gains_np = habs_np = None
+        if chan_state is not None:
+            row_gains = []
+            gains_np = chan_state.gains.cpu().numpy()
+            habs_np = chan_state.habs.cpu().numpy()
         drop_rng = round_rng(self.cfg.seed, rnd)
-        for d, i in zip(decisions, ids):
+        for pos, (d, i) in enumerate(zip(decisions, ids)):
+            if gains_np is not None and gains_np[pos] <= 0.0:
+                continue  # deep fade: truncated, planned around
             if self.cfg.dropout_prob and drop_rng.rand() < self.cfg.dropout_prob:
                 continue
+            chan_kw = {}
+            if gains_np is not None:
+                chan_kw = dict(channel_gain=float(gains_np[pos]),
+                               channel_habs=float(habs_np[pos]))
             delta, m = self.clients[i].local_update(
                 self.params,
                 d.bits,
@@ -205,8 +245,11 @@ class FLServer:
                 sr_seed=sr_seed,
                 uplink_row=len(deltas),
                 quant_block=self.cfg.quant_block,
+                **chan_kw,
             )
             deltas.append(delta)
+            if row_gains is not None:
+                row_gains.append(m["channel_gain"])
             contrib = 1.0
             if d.levels:
                 sel = next((l for l in d.levels if l.bits == d.bits), None)
@@ -215,7 +258,36 @@ class FLServer:
             weights.append(m["n_samples"] * contrib)
             losses.append(m["loss_last"])
             active_ids.append(i)
-        return deltas, weights, losses, active_ids
+        return deltas, weights, losses, active_ids, row_gains
+
+    def _sample_round_channel(self, draws: ota.RoundDraws, ids: List[int]):
+        """This round's channel over the full selected cohort (None on the
+        ideal channel). Records each device's realised radio state
+        (``channel_snr_db`` EMA, running ``truncation_rate``): planner
+        features for the next round."""
+        if self.channel is None:
+            return None
+        with obs.span("channel_sample", cohort=len(ids)):
+            state = self.channel.sample(draws, len(ids))
+        snr = state.snr_db(self.cfg.snr_db).cpu().numpy()
+        trunc = state.truncated.cpu().numpy()
+        for pos, i in enumerate(ids):
+            hist = self._chan_hist.setdefault(i, [0, 0])
+            hist[0] += int(trunc[pos])
+            hist[1] += 1
+            spec = self.fleet[i]
+            spec.truncation_rate = hist[0] / hist[1]
+            prev = spec.channel_snr_db
+            spec.channel_snr_db = (
+                float(snr[pos]) if prev is None else 0.7 * prev + 0.3 * float(snr[pos])
+            )
+        self.last_channel = state
+        return state
+
+    def _gains_tensor(self, row_gains) -> Optional[torch.Tensor]:
+        if row_gains is None:
+            return None
+        return torch.tensor(row_gains, dtype=torch.float32, device=self.device)
 
     def _apply_update(self, agg: Tree, draws: ota.RoundDraws) -> None:
         """FedAvgM on the flat f32 master, then the wire-coded broadcast
@@ -275,13 +347,15 @@ class FLServer:
                 decisions, bits = self._plan(users, specs)
 
             draws = self.draws(self.cfg.seed * 131 + rnd, self.device)
+            chan_state = self._sample_round_channel(draws, ids)
             with obs.span("client_train"):
-                deltas, weights, losses, active_ids = self._train_cohort(
-                    decisions, ids, rnd, draws.sr_seed
+                deltas, weights, losses, active_ids, row_gains = self._train_cohort(
+                    decisions, ids, rnd, draws.sr_seed, chan_state
                 )
-            if not deltas:
+            if not deltas:  # everyone dropped or truncated: no aggregation
                 return self._log_round(RoundLog(rnd, bits, 0.0, 0.0, 0, float("nan")))
 
+            gains = self._gains_tensor(row_gains)
             agg, info = ota.ota_aggregate_packed(
                 draws,
                 deltas,
@@ -289,8 +363,10 @@ class FLServer:
                 weights,
                 self.layout,
                 ota.OTAConfig(snr_db=self.cfg.snr_db),
+                gains=gains,
             )
-            self.last_round = {"rows": deltas, "weights": weights, "info": info}
+            self.last_round = {"rows": deltas, "weights": weights, "gains": gains,
+                               "info": info, "draws": draws}
             self.last_uplink_bytes = info["uplink_bytes"]
             self._apply_update(agg, draws)
             info.downlink_bytes = self.last_downlink_bytes
@@ -372,3 +448,222 @@ class FLServer:
             for c in loss_sum:
                 out["loss_" + c] = loss_sum[c] / max(loss_n[c], 1)
         return out
+
+
+# ---------------------------------------------------------------------------
+# streaming rounds: event-driven buffered aggregation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """One round's arrival plan (``plan_stream``): ``on_time``/``late``/
+    ``lost`` partition the uplink-row indices, ``staleness`` is aligned
+    with ``late``; the aggregation fires at ``t_trigger`` and the round
+    ends at ``t_close`` (the trigger or the last counted late arrival)."""
+
+    on_time: Tuple[int, ...]
+    late: Tuple[int, ...]
+    lost: Tuple[int, ...]
+    staleness: Tuple[float, ...]
+    t_trigger: float
+    t_close: float
+
+    @property
+    def counted(self) -> Tuple[int, ...]:
+        """All folded row indices, in cohort (uplink-row) order."""
+        return tuple(sorted(self.on_time + self.late))
+
+
+def plan_stream(
+    times: Sequence[float],
+    *,
+    fill: int,
+    deadline: Optional[float] = None,
+    grace: float = 0.0,
+    gamma: float = 0.5,
+) -> StreamPlan:
+    """Plan one buffered round from simulated arrival times (``inf`` =
+    never reports). The aggregation fires at the earlier of the
+    ``fill``-th arrival and ``deadline``; if neither happens it fires at
+    the last finite arrival (the barrier). Rows within ``grace`` seconds
+    after the trigger fold late with the discount ``gamma ** (lag /
+    grace)``; later ones are lost."""
+    t = [float(x) for x in times]
+    finite = sorted(x for x in t if math.isfinite(x))
+    t_fill = finite[fill - 1] if 0 < fill <= len(finite) else math.inf
+    t_trigger = t_fill if deadline is None else min(t_fill, float(deadline))
+    if not math.isfinite(t_trigger):
+        t_trigger = finite[-1] if finite else 0.0
+    g = max(float(grace), 1e-9)
+    on_time, late, lost, stale = [], [], [], []
+    for j, x in enumerate(t):
+        if x <= t_trigger:
+            on_time.append(j)
+        elif x <= t_trigger + grace:
+            late.append(j)
+            stale.append(min(1.0, max(min(gamma, 1.0), gamma ** ((x - t_trigger) / g))))
+        else:
+            lost.append(j)
+    t_close = max([t_trigger] + [t[j] for j in late])
+    return StreamPlan(
+        tuple(on_time), tuple(late), tuple(lost), tuple(stale), t_trigger, t_close
+    )
+
+
+@dataclasses.dataclass
+class StreamRoundLog(RoundLog):
+    sim_seconds: float = 0.0  # simulated wall-clock of the round
+    n_on_time: int = 0
+    n_late: int = 0
+    n_lost: int = 0
+
+    def publish(self, registry=None) -> "StreamRoundLog":
+        m = registry or obs.metrics.REGISTRY
+        super().publish(m)
+        m.inc("stream.on_time", self.n_on_time)
+        m.inc("stream.late", self.n_late)
+        m.inc("stream.lost", self.n_lost)
+        m.set_gauge("stream.sim_seconds", self.sim_seconds)
+        return self
+
+
+class StreamingFLServer(FLServer):
+    """Event-driven buffered round loop (FedBuff-style).
+
+    The select/drift/plan/train stages and their draws are ``FLServer``'s.
+    Each uplink then gets a simulated arrival time (``latency``); the
+    aggregation triggers on cohort-fill (``fill_fraction``) or
+    ``deadline_s``, rows inside ``grace_s`` after it fold in with the
+    ``staleness_gamma`` discount, and everything folds into one
+    ``ota.OtaAccumulator``. The channel and the weight renormalisation run
+    once, over the counted rows in cohort order, so with the defaults
+    (full fill, no deadline, no latency dropouts) the round is
+    ``FLServer.run_round`` bit for bit. ``last_round["waves"]`` keeps each
+    fold's rows, weights, staleness and gains for checks.
+    """
+
+    def __init__(
+        self,
+        fl_cfg: FLConfig,
+        arch: Optional[ArchConfig] = None,
+        *,
+        fill_fraction: float = 1.0,
+        deadline_s: Optional[float] = None,
+        grace_s: float = 0.0,
+        staleness_gamma: float = 0.5,
+        latency: Optional[LatencyModel] = None,
+        **kw,
+    ):
+        super().__init__(fl_cfg, arch, **kw)
+        self.fill_fraction = fill_fraction
+        self.deadline_s = deadline_s
+        self.grace_s = grace_s
+        self.staleness_gamma = staleness_gamma
+        self.latency = latency if latency is not None else LatencyModel()
+
+    def _sample_arrivals(self, deltas, active_ids: List[int], rnd: int) -> List[float]:
+        """Simulated arrival time per uplink row (inf = never reports)."""
+        lat_rng = round_rng(self.cfg.seed, rnd, salt=4099)
+        times = []
+        for r, i in zip(deltas, active_ids):
+            t = self.latency.sample(self.fleet[i], lat_rng, uplink_bytes=r.wire_nbytes)
+            if self.latency.dropped(self.fleet[i], lat_rng):
+                t = math.inf
+            times.append(t)
+        return times
+
+    def run_round(self, rnd: int) -> StreamRoundLog:
+        with obs.span("round", round=rnd):
+            return self._run_round_inner(rnd)
+
+    def _run_round_inner(self, rnd: int) -> StreamRoundLog:
+        ids = self.select(rnd)
+        users = [self.users[i] for i in ids]
+        specs = [self.fleet[i] for i in ids]
+        with obs.span("plan", cohort=len(ids)):
+            self._apply_drift(rnd, users, specs)
+            decisions, bits = self._plan(users, specs)
+
+        draws = self.draws(self.cfg.seed * 131 + rnd, self.device)
+        chan_state = self._sample_round_channel(draws, ids)
+        with obs.span("client_train"):
+            deltas, weights, losses, active_ids, row_gains = self._train_cohort(
+                decisions, ids, rnd, draws.sr_seed, chan_state
+            )
+        if not deltas:  # everyone dropped or truncated: no aggregation
+            return self._log_round(StreamRoundLog(rnd, bits, 0.0, 0.0, 0, float("nan")))
+
+        times = self._sample_arrivals(deltas, active_ids, rnd)
+        n = len(deltas)
+        fill = n if self.fill_fraction >= 1.0 else max(1, math.ceil(self.fill_fraction * n))
+        plan = plan_stream(
+            times, fill=fill, deadline=self.deadline_s, grace=self.grace_s,
+            gamma=self.staleness_gamma,
+        )
+        self.last_times, self.last_plan = times, plan
+        counted = list(plan.counted)
+        if not counted:  # every uplink lost in the air: no aggregation
+            return self._log_round(StreamRoundLog(
+                rnd, bits, 0.0, 0.0, 0, float("nan"), sim_seconds=plan.t_close, n_lost=n
+            ))
+
+        # channel + renormalisation over the counted rows, in cohort order
+        ocfg = ota.OTAConfig(snr_db=self.cfg.snr_db)
+        w_counted = torch.tensor([weights[j] for j in counted], dtype=torch.float32,
+                                 device=self.device)
+        g_counted = self._gains_tensor(
+            None if row_gains is None else [row_gains[j] for j in counted]
+        )
+        if g_counted is None:
+            _, participate, w = ota.round_channel(draws, w_counted, cfg=ocfg)
+        else:
+            participate = g_counted > 0
+            w = chanmod.combine_weights(w_counted, g_counted)
+
+        pos = {j: p for p, j in enumerate(counted)}
+
+        def _wave(idx, staleness=None):
+            sel = torch.tensor([pos[j] for j in idx], dtype=torch.int64, device=self.device)
+            return dict(rows=[deltas[j] for j in idx], weights=w[sel], staleness=staleness,
+                        gains=None if g_counted is None else g_counted[sel])
+
+        if plan.late:  # the on-time wave at the trigger, then the late wave
+            stale = dict(zip(plan.late, plan.staleness))
+            late_sorted = sorted(plan.late)
+            waves = [_wave(sorted(plan.on_time)),
+                     _wave(late_sorted, [stale[j] for j in late_sorted])]
+        else:  # one wave: the barrier fold
+            waves = [dict(rows=[deltas[j] for j in counted], weights=w, staleness=None,
+                          gains=g_counted)]
+        acc = ota.OtaAccumulator(self.layout, ocfg)
+        for wave in waves:
+            acc.fold(wave["rows"], wave["weights"], staleness=wave["staleness"],
+                     gains=wave["gains"])
+        agg, info = acc.finalize(draws)
+        self.last_round = {
+            "rows": [deltas[j] for j in counted], "weights": w_counted, "gains": g_counted,
+            "waves": waves, "acc": acc.accumulator, "info": info, "draws": draws,
+        }
+        self.last_uplink_bytes = info["uplink_bytes"]
+        self._apply_update(agg, draws)
+        info.downlink_bytes = self.last_downlink_bytes
+        with obs.span("feedback"):
+            sats, energies = self._observe_feedback(decisions, users, specs)
+
+        return self._log_round(
+            StreamRoundLog(
+                round=rnd,
+                bits=bits,
+                mean_satisfaction=float(np.mean(sats)),
+                mean_energy=float(np.mean(energies)),
+                n_participating=int(participate.sum()),
+                train_loss=float(np.mean([losses[j] for j in counted])),
+                uplink_bytes=info["uplink_bytes"],
+                downlink_bytes=self.last_downlink_bytes,
+                sim_seconds=plan.t_close,
+                n_on_time=len(plan.on_time),
+                n_late=len(plan.late),
+                n_lost=len(plan.lost),
+            )
+        )

@@ -43,11 +43,15 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # C signatures of the entry points, per source
 SIGNATURES = {
     "ota_superpose": {
         "ota_superpose_launch": [_P, _I, _I, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _P],
+    },
+    "ota_quantize_superpose": {
+        "ota_quantize_superpose_launch": [_P, _I, _L, _P, _P, _P, _U, _P, _P, _L, _P, _I, _P],
     },
     "topk_cosine": {
         "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],

@@ -1,7 +1,6 @@
-"""Packed OTA superpose / fold: the CUDA kernel ``csrc/ota_superpose.cu``
-and its plain PyTorch version.
+"""The OTA data-plane kernels and their plain PyTorch versions.
 
-``ota_superpose`` replaces the TPU kernel ``ota_packed_2d`` and
+Packed superpose / fold (``csrc/ota_superpose.cu``): ``ota_superpose`` replaces the TPU kernel ``ota_packed_2d`` and
 ``ota_fold`` replaces ``ota_fold_2d`` (the JAX package's
 ``kernels/ota_fused.py``). Both compute, per output column m,
 
@@ -14,9 +13,18 @@ symbols, or (K_g, M/2) uint8 int4 nibbles with ``packed4``; scale
 runs k = 0..K_g-1 in order, each op rounded on its own, so kernel and
 plain version agree bit for bit and fold(zeros, b) == superpose(b).
 
+In-pass quantize-superpose (``csrc/ota_quantize_superpose.cu``):
+``ota_quantize_superpose`` replaces the TPU kernel ``ota_fused_2d``. It
+stochastically quantizes each f32 row k against the dither
+``sr_dither(seed, k, m)`` on the grid (s_k, qmax_k) (qmax_k == 0 passes
+the row through), dequantizes, superposes with weights w_k in k order,
+and returns the aggregate with its sum of squares. Kernel and plain
+version agree bit for bit on the aggregate; the sum of squares is summed
+in another order (relative difference within 1e-5).
+
 Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
-launches the kernel or raises. The kernel is memory-bound (see the
-source's note).
+launches the kernel or raises. The kernels are memory-bound (see the
+sources' notes).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quant import sr_dither
 from repro_torch.core.wire import unpack_int4_rows
 from repro_torch.kernels import _build
 
@@ -166,6 +175,78 @@ def ota_fold(
     return out
 
 
+def quantize_superpose_plain(
+    x: torch.Tensor, scale: torch.Tensor, qmax: torch.Tensor, w: torch.Tensor, seed: int
+):
+    """Plain PyTorch version of the in-pass quantize-superpose kernel: the
+    same ops in the same order, row by row. Per-row operands are (1,)
+    slices of device tensors (never CPU scalars), so every division is a
+    correctly rounded f32 division. Returns (acc (M,), sumsq ())."""
+    K, M = x.shape
+    x = x.to(torch.float32)
+    s = scale.to(torch.float32).reshape(K)
+    qm = qmax.to(torch.float32).reshape(K)
+    wv = w.to(torch.float32).reshape(K)
+    pos = torch.arange(M, dtype=torch.int64, device=x.device)
+    acc = torch.zeros(M, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        s_k, q_k = s[k : k + 1], qm[k : k + 1]
+        u = sr_dither(seed, k, pos)
+        sc = x[k] / s_k
+        fl = torch.floor(sc)
+        q = fl + (u < (sc - fl)).to(torch.float32)
+        q = torch.minimum(torch.maximum(q, -q_k), q_k)
+        dq = torch.where(q_k > 0, q * s_k, x[k])
+        acc = acc + dq * wv[k : k + 1]
+    return acc, (acc * acc).sum()
+
+
+_QS_RUN, _QS_THREADS, _QS_MAX_K = 4, 256, 4000  # as in the CUDA source
+
+
+def ota_quantize_superpose(
+    x: torch.Tensor, scale: torch.Tensor, qmax: torch.Tensor, w: torch.Tensor, seed: int
+):
+    """In-pass SR quantize -> dequant -> weighted superpose of (K, M) f32
+    rows -> (acc (M,) f32, sumsq () f32). ``scale``/``qmax``/``w``: (K,);
+    ``seed``: the uint32 dither seed."""
+    if not _dispatch(x):
+        return quantize_superpose_plain(x, scale, qmax, w, seed)
+    dev = x.device
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (K, M) float32, got {tuple(x.shape)} {x.dtype}")
+    K, M = x.shape
+    if not (1 <= K <= _QS_MAX_K and M >= 1):
+        raise ValueError(f"x must have 1..{_QS_MAX_K} rows and >= 1 column, got {tuple(x.shape)}")
+    cols = []
+    for name, t in (("x", x), ("scale", scale), ("qmax", qmax), ("w", w)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if name != "x":
+            if t.numel() != K:
+                raise ValueError(f"{name} must hold {K} values, got {tuple(t.shape)}")
+            cols.append(t)
+    n_blocks = -(-(-(-M // _QS_RUN)) // _QS_THREADS)
+    out = torch.empty(M, dtype=torch.float32, device=dev)
+    partials = torch.empty(n_blocks, dtype=torch.float32, device=dev)
+    sumsq = torch.empty((), dtype=torch.float32, device=dev)
+    aligned = int(M % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    lib = _build.library("ota_quantize_superpose")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ota_quantize_superpose_launch(
+            x.data_ptr(), K, M, cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
+            int(seed) & 0xFFFFFFFF, out.data_ptr(), partials.data_ptr(), n_blocks,
+            sumsq.data_ptr(), aligned, stream,
+        )
+    _build.check(rc, "ota_quantize_superpose_launch")
+    ota_quantize_superpose.launches += 1
+    return out, sumsq
+
+
 # launches of each kernel wrapper (plain-version calls do not count)
 ota_superpose.launches = 0
 ota_fold.launches = 0
+ota_quantize_superpose.launches = 0

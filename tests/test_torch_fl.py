@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core.channel as jchan
 import repro.core.ota as jota
 from repro.configs.base import FLConfig as JFLConfig
 from repro.configs.base import get_arch as jget_arch
@@ -55,6 +56,10 @@ class JaxDraws(tota.RoundDraws):
     def channel(self, k, fade_threshold):
         h, p = jota.sample_channel(jax.random.split(self.key, 3)[0], k, fade_threshold)
         return torch.from_numpy(np.array(h)), torch.from_numpy(np.array(p))
+
+    def fading_habs(self, n, pathloss_spread_db):
+        cfg = jchan.ChannelConfig(pathloss_spread_db=pathloss_spread_db)
+        return torch.from_numpy(np.array(jchan._sample_habs(self.key, n_clients=n, cfg=cfg)))
 
     def awgn(self, n):
         return torch.from_numpy(np.array(jax.random.normal(jax.random.split(self.key, 3)[2], (n,))))

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.configs import FLConfig, get_arch
 from repro_torch.core import ota, wire
-from repro_torch.fl.server import FLServer
+from repro_torch.fl.server import FLServer, StreamingFLServer
 from repro_torch.kernels import ota_fused as kota
 from repro_torch.kernels import topk_similarity as ktk
 from repro_torch.retrieval.arena import ArenaStore
@@ -73,3 +73,54 @@ def test_round_on_the_card_launches_every_kernel(dev):
         assert np.isfinite(log.train_loss)
     after = (kota.ota_superpose.launches, kota.ota_fold.launches, ktk.topk_cosine.launches)
     assert after[0] > before[0] and after[2] > before[2]
+
+
+@pytest.mark.parametrize("m", [10_000, 10_003])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16, 24, 31, 32])
+def test_quantize_superpose_kernel_equals_plain(dev, bits, m):
+    """acc exact; sumsq within rtol 1e-5 of the plain sum (another
+    summation order) and identical across two launches; M = 10,003 takes
+    the unaligned edge path."""
+    K = 7
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    x = torch.randn((K, m), generator=gen, device=dev) * 0.01
+    row_bits = [bits] * (K - 1) + [32]
+    scale, qmax = ota._client_grid(row_bits, x.abs().amax(dim=1))
+    w = torch.rand(K, generator=gen, device=dev)
+    acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, 0xC0FFEE)
+    acc2, ss2 = kota.ota_quantize_superpose(x, scale, qmax, w, 0xC0FFEE)
+    acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xC0FFEE)
+    assert torch.equal(acc, acc_p)
+    assert torch.equal(acc, acc2) and torch.equal(ss, ss2)
+    assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
+
+
+def test_flat_aggregate_on_the_card_launches_quantize_superpose(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trees = [{"a": torch.randn(300, 7, generator=gen, device=dev) * 0.01,
+              "b": torch.randn(50, generator=gen, device=dev)} for _ in range(5)]
+    before = kota.ota_quantize_superpose.launches
+    agg, info = ota.ota_aggregate(ota.TorchRoundDraws(1, dev), trees, [4, 8, 16, 32, 8],
+                                  [1.0, 2.0, 3.0, 4.0, 5.0])
+    assert kota.ota_quantize_superpose.launches == before + 1
+    assert agg["a"].shape == (300, 7) and bool(torch.isfinite(agg["a"]).all())
+
+
+def test_stream_round_on_the_card_folds_with_gains(dev, monkeypatch):
+    cfg = FLConfig(n_clients=6, clients_per_round=6, local_steps=1, local_batch=2,
+                   channel_model="fading", fade_threshold=0.3)
+    srv = StreamingFLServer(cfg, get_arch("deepspeech2").with_(n_layers=1, d_model=32),
+                            shard_size=8, fill_fraction=0.5, grace_s=0.3)
+    seen = []
+    fold_groups = ota._fold_groups
+
+    def spy(*args, **kw):  # every wave's group folds get the gains column
+        seen.append(kw.get("gains") is not None)
+        return fold_groups(*args, **kw)
+
+    monkeypatch.setattr(ota, "_fold_groups", spy)
+    before = kota.ota_fold.launches
+    for r in range(2):
+        log = srv.run_round(r)
+        assert np.isfinite(log.train_loss)
+    assert kota.ota_fold.launches > before and seen and all(seen)
