@@ -46,9 +46,22 @@ Phases, each of which fails the run on error:
              the superpose/fold launches must rise by the counts the waves'
              storage groups imply.
 
+6. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
+             of 128, vocab 151,936, bf16, random weights from a seed) through
+             ``launch.serve.serve`` with ``use_flash_kernel``: 4 prompts of
+             2,048 tokens, prefill (the flash counter must rise by exactly 36),
+             the cache grown to 2,080, 31 greedy decode steps (logits finite);
+             the same prefill through the plain ``chunked_attention``
+             (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
+             params (max_batch 4, cache_len 256) draining 8 requests.
+
 The ``kernels`` phase also holds the quantize-superpose kernel against its
 plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
-ragged M.
+ragged M, and the flash kernel against its plain version at the serve
+phase's shapes (B 4, S 2,048, H 32, KV 8, D 128, bf16), a ragged S = 2,000,
+StableLM-1.6B's widths (MHA, D 64) and two f32 cases; it times the kernel at
+the serve shapes beside its plain version, its bound and
+``scaled_dot_product_attention`` (``library_ms``, timed only).
 
 Then one JSON line ``{"kernels": [...]}`` (launches summed over the paths
 that run each kernel, each path with the counters zeroed just before it),
@@ -72,6 +85,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
 # elementwise ops per (row, column) of the quantize-superpose kernel, each
 # integer or float op counted once against F32_FLOPS: the dither 12 (xor,
 # 3 x (shift, xor), 2 multiplies, shift, convert, scale), the quantizer 11
@@ -105,13 +119,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
-    """Least time for the work: bytes over HBM rate vs f32 ops over peak."""
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> float:
+    """Least time for the work: bytes over HBM rate vs ops over ``peak``."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
 
 
-def bound_by(nbytes: float, flops: float) -> str:
-    return "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+def bound_by(nbytes: float, flops: float, peak: float = F32_FLOPS) -> str:
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations"
 
 
 def tensor_bytes(*ts) -> int:
@@ -346,6 +360,110 @@ def check_qs(M: int, dev):
           f"M in {{{M}, {M + 3}}}: acc max_abs_err {worst_acc} (tolerance: exact), sumsq max "
           f"rel err {worst_ss:.3e} (tolerance 1e-5), repeat launches identical")
     return {"ota_quantize_superpose": worst_acc}
+
+
+def flash_work(B: int, S: int, H: int, KV: int, D: int, elem: int):
+    """(bytes, flops) of one causal attention call: q and o read/written
+    once at H heads, k and v read once at their KV heads; S (S + 1) / 2
+    (query, key) pairs per head at 4 D flops each (QK^T and PV)."""
+    nbytes = elem * (2.0 * B * S * H * D + 2.0 * B * S * KV * D)
+    flops = 4.0 * D * (S * (S + 1) / 2.0) * B * H
+    return nbytes, flops
+
+
+def flash_tolerance(plain, dtype) -> float:
+    """bf16: two bf16 ulps at the output's largest magnitude. Kernel and
+    plain version round p and the output to bf16 at the same places and
+    differ only in f32 summation order inside a tile (the QK dot over D,
+    the PV sum over 128 keys, the row sums), which can move one rounding of
+    p or of the output by an ulp. f32: 1e-5 (unit-normal inputs, outputs
+    of magnitude below 8, summation order only)."""
+    import math
+
+    import torch
+
+    if dtype == torch.float32:
+        return 1e-5
+    top = float(plain.abs().max())
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+# (label, B, S, H, KV, D, dtype): the serve phase's shapes (Qwen3-8B), a
+# ragged length, StableLM-1.6B's MHA widths, and small f32 cases
+FLASH_CASES = (
+    ("qwen3-8b", 4, 2048, 32, 8, 128, "bfloat16"),
+    ("qwen3-8b ragged", 4, 2000, 32, 8, 128, "bfloat16"),
+    ("stablelm-1.6b", 2, 1024, 32, 32, 64, "bfloat16"),
+    ("f32 gqa", 2, 300, 4, 2, 64, "float32"),
+    ("f32 d128", 1, 200, 4, 1, 128, "float32"),
+)
+
+
+def check_flash(dev, timing: bool):
+    """The flash kernel against its plain version at every FLASH_CASES
+    shape; at the serve shape (first case) it is timed beside its plain
+    version, its bound and SDPA (``library_ms``, timing only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(777)
+    worst, rec = 0.0, None
+    for label, B, S, H, KV, D, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+        before = kfa.flash_mha.launches
+        out = kfa.flash_mha(q, k, v)
+        plain = kfa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        if kfa.flash_mha.launches != before + 1:
+            _fail(f"flash_mha counted {kfa.flash_mha.launches - before} launches for one call")
+        if out.shape != q.shape or out.dtype != dtype or not torch.isfinite(out).all():
+            _fail(f"flash output {tuple(out.shape)} {out.dtype} not finite or misshapen ({label})")
+        diff = (out.float() - plain.float()).abs()
+        err, tol = float(diff.max()), flash_tolerance(plain.float(), dtype)
+        worst = max(worst, err)
+        print(f"flash {label}: B={B} S={S} H={H} KV={KV} D={D} {dt}: max_abs_err {err!r} "
+              f"(tolerance {tol!r}), mean_abs_err {float(diff.mean())!r}, "
+              f"differing {float((diff > 0).float().mean()):.4f}")
+        if err > tol:
+            _fail(f"flash kernel != plain beyond tolerance ({label}): {err} > {tol}")
+        if timing:
+            nbytes, flops = flash_work(B, S, H, KV, D, q.element_size())
+            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            r = {
+                "case": label, "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v)),
+                "bound_ms": bound_ms(nbytes, flops, peak),
+                "bound_by": bound_by(nbytes, flops, peak),
+                "bound_bytes": nbytes, "bound_flops": flops,
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+            }
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            r["library_max_abs_diff"] = float(
+                (lib.transpose(1, 2).float() - plain.float()).abs().max())
+            if rec is None:  # the plain version at one layer's shapes only
+                r["plain_ms"] = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), reps=5)
+                rec = r
+            print("  flash timing " + json.dumps(r))
+        del q, k, v, out, plain
+    for bad in (
+        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 128), device=dev).transpose(1, 2),) * 3),
+        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 128), device=dev,
+                                            dtype=torch.float16),) * 3),
+        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 96), device=dev),) * 3),
+    ):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        _fail("flash_mha accepted a non-contiguous, float16 or D=96 input")
+    return {"flash_attention": worst}, rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -700,10 +818,155 @@ def phase_stream(dev):
     return counts
 
 
+# ---------------------------------------------------------------- phase 6
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# max |log_softmax(flash) - log_softmax(chunked)| over the last-position
+# logits. Both paths compute the same attention in bf16 with f32
+# accumulation; they round p to bf16 against different running maxima
+# (128-key tiles vs 1024-key chunks), so each layer's attention output can
+# differ by a bf16 rounding, and the logits leave the head in bf16 (an ulp
+# is 2^-6 at magnitudes 2-4). A CPU run of a 1024-wide qwen3-shaped model
+# gave 0.039 at 4 layers and 0.051 at 12; the bound allows 5x that for 36
+# layers and 151,936 logits a row.
+SERVE_LOGIT_TOL = 0.25
+
+
+def _host_share(cfg, params, res, dev):
+    """Host-clock time to enqueue one flash prefill and one decode step
+    (the call returns once every launch is queued) beside the same call
+    synchronised: where the two are close, the host's dispatch of the eager
+    ops bounds the step and the card waits."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    batch = {"tokens": torch.as_tensor(res.prompts, dtype=torch.int32, device=dev)}
+    cache = model.grow_cache(res.cache, SERVE_PROMPT + SERVE_GEN)
+    step = {"tokens": res.tokens[:, -1:].contiguous(),
+            "pos": torch.full((SERVE_BATCH,), SERVE_PROMPT + SERVE_GEN - 1, dtype=torch.int32,
+                              device=dev)}
+    out = {}
+    for name, fn in (("prefill", lambda: prefill(params, batch)),
+                     ("decode", lambda: decode(params, cache, step))):
+        enq, tot = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enq.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            tot.append(time.perf_counter() - t0)
+        out[f"{name}_enqueue_ms"] = statistics.median(enq) * 1e3
+        out[f"{name}_synced_ms"] = statistics.median(tot) * 1e3
+    print(f"  host enqueue vs synchronised (median of 3): {json.dumps(out)}")
+    return out
+
+
+def phase_serve(dev):
+    """Qwen3-8B at full width through the serving driver (flash prefill,
+    cache growth, greedy decode), the same prefill through the plain
+    chunked attention, and the continuous-batching engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_arch("qwen3-8b").with_(use_flash_kernel=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"serve: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim()}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params} params, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    if n_params != 8_190_735_360:
+        _fail(f"qwen3-8b has {n_params} params, want 8,190,735,360")
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, seed=0, device=dev, params=params)
+    serve(cfg, gen=2, **kw)  # warm-up: cuBLAS handles, first launches
+
+    kfa.flash_mha.launches = 0
+    res = serve(cfg, gen=SERVE_GEN, **kw)
+    launches = kfa.flash_mha.launches
+    toks = res.tokens.cpu().numpy()
+    print(f"  flash prefill B={SERVE_BATCH} S={SERVE_PROMPT}: {res.prefill_s * 1e3:.1f} ms "
+          f"(cache grown to {SERVE_PROMPT + SERVE_GEN}); decode {SERVE_GEN - 1} steps: "
+          f"{res.decode_s / (SERVE_GEN - 1) * 1e3:.2f} ms/token; flash launches {launches}")
+    print(f"  sample token ids: {toks[0, :16].tolist()} / {toks[1, :8].tolist()}")
+    if launches != cfg.n_layers:
+        _fail(f"flash prefill launched the kernel {launches} times, want {cfg.n_layers}")
+    if not res.all_finite or toks.shape != (SERVE_BATCH, SERVE_GEN):
+        _fail("serve logits not finite or tokens misshapen")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        _fail("token ids out of the vocabulary")
+
+    plain = serve(cfg.with_(use_flash_kernel=False), gen=1, **kw)
+    if kfa.flash_mha.launches != launches:
+        _fail("the chunked prefill launched the flash kernel")
+    lf = torch.log_softmax(res.prefill_logits, -1)
+    lc = torch.log_softmax(plain.prefill_logits, -1)
+    dmax = float((lf - lc).abs().max())
+    top2 = plain.prefill_logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    agree = (res.prefill_logits.argmax(-1) == plain.prefill_logits.argmax(-1)).tolist()
+    print(f"  chunked prefill: {plain.prefill_s * 1e3:.1f} ms; flash vs chunked max "
+          f"|d log_softmax| {dmax!r} (tolerance {SERVE_LOGIT_TOL}), top-1 agree {agree}, "
+          f"chunked top-2 margins "
+          f"{[round(m, 4) for m in margin]}")
+    if not dmax <= SERVE_LOGIT_TOL:
+        _fail(f"flash and chunked prefill disagree: {dmax} > {SERVE_LOGIT_TOL}")
+    if any(not a and m > 2 * SERVE_LOGIT_TOL for a, m in zip(agree, margin)):
+        _fail("flash and chunked prefill pick different top-1 tokens away from a near tie")
+    timing = {"prefill_ms": res.prefill_s * 1e3, "chunked_prefill_ms": plain.prefill_s * 1e3,
+              "decode_ms_per_token": res.decode_s / (SERVE_GEN - 1) * 1e3}
+    timing.update(_host_share(cfg, params, res, dev))
+    del res, plain
+
+    eng = ServeEngine(cfg, max_batch=4, cache_len=256, device=dev, params=params)
+    rng = np.random.RandomState(1)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, size=rng.randint(16, 65)).astype(np.int32),
+                    max_new_tokens=int(rng.randint(8, 25))) for i in range(8)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = eng.stats()
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    print(f"  engine: 8 requests (prompts {prompt_toks} tokens, 16-64 each; "
+          f"8-24 new), max_batch 4, cache_len 256: {secs:.2f} s, stats {json.dumps(st)}")
+    if len(done) != 8 or st["completed"] != 8:
+        _fail(f"the engine completed {len(done)} of 8 requests")
+    if any(not (1 <= len(r.generated) <= r.max_new_tokens) for r in done):
+        _fail("a request generated a token count outside 1..max_new_tokens")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  peak device memory {peak} B")
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(timing, launches=launches, prompt_tokens=prompt_toks, engine_s=secs,
+                max_dlogsoftmax=dmax, peak_bytes=peak)
+
+
 # ---------------------------------------------------------------- main
 
 
-PHASES = ("build", "kernels", "rounds", "flat", "stream")
+PHASES = ("build", "kernels", "rounds", "flat", "stream", "serve")
 
 
 def main() -> None:
@@ -732,6 +995,8 @@ def main() -> None:
         errs.update(check_ota(M, dev, timing=True))
         errs.update(check_topk(dev, timing=True))
         errs.update(check_qs(M, dev))
+        flash_err, flash_rec = check_flash(dev, timing=True)
+        errs.update(flash_err)
     plan_bits = [8] * 20
     if "rounds" in phases:
         srv, counts, round_inputs = phase_rounds(dev)
@@ -742,6 +1007,8 @@ def main() -> None:
         qs_launches, qs_err, qs_rec = phase_flat(dev, plan_bits)
     if "stream" in phases:
         stream_counts = phase_stream(dev)
+    if "serve" in phases:
+        serve_rec = phase_serve(dev)
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}) done in {time.perf_counter() - t_start:.1f} s")
         return
@@ -749,17 +1016,21 @@ def main() -> None:
     sources = {"ota_superpose": "src/repro_torch/csrc/ota_superpose.cu",
                "ota_fold": "src/repro_torch/csrc/ota_superpose.cu",
                "topk_cosine": "src/repro_torch/csrc/topk_cosine.cu",
-               "ota_quantize_superpose": "src/repro_torch/csrc/ota_quantize_superpose.cu"}
+               "ota_quantize_superpose": "src/repro_torch/csrc/ota_quantize_superpose.cu",
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
     replaces = {"ota_superpose": "src/repro/kernels/ota_fused.py:288",
                 "ota_fold": "src/repro/kernels/ota_fused.py:334",
                 "topk_cosine": "src/repro/kernels/topk_similarity.py:83",
-                "ota_quantize_superpose": "src/repro/kernels/ota_fused.py:379"}
+                "ota_quantize_superpose": "src/repro/kernels/ota_fused.py:379",
+                "flash_attention": "src/repro/kernels/flash_attention.py:87"}
     timings["ota_quantize_superpose"] = qs_rec
+    timings["flash_attention"] = flash_rec
     launches = {n: counts[n] + stream_counts[n] for n in counts}
     launches["ota_quantize_superpose"] = qs_launches
+    launches["flash_attention"] = serve_rec["launches"]
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)
     kernels = []
-    for name in ("ota_superpose", "ota_fold", "topk_cosine", "ota_quantize_superpose"):
+    for name in sources:
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],

@@ -1,16 +1,18 @@
-"""Configs of the port: the DeepSpeech2 architecture, the FL experiment
-and the precision levels.
+"""Configs of the port: the architectures (DeepSpeech2 and the dense LMs
+the serving path runs), the FL experiment and the precision levels.
 
-The fields and defaults are those of the JAX package's ``configs/base.py``
-and ``configs/deepspeech2_paper.py``, cut to what the federated round
-reads. Every config is a frozen dataclass, so configs hash and compare.
+The fields and defaults are those of the JAX package's ``configs/base.py``,
+``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py`` and
+``configs/qwen3_8b.py``, cut to what the federated round and the dense
+serving path read. Every config is a frozen dataclass, so configs hash and
+compare.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 # symbols per f32 scale on the uplink wire (blockwise scales)
 QUANT_BLOCK = 256
@@ -18,19 +20,64 @@ QUANT_BLOCK = 256
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The architecture fields the DeepSpeech2 model reads."""
+    """The architecture fields the DeepSpeech2 model and the dense LM
+    family read."""
 
     name: str
-    family: str  # "ds2" is the only family of the port so far
+    family: str  # "ds2" | "dense"
     n_layers: int
     d_model: int
     vocab_size: int
+    n_heads: int = 1
+    n_kv_heads: int = 1
+    d_ff: int = 0
+    source: str = ""
+    # attention flavour
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
     frontend_dim: int = 0
+    # sliding-window KV cache size for long-context decode
+    window: int = 8192
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # query/key chunk of the plain chunked attention
+    attn_chunk: int = 1024
+    # route causal prefill attention through the flash kernel
+    # (kernels/flash_attention.py); windowed, non-causal and differentiable
+    # attention keep the chunked path
+    use_flash_kernel: bool = False
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads, f32."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else 0
+        kw: Dict[str, Any] = dict(
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=max(1, n_kv),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=0,
+            window=64,
+            param_dtype="float32",
+            compute_dtype="float32",
+        )
+        if self.frontend_dim:
+            kw.update(frontend_dim=d_model)
+        return self.with_(**kw)
 
 
 @dataclass(frozen=True)
@@ -103,10 +150,52 @@ def deepspeech2() -> ArchConfig:
         d_model=256,
         vocab_size=64,
         frontend_dim=80,
+        source="arXiv:1512.02595",
     )
 
 
-ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {"deepspeech2": deepspeech2}
+def stablelm_1p6b() -> ArchConfig:
+    """stablelm-1.6b: dense, MHA (32 heads of 64)."""
+    return ArchConfig(
+        name="stablelm-1.6b",
+        family="dense",
+        n_layers=24,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=5632,
+        vocab_size=100_352,
+        source="hf:stabilityai/stablelm-2-1_6b",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+    )
+
+
+def qwen3_8b() -> ArchConfig:
+    """qwen3-8b: dense, GQA (32 query heads over 8 KV heads of 128),
+    qk-norm, RoPE theta 1e6, untied embeddings."""
+    return ArchConfig(
+        name="qwen3-8b",
+        family="dense",
+        n_layers=36,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_ff=12288,
+        vocab_size=151_936,
+        qk_norm=True,
+        rope_theta=1_000_000.0,
+        source="hf:Qwen/Qwen3-8B",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+    )
+
+
+ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {
+    "deepspeech2": deepspeech2,
+    "stablelm-1.6b": stablelm_1p6b,
+    "qwen3-8b": qwen3_8b,
+}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -44,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
+_F = ctypes.c_float
 
 # C signatures of the entry points, per source
 SIGNATURES = {
@@ -52,6 +53,9 @@ SIGNATURES = {
     },
     "ota_quantize_superpose": {
         "ota_quantize_superpose_launch": [_P, _I, _L, _P, _P, _P, _U, _P, _P, _L, _P, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "topk_cosine": {
         "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],

@@ -1,1 +1,1 @@
-"""Training steps."""
+"""Step functions and drivers: training steps, the serving driver."""

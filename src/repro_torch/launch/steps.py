@@ -1,5 +1,6 @@
-"""The client's quantized local training step (the JAX package's
-``launch/steps.py::make_quantized_train_step``), with PyTorch autograd.
+"""Step functions (the JAX package's ``launch/steps.py``): the client's
+quantized local training step, with PyTorch autograd, and the serving
+path's prefill and decode steps.
 """
 
 from __future__ import annotations
@@ -55,3 +56,17 @@ def make_quantized_train_step(
         return new_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
     return train_step
+
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, *, window: int = 0) -> Callable:
+    def decode_step(params, cache, batch):
+        return model.decode(params, cache, batch, window=window)
+
+    return decode_step

@@ -1,17 +1,34 @@
-"""Initialisers and norms the DeepSpeech2 model uses (the JAX package's
-``models/layers.py``)."""
+"""Neural layers of the port (the JAX package's ``models/layers.py``):
+initialisers, norms, RoPE, chunked attention, decode attention, the
+attention block and the SwiGLU MLP. Pure functions over param dicts.
+
+Attention keeps the reference's layouts: q (B, S, H, D), k/v (B, S, KV, D),
+GQA by grouping the H query heads over the KV heads. ``chunked_attention``
+is the plain, flash-style path (online softmax over KV chunks); with
+``cfg.use_flash_kernel`` causal prefill goes through the flash kernel
+(``kernels/flash_attention.flash_mha``) instead.
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ArchConfig
+from repro_torch.kernels.flash_attention import flash_mha
+
+Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+# ---------------------------------------------------------------- initialisers
 
 
 def dense_init(
@@ -28,6 +45,23 @@ def dense_init(
     return (w * std).to(dtype)
 
 
+def embed_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
+               device) -> torch.Tensor:
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ----------------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)).to(dt)
+
+
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     dt = x.dtype
     x = x.to(torch.float32)
@@ -35,3 +69,253 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     out = (x - mu) * torch.rsqrt(var + eps)
     return (out * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+# ------------------------------------------------------------------------ RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotary halves (head_dim // 2,)."""
+    half = head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta**expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Standard RoPE. x: (..., S, H, D); positions: (..., S) int."""
+    if theta <= 0:
+        return x
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------- chunked attention
+
+NEG_INF = -1e30
+
+
+def _attn_chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                     window: int) -> torch.Tensor:
+    """(Qc, Kc) boolean mask: True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Memory-efficient attention with online softmax (flash-style), a
+    Python loop over query and KV chunks.
+
+    Never materialises more than (B, KV, G, Qc, Kc) scores. With causal
+    block skip (causal, no window, Sq == Sk) query chunk i visits only KV
+    chunks 0..i: the reference's unrolled and dynamic skip branches, which
+    compute the same thing. Otherwise every query chunk visits every KV
+    chunk under the mask (the masked full scan).
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    n_q = -(-Sq // q_chunk)
+    n_k = -(-Sk // k_chunk)
+    pad_q = n_q * q_chunk - Sq
+    pad_k = n_k * k_chunk - Sk
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q)) if pad_q else q
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k)) if pad_k else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k)) if pad_k else v
+    scale = D**-0.5
+    dev = q.device
+    q_pos_all = torch.arange(n_q * q_chunk, device=dev)
+    k_pos_all = torch.arange(n_k * k_chunk, device=dev)
+    skippable = causal and Sq == Sk and window == 0
+
+    outs = []
+    for qi in range(n_q):
+        qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        # (B, Qc, KV, G, D); scores in f32 (the reference's f32 accumulation)
+        q_blk = qp[:, qs].reshape(B, q_chunk, KV, G, D).to(torch.float32)
+        q_pos = q_pos_all[qs]
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, KV, G, q_chunk, D), dtype=torch.float32, device=dev)
+        for kj in range(qi + 1 if skippable else n_k):
+            ks = slice(kj * k_chunk, (kj + 1) * k_chunk)
+            k_blk, v_blk, k_pos = kp[:, ks], vp[:, ks], k_pos_all[ks]
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, k_blk.to(torch.float32)) * scale
+            mask = _attn_chunk_mask(q_pos, k_pos, causal, window)
+            mask &= (k_pos < Sk)[None, :]  # key padding
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v_blk.dtype).to(torch.float32),
+                              v_blk.to(torch.float32))
+            o = o * corr[..., None] + pv
+            m = m_new
+        outs.append((o / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))
+    out = torch.stack(outs)  # (n_q, B, KV, G, Qc, D)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, n_q * q_chunk, H, D)
+    return out[:, :Sq]
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, W, KV, D)
+    v_cache: torch.Tensor,  # (B, W, KV, D)
+    cache_pos: torch.Tensor,  # (B, W) int, -1 = empty
+    pos: torch.Tensor,  # (B,) current absolute position
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Single-token attention against a (possibly ring-buffer) KV cache."""
+    B, W, KV, D = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    scale = D**-0.5
+    qh = q.reshape(B, KV, G, D).to(torch.float32)
+    s = torch.einsum("bkgd,bwkd->bkgw", qh, k_cache.to(torch.float32)) * scale
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window > 0:
+        valid &= pos[:, None] - cache_pos < window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ------------------------------------------------------------- attention block
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    """One attention block's params; ``lead`` prepends axes (the stacked
+    layer axis) to every leaf."""
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    Dh = cfg.resolved_head_dim()
+    p: Params = {
+        "wq": dense_init(gen, (*lead, d, H * Dh), dtype, device),
+        "wk": dense_init(gen, (*lead, d, KV * Dh), dtype, device),
+        "wv": dense_init(gen, (*lead, d, KV * Dh), dtype, device),
+        "wo": dense_init(gen, (*lead, H * Dh, d), dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, H * Dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((*lead, KV * Dh), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((*lead, KV * Dh), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, Dh), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((*lead, Dh), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    B, S, _ = x.shape
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Dh = cfg.resolved_head_dim()
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, KV, Dh)
+    v = v.reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def attention_block(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ArchConfig,
+    positions: torch.Tensor,  # (B, S)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    differentiable: bool = True,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence attention. Returns (out, (k, v)) for cache priming."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
+        # the flash kernel (forward-only: prefill and serving; it has no
+        # backward, so training keeps the chunked path)
+        out = flash_mha(q, k, v)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+    B, S = q.shape[:2]
+    out = out.reshape(B, S, -1) @ p["wo"]
+    return out, (k, v)
+
+
+def attention_decode_block(
+    p: Params,
+    x: torch.Tensor,  # (B, 1, d)
+    cfg: ArchConfig,
+    pos: torch.Tensor,  # (B,)
+    cache: Dict[str, torch.Tensor],
+    *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step against a ring-buffer KV cache.
+
+    cache = {"k": (B, W, KV, D), "v": (B, W, KV, D), "pos": (B, W) int32}.
+    The new entries are written into the cache tensors in place (the
+    reference returns updated copies); the same dict is returned.
+    """
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    W = cache["k"].shape[1]
+    slot = pos % W
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0]
+    cache["v"][bidx, slot] = v[:, 0]
+    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos, window=window)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, cache
+
+
+# ------------------------------------------------------------------- MLP (SwiGLU)
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, device,
+             lead: Tuple[int, ...] = ()) -> Params:
+    return {
+        "w_gate": dense_init(gen, (*lead, d_model, d_ff), dtype, device),
+        "w_up": dense_init(gen, (*lead, d_model, d_ff), dtype, device),
+        "w_down": dense_init(gen, (*lead, d_ff, d_model), dtype, device),
+    }
+
+
+def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

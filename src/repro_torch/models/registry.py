@@ -1,18 +1,32 @@
-"""Uniform model API (the JAX package's ``models/registry.py``, family
-``ds2`` only so far).
+"""Uniform model API (the JAX package's ``models/registry.py``, families
+``ds2`` and ``dense`` so far).
 
-``build_model(cfg)`` returns a ``Model`` with ``init(gen, device)`` ->
-params (random weights from a ``torch.Generator``) and ``loss(params,
-batch)`` -> (scalar, metrics).
+``build_model(cfg)`` returns a ``Model`` with:
+- ``init(gen, device)``                -> params (random weights from a
+                                          ``torch.Generator``)
+- ``loss(params, batch)``              -> (scalar, metrics)   [ds2]
+- ``prefill(params, batch)``           -> (logits, cache)     [dense]
+- ``init_cache(B, cache_len, device)`` -> cache               [dense]
+- ``decode(params, cache, batch, window=0)`` -> (logits, cache) [dense]
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
+
+import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import deepspeech2 as DS2
+from repro_torch.models import transformer as TF
+
+# decode beyond this cache length switches to the sliding-window ring buffer
+FULL_CACHE_MAX = 32_768
+
+
+def _lm_loss_not_ported(params, batch):
+    raise NotImplementedError("LM training is not ported yet")
 
 
 @dataclasses.dataclass
@@ -20,6 +34,41 @@ class Model:
     cfg: ArchConfig
     init: Callable
     loss: Callable
+    init_cache: Optional[Callable] = None
+    decode: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+
+    def cache_len_for(self, seq_len: int) -> int:
+        if seq_len > FULL_CACHE_MAX:
+            return self.cfg.window
+        return seq_len
+
+    def decode_window_for(self, seq_len: int) -> int:
+        if seq_len > FULL_CACHE_MAX:
+            return self.cfg.window
+        return 0
+
+    def grow_cache(self, cache, new_len: int):
+        """Pad the K/V/pos slots to ``new_len`` (e.g. after prefill, before
+        decode): K/V with zeros, positions with -1 (empty)."""
+
+        def fit(name, cur):
+            if name in ("k", "v"):
+                axis = cur.dim() - 3
+            elif name == "pos":
+                axis = cur.dim() - 1
+            else:
+                return cur
+            pad_n = new_len - cur.shape[axis]
+            if pad_n <= 0:
+                return cur
+            shape = list(cur.shape)
+            shape[axis] = pad_n
+            fill = torch.full(shape, -1 if name == "pos" else 0, dtype=cur.dtype,
+                              device=cur.device)
+            return torch.cat([cur, fill], dim=axis)
+
+        return {k: fit(k, v) for k, v in cache.items()}
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -28,5 +77,14 @@ def build_model(cfg: ArchConfig) -> Model:
             cfg=cfg,
             init=lambda gen, device: DS2.init_ds2(gen, cfg, device),
             loss=lambda p, b: DS2.ds2_loss(p, b, cfg),
+        )
+    if cfg.family == "dense":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, device: TF.init_lm(gen, cfg, device),
+            loss=_lm_loss_not_ported,
+            init_cache=lambda B, n, device: TF.init_decode_cache(cfg, B, n, device),
+            decode=lambda p, c, b, window=0: TF.decode_step(p, c, b, cfg, window=window),
+            prefill=lambda p, b: TF.prefill(p, b, cfg),
         )
     raise ValueError(f"family {cfg.family!r} is not ported yet")

@@ -11,9 +11,12 @@ import torch
 from repro_torch.configs import FLConfig, get_arch
 from repro_torch.core import ota, wire
 from repro_torch.fl.server import FLServer, StreamingFLServer
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ota_fused as kota
 from repro_torch.kernels import topk_similarity as ktk
+from repro_torch.launch.serve import serve
 from repro_torch.retrieval.arena import ArenaStore
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +127,70 @@ def test_stream_round_on_the_card_folds_with_gains(dev, monkeypatch):
         log = srv.run_round(r)
         assert np.isfinite(log.train_loss)
     assert kota.ota_fold.launches > before and seen and all(seen)
+
+
+def _flash_tol(plain, dtype):
+    """bf16: two bf16 ulps at the output's largest magnitude (kernel and
+    plain version round at the same places and differ in summation order
+    inside a tile); f32: 1e-5."""
+    if dtype == torch.float32:
+        return 1e-5
+    return 2.0 * 2.0 ** (np.floor(np.log2(float(plain.abs().max()))) - 7)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S", [256, 200])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_equals_plain(dev, dtype, D, S, G):
+    H = 8
+    gen = torch.Generator(device=dev).manual_seed(S + D + G)
+    q = torch.randn((2, S, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, S, H // G, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, S, H // G, D), generator=gen, device=dev).to(dtype)
+    before = kfa.flash_mha.launches
+    out = kfa.flash_mha(q, k, v)
+    assert kfa.flash_mha.launches == before + 1
+    plain = kfa.flash_attention_plain(q, k, v)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= _flash_tol(plain.float(), dtype)
+
+
+def test_flash_wrapper_rejects_bad_inputs(dev):
+    z = torch.zeros((1, 64, 2, 128), device=dev)
+    with pytest.raises(ValueError):  # non-contiguous
+        kfa.flash_mha(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2))
+    with pytest.raises(TypeError):  # float16
+        h = z.half()
+        kfa.flash_mha(h, h, h)
+    with pytest.raises(ValueError):  # head dim 96
+        w = torch.zeros((1, 64, 2, 96), device=dev)
+        kfa.flash_mha(w, w, w)
+    with pytest.raises(ValueError):  # 3 KV heads for 4 query heads
+        kfa.flash_mha(torch.zeros((1, 64, 4, 64), device=dev),
+                      *(torch.zeros((1, 64, 3, 64), device=dev),) * 2)
+
+
+def test_flash_on_cpu_tensors_runs_plain_and_does_not_count(dev):
+    before = kfa.flash_mha.launches
+    x = torch.randn(1, 40, 2, 64)
+    assert torch.equal(kfa.flash_mha(x, x, x), kfa.flash_attention_plain(x, x, x))
+    assert kfa.flash_mha.launches == before
+
+
+def test_serve_on_the_card_prefills_through_the_kernel(dev):
+    cfg = get_arch("qwen3-8b").reduced().with_(n_kv_heads=2, param_dtype="bfloat16",
+                                                compute_dtype="bfloat16")
+    before = kfa.flash_mha.launches
+    res = serve(cfg.with_(use_flash_kernel=True), batch=2, prompt_len=200, gen=6, device=dev)
+    assert kfa.flash_mha.launches == before + cfg.n_layers
+    assert res.all_finite and res.tokens.shape == (2, 6)
+    plain = serve(cfg, batch=2, prompt_len=200, gen=1, device=dev, params=res.params)
+    d = (torch.log_softmax(res.prefill_logits, -1)
+         - torch.log_softmax(plain.prefill_logits, -1)).abs().max()
+    assert float(d) <= 0.1  # two bf16 layers; the serve phase allows 0.25 for 36
+    eng = ServeEngine(cfg, max_batch=2, cache_len=64, device=dev, params=res.params)
+    for i in range(4):
+        eng.submit(Request(i, np.arange(1, 9 + i, dtype=np.int32), max_new_tokens=5))
+    assert len(eng.run_until_drained()) == 4
