@@ -77,6 +77,53 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3).contiguous().to(q.dtype)
 
 
+def ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Spacing of ``dtype``'s values at each |x| (f32 tensor); below the
+    smallest normal, the spacing there."""
+    a = torch.clamp(x.float().abs(), min=torch.finfo(dtype).tiny)
+    _, e = torch.frexp(a)  # a = m 2**e, m in [0.5, 1)
+    return torch.finfo(dtype).eps * torch.exp2((e - 1).float())
+
+
+# Tolerance of the kernel against flash_attention_plain, element by element:
+# |out - plain| <= TOL_ULPS ulps of dtype at |plain|, plus TOL_ATOL[dtype];
+# and at most TOL_SHARE[dtype] of the elements may differ at all.
+#
+# The two differ only in f32 summation order inside a tile. That moves the
+# output's own rounding by an ulp, or moves one p across a bf16 rounding
+# boundary: then the row's output moves by ulp(p) |v| / l, which for an
+# output near zero (a cancelling sum) is many of its own ulps but small in
+# absolute terms; the absolute term covers that. On an H100 at the serve
+# shapes (``scripts/flash_tolerance_probe.py``) the sound kernel's largest
+# excess over 2 ulps was 7.3e-4 (bf16) and 2.4e-7 (f32), and at most 0.38%
+# of the bf16 elements differed. Planted faults in the same readings: a
+# dropped key tile, an unrescaled tile or a mask one key ahead go beyond 2
+# ulps by 0.2-4.5; in bf16, p left in f32 before PV or the scale rounded to
+# bf16 go beyond by 2.4e-3-4.9e-3 and change 26-40% of the elements; in
+# f32 the bf16 scale goes beyond by 2.3e-4. In f32 the summation order
+# changes the last bits of about half the elements, so no share is bounded
+# there.
+TOL_ULPS = 2.0
+TOL_ATOL = {torch.bfloat16: 2.0**-9, torch.float32: 1e-6}
+TOL_SHARE = {torch.bfloat16: 0.01, torch.float32: 1.0}
+
+
+def mismatch(out: torch.Tensor, plain: torch.Tensor) -> dict:
+    """The kernel's output against the plain version's under the tolerance
+    above: max_abs_err, the largest difference in ulps of |plain|, the share
+    of elements that differ, the count beyond the element bound, and
+    ``within``."""
+    dtype = plain.dtype
+    o, p = out.float(), plain.float()
+    d = (o - p).abs()
+    u = ulp(p, dtype)
+    share = float((d > 0).float().mean())
+    over = int((d > TOL_ULPS * u + TOL_ATOL[dtype]).sum())
+    return {"max_abs_err": float(d.max()), "max_ulps": float((d / u).max()),
+            "share_differing": share, "over_element_bound": over,
+            "within": over == 0 and share <= TOL_SHARE[dtype] and bool(torch.isfinite(o).all())}
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, D)")

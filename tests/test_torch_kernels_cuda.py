@@ -129,15 +129,6 @@ def test_stream_round_on_the_card_folds_with_gains(dev, monkeypatch):
     assert kota.ota_fold.launches > before and seen and all(seen)
 
 
-def _flash_tol(plain, dtype):
-    """bf16: two bf16 ulps at the output's largest magnitude (kernel and
-    plain version round at the same places and differ in summation order
-    inside a tile); f32: 1e-5."""
-    if dtype == torch.float32:
-        return 1e-5
-    return 2.0 * 2.0 ** (np.floor(np.log2(float(plain.abs().max()))) - 7)
-
-
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("S", [256, 200])
 @pytest.mark.parametrize("D", [64, 128])
@@ -153,8 +144,8 @@ def test_flash_kernel_equals_plain(dev, dtype, D, S, G):
     assert kfa.flash_mha.launches == before + 1
     plain = kfa.flash_attention_plain(q, k, v)
     assert out.dtype == dtype and out.shape == q.shape
-    err = float((out.float() - plain.float()).abs().max())
-    assert err <= _flash_tol(plain.float(), dtype)
+    mm = kfa.mismatch(out, plain)  # per element and share, see kfa.TOL_*
+    assert mm["within"], mm
 
 
 def test_flash_wrapper_rejects_bad_inputs(dev):
@@ -189,7 +180,7 @@ def test_serve_on_the_card_prefills_through_the_kernel(dev):
     plain = serve(cfg, batch=2, prompt_len=200, gen=1, device=dev, params=res.params)
     d = (torch.log_softmax(res.prefill_logits, -1)
          - torch.log_softmax(plain.prefill_logits, -1)).abs().max()
-    assert float(d) <= 0.1  # two bf16 layers; the serve phase allows 0.25 for 36
+    assert float(d) <= 0.1  # two bf16 layers; the serve phase allows 0.2 for 36
     eng = ServeEngine(cfg, max_batch=2, cache_len=64, device=dev, params=res.params)
     for i in range(4):
         eng.submit(Request(i, np.arange(1, 9 + i, dtype=np.int32), max_new_tokens=5))

@@ -223,6 +223,33 @@ def test_flash_plain_rounds_p_to_the_value_dtype():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7, atol=2**-7)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mismatch_bounds_each_element_and_the_share(dtype):
+    """The kernel-vs-plain tolerance: ulps of each element's own magnitude
+    plus a small absolute term, and a bound on the share that differ."""
+    eps = torch.finfo(dtype).eps
+    x = torch.tensor([1.0, 1.5, 0.75, -3.0, 0.0])
+    want = torch.tensor([eps, eps, eps / 2, 2 * eps, eps * torch.finfo(dtype).tiny])
+    assert torch.equal(kfa.ulp(x, dtype), want)
+    rng = np.random.RandomState(5)
+    plain = torch.from_numpy(rng.randn(1, 200, 2, 64).astype(np.float32)).to(dtype)
+    ok = kfa.mismatch(plain.clone(), plain)
+    assert ok["within"] and ok["share_differing"] == 0.0 and ok["over_element_bound"] == 0
+    flat = plain.float().flatten()
+    u = kfa.ulp(flat, dtype)
+    one = flat.clone()  # one element beyond the bound
+    one[7] += kfa.TOL_ULPS * u[7] + 2 * kfa.TOL_ATOL[dtype] + 1e-3
+    bad = kfa.mismatch(one.reshape(plain.shape).to(dtype), plain)
+    assert bad["over_element_bound"] == 1 and not bad["within"]
+    if kfa.TOL_SHARE[dtype] < 1.0:  # many elements each one ulp off
+        n = int(flat.numel() * kfa.TOL_SHARE[dtype] * 2)
+        many = flat.clone()
+        many[:n] += u[:n]
+        r = kfa.mismatch(many.reshape(plain.shape).to(dtype), plain)
+        assert r["over_element_bound"] == 0 and r["share_differing"] > kfa.TOL_SHARE[dtype]
+        assert not r["within"]
+
+
 def test_flash_on_cpu_does_not_count_launches():
     before = kfa.flash_mha.launches
     z = torch.randn(1, 8, 2, 64)
