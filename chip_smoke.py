@@ -46,7 +46,21 @@ Phases, each of which fails the run on error:
              the superpose/fold launches must rise by the counts the waves'
              storage groups imply.
 
-6. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
+6. ops     — the kernel entry points ``repro_torch.kernels.ops`` at the
+             repository's model widths, counters zeroed just before and read
+             just after: ``fake_quant`` on every leaf of a full-width
+             DeepSpeech2 update (4,133,952 f32 params) at 4, 8 and 16 bits,
+             nearest and stochastic (seeded generator), and on a Qwen3-8B
+             w_gate (4,096 x 12,288 bf16) at 8 bits; ``ota_aggregate`` of K =
+             20 DeepSpeech2 rows (FedAvg weights, seeded noise, std 0.1);
+             ``qmatmul`` on the int8 (``quantize_weights``) w_gate and w_down
+             with bf16 x at M = 4 and 8,192 and f32 x at M = 4 and 1,000, and
+             ``qmatmul_int4`` at w_gate, M = 4. Fake-quant and the aggregate
+             must equal their plain versions exactly, the matrix product
+             within ``kernels/qmatmul.mismatch``'s per-element rule. Each
+             kernel is timed beside its plain version, its bound and a library
+             call (``library_ms``, timed only).
+7. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
              of 128, vocab 151,936, bf16, random weights from a seed) through
              ``launch.serve.serve`` with ``use_flash_kernel``: 4 prompts of
              2,048 tokens, prefill (the flash counter must rise by exactly 36),
@@ -70,8 +84,8 @@ that run each kernel, each path with the counters zeroed just before it),
 the card's name and power limit (``nvidia-smi``), and last the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or outside the repository, it exits non-zero and prints
-no result. ``--phases build,kernels`` runs a prefix of the phases (no result
-lines).
+no result. ``--phases build,kernels`` (or ``build,ops``) runs only the named
+phases (no result lines).
 """
 
 from __future__ import annotations
@@ -804,6 +818,231 @@ def phase_stream(dev):
 
 # ---------------------------------------------------------------- phase 6
 
+OPS_K, OPS_STD = 20, 0.1
+# (x dtype, M) of each qmatmul case: a decode step at batch 4 and the serve
+# phase's 4 x 2,048 prefill in bf16; f32 at a decode step and a ragged M
+QMM_CASES = (("bfloat16", 4), ("bfloat16", 8192), ("float32", 4), ("float32", 1000))
+FQ_OPS_PER_ELEMENT = 8  # divide, round (or floor, subtract, compare, add), 2 clips, multiply
+
+
+def _time_library(fn):
+    """(CUDA-event ms, None) of a library call, or (None, the reason) where
+    it does not run on these inputs; the port never calls it."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (AttributeError, RuntimeError, TypeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return cuda_ms(fn), None
+
+
+def phase_ops(dev):
+    """The kernel entry points (``repro_torch.kernels.ops``) at the widths of
+    the repository's models: fake-quant over every leaf of a DeepSpeech2
+    update and a Qwen3-8B MLP weight, the OTA aggregate of 20 DeepSpeech2
+    rows, and the weight-only int8/int4 matrix product at Qwen3-8B's MLP
+    projections. The counters are zeroed just before the entry points run
+    and read just after; the outputs are then held against the plain
+    versions and the kernels timed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
+    from repro_torch.kernels.qmatmul import TOL_C, mismatch, qmatmul_plain
+    from repro_torch.kernels.qmatmul import qmatmul as qmm
+    from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
+    from repro_torch.models.layers import dense_init
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    update = [torch.randn(t.shape, generator=gen, device=dev) * 0.01
+              for t in tree_leaves(build_model(get_arch("deepspeech2")).init(gen, dev))]
+    n_ds2 = sum(t.numel() for t in update)
+    qwen = get_arch("qwen3-8b")
+    d, f = qwen.d_model, qwen.d_ff
+    weights = {"w_gate": dense_init(gen, (d, f), torch.bfloat16, dev),
+               "w_down": dense_init(gen, (f, d), torch.bfloat16, dev)}
+    X = torch.randn((OPS_K, n_ds2), generator=gen, device=dev) * 0.01
+    n_k = torch.randint(50, 500, (OPS_K,), generator=gen, device=dev).to(torch.float32)
+    w_avg = n_k / n_k.sum()  # FedAvg weights
+    noise = torch.randn((n_ds2,), generator=gen, device=dev)
+    xs = {(wn, dt, M): torch.randn((M, w.shape[0]), generator=gen, device=dev)
+          .to(getattr(torch, dt)) for wn, w in weights.items() for dt, M in QMM_CASES}
+    fq_gen = torch.Generator(device=dev)
+    fq_gen.manual_seed(41)
+    print(f"ops: DeepSpeech2 update {len(update)} leaves, {n_ds2} params; Qwen3-8B MLP "
+          f"w_gate {tuple(weights['w_gate'].shape)}, w_down {tuple(weights['w_down'].shape)} "
+          f"bf16; OTA K={OPS_K} x M={n_ds2}, std {OPS_STD}")
+    if n_ds2 != 4_133_952:
+        _fail(f"the DeepSpeech2 update has {n_ds2} params, want 4,133,952")
+
+    wrappers = (fake_quant_2d, ota_aggregate_2d, qmm)
+    for fn in wrappers:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fq = []  # (bits, stochastic, generator state before, outputs)
+    for bits in (4, 8, 16):
+        for stoch in (False, True):
+            state = fq_gen.get_state()
+            fq.append((bits, stoch, state, [ops.fake_quant(t, bits, stochastic=stoch,
+                                                           generator=fq_gen) for t in update]))
+    fq_qwen = ops.fake_quant(weights["w_gate"], 8)
+    agg = ops.ota_aggregate(X, w_avg, noise, OPS_STD)
+    quant = {wn: ops.quantize_weights(w) for wn, w in weights.items()}
+    qmm_out = {key: ops.qmatmul(x, *quant[key[0]]) for key, x in xs.items()}
+    p4, s4 = ops.quantize_weights_int4(weights["w_gate"])
+    x4 = xs[("w_gate", "bfloat16", 4)]
+    out4 = ops.qmatmul_int4(x4, p4, s4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"fake_quant": fake_quant_2d.launches, "ota_aggregate": ota_aggregate_2d.launches,
+              "qmatmul": qmm.launches}
+    print(f"  entry points: {secs:.3f} s, launches {counts}")
+    want = {"fake_quant": 6 * len(update) + 1, "ota_aggregate": 1, "qmatmul": len(xs) + 1}
+    if counts != want:
+        _fail(f"ops launches {counts} != the calls made {want}")
+
+    # fake-quant: the plain version on the same scale and the same noise
+    err_fq = 0.0
+    for bits, stoch, state, outs in fq:
+        g2 = torch.Generator(device=dev)
+        g2.set_state(state)
+        for t, out in zip(update, outs):
+            nz = (torch.rand(t.shape, generator=g2, dtype=torch.float32, device=dev)
+                  if stoch else None)
+            plain = fake_quant_plain(t, ops.fake_quant_scale(t, bits), bits, nz)
+            if out.shape != t.shape or out.dtype != t.dtype or not torch.isfinite(out).all():
+                _fail(f"fake_quant output misshapen or not finite (bits={bits}, stoch={stoch})")
+            e = (out - plain).abs().max().item()
+            err_fq = max(err_fq, e)
+            if not torch.equal(out, plain):
+                _fail(f"fake_quant kernel != plain: bits={bits} stochastic={stoch} "
+                      f"leaf {tuple(t.shape)} err {e}")
+    s_qwen = ops.fake_quant_scale(weights["w_gate"], 8)
+    plain_qwen = fake_quant_plain(weights["w_gate"], s_qwen, 8)
+    if fq_qwen.dtype != torch.bfloat16 or not torch.equal(fq_qwen, plain_qwen):
+        _fail("fake_quant kernel != plain on the Qwen3-8B weight (bf16)")
+    err_fq = max(err_fq, (fq_qwen.float() - plain_qwen.float()).abs().max().item())
+    print(f"  fake_quant: {len(fq) * len(update)} DeepSpeech2 leaves (bits 4/8/16, nearest "
+          f"and stochastic) + the Qwen3-8B w_gate (bf16, 8 bits): max_abs_err {err_fq} "
+          f"(tolerance: exact)")
+
+    agg_p = ota_aggregate_plain(X, w_avg, noise, OPS_STD)
+    err_ota = (agg - agg_p).abs().max().item()
+    print(f"  ota_aggregate: K={OPS_K} M={n_ds2}: max_abs_err {err_ota} (tolerance: exact)")
+    if not torch.equal(agg, agg_p) or not torch.isfinite(agg).all():
+        _fail(f"ota_aggregate kernel != plain: {err_ota}")
+
+    err_qmm, worst_ratio = 0.0, 0.0
+    qmm_checks = [(f"{wn} {dt} M={M}", out, xs[(wn, dt, M)], *quant[wn])
+                  for (wn, dt, M), out in qmm_out.items()]
+    qmm_checks.append(("w_gate int4 bf16 M=4", out4, x4, ops.unpack_int4(p4), s4))
+    for label, out, x, q, s in qmm_checks:
+        mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+        err_qmm, worst_ratio = max(err_qmm, mm["max_abs_err"]), max(worst_ratio, mm["max_ratio"])
+        print(f"  qmatmul {label} K={x.shape[1]} N={q.shape[1]}: {json.dumps(mm)} (tolerance "
+              f"per element {TOL_C:g} sqrt(K) 2**-24 (|x| @ |w_deq|))")
+        if out.shape != (x.shape[0], q.shape[1]) or not mm["within"]:
+            _fail(f"qmatmul kernel != plain beyond tolerance ({label}): {mm}")
+    for bad in (
+        lambda: fake_quant_2d(weights["w_gate"].half(), s_qwen, 8),
+        lambda: ops.qmatmul(x4.t().contiguous().t(), *quant["w_gate"]),
+        lambda: ops.ota_aggregate(X, w_avg, noise.double(), OPS_STD),
+    ):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        _fail("an ops kernel wrapper accepted a float16, non-contiguous or float64 input")
+
+    # timing on the inputs above
+    timings = {}
+    w_g = weights["w_gate"]
+    nbytes = 2.0 * tensor_bytes(w_g)
+    ops_n = float(FQ_OPS_PER_ELEMENT) * w_g.numel()
+    lib_note = "torch.fake_quantize_per_tensor_affine on the bf16 weight"
+    s_float = s_qwen.item()
+    lib_ms, why = _time_library(
+        lambda: torch.fake_quantize_per_tensor_affine(w_g, s_float, 0, -127, 127))
+    if lib_ms is None:
+        w_g32 = w_g.float()  # the copy is made here, not timed
+        lib_note = f"torch.fake_quantize_per_tensor_affine on an f32 copy (bf16 refused: {why})"
+        lib_ms, _ = _time_library(
+            lambda: torch.fake_quantize_per_tensor_affine(w_g32, s_float, 0, -127, 127))
+    timings["fake_quant"] = dict(
+        shape=f"Qwen3-8B w_gate {tuple(w_g.shape)} bf16, 8 bits",
+        ms=cuda_ms(lambda: fake_quant_2d(w_g, s_qwen, 8)),
+        plain_ms=cuda_ms(lambda: fake_quant_plain(w_g, s_qwen, 8), reps=5),
+        bound_ms=bound_ms(nbytes, ops_n), bound_by=bound_by(nbytes, ops_n),
+        library_ms=lib_ms, library=lib_note)
+    scales = [ops.fake_quant_scale(t, 8) for t in update]
+    s_floats = [s_.item() for s_ in scales]
+    nbytes = 2.0 * 4 * n_ds2
+    ops_n = float(FQ_OPS_PER_ELEMENT) * n_ds2
+    timings["fake_quant_ds2"] = dict(
+        shape=f"every DeepSpeech2 update leaf ({len(update)} calls) f32, 8 bits, nearest",
+        ms=cuda_ms(lambda: [fake_quant_2d(t, s_, 8) for t, s_ in zip(update, scales)]),
+        plain_ms=cuda_ms(lambda: [fake_quant_plain(t, s_, 8) for t, s_ in zip(update, scales)],
+                         reps=5),
+        bound_ms=bound_ms(nbytes, ops_n), bound_by=bound_by(nbytes, ops_n),
+        library_ms=_time_library(lambda: [torch.fake_quantize_per_tensor_affine(
+            t, s_, 0, -127, 127) for t, s_ in zip(update, s_floats)])[0],
+        library="torch.fake_quantize_per_tensor_affine per leaf")
+    nbytes = tensor_bytes(X, w_avg, noise) + 4.0 * n_ds2
+    ops_n = 2.0 * OPS_K * n_ds2 + 2.0 * n_ds2
+    xt = X.t()
+    lib = torch.addmv(noise, xt, w_avg, beta=OPS_STD)
+    timings["ota_aggregate"] = dict(
+        shape=f"K={OPS_K} M={n_ds2} f32",
+        ms=cuda_ms(lambda: ota_aggregate_2d(X, w_avg, noise, OPS_STD)),
+        plain_ms=cuda_ms(lambda: ota_aggregate_plain(X, w_avg, noise, OPS_STD), reps=5),
+        bound_ms=bound_ms(nbytes, ops_n), bound_by=bound_by(nbytes, ops_n),
+        library_ms=cuda_ms(lambda: torch.addmv(noise, xt, w_avg, beta=OPS_STD)),
+        library="torch.addmv(noise, x.t(), w, beta=std)",
+        library_rel_diff=((lib - agg).abs().max() / agg.abs().max()).item())
+    for (wn, dt, M), x in xs.items():
+        q, s = quant[wn]
+        K, N = q.shape
+        flops = 2.0 * M * N * K
+        nbytes = tensor_bytes(x, q, s) + 4.0 * M * N
+        peak = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
+        w_deq = (q.float() * s).to(x.dtype)  # dequantized beforehand, not timed
+        rec = dict(
+            shape=f"{wn} x {dt} M={M} K={K} N={N}",
+            ms=cuda_ms(lambda: qmm(x, q, s)),
+            plain_ms=cuda_ms(lambda: qmatmul_plain(x, q, s), reps=3),
+            bound_ms=bound_ms(nbytes, flops, peak), bound_by=bound_by(nbytes, flops, peak),
+            library_ms=cuda_ms(lambda: torch.matmul(x, w_deq)),
+            library=f"torch.matmul on weights dequantized to {dt} beforehand (not timed)")
+        if dt == "bfloat16" and M == 4:
+            qt = q.t().contiguous()
+            s16 = s.to(x.dtype)
+            rec["int8pack_ms"], rec["int8pack_note"] = _time_library(
+                lambda: torch._weight_int8pack_mm(x, qt, s16))
+        del w_deq
+        timings[f"qmatmul {wn} {dt} M={M}"] = rec
+    w_unpacked = ops.unpack_int4(p4)
+    timings["qmatmul_int4 w_gate bfloat16 M=4"] = dict(
+        ms=cuda_ms(lambda: ops.qmatmul_int4(x4, p4, s4)),
+        kernel_only_ms=cuda_ms(lambda: qmm(x4, w_unpacked, s4)))
+    for name, rec in timings.items():
+        print(f"  ops timing {name}: " + json.dumps(rec))
+    errs = {"fake_quant": err_fq, "ota_aggregate": err_ota, "qmatmul": err_qmm}
+    rows = {"fake_quant": timings["fake_quant"], "ota_aggregate": timings["ota_aggregate"],
+            "qmatmul": timings["qmatmul w_gate bfloat16 M=4"]}
+    del fq, qmm_out, xs, X, update, weights, quant
+    torch.cuda.empty_cache()
+    return counts, errs, rows
+
+
+# ---------------------------------------------------------------- phase 7
+
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # max |log_softmax(flash) - log_softmax(chunked)| over the last-position
 # logits. Both paths compute the same attention in bf16 with f32
@@ -954,7 +1193,7 @@ def phase_serve(dev):
 # ---------------------------------------------------------------- main
 
 
-PHASES = ("build", "kernels", "rounds", "flat", "stream", "serve")
+PHASES = ("build", "kernels", "rounds", "flat", "stream", "ops", "serve")
 
 
 def main() -> None:
@@ -995,6 +1234,8 @@ def main() -> None:
         qs_launches, qs_err, qs_rec = phase_flat(dev, plan_bits)
     if "stream" in phases:
         stream_counts = phase_stream(dev)
+    if "ops" in phases:
+        ops_counts, ops_errs, ops_rows = phase_ops(dev)
     if "serve" in phases:
         serve_rec = phase_serve(dev)
     if set(phases) != set(PHASES):
@@ -1005,18 +1246,27 @@ def main() -> None:
                "ota_fold": "src/repro_torch/csrc/ota_superpose.cu",
                "topk_cosine": "src/repro_torch/csrc/topk_cosine.cu",
                "ota_quantize_superpose": "src/repro_torch/csrc/ota_quantize_superpose.cu",
-               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+               "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
+               "qmatmul": "src/repro_torch/csrc/qmatmul.cu",
+               "ota_aggregate": "src/repro_torch/csrc/ota_aggregate.cu"}
     replaces = {"ota_superpose": "src/repro/kernels/ota_fused.py:288",
                 "ota_fold": "src/repro/kernels/ota_fused.py:334",
                 "topk_cosine": "src/repro/kernels/topk_similarity.py:83",
                 "ota_quantize_superpose": "src/repro/kernels/ota_fused.py:379",
-                "flash_attention": "src/repro/kernels/flash_attention.py:87"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:87",
+                "fake_quant": "src/repro/kernels/quantize.py:42",
+                "qmatmul": "src/repro/kernels/qmatmul.py:42",
+                "ota_aggregate": "src/repro/kernels/ota_aggregate.py:32"}
     timings["ota_quantize_superpose"] = qs_rec
     timings["flash_attention"] = flash_rec
     launches = {n: counts[n] + stream_counts[n] for n in counts}
     launches["ota_quantize_superpose"] = qs_launches
     launches["flash_attention"] = serve_rec["launches"]
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)
+    timings.update(ops_rows)
+    launches.update(ops_counts)
+    errs.update(ops_errs)
     kernels = []
     for name in sources:
         t = timings[name]

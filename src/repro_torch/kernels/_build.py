@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``):
+``ota_superpose``, ``ota_quantize_superpose``, ``topk_cosine``,
+``flash_attention``, ``fake_quant``, ``ota_aggregate`` and ``qmatmul``.
 
 Each source compiles on its own, at first use, with
 
@@ -59,6 +61,15 @@ SIGNATURES = {
     },
     "topk_cosine": {
         "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],
+    },
+    "fake_quant": {
+        "fake_quant_launch": [_P, _I, _L, _P, _P, _F, _P, _I, _P],
+    },
+    "ota_aggregate": {
+        "ota_aggregate_launch": [_P, _I, _L, _P, _P, _P, _P, _I, _P],
+    },
+    "qmatmul": {
+        "qmatmul_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -158,6 +169,16 @@ def library(name: str) -> ctypes.CDLL:
                 _LIBS[name] = _load(name)
             lib = _LIBS[name]
     return lib
+
+
+def on_card(t) -> bool:
+    """True where a wrapper launches its kernel (a CUDA tensor), False where
+    it runs its plain version (a CPU tensor); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
 def check(rc: int, what: str) -> None:

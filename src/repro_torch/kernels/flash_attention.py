@@ -169,10 +169,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """Causal multi-head attention, q (B, S, H, D), k/v (B, S, KV, D), GQA
     when KV < H -> (B, S, H, D). Non-causal and windowed attention go
     through ``models/layers.chunked_attention``."""
-    if q.device.type == "cpu":
+    if not _build.on_card(q):
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel or plain version for device {q.device}")
     out = _launch(q, k, v)
     flash_mha.launches += 1
     return out

@@ -1,0 +1,109 @@
+"""The kernel entry points of the port, with the names and semantics of the
+JAX package's ``kernels/ops.py``.
+
+Where the reference pads and reshapes to its TPU tiles, the kernels here
+take any shape, so the entry points only compute what the reference
+computes outside its kernels (the fake-quant scale, the weight quantizer,
+the int4 pack) and call the kernel wrappers: ``kernels/quantize.py``
+(fake-quant), ``kernels/ota_aggregate.py``, ``kernels/qmatmul.py``,
+``kernels/ota_fused.py`` (in-pass quantize-superpose) and
+``kernels/flash_attention.py`` (causal only: non-causal attention goes
+through ``models.layers.chunked_attention``). On a CUDA tensor each
+launches its kernel; on a CPU tensor it runs its plain version.
+
+Parity with the reference: ``fake_quant`` is jitted there, so its scale
+``max(amax, 1e-12) / qmax`` is a multiply by the f32 reciprocal of qmax
+(``core.quant._recip``); ``quantize_weights`` runs eagerly there, so its
+divisions are true f32 divisions, here by 0-d tensors on the weight's device
+(never by CPU scalars, which PyTorch on CUDA turns into a multiply).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quant import _f32, _recip, qrange
+from repro_torch.kernels.flash_attention import flash_mha
+from repro_torch.kernels.ota_aggregate import ota_aggregate_2d
+from repro_torch.kernels.ota_fused import ota_quantize_superpose
+from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.quantize import fake_quant_2d
+
+
+def fake_quant_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """The per-tensor scale of ``fake_quant``: max(amax, 1e-12) times the f32
+    reciprocal of qmax, a 0-d f32 tensor on x's device."""
+    amax = torch.amax(x.abs()).to(torch.float32)
+    return torch.clamp_min(amax, 1e-12) * _recip(qrange(bits), x)
+
+
+def fake_quant(
+    x: torch.Tensor,
+    bits: int,
+    *,
+    stochastic: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Per-tensor fake-quant of a float32 or bfloat16 tensor of any shape
+    through the kernel; returns x's dtype. With ``stochastic`` the rounding
+    noise is ``torch.rand`` of x's shape from ``generator`` on x's device."""
+    scale = fake_quant_scale(x, bits)
+    noise = None
+    if stochastic:
+        noise = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+    return fake_quant_2d(x.contiguous(), scale, bits, noise)
+
+
+ota_aggregate = ota_aggregate_2d  # the reference's entry-point name
+
+
+def quantize_weights(w: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric quantization for qmatmul: (q int8 (K, N),
+    scale (N,) f32). Round half to even, in w's dtype."""
+    qmax = qrange(bits)
+    amax = torch.amax(w.abs(), dim=0)
+    scale = torch.clamp_min(amax, 1e-12) / _f32(float(qmax), w)
+    q = torch.clamp(torch.round(w / scale[None, :]), -qmax, qmax).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """q: int8 values in [-8, 7] with an even first dim -> (K//2, N) uint8,
+    rows 2i (low nibble) and 2i + 1 (high nibble) sharing a byte. (The
+    uplink wire pairs adjacent elements of a row instead:
+    ``core.wire.pack_int4_rows``.)"""
+    if q.shape[0] % 2:
+        raise ValueError("pack_int4 needs an even K dim")
+    lo = (q[0::2] & 0x0F).to(torch.uint8)
+    hi = (q[1::2] & 0x0F).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4 -> int8 in [-8, 7], shape (2*Kp, N)."""
+    lo = (packed & 0x0F).to(torch.int8)
+    hi = ((packed >> 4) & 0x0F).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)  # sign-extend the 4-bit values
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.stack([lo, hi], dim=1).reshape(2 * packed.shape[0], *packed.shape[1:])
+
+
+def quantize_weights_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel symmetric int4: returns (packed (K//2, N) uint8, scale)."""
+    q, scale = quantize_weights(w, bits=4)
+    return pack_int4(q), scale
+
+
+def qmatmul_int4(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ dequant(int4-packed weights (K//2, N)): unpack, then the
+    int8 kernel."""
+    return qmatmul(x, unpack_int4(w_packed), scale)
+
+
+__all__ = [
+    "fake_quant", "fake_quant_scale", "flash_mha", "ota_aggregate", "ota_quantize_superpose",
+    "pack_int4", "qmatmul", "qmatmul_int4", "quantize_weights", "quantize_weights_int4",
+    "unpack_int4",
+]

@@ -128,16 +128,6 @@ def _launch(acc, q, scale, w, gains, qblock, packed4) -> torch.Tensor:
     return out
 
 
-def _dispatch(q: torch.Tensor) -> bool:
-    """True for the kernel (CUDA tensors), False for the plain version
-    (CPU tensors); any other device raises."""
-    if q.device.type == "cuda":
-        return True
-    if q.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {q.device}")
-
-
 def ota_superpose(
     q: torch.Tensor,
     scale: torch.Tensor,
@@ -148,7 +138,7 @@ def ota_superpose(
     packed4: bool = False,
 ) -> torch.Tensor:
     """Dequant + weighted superpose of one storage group -> (M,) f32."""
-    if not _dispatch(q):
+    if not _build.on_card(q):
         return superpose_plain(q, scale, w, gains=gains, qblock=qblock, packed4=packed4)
     out = _launch(None, q, scale, w, gains, qblock, packed4)
     ota_superpose.launches += 1
@@ -166,7 +156,7 @@ def ota_fold(
     packed4: bool = False,
 ) -> torch.Tensor:
     """acc + the group's superpose -> (M,) f32 (a new tensor)."""
-    if not _dispatch(q):
+    if not _build.on_card(q):
         return superpose_plain(
             q, scale, w, gains=gains, qblock=qblock, packed4=packed4, acc=acc
         )
@@ -210,7 +200,7 @@ def ota_quantize_superpose(
     """In-pass SR quantize -> dequant -> weighted superpose of (K, M) f32
     rows -> (acc (M,) f32, sumsq () f32). ``scale``/``qmax``/``w``: (K,);
     ``seed``: the uint32 dither seed."""
-    if not _dispatch(x):
+    if not _build.on_card(x):
         return quantize_superpose_plain(x, scale, qmax, w, seed)
     dev = x.device
     if x.dim() != 2 or x.dtype != torch.float32:

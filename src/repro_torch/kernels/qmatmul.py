@@ -1,0 +1,146 @@
+"""Weight-only int8 matrix product: the CUDA kernel ``csrc/qmatmul.cu`` and
+its plain PyTorch version.
+
+``qmatmul`` replaces the TPU kernel ``qmatmul`` (``src/repro/kernels/
+qmatmul.py:42``) behind ``ops.qmatmul`` and ``ops.qmatmul_int4``:
+
+    out = (x @ q) * scale                 x (M, K) f32/bf16, q (K, N) int8
+
+with f32 accumulation and the per-output-channel scale (N,) applied to the
+f32 sums, as the TPU kernel's epilogue does. The plain version is the
+reference's oracle ``ref.qmatmul_ref``, ``x.float() @ (q.float() * scale)``:
+the two differ by summation order and by where the scale is rounded in, so
+they agree within the tolerance below, element by element. M, K and N may
+be any size; the kernel masks the ragged edges itself.
+
+Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BK = 32  # k_chunk granularity: a multiple of both kernels' k tile
+SMALL_M = 16  # M at or below this takes the 16-row tiles (a decode step)
+MAX_SPLITS = 32
+BLOCKS_PER_SM = 4  # split k until about this many blocks per SM are in flight
+
+
+def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: x (M, K) @ dequant(w_q (K, N) int8, scale (N,))
+    -> (M, N) f32, as the reference's oracle computes it."""
+    w = w_q.to(torch.float32) * scale.to(device=w_q.device, dtype=torch.float32)[None, :]
+    return x.to(torch.float32) @ w
+
+
+# Tolerance of the kernel (and of the port on the CPU against the JAX
+# kernel) against qmatmul_plain, element by element:
+#
+#   |out - plain| <= TOL_C * sqrt(K) * 2**-24 * (|x| @ |w_q * scale|)
+#
+# Both sum K products in f32 in different orders, and the plain version
+# rounds each dequantized weight once more; unbiased rounding errors of a
+# sum of K terms grow like sqrt(K) units of 2**-24 times the sum of the
+# terms' magnitudes. On an H100 at Qwen3-8B's MLP widths
+# (``scripts/qmatmul_tolerance_probe.py``) the sound kernel read at most
+# 0.17 of these units, and on the CPU the port against the JAX kernel at
+# most 0.46 (K = 129). Planted faults in the same readings: x rounded to
+# TF32 (f32 x) 1.9-7.5 at most, 1.1-3.4 at the 99th percentile; the output
+# rounded to bf16 19-113; one weight row of K dropped 42-860. The limit
+# sits near the geometric middle of 0.46 and 1.9.
+TOL_C = 1.0
+
+
+def error_units(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor, w_q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """|out - plain| per element in units of sqrt(K) 2**-24 (|x| @ |w_deq|)
+    (0 where both are 0, inf where only the difference is nonzero)."""
+    mag = x.to(torch.float32).abs() @ (
+        w_q.to(torch.float32).abs() * scale.to(device=w_q.device, dtype=torch.float32)[None, :])
+    unit = math.sqrt(x.shape[1]) * 2.0**-24 * mag
+    d = (out.to(torch.float32) - plain.to(torch.float32)).abs()
+    return torch.where(unit > 0, d / torch.where(unit > 0, unit, torch.ones_like(unit)),
+                       torch.where(d > 0, torch.full_like(d, math.inf), torch.zeros_like(d)))
+
+
+def mismatch(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor, w_q: torch.Tensor,
+             scale: torch.Tensor) -> Dict[str, object]:
+    """The kernel's output against the plain version's under the tolerance
+    above: max_abs_err, the largest ``error_units`` (``max_ratio``), the
+    count beyond TOL_C of them, and ``within``."""
+    ratio = error_units(out, plain, x, w_q, scale)
+    over = int((ratio > TOL_C).sum())
+    return {"max_abs_err": float((out.to(torch.float32) - plain.to(torch.float32)).abs().max()),
+            "max_ratio": float(ratio.max()), "over_element_bound": over,
+            "within": over == 0 and bool(torch.isfinite(out).all())}
+
+
+def split_k(M: int, N: int, K: int, bf16: bool, sms: int) -> Tuple[int, int]:
+    """(splits, k_chunk): cut k into ranges of k_chunk (a multiple of BK)
+    until the (m, n) tiles times the splits give about BLOCKS_PER_SM blocks
+    an SM; at most MAX_SPLITS, and no range empty."""
+    bm = 16 if M <= SMALL_M else 64
+    bn = 128 if bf16 else 64
+    tiles = -(-M // bm) * -(-N // bn)
+    k_tiles = -(-K // BK)
+    want = max(1, min(-(-BLOCKS_PER_SM * sms // tiles), k_tiles, MAX_SPLITS))
+    k_chunk = -(-k_tiles // want) * BK
+    return -(-K // k_chunk), k_chunk
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float32 or bfloat16 @ dequant(w_q (K, N) int8; per-channel
+    scale (N,)) -> (M, N) float32."""
+    if not _build.on_card(x):
+        return qmatmul_plain(x, w_q, scale)
+    dev = x.device
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be (M, K) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    if w_q.dim() != 2 or w_q.dtype != torch.int8:
+        raise TypeError(f"w_q must be (K, N) int8, got {tuple(w_q.shape)} {w_q.dtype}")
+    M, K = x.shape
+    K2, N = w_q.shape
+    if K != K2 or min(M, K, N) < 1:
+        raise ValueError(f"shapes x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not match")
+    if scale.numel() != N:
+        raise ValueError(f"scale must hold {N} values, got {tuple(scale.shape)}")
+    for name, t in (("x", x), ("w_q", w_q), ("scale", scale)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if not (x.is_contiguous() and w_q.is_contiguous()):
+        raise ValueError("x and w_q must be contiguous")
+    s = scale.to(torch.float32).reshape(N).contiguous()
+    splits, k_chunk = split_k(M, N, K, x.dtype == torch.bfloat16, _sm_count(dev))
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    ws = torch.empty(splits * M * N, dtype=torch.float32, device=dev) if splits > 1 else None
+    lib = _build.library("qmatmul")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qmatmul_launch(
+            x.data_ptr(), _DTYPE_CODE[x.dtype], w_q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, N, K, splits, k_chunk, stream,
+        )
+    _build.check(rc, "qmatmul_launch")
+    qmatmul.launches += 1
+    return out
+
+
+# launches of the kernel wrapper (plain-version calls do not count)
+qmatmul.launches = 0

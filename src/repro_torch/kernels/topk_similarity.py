@@ -114,10 +114,8 @@ def topk_cosine(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Q, D) queries x (Np, D) slab -> (scores (Q, k) f32, idx (Q, k) int32)."""
-    if qm.device.type == "cpu":
+    if not _build.on_card(qm):
         return topk_plain(qm, recs, scales, n, k)
-    if qm.device.type != "cuda":
-        raise ValueError(f"no kernel or plain version for device {qm.device}")
     out = _launch(qm, recs, scales, n, k)
     topk_cosine.launches += 1
     return out

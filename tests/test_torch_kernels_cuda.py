@@ -12,8 +12,12 @@ from repro_torch.configs import FLConfig, get_arch
 from repro_torch.core import ota, wire
 from repro_torch.fl.server import FLServer, StreamingFLServer
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import ops
 from repro_torch.kernels import ota_fused as kota
 from repro_torch.kernels import topk_similarity as ktk
+from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
+from repro_torch.kernels.qmatmul import mismatch, qmatmul_plain
+from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 from repro_torch.launch.serve import serve
 from repro_torch.retrieval.arena import ArenaStore
 from repro_torch.serve import Request, ServeEngine
@@ -185,3 +189,85 @@ def test_serve_on_the_card_prefills_through_the_kernel(dev):
     for i in range(4):
         eng.submit(Request(i, np.arange(1, 9 + i, dtype=np.int32), max_new_tokens=5))
     assert len(eng.run_until_drained()) == 4
+
+
+# ------------------------------------------- the kernel entry points (ops)
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (1001, 1), (4096 * 12288, 0)])
+def test_fake_quant_kernel_equals_plain(dev, n, offset, dtype, stochastic):
+    """Small, ragged and unaligned (a view one element in), and a full
+    Qwen3-8B MLP weight: bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = (torch.randn(n + offset, generator=gen, device=dev) * 0.05).to(dtype)[offset:]
+    noise = (torch.rand(n + offset, generator=gen, device=dev)[offset:] if stochastic
+             else None)
+    for bits in (4, 8, 16):
+        s = ops.fake_quant_scale(x, bits)
+        out = fake_quant_2d(x, s, bits, noise)
+        assert out.dtype == dtype and torch.equal(out, fake_quant_plain(x, s, bits, noise))
+
+
+def test_fake_quant_entry_point_counts_and_repeats(dev):
+    x = torch.randn((3, 5000), device=dev)
+    before = fake_quant_2d.launches
+    a = ops.fake_quant(x, 4, stochastic=True, generator=torch.Generator(device=dev).manual_seed(7))
+    b = ops.fake_quant(x, 4, stochastic=True, generator=torch.Generator(device=dev).manual_seed(7))
+    assert torch.equal(a, b) and fake_quant_2d.launches == before + 2
+    with pytest.raises(TypeError):
+        fake_quant_2d(x.half(), ops.fake_quant_scale(x, 8), 8)
+    with pytest.raises(ValueError):
+        fake_quant_2d(x.t(), ops.fake_quant_scale(x, 8), 8)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("M", [1, 4133, 4_133_952])
+@pytest.mark.parametrize("K", [1, 7, 20])
+def test_ota_aggregate_kernel_equals_plain(dev, K, M, offset):
+    gen = torch.Generator(device=dev).manual_seed(K * M)
+    x = torch.randn(K * M + offset, generator=gen, device=dev)[offset:].reshape(K, M)
+    w = torch.rand(K, generator=gen, device=dev)
+    noise = torch.randn(M + offset, generator=gen, device=dev)[offset:]
+    for std in (0.1, torch.tensor(0.37, device=dev)):
+        out = ota_aggregate_2d(x, w, noise, std)
+        assert torch.equal(out, ota_aggregate_plain(x, w, noise, std))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 12288), (4, 12288, 4096), (16, 64, 48),
+                                   (17, 300, 129), (37, 301, 130), (300, 4096, 1000),
+                                   (1000, 4096, 12288)])
+def test_qmatmul_kernel_within_tolerance_of_plain(dev, dtype, M, K, N):
+    """Decode (split k) and prefill tiles, ragged M, K and N (element loads
+    at the edges), Qwen3-8B's MLP widths; two launches give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert out.shape == (M, N) and mm["within"], mm
+    assert torch.equal(out, ops.qmatmul(x, q, s))
+
+
+def test_qmatmul_int4_kernel_within_tolerance_of_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    p, s = ops.quantize_weights_int4(torch.randn((4096, 1024), generator=gen, device=dev))
+    q = ops.unpack_int4(p)
+    mm = mismatch(ops.qmatmul_int4(x, p, s), qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+
+
+def test_ops_wrappers_reject_bad_inputs(dev):
+    x = torch.randn((4, 64), device=dev)
+    q, s = ops.quantize_weights(torch.randn((64, 32), device=dev))
+    with pytest.raises(TypeError):
+        ops.qmatmul(x.half(), q, s)
+    with pytest.raises(ValueError):
+        ops.qmatmul(x[:, :32], q, s)
+    with pytest.raises(ValueError):
+        ops.qmatmul(x, q, s.cpu())
+    with pytest.raises(ValueError):
+        ops.ota_aggregate(x, torch.ones(3, device=dev), torch.zeros(64, device=dev), 0.1)

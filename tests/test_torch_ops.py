@@ -1,0 +1,273 @@
+"""Parity of the port's kernel entry points (``repro_torch.kernels.ops``)
+with the JAX package's ``repro.kernels.ops``, on the CPU: fake-quant,
+the OTA aggregate, the weight quantizer, the int4 pack and the weight-only
+int8/int4 matrix product.
+
+Inputs are made from a fixed seed with numpy and fed to both packages. The
+reference runs as its own tests run it on the CPU: its jitted entry points
+with the Pallas kernels in interpret mode. The port runs the kernels' plain
+versions here (CPU tensors); ``tests/test_torch_kernels_cuda.py`` and
+``chip_smoke.py`` hold the CUDA kernels against the same plain versions on
+the card.
+
+Tolerances: fake-quant, the weight quantizer and the int4 pack are bit for
+bit (correctly rounded elementwise math and integer ops). The OTA aggregate
+is a sum of K products in another order than XLA's, so it is held to the
+f32 summation bound 2 K 2**-24 (|w| @ |x| + |std noise|) per element. The
+matrix product is held to ``kernels.qmatmul.mismatch``'s rule,
+``TOL_C`` sqrt(K) 2**-24 (|x| @ |w_deq|) per element.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels as jkernels
+from repro.core.quant import qrange
+from repro.kernels import ops as jops
+from repro.kernels import quantize as jquantize
+import repro_torch.kernels as tkernels
+from repro_torch.kernels import _build, ota_fused, topk_similarity
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.qmatmul import TOL_C, mismatch, split_k
+from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype):
+    """The f32 numpy array a as a JAX array and a torch tensor of one dtype
+    (both round the same f32 values to bf16 half to even)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(np.array(a, copy=True)).to(td)
+
+
+def _t(a):
+    """A torch tensor of a copy of the numpy (or JAX) array a."""
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _bits_j(a):
+    """The bit patterns of a JAX array (as f32)."""
+    return np.asarray(jnp.asarray(a, jnp.float32)).view(np.uint32)
+
+
+def _bits_t(t):
+    return t.to(torch.float32).numpy().view(np.uint32)
+
+
+# ----------------------------------------------------------------- fake-quant
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 128), (100, 257), (3, 5000), (1, 64)])
+def test_fake_quant_bit_equal_to_jitted_reference(shape, dtype, bits):
+    a = np.random.RandomState(sum(shape) + bits).randn(*shape).astype(np.float32)
+    xj, xt = _pair(a, dtype)
+    got = tops.fake_quant(xt, bits)
+    want = jops.fake_quant(xj, bits)
+    assert got.shape == shape and got.dtype == DTYPES[dtype][1]
+    np.testing.assert_array_equal(_bits_t(got), _bits_j(want))
+
+
+def test_fake_quant_takes_the_jitted_scale_at_the_rounding_boundary_example():
+    """n=3131, bits=16, seed=36909: the example on which the reference's own
+    ``test_fake_quant_kernel_matches_ref`` fails. Its eager scale (a true
+    division) and the jitted one (a multiply by the reciprocal of qmax) are
+    one ulp apart; the port takes the jitted one and matches bit for bit."""
+    rng = np.random.RandomState(36909)
+    a = rng.randn(3131).astype(np.float32) * rng.uniform(0.1, 10)
+    xj, xt = _pair(a, "float32")
+    eager = jnp.maximum(jnp.max(jnp.abs(xj)), 1e-12) / qrange(16)
+    scale = tops.fake_quant_scale(xt, 16)
+    assert float(eager).hex() == "0x1.a683300000000p-11"
+    assert float(scale).hex() == "0x1.a6832e0000000p-11"
+    np.testing.assert_array_equal(_bits_t(tops.fake_quant(xt, 16)),
+                                  _bits_j(jops.fake_quant(xj, 16)))
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,shape", [(4, (256, 128)), (8, (512, 256)), (16, (256, 384))])
+def test_fake_quant_2d_bit_equal_to_interpret_kernel(bits, shape, dtype, stochastic):
+    """The 2-D level with one scale and one numpy noise array for both."""
+    rng = np.random.RandomState(bits)
+    a = (rng.randn(*shape) * 3.0).astype(np.float32)
+    noise = rng.uniform(0, 1, shape).astype(np.float32) if stochastic else None
+    xj, xt = _pair(a, dtype)
+    s = np.float32(np.abs(a).max() / 7.3)
+    want = jquantize.fake_quant_2d(xj, jnp.float32(s), bits,
+                                   None if noise is None else jnp.asarray(noise), interpret=True)
+    got = fake_quant_2d(xt, torch.tensor(s), bits,
+                        None if noise is None else torch.from_numpy(noise))
+    np.testing.assert_array_equal(_bits_t(got), _bits_j(want))
+
+
+def test_fake_quant_stochastic_is_unbiased():
+    """As the reference's test_fake_quant_kernel_stochastic_unbiased: the
+    mean of 48 draws (seeded generators) is within 5 sigma of x."""
+    xt = torch.from_numpy(np.random.RandomState(1).randn(512).astype(np.float32))
+    outs = torch.stack([
+        tops.fake_quant(xt, 4, stochastic=True, generator=torch.Generator().manual_seed(i))
+        for i in range(48)
+    ])
+    scale = float(xt.abs().max()) / qrange(4)
+    err = (outs.mean(0) - xt).abs().max().item()
+    assert err < 5 * scale / (2 * np.sqrt(48)) + 1e-6
+    # and the draws do differ: not round-to-nearest
+    assert not torch.equal(outs[0], outs[1])
+
+
+# ------------------------------------------------------------- ota aggregate
+
+
+@pytest.mark.parametrize("K", [1, 7, 20])
+@pytest.mark.parametrize("M", [2049, 4133])
+def test_ota_aggregate_within_summation_bound_of_reference(K, M):
+    rng = np.random.RandomState(K * M)
+    x = rng.randn(K, M).astype(np.float32)
+    w = rng.uniform(0, 1, K).astype(np.float32)
+    noise = rng.randn(M).astype(np.float32)
+    std = np.float32(0.1)
+    want = np.asarray(jops.ota_aggregate(jnp.asarray(x), jnp.asarray(w), jnp.asarray(noise),
+                                         jnp.float32(std)))
+    got = tops.ota_aggregate(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(noise),
+                             float(std)).numpy()
+    mag = np.abs(w) @ np.abs(x) + np.abs(std * noise)
+    assert got.shape == (M,) and got.dtype == np.float32
+    assert (np.abs(got - want) <= 2 * K * 2.0**-24 * mag).all()
+
+
+# --------------------------------------------------------- weights and int4
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 48), (300, 257)])
+def test_quantize_weights_bit_equal_to_reference(shape, dtype, bits):
+    a = (np.random.RandomState(shape[0] + bits).randn(*shape) * 0.02).astype(np.float32)
+    a[:, 3] = 0.0  # an all-zero channel takes the 1e-12 floor
+    wj, wt = _pair(a, dtype)
+    qj, sj = jops.quantize_weights(wj, bits)
+    qt, st = tops.quantize_weights(wt, bits)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy().view(np.uint32), np.asarray(sj).view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (64, 48), (130, 7)])
+def test_pack_unpack_int4_bit_equal_to_reference(shape):
+    q = np.random.RandomState(shape[1]).randint(-8, 8, size=shape).astype(np.int8)
+    pj = np.asarray(jops.pack_int4(jnp.asarray(q)))
+    pt = tops.pack_int4(torch.from_numpy(q))
+    assert pt.dtype == torch.uint8 and pt.shape == (shape[0] // 2, shape[1])
+    np.testing.assert_array_equal(pt.numpy(), pj)
+    np.testing.assert_array_equal(tops.unpack_int4(pt).numpy(),
+                                  np.asarray(jops.unpack_int4(jnp.asarray(pj))))
+    np.testing.assert_array_equal(tops.unpack_int4(pt).numpy(), q)
+
+
+def test_quantize_weights_int4_bit_equal_to_reference():
+    a = (np.random.RandomState(5).randn(128, 64) * 0.02).astype(np.float32)
+    pj, sj = jops.quantize_weights_int4(jnp.asarray(a))
+    pt, st = tops.quantize_weights_int4(torch.from_numpy(a))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+# ------------------------------------------------------------------ qmatmul
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (37, 300, 129), (130, 129, 200)])
+def test_qmatmul_within_tolerance_of_reference(m, k, n, dtype):
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    qj, sj = jops.quantize_weights(jnp.asarray(w), 8)
+    want = np.asarray(jops.qmatmul(xj, qj, sj))
+    qt, st = _t(np.asarray(qj)), _t(np.asarray(sj))
+    got = tops.qmatmul(xt, qt, st)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    mm = mismatch(got, _t(want), xt, qt, st)
+    assert mm["within"], mm
+
+
+def test_qmatmul_int4_within_tolerance_of_reference():
+    rng = np.random.RandomState(0)
+    x = rng.randn(32, 128).astype(np.float32)
+    w = rng.randn(128, 64).astype(np.float32)
+    pj, sj = jops.quantize_weights_int4(jnp.asarray(w))
+    want = np.asarray(jops.qmatmul_int4(jnp.asarray(x), pj, sj))
+    pt, st = _t(np.asarray(pj)), _t(np.asarray(sj))
+    got = tops.qmatmul_int4(torch.from_numpy(x), pt, st)
+    mm = mismatch(got, _t(want), torch.from_numpy(x), tops.unpack_int4(pt), st)
+    assert mm["within"], mm
+
+
+def test_qmatmul_mismatch_rule_bounds_each_element():
+    """The rule passes the plain version against itself and flags one
+    element moved by a little more than its bound."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(8, 512).astype(np.float32))
+    q, s = tops.quantize_weights(torch.from_numpy(rng.randn(512, 16).astype(np.float32)))
+    plain = tops.qmatmul(x, q, s)
+    assert mismatch(plain, plain, x, q, s) == {
+        "max_abs_err": 0.0, "max_ratio": 0.0, "over_element_bound": 0, "within": True}
+    mag = x.abs() @ (q.float().abs() * s)
+    bad = plain.clone()
+    bad[2, 5] += 1.5 * TOL_C * math.sqrt(512) * 2.0**-24 * mag[2, 5]
+    mm = mismatch(bad, plain, x, q, s)
+    assert mm["over_element_bound"] == 1 and not mm["within"]
+
+
+@pytest.mark.parametrize("M,N,K,bf16", [(4, 12288, 4096, True), (4, 4096, 12288, True),
+                                        (8192, 12288, 4096, True), (1000, 12288, 4096, False),
+                                        (3, 10, 33, False)])
+def test_split_k_cuts_k_into_nonempty_ranges(M, N, K, bf16):
+    splits, k_chunk = split_k(M, N, K, bf16, 132)
+    assert k_chunk % 32 == 0 and 1 <= splits <= 32
+    assert (splits - 1) * k_chunk < K <= splits * k_chunk
+
+
+# ------------------------------------------------------------------ package
+
+
+def test_kernels_package_exports_the_reference_names():
+    names = {"fake_quant", "flash_mha", "ota_aggregate", "ota_quantize_superpose", "qmatmul",
+             "quantize_weights"}
+    for n in names:
+        assert callable(getattr(jkernels, n)) and callable(getattr(tkernels, n))
+    assert tkernels.qmatmul is tops.qmatmul and tkernels.fake_quant is tops.fake_quant
+
+
+_META = torch.empty((4, 8), device="meta")
+_META_CALLS = {
+    "fake_quant_2d": lambda m: fake_quant_2d(m, torch.ones(()), 8),
+    "ota_aggregate_2d": lambda m: tops.ota_aggregate(m, torch.ones(4), torch.ones(8), 0.1),
+    "qmatmul": lambda m: tops.qmatmul(m, torch.ones((8, 2), dtype=torch.int8), torch.ones(2)),
+    "flash_mha": lambda m: tops.flash_mha(*(m.reshape(1, 4, 1, 8),) * 3),
+    "ota_superpose": lambda m: ota_fused.ota_superpose(m, torch.ones(4), torch.ones(4)),
+    "topk_cosine": lambda m: topk_similarity.topk_cosine(m, m, None, 4, k=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_META_CALLS))
+def test_wrappers_raise_on_a_device_with_neither_version(name):
+    """Every kernel wrapper dispatches through ``_build.on_card``: CUDA
+    launches, CPU runs the plain version, any other device raises."""
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        _build.on_card(_META)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        _META_CALLS[name](_META)
+
+
+def test_fake_quant_plain_keeps_nan_and_clips():
+    x = torch.tensor([float("nan"), 1e9, -1e9, 0.26, 0.25], dtype=torch.float32)
+    out = fake_quant_plain(x, torch.tensor(0.5), 4)
+    assert math.isnan(out[0]) and out[1:].tolist() == [3.5, -3.5, 0.5, 0.0]
