@@ -55,9 +55,20 @@ Phases, each of which fails the run on error:
              20 DeepSpeech2 rows (FedAvg weights, seeded noise, std 0.1);
              ``qmatmul`` on the int8 (``quantize_weights``) w_gate and w_down
              with bf16 x at M = 4 and 8,192 and f32 x at M = 4 and 1,000, and
-             ``qmatmul_int4`` at w_gate, M = 4. Fake-quant and the aggregate
-             must equal their plain versions exactly, the matrix product
-             within ``kernels/qmatmul.mismatch``'s per-element rule. Each
+             ``qmatmul_int4`` at w_gate, M = 4; ``pack_int4_rows`` /
+             ``unpack_int4_rows``, ``ota_dequant_superpose`` and
+             ``ota_fold_packed`` on K = 20 int4 DeepSpeech2 rows (blockwise
+             scales, gains); ``topk_cosine`` (int8 slab, k = 128);
+             ``flash_mha(q, k, v, causal=...)`` at OPS_FLASH_CASES (the
+             zamba2, kimi-k2, whisper widths, non-causal, Sq > Sk, D = 32
+             and a zero-padded D = 40); ``ota_quantize_superpose`` at K =
+             4,001 and 8,000 rows of 262,144 (one launch per 4,000 rows);
+             ``RetrievalEngine.topk`` at k = 300 (past the kernel's limit)
+             on an engine whose slab is on the card. Fake-quant, the
+             aggregate, the packed superpose/fold, the top-k and the
+             quantize-superpose must equal their plain versions exactly, the
+             matrix product within ``kernels/qmatmul.mismatch``'s rule, the
+             attention within ``kernels/flash_attention.mismatch``'s. Each
              kernel is timed beside its plain version, its bound and a library
              call (``library_ms``, timed only).
 7. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
@@ -71,13 +82,18 @@ Phases, each of which fails the run on error:
 
 The ``kernels`` phase also holds the quantize-superpose kernel against its
 plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
-ragged M, and the flash kernel against its plain version at the serve
-phase's shapes (B 4, S 2,048, H 32, KV 8, D 128, bf16), a ragged S = 2,000,
-StableLM-1.6B's widths (MHA, D 64) and two f32 cases, element by element
-and by the share of elements that differ (``flash_attention.mismatch``;
-``scripts/flash_tolerance_probe.py`` takes the readings behind its limits).
-It times the kernel at the serve shapes beside its plain version, its bound
-and ``scaled_dot_product_attention`` (``library_ms``, timed only).
+ragged M, and the flash kernel against its plain version at every
+FLASH_CASES shape: the serve phase's (B 4, S 2,048, H 32, KV 8, D 128,
+bf16), a ragged S = 2,000, StableLM-1.6B's widths (MHA, D 64), two f32
+cases, and the other configs' widths and masks (zamba2-2.7b D 80,
+kimi-k2-1t-a32b 64/8 heads of 112, Qwen3-8B non-causal, whisper-tiny's
+encoder keys cut to a tile-aligned 1,536, causal Sq > Sk, f32 D 32, a
+zero-padded D 40), element by element and by the share of elements that
+differ (``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py``
+takes the readings behind its limits). It times the kernel at each case
+beside its bound and ``scaled_dot_product_attention`` (``library_ms``,
+timed only; causal top-left, GQA), and the plain version at the serve
+shapes.
 
 Then one JSON line ``{"kernels": [...]}`` (launches summed over the paths
 that run each kernel, each path with the counters zeroed just before it),
@@ -378,30 +394,65 @@ def check_qs(M: int, dev):
     return {"ota_quantize_superpose": worst_acc}
 
 
-def flash_work(B: int, S: int, H: int, KV: int, D: int, elem: int):
-    """(bytes, flops) of one causal attention call: q and o read/written
-    once at H heads, k and v read once at their KV heads; S (S + 1) / 2
-    (query, key) pairs per head at 4 D flops each (QK^T and PV)."""
-    nbytes = elem * (2.0 * B * S * H * D + 2.0 * B * S * KV * D)
-    flops = 4.0 * D * (S * (S + 1) / 2.0) * B * H
-    return nbytes, flops
+def flash_work(B: int, Sq: int, Sk: int, H: int, KV: int, D: int, causal: bool, elem: int):
+    """(bytes, flops) of one attention call: q and o read/written once at H
+    heads, k and v read once at their KV heads; 4 D flops (QK^T and PV) per
+    (query, key) pair the mask keeps: Sq Sk pairs a head without the mask,
+    sum_i min(i + 1, Sk) with the top-left causal mask."""
+    nbytes = elem * (2.0 * B * Sq * H * D + 2.0 * B * Sk * KV * D)
+    if causal:
+        n = min(Sq, Sk)
+        pairs = n * (n + 1) / 2.0 + max(Sq - Sk, 0) * float(Sk)
+    else:
+        pairs = float(Sq) * Sk
+    return nbytes, 4.0 * D * pairs * B * H
 
 
-# (label, B, S, H, KV, D, dtype): the serve phase's shapes (Qwen3-8B), a
-# ragged length, StableLM-1.6B's MHA widths, and small f32 cases
+# (label, B, Sq, Sk, H, KV, D, causal, dtype): the serve phase's shapes
+# (Qwen3-8B), a ragged length, StableLM-1.6B's MHA widths and small f32
+# cases; then the widths and masks of the repository's other configs,
+# through ``ops.flash_mha`` in the ops phase too (OPS_FLASH_CASES)
 FLASH_CASES = (
-    ("qwen3-8b", 4, 2048, 32, 8, 128, "bfloat16"),
-    ("qwen3-8b ragged", 4, 2000, 32, 8, 128, "bfloat16"),
-    ("stablelm-1.6b", 2, 1024, 32, 32, 64, "bfloat16"),
-    ("f32 gqa", 2, 300, 4, 2, 64, "float32"),
-    ("f32 d128", 1, 200, 4, 1, 128, "float32"),
+    ("qwen3-8b", 4, 2048, 2048, 32, 8, 128, True, "bfloat16"),
+    ("qwen3-8b ragged", 4, 2000, 2000, 32, 8, 128, True, "bfloat16"),
+    ("stablelm-1.6b", 2, 1024, 1024, 32, 32, 64, True, "bfloat16"),
+    ("f32 gqa", 2, 300, 300, 4, 2, 64, True, "float32"),
+    ("f32 d128", 1, 200, 200, 4, 1, 128, True, "float32"),
+    ("zamba2-2.7b", 2, 2048, 2048, 32, 32, 80, True, "bfloat16"),
+    ("kimi-k2-1t-a32b", 1, 4096, 4096, 64, 8, 112, True, "bfloat16"),
+    ("qwen3-8b non-causal", 4, 2048, 2048, 32, 8, 128, False, "bfloat16"),
+    # whisper-tiny's 1,500 encoder frames, cut to the tile-aligned 1,536
+    # keys the reference's non-causal precondition needs
+    ("whisper-tiny Sk=1536 (1500 frames tile-aligned)", 4, 512, 1536, 6, 6, 64, False,
+     "bfloat16"),
+    ("Sq > Sk", 2, 4096, 2048, 32, 8, 128, True, "bfloat16"),
+    ("f32 d32", 1, 256, 256, 4, 2, 32, True, "float32"),
+    ("d40 zero-padded to 64", 1, 256, 384, 4, 2, 40, False, "bfloat16"),
 )
+OPS_FLASH_CASES = FLASH_CASES[5:]
+
+
+def _flash_inputs(case, gen, dev):
+    import torch
+
+    label, B, Sq, Sk, H, KV, D, causal, dt = case
+    dtype = getattr(torch, dt)
+    return (torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype),
+            torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(dtype),
+            torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(dtype))
+
+
+def _flash_tol(dtype) -> str:
+    from repro_torch.kernels import flash_attention as kfa
+
+    return (f"(tolerance per element {kfa.TOL_ULPS:g} ulps of |plain| + "
+            f"{kfa.TOL_ATOL[dtype]!r}, share differing <= {kfa.TOL_SHARE[dtype]!r})")
 
 
 def check_flash(dev, timing: bool):
     """The flash kernel against its plain version at every FLASH_CASES
-    shape; at the serve shape (first case) it is timed beside its plain
-    version, its bound and SDPA (``library_ms``, timing only)."""
+    shape, each timed beside its bound and SDPA (``library_ms``, timing
+    only); the plain version is timed at the serve shape (first case)."""
     import torch
     import torch.nn.functional as F
 
@@ -410,14 +461,13 @@ def check_flash(dev, timing: bool):
     gen = torch.Generator(device=dev)
     gen.manual_seed(777)
     worst, rec = 0.0, None
-    for label, B, S, H, KV, D, dt in FLASH_CASES:
+    for case in FLASH_CASES:
+        label, B, Sq, Sk, H, KV, D, causal, dt = case
         dtype = getattr(torch, dt)
-        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+        q, k, v = _flash_inputs(case, gen, dev)
         before = kfa.flash_mha.launches
-        out = kfa.flash_mha(q, k, v)
-        plain = kfa.flash_attention_plain(q, k, v)
+        out = kfa.flash_mha(q, k, v, causal=causal)
+        plain = kfa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         if kfa.flash_mha.launches != before + 1:
             _fail(f"flash_mha counted {kfa.flash_mha.launches - before} launches for one call")
@@ -425,42 +475,48 @@ def check_flash(dev, timing: bool):
             _fail(f"flash output {tuple(out.shape)} {out.dtype} not finite or misshapen ({label})")
         mm = kfa.mismatch(out, plain)
         worst = max(worst, mm["max_abs_err"])
-        print(f"flash {label}: B={B} S={S} H={H} KV={KV} D={D} {dt}: {json.dumps(mm)} "
-              f"(tolerance per element {kfa.TOL_ULPS:g} ulps of |plain| + "
-              f"{kfa.TOL_ATOL[dtype]!r}, share differing <= {kfa.TOL_SHARE[dtype]!r})")
+        print(f"flash {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} causal={causal} {dt}: "
+              f"{json.dumps(mm)} {_flash_tol(dtype)}")
         if not mm["within"]:
             _fail(f"flash kernel != plain beyond tolerance ({label}): {mm}")
         if timing:
-            nbytes, flops = flash_work(B, S, H, KV, D, q.element_size())
+            nbytes, flops = flash_work(B, Sq, Sk, H, KV, D, causal, q.element_size())
             peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=True)
+
             r = {
-                "case": label, "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v)),
+                "case": label, "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v, causal=causal)),
                 "bound_ms": bound_ms(nbytes, flops, peak),
                 "bound_by": bound_by(nbytes, flops, peak),
                 "bound_bytes": nbytes, "bound_flops": flops,
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
             }
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            r["library_max_abs_diff"] = float(
-                (lib.transpose(1, 2).float() - plain.float()).abs().max())
+            r["library_ms"], why = _time_library(sdpa)
+            if why is None:
+                r["library_max_abs_diff"] = float(
+                    (sdpa().transpose(1, 2).float() - plain.float()).abs().max())
+            else:
+                r["library_note"] = why
             if rec is None:  # the plain version at one layer's shapes only
                 r["plain_ms"] = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), reps=5)
                 rec = r
             print("  flash timing " + json.dumps(r))
         del q, k, v, out, plain
-    for bad in (
-        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 128), device=dev).transpose(1, 2),) * 3),
-        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 128), device=dev,
-                                            dtype=torch.float16),) * 3),
-        lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 96), device=dev),) * 3),
+    z = torch.zeros((1, 64, 2, 128), device=dev)
+    for what, bad in (
+        ("a non-contiguous input", lambda: kfa.flash_mha(*(z.transpose(1, 2),) * 3)),
+        ("a float16 input", lambda: kfa.flash_mha(*(z.half(),) * 3)),
+        ("D = 192", lambda: kfa.flash_mha(*(torch.zeros((1, 64, 2, 192), device=dev),) * 3)),
+        ("non-causal Sk = 64", lambda: kfa.flash_mha(z, z, z, causal=False)),
     ):
         try:
             bad()
         except (ValueError, TypeError):
             continue
-        _fail("flash_mha accepted a non-contiguous, float16 or D=96 input")
+        _fail(f"flash_mha accepted {what}")
     return {"flash_attention": worst}, rec
 
 
@@ -838,6 +894,167 @@ def _time_library(fn):
     return cuda_ms(fn), None
 
 
+# the cohort sizes of the chunked quantize-superpose (one launch takes at
+# most 4,000 rows) at M = 262,144 columns: 8.4 GB of f32 rows at 8,000 (a
+# full-width DeepSpeech2 row at K = 8,000 would be 132 GB, beyond the card)
+QS_BIG_K, QS_BIG_M = (4001, 8000), 262_144
+OPS_TOPK_K, ENGINE_BIG_K = 128, 300
+
+
+def _remaining_ops_inputs(dev, n_ds2: int) -> dict:
+    """Inputs of the reference's remaining ``ops`` names at DeepSpeech2
+    width (K = 20 int4 rows of M = 4,133,952 symbols, blockwise scales,
+    gains), the cosine top-k slab, the flash cases, the chunked
+    quantize-superpose rows and a retrieval engine whose slab is on the
+    card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ota
+    from repro_torch.retrieval import ArenaStore, RetrievalEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    K = OPS_K
+    sym = torch.randint(-8, 8, (K, n_ds2), generator=gen, device=dev).to(torch.int8)
+    nb = -(-n_ds2 // 256)
+    inp = {
+        "sym": sym,
+        "scale": torch.rand((K, nb), generator=gen, device=dev) * 1e-3 + 1e-6,
+        "w": torch.rand((K,), generator=gen, device=dev) / K,
+        "gains": torch.rand((K,), generator=gen, device=dev),
+        "acc": torch.randn((n_ds2,), generator=gen, device=dev),
+        "flash": [(case, _flash_inputs(case, gen, dev)) for case in OPS_FLASH_CASES],
+    }
+    inp["topk"] = _topk_slab("int8", 4096, 3996, 256, gen, dev)
+    bits = [(2, 4, 8, 16, 24, 31, 32)[i % 7] for i in range(max(QS_BIG_K))]
+    X = torch.randn((max(QS_BIG_K), QS_BIG_M), generator=gen, device=dev) * 0.01
+    scale, qmax = ota._client_grid(bits, X.abs().amax(dim=1))
+    inp["qs"] = (X, scale, qmax, torch.rand((X.shape[0],), generator=gen, device=dev) / 4000,
+                 0x5EED16)
+    rng = np.random.RandomState(16)
+    vec = rng.randn(2000, 64).astype(np.float32)
+    store = ArenaStore(64, storage="f32", capacity=2048)
+    store.add_batch(vec / np.linalg.norm(vec, axis=1, keepdims=True))
+    inp["engine"] = RetrievalEngine(store, device=dev)
+    inp["engine_q"] = np.ascontiguousarray(vec[:12] / np.linalg.norm(vec[:12], axis=1,
+                                                                     keepdims=True))
+    return inp
+
+
+def _remaining_ops_calls(inp: dict) -> dict:
+    """One call of each remaining ``ops`` name (the counted part)."""
+    from repro_torch.kernels import ops
+
+    packed = ops.pack_int4_rows(inp["sym"])
+    kw = dict(gains=inp["gains"], qblock=256, packed4=True)
+    out = {
+        "packed": packed,
+        "unpacked": ops.unpack_int4_rows(packed, inp["sym"].shape[1]),
+        "superpose": ops.ota_dequant_superpose(packed, inp["scale"], inp["w"], **kw),
+        "fold": ops.ota_fold_packed(inp["acc"], packed, inp["scale"], inp["w"], **kw),
+        "topk": ops.topk_cosine(*inp["topk"], 3996, k=OPS_TOPK_K),
+        "flash": [ops.flash_mha(q, k, v, causal=case[7]) for case, (q, k, v) in inp["flash"]],
+    }
+    X, scale, qmax, w, seed = inp["qs"]
+    out["qs"] = [ops.ota_quantize_superpose(X[:K], scale[:K], qmax[:K], w[:K], seed)
+                 for K in QS_BIG_K]
+    eng, q = inp["engine"], inp["engine_q"]
+    out["engine_small"] = eng.topk(q, 32)  # the slab goes to the card
+    out["engine_big"] = eng.topk(q, ENGINE_BIG_K)
+    return out
+
+
+def _remaining_ops_launches(inp: dict) -> dict:
+    return {"ota_superpose": 1, "ota_fold": 1, "topk_cosine": 2,
+            "flash_attention": len(inp["flash"]),
+            "ota_quantize_superpose": sum(-(-K // 4000) for K in QS_BIG_K)}
+
+
+def _remaining_ops_checks(inp: dict, out: dict, dev):
+    """Each result against its plain version (and the engine's large-k
+    answer against the same engine on the CPU); times of the chunked
+    quantize-superpose and the flash entry point. Returns (errs, timings)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+    from repro_torch.retrieval import RetrievalEngine
+
+    errs = {}
+    sym, packed = inp["sym"], out["packed"]
+    if packed.shape != (sym.shape[0], sym.shape[1] // 2) or not torch.equal(out["unpacked"],
+                                                                              sym):
+        _fail("pack_int4_rows / unpack_int4_rows do not round-trip the DeepSpeech2 symbols")
+    kw = dict(gains=inp["gains"], qblock=256, packed4=True)
+    sup_p = kota.superpose_plain(packed, inp["scale"], inp["w"], **kw)
+    fold_p = kota.superpose_plain(packed, inp["scale"], inp["w"], acc=inp["acc"], **kw)
+    errs["ota_superpose"] = (out["superpose"] - sup_p).abs().max().item()
+    errs["ota_fold"] = (out["fold"] - fold_p).abs().max().item()
+    print(f"  ota_dequant_superpose / ota_fold_packed: K={sym.shape[0]} int4 rows of "
+          f"{sym.shape[1]} symbols (pack_int4_rows, {packed.numel()} B), qblock 256, gains: "
+          f"max_abs_err {errs['ota_superpose']} / {errs['ota_fold']} (tolerance: exact)")
+    if not (torch.equal(out["superpose"], sup_p) and torch.equal(out["fold"], fold_p)):
+        _fail("ops.ota_dequant_superpose / ota_fold_packed != plain")
+    qm, recs, scales = inp["topk"]
+    s, i = out["topk"]
+    sp, ip = ktk.topk_plain(qm, recs, scales, 3996, OPS_TOPK_K)
+    errs["topk_cosine"] = (s - sp).abs().max().item()
+    print(f"  topk_cosine: int8 slab 4096 x 256, n 3996, k {OPS_TOPK_K}: indices equal "
+          f"{torch.equal(i, ip)}, max_abs_err {errs['topk_cosine']} (tolerance: exact)")
+    if not (torch.equal(i, ip) and torch.equal(s, sp)):
+        _fail("ops.topk_cosine != plain")
+    worst, timings = 0.0, {}
+    for (case, (q, k, v)), o in zip(inp["flash"], out["flash"]):
+        mm = kfa.mismatch(o, kfa.flash_attention_plain(q, k, v, causal=case[7]))
+        worst = max(worst, mm["max_abs_err"])
+        print(f"  ops.flash_mha {case[0]}: causal={case[7]} {json.dumps(mm)} "
+              f"{_flash_tol(q.dtype)}")
+        if o.shape != q.shape or not mm["within"]:
+            _fail(f"ops.flash_mha != plain beyond tolerance ({case[0]}): {mm}")
+    errs["flash_attention"] = worst
+    X, scale, qmax, w, seed = inp["qs"]
+    worst = 0.0
+    for K, (acc, ss) in zip(QS_BIG_K, out["qs"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        acc_p, ss_p = kota.quantize_superpose_plain(X[:K], scale[:K], qmax[:K], w[:K], seed)
+        end.record()
+        end.synchronize()
+        e = (acc - acc_p).abs().max().item()
+        rel = abs(ss.item() - ss_p.item()) / abs(ss_p.item())
+        worst = max(worst, e)
+        print(f"  ota_quantize_superpose K={K} M={QS_BIG_M} ({4 * K * QS_BIG_M} B of rows, "
+              f"{-(-K // 4000)} launches): acc max_abs_err {e} (tolerance: exact), sumsq rel "
+              f"err {rel:.3e} (tolerance 1e-5)")
+        if not torch.equal(acc, acc_p) or not torch.isfinite(acc).all() or rel > 1e-5:
+            _fail(f"chunked quantize-superpose != plain at K={K}")
+        nbytes = tensor_bytes(X[:K], scale[:K], qmax[:K], w[:K]) + 4.0 * QS_BIG_M
+        ops_n = float(QS_OPS_PER_ELEMENT) * K * QS_BIG_M
+        xt, ones, zeros = X[:K].t(), torch.ones_like(scale[:K]), torch.zeros_like(qmax[:K])
+        timings[f"ota_quantize_superpose K={K}"] = dict(
+            ms=cuda_ms(lambda: kota.ota_quantize_superpose(X[:K], scale[:K], qmax[:K], w[:K],
+                                                           seed), reps=10),
+            plain_ms=start.elapsed_time(end),
+            bound_ms=bound_ms(nbytes, ops_n), bound_by=bound_by(nbytes, ops_n),
+            all32_ms=cuda_ms(lambda: kota.ota_quantize_superpose(X[:K], ones, zeros, w[:K],
+                                                                 seed), reps=10),
+            library_ms=cuda_ms(lambda: torch.mv(xt, w[:K]), reps=10),
+            library="torch.mv(x.t(), w): the all-32-bit case")
+    errs["ota_quantize_superpose"] = worst
+    s_big, i_big = out["engine_big"]
+    q = inp["engine_q"]
+    s_cpu, i_cpu = RetrievalEngine(inp["engine"].store, device="cpu").topk(q, ENGINE_BIG_K)
+    print(f"  RetrievalEngine.topk k={ENGINE_BIG_K} (slab on the card, 2000 x 64 f32): "
+          f"{s_big.shape}, equal to the CPU engine: "
+          f"{bool((i_big == i_cpu).all() and (s_big == s_cpu).all())}")
+    if s_big.shape != (q.shape[0], ENGINE_BIG_K) or not ((i_big == i_cpu).all()
+                                                           and (s_big == s_cpu).all()):
+        _fail(f"RetrievalEngine.topk at k={ENGINE_BIG_K} misshapen or != the CPU engine")
+    return errs, timings
+
+
 def phase_ops(dev):
     """The kernel entry points (``repro_torch.kernels.ops``) at the widths of
     the repository's models: fake-quant over every leaf of a DeepSpeech2
@@ -850,7 +1067,10 @@ def phase_ops(dev):
 
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
     from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
     from repro_torch.kernels.qmatmul import TOL_C, mismatch, qmatmul_plain
     from repro_torch.kernels.qmatmul import qmatmul as qmm
@@ -881,7 +1101,11 @@ def phase_ops(dev):
     if n_ds2 != 4_133_952:
         _fail(f"the DeepSpeech2 update has {n_ds2} params, want 4,133,952")
 
-    wrappers = (fake_quant_2d, ota_aggregate_2d, qmm)
+    rest = _remaining_ops_inputs(dev, n_ds2)
+    names = ("fake_quant", "ota_aggregate", "qmatmul", "ota_superpose", "ota_fold",
+             "topk_cosine", "flash_attention", "ota_quantize_superpose")
+    wrappers = (fake_quant_2d, ota_aggregate_2d, qmm, kota.ota_superpose, kota.ota_fold,
+                ktk.topk_cosine, kfa.flash_mha, kota.ota_quantize_superpose)
     for fn in wrappers:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -899,12 +1123,13 @@ def phase_ops(dev):
     p4, s4 = ops.quantize_weights_int4(weights["w_gate"])
     x4 = xs[("w_gate", "bfloat16", 4)]
     out4 = ops.qmatmul_int4(x4, p4, s4)
+    rest_out = _remaining_ops_calls(rest)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {"fake_quant": fake_quant_2d.launches, "ota_aggregate": ota_aggregate_2d.launches,
-              "qmatmul": qmm.launches}
+    counts = {n: fn.launches for n, fn in zip(names, wrappers)}
     print(f"  entry points: {secs:.3f} s, launches {counts}")
-    want = {"fake_quant": 6 * len(update) + 1, "ota_aggregate": 1, "qmatmul": len(xs) + 1}
+    want = {"fake_quant": 6 * len(update) + 1, "ota_aggregate": 1, "qmatmul": len(xs) + 1,
+            **_remaining_ops_launches(rest)}
     if counts != want:
         _fail(f"ops launches {counts} != the calls made {want}")
 
@@ -960,6 +1185,8 @@ def phase_ops(dev):
         except (ValueError, TypeError):
             continue
         _fail("an ops kernel wrapper accepted a float16, non-contiguous or float64 input")
+    rest_errs, rest_timings = _remaining_ops_checks(rest, rest_out, dev)
+    del rest, rest_out
 
     # timing on the inputs above
     timings = {}
@@ -1033,9 +1260,11 @@ def phase_ops(dev):
         kernel_only_ms=cuda_ms(lambda: qmm(x4, w_unpacked, s4)))
     for name, rec in timings.items():
         print(f"  ops timing {name}: " + json.dumps(rec))
-    errs = {"fake_quant": err_fq, "ota_aggregate": err_ota, "qmatmul": err_qmm}
+    errs = {"fake_quant": err_fq, "ota_aggregate": err_ota, "qmatmul": err_qmm, **rest_errs}
     rows = {"fake_quant": timings["fake_quant"], "ota_aggregate": timings["ota_aggregate"],
             "qmatmul": timings["qmatmul w_gate bfloat16 M=4"]}
+    for name, rec in rest_timings.items():
+        print(f"  ops timing {name}: " + json.dumps(rec))
     del fq, qmm_out, xs, X, update, weights, quant
     torch.cuda.empty_cache()
     return counts, errs, rows
@@ -1260,13 +1489,16 @@ def main() -> None:
                 "ota_aggregate": "src/repro/kernels/ota_aggregate.py:32"}
     timings["ota_quantize_superpose"] = qs_rec
     timings["flash_attention"] = flash_rec
+    timings.update(ops_rows)
+    # each path's count, read just after the path ran, summed over the paths
     launches = {n: counts[n] + stream_counts[n] for n in counts}
     launches["ota_quantize_superpose"] = qs_launches
     launches["flash_attention"] = serve_rec["launches"]
+    for n, c in ops_counts.items():
+        launches[n] = launches.get(n, 0) + c
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)
-    timings.update(ops_rows)
-    launches.update(ops_counts)
-    errs.update(ops_errs)
+    for n, e in ops_errs.items():
+        errs[n] = max(errs.get(n, 0.0), e)
     kernels = []
     for name in sources:
         t = timings[name]

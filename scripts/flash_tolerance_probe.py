@@ -6,14 +6,17 @@
 Needs one CUDA card. Two parts:
 
 1. Kernel against plain version (``kernels/flash_attention.mismatch``) at
-   every ``chip_smoke.FLASH_CASES`` shape, from the same seed as the
-   ``kernels`` phase: per element the difference in ulps of the plain
-   output's own magnitude (a histogram), the largest excess over 2 ulps, and
-   the share of elements that differ. Beside the sound kernel, the same
-   readings for planted faults: versions of the plain computation with one
-   fault each (a key tile dropped, one tile's accumulator not rescaled, the
-   causal mask one key ahead, p left in f32 before PV, the scale rounded to
-   bf16), held against the true plain version.
+   every ``chip_smoke.FLASH_CASES`` shape (causal and not, Sq == Sk and
+   Sq != Sk, D in {32, 40 (zero-padded), 64, 80, 112, 128}), from the same
+   seed as the ``kernels`` phase: per element the difference in ulps of the
+   plain output's own magnitude (a histogram), the largest excess over 2
+   ulps, and the share of elements that differ. Beside the sound kernel,
+   the same readings for planted faults: versions of the plain computation
+   with one fault each (a key tile dropped, one tile's accumulator not
+   rescaled, p left in f32 before PV, the scale rounded to bf16; with the
+   causal mask also the mask one key ahead and, where Sq != Sk, the mask
+   aligned bottom-right instead of top-left), held against the true plain
+   version.
 2. The serve phase's end-to-end check at full Qwen3-8B width: max
    |log_softmax(prefill) - log_softmax(chunked prefill)| over the last
    position's logits, and the top-1 agreement, for the kernel, the plain
@@ -32,41 +35,44 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FAULTS = ("drop_tile", "no_rescale", "mask_one_ahead", "p_f32", "scale_bf16")
+FAULTS = ("drop_tile", "no_rescale", "mask_one_ahead", "p_f32", "scale_bf16", "bottom_right")
 ULP_BINS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 64.0, float("inf"))
 
 
-def plain_with_fault(q, k, v, fault):
+def plain_with_fault(q, k, v, fault, causal=True):
     """``flash_attention_plain`` with one planted fault (None: none). The
     faulty tile (dropped or not rescaled) is the middle one of the row."""
     import torch
 
     from repro_torch.kernels.flash_attention import BK, NEG_INF
 
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = D**-0.5
     if fault == "scale_bf16":
         scale = float(torch.tensor(scale, dtype=torch.bfloat16))
-    bad_tile = (-(-S // BK)) // 2
-    qf = q.permute(0, 2, 1, 3).reshape(B, KV, G, S, D).to(torch.float32)
+    bad_tile = (-(-Sk // BK)) // 2
+    qf = q.permute(0, 2, 1, 3).reshape(B, KV, G, Sq, D).to(torch.float32)
     kf = k.permute(0, 2, 1, 3).to(torch.float32)
     vt = v.permute(0, 2, 1, 3)
-    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, S, D), dtype=torch.float32, device=q.device)
-    pos = torch.arange(S, device=q.device)
-    ahead = 1 if fault == "mask_one_ahead" else 0
-    for t, k0 in enumerate(range(0, S, BK)):
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    # row i sees keys j <= i + off: 0 is the reference's top-left mask
+    off = {"mask_one_ahead": 1, "bottom_right": Sk - Sq}.get(fault, 0)
+    for t, k0 in enumerate(range(0, Sk, BK)):
         if fault == "drop_tile" and t == bad_tile:
             continue
-        k1 = min(k0 + BK, S)
-        r0 = max(k0 - ahead, 0)
+        k1 = min(k0 + BK, Sk)
+        r0 = min(max(k0 - off, 0), Sq) if causal else 0
         qs = qf[:, :, :, r0:]
         s = torch.einsum("bkgqd,bkcd->bkgqc", qs, kf[:, :, k0:k1]) * scale
-        mask = pos[r0:, None] + ahead >= pos[None, k0:k1]
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        if causal:
+            mask = qpos[r0:, None] + off >= kpos[None, k0:k1]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_prev = m[..., r0:]
         m_new = torch.maximum(m_prev, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -78,7 +84,23 @@ def plain_with_fault(q, k, v, fault):
         acc[..., r0:, :] = acc[..., r0:, :] * keep + pv
         m[..., r0:] = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, H, S, D).permute(0, 2, 1, 3).contiguous().to(q.dtype)
+    return out.reshape(B, H, Sq, D).permute(0, 2, 1, 3).contiguous().to(q.dtype)
+
+
+def faults_for(dtype, causal, Sq, Sk) -> list:
+    """The planted faults that change something at this case."""
+    import torch
+
+    out = []
+    for f in FAULTS:
+        if f == "p_f32" and dtype == torch.float32:
+            continue  # p is already f32
+        if f == "mask_one_ahead" and not causal:
+            continue
+        if f == "bottom_right" and (not causal or Sq == Sk):
+            continue
+        out.append(f)
+    return out
 
 
 def reading(out, plain) -> dict:
@@ -112,19 +134,17 @@ def kernel_readings(dev) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(777)  # the kernels phase's seed and order
     rows = []
-    for label, B, S, H, KV, D, dt in chip_smoke.FLASH_CASES:
+    for case in chip_smoke.FLASH_CASES:
+        label, B, Sq, Sk, H, KV, D, causal, dt = case
         dtype = getattr(torch, dt)
-        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-        plain = kfa.flash_attention_plain(q, k, v)
-        cand = {"kernel": kfa.flash_mha(q, k, v)}
-        for f in FAULTS:
-            if f == "p_f32" and dtype == torch.float32:
-                continue  # p is already f32
-            cand[f] = plain_with_fault(q, k, v, f)
+        q, k, v = chip_smoke._flash_inputs(case, gen, dev)
+        plain = kfa.flash_attention_plain(q, k, v, causal=causal)
+        cand = {"kernel": kfa.flash_mha(q, k, v, causal=causal)}
+        for f in faults_for(dtype, causal, Sq, Sk):
+            cand[f] = plain_with_fault(q, k, v, f, causal)
         for name, out in cand.items():
-            r = dict(case=label, dtype=dt, variant=name, **reading(out, plain))
+            r = dict(case=label, dtype=dt, causal=causal, Sq=Sq, Sk=Sk, D=D, variant=name,
+                     **reading(out, plain))
             print(json.dumps(r), flush=True)
             rows.append(r)
         del q, k, v, plain, cand
@@ -152,8 +172,9 @@ def serve_readings(dev) -> list:
     lc = torch.log_softmax(chunked, -1)
     top1 = chunked.argmax(-1)
     variants = {"kernel": kfa.flash_mha, "plain": kfa.flash_attention_plain}
-    for f in FAULTS:
-        variants[f] = (lambda f: lambda q, k, v: plain_with_fault(q, k, v, f))(f)
+    for f in faults_for(torch.bfloat16, True, 1, 1):
+        variants[f] = (lambda f: lambda q, k, v, causal=True: plain_with_fault(q, k, v, f,
+                                                                               causal))(f)
     rows = []
     real = layers.flash_mha
     try:

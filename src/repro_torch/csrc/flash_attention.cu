@@ -1,16 +1,17 @@
-// Causal flash attention forward: bf16 through mma.sync tensor-core tiles,
-// f32 through scalar f32 FMAs.
+// Flash attention forward, causal (top-left) or not, Sq != Sk allowed: bf16
+// through mma.sync tensor-core tiles, f32 through scalar f32 FMAs.
 //
 // Replaces the TPU kernel flash_attention (src/repro/kernels/
-// flash_attention.py:87, reached from prefill through ops.flash_mha).
-// That kernel walks a (batch*heads, q tile, k tile) grid with the k axis
-// innermost and sequential, carrying the running max m, the denominator l
-// and the output accumulator in VMEM scratch from one grid step to the
-// next. A GPU grid runs its blocks in parallel, so here one CTA owns one
-// (batch*head, query tile) and loops over the key tiles itself, with m, l
-// and the accumulator in registers:
+// flash_attention.py:87, reached through ops.flash_mha). That kernel walks a
+// (batch*heads, q tile, k tile) grid with the k axis innermost and
+// sequential, carrying the running max m, the denominator l and the output
+// accumulator in VMEM scratch from one grid step to the next. A GPU grid
+// runs its blocks in parallel, so here one CTA owns one (batch*head, query
+// tile) and loops over the key tiles itself, with m, l and the accumulator
+// in registers:
 //
-//   s    = (q . k) in f32 * D**-0.5;  masked (key > row, key >= S) -> -1e30
+//   s    = (q . k) in f32 * scale;  masked -> -1e30, where masked is
+//          key >= Sk, or (causal) key > row (top-left: both from 0)
 //   m'   = max(m, rowmax s);  p = exp(s - m');  corr = exp(m - m')
 //   l'   = l * corr + rowsum p
 //   acc' = acc * corr + round_to_v_dtype(p) . v        (f32 accumulate)
@@ -19,35 +20,40 @@
 // Key tiles are 128 keys, the TPU kernel's BK, so every query row sees the
 // same sequence of running maxima as the TPU kernel and the plain version
 // in kernels/flash_attention.py; the three differ only by summation order
-// inside a tile. A CTA stops at the key tile holding its last row: a tile
-// entirely above a row's diagonal gives p = exp(-1e30 - m) = 0 and corr = 1
-// exactly, so skipping it changes no bit.
+// inside a tile. A CTA's last key tile is (Sk - 1) / 128 without the causal
+// mask, and min(the CTA's last row, Sk - 1) / 128 with it: a later tile is
+// entirely above every row's diagonal, gives p = exp(-1e30 - m) = 0 and
+// corr = 1 exactly, so skipping it changes no bit. With the causal mask and
+// Sq > Sk, rows at or past Sk see every key.
 //
-// Layout: q and o are the model's (B, S, H, D), k and v (B, S, KV, D).
+// Layout: q and o are the model's (B, Sq, H, D), k and v (B, Sk, KV, D).
 // Query head h reads KV head h / (H / KV): the GQA repeat is an index, not a
-// copy. Rows at or past S are zero-filled on load and never stored, so the
-// ragged edge needs no padding.
+// copy. Rows at or past Sq and keys at or past Sk are zero-filled on load;
+// such rows are never stored and such keys are masked, so the ragged edges
+// need no padding. D is one of 32, 64, 80, 96, 112, 128 (a multiple of 16:
+// the m16n8k16 k-step and ldmatrix); the wrapper zero-pads other widths.
 //
-// bf16 (D = 64 or 128): 4 warps, 64 query rows per CTA (16 per warp).
-// Q, one K tile and one V tile sit in shared memory (row pitch D + 8:
-// conflict-free ldmatrix), filled by cp.async; the next K tile loads while
-// the softmax and PV of the current one run, the next V tile while the
-// next QK^T runs. S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate); P goes from the S accumulators to A fragments in
-// registers, rounded to bf16 on the way (the reference's p.astype(v.dtype)).
-// Per thread: 64 f32 scores and D / 2 f32 output accumulators.
+// bf16: 4 warps, 64 query rows per CTA (16 per warp). Q, one K tile and one
+// V tile sit in shared memory (row pitch D + 8: conflict-free ldmatrix at
+// every D above), filled by cp.async; the next K tile loads while the
+// softmax and PV of the current one run, the next V tile while the next
+// QK^T runs. S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 in, f32
+// accumulate); P goes from the S accumulators to A fragments in registers,
+// rounded to bf16 on the way (the reference's p.astype(v.dtype)). Per
+// thread: 64 f32 scores and D / 2 f32 output accumulators.
 //
-// f32 (D = 64 or 128): 128 threads, 32 query rows per CTA, 4 threads per
-// row; each thread scores 32 of the tile's 128 keys with scalar fmaf
-// (no TF32), the row's p goes through shared memory, and each thread
-// accumulates D / 4 output columns of its row.
+// f32: 128 threads, 32 query rows per CTA, 4 threads per row; each thread
+// scores 32 of the tile's 128 keys with scalar fmaf (no TF32), the row's p
+// goes through shared memory, and each thread accumulates D / 4 output
+// columns of its row.
 //
 // Bound: at the serving shapes (Qwen3-8B prefill, B = 4, S = 2048, H = 32,
 // KV = 8, D = 128) the causal work is 4 D S (S + 1) / 2 flops per head,
 // 1.375e11 in all, 0.139 ms at 989 TFLOP/s, against 168 MB of q, k, v and
-// o (0.050 ms at 3.35 TB/s): bound by the tensor cores' operations. This
-// design uses mma.sync (not wgmma) and exact expf, so it sits well below
-// that bound; wgmma and TMA are later work.
+// o (0.050 ms at 3.35 TB/s): bound by the tensor cores' operations, as is
+// every case the repository's configs give. This design uses mma.sync (not
+// wgmma) and exact expf, so it sits well below that bound; wgmma and TMA
+// are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -139,8 +145,8 @@ __device__ __forceinline__ void load_tile16(__nv_bfloat16* sm, const __nv_bfloat
 template <int D>
 __global__ void __launch_bounds__(THREADS16)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                   int H, int KV, float scale) {
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
+                   int Sk, int H, int KV, int causal, float scale) {
   constexpr int PITCH = Tile16<D>::PITCH;
   constexpr int NS = BK / 8;  // score n-tiles per warp row block
   constexpr int NO = D / 8;   // output n-tiles
@@ -154,19 +160,20 @@ __global__ void __launch_bounds__(THREADS16)
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ16;  // longest rows first
   const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-  const __nv_bfloat16* qg = q + ((long long)b * S * H + h) * D;
-  const __nv_bfloat16* kg = k + ((long long)b * S * KV + kvh) * D;
-  const __nv_bfloat16* vg = v + ((long long)b * S * KV + kvh) * D;
+  const __nv_bfloat16* qg = q + ((long long)b * Sq * H + h) * D;
+  const __nv_bfloat16* kg = k + ((long long)b * Sk * KV + kvh) * D;
+  const __nv_bfloat16* vg = v + ((long long)b * Sk * KV + kvh) * D;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int n_kt = (min(q0 + BQ16, S) - 1) / BK + 1;
+  const int last_row = min(q0 + BQ16, Sq) - 1;
+  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
 
-  load_tile16<D, BQ16>(Qs, qg, qstride, q0, S);
-  load_tile16<D, BK>(Ks, kg, kstride, 0, S);
+  load_tile16<D, BQ16>(Qs, qg, qstride, q0, Sq);
+  load_tile16<D, BK>(Ks, kg, kstride, 0, Sk);
   cp_async_commit();
-  load_tile16<D, BK>(Vs, vg, kstride, 0, S);
+  load_tile16<D, BK>(Vs, vg, kstride, 0, Sk);
   cp_async_commit();
 
   // ldmatrix row addresses (lane -> row of one of the four 8x8 matrices)
@@ -209,7 +216,7 @@ __global__ void __launch_bounds__(THREADS16)
     __syncthreads();  // every warp is done with this K tile
     const bool more = kt + 1 < n_kt;
     if (more) {
-      load_tile16<D, BK>(Ks, kg, kstride, (kt + 1) * BK, S);
+      load_tile16<D, BK>(Ks, kg, kstride, (kt + 1) * BK, Sk);
       cp_async_commit();
     }
 
@@ -223,7 +230,7 @@ __global__ void __launch_bounds__(THREADS16)
         const int key = key0 + n * 8 + 2 * t + (c & 1);
         const int row = row0 + (c >> 1) * 8;
         const float x = s[n][c] * scale;
-        s[n][c] = (key <= row && key < S) ? x : NEG_INF;
+        s[n][c] = (key < Sk && (!causal || key <= row)) ? x : NEG_INF;
         mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
       }
     }
@@ -277,7 +284,7 @@ __global__ void __launch_bounds__(THREADS16)
     }
     __syncthreads();  // every warp is done with this V tile
     if (more) {
-      load_tile16<D, BK>(Vs, vg, kstride, (kt + 1) * BK, S);
+      load_tile16<D, BK>(Vs, vg, kstride, (kt + 1) * BK, Sk);
       cp_async_commit();
     }
   }
@@ -285,9 +292,9 @@ __global__ void __launch_bounds__(THREADS16)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    if (row < S) {
+    if (row < Sq) {
       const float den = fmaxf(l_run[r], 1e-30f);
-      __nv_bfloat16* og = o + (((long long)b * S + row) * H + h) * D + 2 * t;
+      __nv_bfloat16* og = o + (((long long)b * Sq + row) * H + h) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         *reinterpret_cast<uint32_t*>(og + n * 8) =
@@ -328,8 +335,8 @@ __device__ __forceinline__ void load_tile32(float* sm, const float* g, long long
 template <int D>
 __global__ void __launch_bounds__(THREADS32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S, int H, int KV,
-                  float scale) {
+                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
+                  int KV, int causal, float scale) {
   constexpr int PITCH = Tile32<D>::PITCH;
   constexpr int PPITCH = Tile32<D>::PPITCH;
   constexpr int NK = BK / 4;   // keys per thread per tile
@@ -345,15 +352,16 @@ __global__ void __launch_bounds__(THREADS32)
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ32;
   const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-  const float* qg = q + ((long long)b * S * H + h) * D;
-  const float* kg = k + ((long long)b * S * KV + kvh) * D;
-  const float* vg = v + ((long long)b * S * KV + kvh) * D;
+  const float* qg = q + ((long long)b * Sq * H + h) * D;
+  const float* kg = k + ((long long)b * Sk * KV + kvh) * D;
+  const float* vg = v + ((long long)b * Sk * KV + kvh) * D;
 
   const int r = threadIdx.x >> 2, qq = threadIdx.x & 3;
   const int row = q0 + r;
-  const int n_kt = (min(q0 + BQ32, S) - 1) / BK + 1;
+  const int last_row = min(q0 + BQ32, Sq) - 1;
+  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
 
-  load_tile32<D, BQ32>(Qs, qg, qstride, q0, S);
+  load_tile32<D, BQ32>(Qs, qg, qstride, q0, Sq);
   float acc[NA][4];
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
@@ -364,8 +372,8 @@ __global__ void __launch_bounds__(THREADS32)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile's K, V are no longer read
-    load_tile32<D, BK>(Ks, kg, kstride, kt * BK, S);
-    load_tile32<D, BK>(Vs, vg, kstride, kt * BK, S);
+    load_tile32<D, BK>(Ks, kg, kstride, kt * BK, Sk);
+    load_tile32<D, BK>(Vs, vg, kstride, kt * BK, Sk);
     __syncthreads();
 
     float s[NK];
@@ -389,7 +397,7 @@ __global__ void __launch_bounds__(THREADS32)
     for (int j = 0; j < NK; ++j) {
       const int key = key0 + j * 4 + qq;
       const float x = s[j] * scale;
-      s[j] = (key <= row && key < S) ? x : NEG_INF;
+      s[j] = (key < Sk && (!causal || key <= row)) ? x : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -426,9 +434,9 @@ __global__ void __launch_bounds__(THREADS32)
     }
   }
 
-  if (row < S) {
+  if (row < Sq) {
     const float den = fmaxf(l_run, 1e-30f);
-    float* og = o + (((long long)b * S + row) * H + h) * D + qq * 4;
+    float* og = o + (((long long)b * Sq + row) * H + h) * D + qq * 4;
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       *reinterpret_cast<float4*>(og + 16 * i) =
@@ -438,48 +446,60 @@ __global__ void __launch_bounds__(THREADS32)
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int KV, float scale, cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                int H, int KV, int causal, float scale, cudaStream_t st) {
   const size_t smem = Tile16<D>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (S + BQ16 - 1) / BQ16);
+  const dim3 grid(B * H, (Sq + BQ16 - 1) / BQ16);
   flash_fwd_bf16<D><<<grid, THREADS16, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KV, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-               float scale, cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+               int H, int KV, int causal, float scale, cudaStream_t st) {
   const size_t smem = Tile32<D>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (S + BQ32 - 1) / BQ32);
+  const dim3 grid(B * H, (Sq + BQ32 - 1) / BQ32);
   flash_fwd_f32<D><<<grid, THREADS32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, KV, scale);
+      static_cast<float*>(o), Sq, Sk, H, KV, causal, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
+           int KV, int is_bf16, int causal, float scale, cudaStream_t st) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st)
+                 : launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
 }
 
 }  // namespace
 
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); all contiguous, 16-byte aligned.
-// is_bf16: 1 = bfloat16, 0 = float32. scale = D**-0.5 rounded to f32.
+// q, o: (B, Sq, H, D); k, v: (B, Sk, KV, D); all contiguous, 16-byte aligned.
+// is_bf16: 1 = bfloat16, 0 = float32. causal: 1 = top-left causal mask.
+// scale: the true head width's D**-0.5 rounded to f32 (the wrapper may have
+// zero-padded D up to an instantiated width).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int S, int H, int KV, int D, int is_bf16,
-                                      float scale, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                                      int B, int Sq, int Sk, int H, int KV, int D, int is_bf16,
+                                      int causal, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 128) return launch_bf16<128>(q, k, v, o, B, S, H, KV, scale, st);
-    if (D == 64) return launch_bf16<64>(q, k, v, o, B, S, H, KV, scale, st);
-  } else {
-    if (D == 128) return launch_f32<128>(q, k, v, o, B, S, H, KV, scale, st);
-    if (D == 64) return launch_f32<64>(q, k, v, o, B, S, H, KV, scale, st);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    case 80: return launch<80>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    case 96: return launch<96>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    case 112: return launch<112>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, is_bf16, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }

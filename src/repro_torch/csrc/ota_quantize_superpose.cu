@@ -4,14 +4,22 @@
 // Replaces the TPU kernel ota_fused_2d (_fused_kernel) of the JAX package's
 // kernels/ota_fused.py. Per output column m, with k = 0..K-1 in order:
 //
-//   u   = sr_dither(seed, k, m)                (murmur3 finalizer, uint32)
+//   u   = sr_dither(seed, k0 + k, m)           (murmur3 finalizer, uint32)
 //   sc  = x[k, m] / s_k
 //   fl  = floor(sc)
 //   q   = clamp(fl + (u < sc - fl), -qmax_k, qmax_k)
 //   dq  = qmax_k > 0 ? q * s_k : x[k, m]       (qmax_k == 0: f32 passthrough)
-//   acc = acc + dq * w_k                       (acc starts at 0)
+//   acc = acc + dq * w_k                       (acc starts at acc_in, or 0)
 //
 // and sumsq = sum_m acc[m]^2.
+//
+// One launch takes at most MAX_K rows (their s_k, qmax_k and w_k sit in
+// shared memory). A larger cohort runs as passes over consecutive chunks of
+// rows: k0 is the global index of a chunk's first row (the dither follows
+// the global row), and each pass starts from the previous pass's acc
+// (acc_in) and continues the same per-column sum in k order, so the chunked
+// passes give the one-pass acc bit for bit. Only the last pass asks for
+// sumsq (partials and sumsq non-null).
 //
 // Design. Every column is independent: each thread owns a run of 4
 // consecutive columns (one 16-byte float4 load of every row), loops k in
@@ -31,9 +39,10 @@
 // the same shuffle and warp-order reduction). The result is the same bit
 // for bit from one launch to the next.
 //
-// Bound: memory. One call reads 4 K M bytes of rows and writes 4 M bytes
-// of aggregate; the dither (about 10 integer ops), the division and the
-// rest (about 11 more ops) per element stay below that at 67 TFLOP/s.
+// Bound: memory. One pass reads 4 K M bytes of rows (and 4 M of acc_in)
+// and writes 4 M bytes of aggregate; the dither (about 10 integer ops),
+// the division and the rest (about 11 more ops) per element stay below
+// that at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +87,10 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
 }
 
 __global__ void __launch_bounds__(THREADS) quantize_superpose_kernel(
-    const float* __restrict__ x, int K, long long M, const float* __restrict__ scale,
+    const float* __restrict__ x, int K, long long M, int k0, const float* __restrict__ scale,
     const float* __restrict__ qmax, const float* __restrict__ w, uint32_t seed,
-    float* __restrict__ out, float* __restrict__ partials, int aligned) {
+    const float* __restrict__ acc_in, float* __restrict__ out, float* __restrict__ partials,
+    int aligned) {
   extern __shared__ float params[];  // s[K], qmax[K], w[K]
   __shared__ float warp_sums[THREADS / 32];
   float* s_s = params;
@@ -103,10 +113,23 @@ __global__ void __launch_bounds__(THREADS) quantize_superpose_kernel(
   for (int j = 0; j < RUN; ++j) acc[j] = 0.0f;
 
   if (n > 0) {
+    if (acc_in != nullptr) {
+      if (full) {
+        const float4 a4 = *reinterpret_cast<const float4*>(acc_in + m0);
+        acc[0] = a4.x;
+        acc[1] = a4.y;
+        acc[2] = a4.z;
+        acc[3] = a4.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j)
+          if (j < n) acc[j] = acc_in[m0 + j];
+      }
+    }
     for (int k = 0; k < K; ++k) {
       const float* row = x + (long long)k * M;
       const float s = s_s[k], qm = s_q[k], wk = s_w[k];
-      const uint32_t row_key = seed + GOLDEN * (uint32_t)k;
+      const uint32_t row_key = seed + GOLDEN * (uint32_t)(k0 + k);
       float v[RUN];
       if (full) {
         const float4 x4 = *reinterpret_cast<const float4*>(row + m0);
@@ -133,6 +156,7 @@ __global__ void __launch_bounds__(THREADS) quantize_superpose_kernel(
     }
   }
 
+  if (partials == nullptr) return;  // not the last pass: no sumsq (uniform per launch)
   // columns past M hold acc = 0 and add nothing
   float sq = 0.0f;
 #pragma unroll
@@ -152,26 +176,31 @@ __global__ void __launch_bounds__(THREADS) sum_partials_kernel(
 
 }  // namespace
 
-// x: (K, M) f32 rows; scale, qmax, w: (K,) f32; seed: the uint32 dither
-// seed. out: (M,) f32; partials: (n_blocks,) f32 scratch with
-// n_blocks = ceil(ceil(M / 4) / 256); sumsq: one f32. aligned != 0
-// promises 16-byte aligned x, out and M % 4 == 0. Two launches on
-// ``stream``; returns cudaGetLastError() after them.
-extern "C" int ota_quantize_superpose_launch(const float* x, int K, long long M,
+// x: (K, M) f32 rows, rows k0 .. k0 + K - 1 of the cohort; scale, qmax, w:
+// (K,) f32; seed: the uint32 dither seed. acc_in: (M,) f32 the previous
+// pass's aggregate, or null to start at 0. out: (M,) f32. partials:
+// (n_blocks,) f32 scratch with n_blocks = ceil(ceil(M / 4) / 256) and
+// sumsq: one f32, both non-null to reduce the sum of squares of out, both
+// null to skip it. aligned != 0 promises 16-byte aligned x, acc_in, out and
+// M % 4 == 0. One or two launches on ``stream``; returns cudaGetLastError()
+// after them.
+extern "C" int ota_quantize_superpose_launch(const float* x, int K, long long M, int k0,
                                              const float* scale, const float* qmax,
-                                             const float* w, unsigned int seed, float* out,
-                                             float* partials, long long n_blocks,
-                                             float* sumsq, int aligned, void* stream) {
+                                             const float* w, unsigned int seed,
+                                             const float* acc_in, float* out, float* partials,
+                                             long long n_blocks, float* sumsq, int aligned,
+                                             void* stream) {
   const long long threads = (M + RUN - 1) / RUN;
   const long long blocks = (threads + THREADS - 1) / THREADS;
-  if (K < 1 || K > MAX_K || M < 1 || blocks != n_blocks || blocks > 0x7FFFFFFFLL)
+  if (K < 1 || K > MAX_K || k0 < 0 || M < 1 || blocks > 0x7FFFFFFFLL ||
+      (partials == nullptr) != (sumsq == nullptr) || (partials != nullptr && blocks != n_blocks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)3 * K * sizeof(float);
   quantize_superpose_kernel<<<(unsigned)blocks, THREADS, smem, s>>>(
-      x, K, M, scale, qmax, w, (uint32_t)seed, out, partials, aligned);
+      x, K, M, k0, scale, qmax, w, (uint32_t)seed, acc_in, out, partials, aligned);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || sumsq == nullptr) return (int)err;
   sum_partials_kernel<<<1, THREADS, 0, s>>>(partials, (int)blocks, sumsq);
   return (int)cudaGetLastError();
 }

@@ -54,10 +54,11 @@ SIGNATURES = {
         "ota_superpose_launch": [_P, _I, _I, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _P],
     },
     "ota_quantize_superpose": {
-        "ota_quantize_superpose_launch": [_P, _I, _L, _P, _P, _P, _U, _P, _P, _L, _P, _I, _P],
+        "ota_quantize_superpose_launch": [_P, _I, _L, _I, _P, _P, _P, _U, _P, _P, _P, _L, _P, _I,
+                                          _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "topk_cosine": {
         "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],

@@ -6,10 +6,13 @@ take any shape, so the entry points only compute what the reference
 computes outside its kernels (the fake-quant scale, the weight quantizer,
 the int4 pack) and call the kernel wrappers: ``kernels/quantize.py``
 (fake-quant), ``kernels/ota_aggregate.py``, ``kernels/qmatmul.py``,
-``kernels/ota_fused.py`` (in-pass quantize-superpose) and
-``kernels/flash_attention.py`` (causal only: non-causal attention goes
-through ``models.layers.chunked_attention``). On a CUDA tensor each
-launches its kernel; on a CPU tensor it runs its plain version.
+``kernels/ota_fused.py`` (in-pass quantize-superpose, packed superpose and
+fold), ``kernels/topk_similarity.py`` (cosine top-k) and
+``kernels/flash_attention.py`` (``flash_mha(q, k, v, *, causal=True)``,
+causal or not, Sq != Sk, with the reference's precondition that Sk is a
+multiple of 128 unless causal with Sq <= Sk). The row-major int4 wire pack
+is ``core/wire.py``'s. On a CUDA tensor each entry point launches its
+kernel; on a CPU tensor it runs its plain version.
 
 Parity with the reference: ``fake_quant`` is jitted there, so its scale
 ``max(amax, 1e-12) / qmax`` is a multiply by the f32 reciprocal of qmax
@@ -25,11 +28,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.quant import _f32, _recip, qrange
+from repro_torch.core.wire import pack_int4_rows, unpack_int4_rows
+from repro_torch.kernels import ota_fused, topk_similarity
 from repro_torch.kernels.flash_attention import flash_mha
 from repro_torch.kernels.ota_aggregate import ota_aggregate_2d
 from repro_torch.kernels.ota_fused import ota_quantize_superpose
 from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.kernels.quantize import fake_quant_2d
+
+TOPK_LANES = 128  # the reference kernel's running top-k width: k <= TOPK_LANES
 
 
 def fake_quant_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -57,6 +64,34 @@ def fake_quant(
 
 
 ota_aggregate = ota_aggregate_2d  # the reference's entry-point name
+
+
+# the reference's names of the packed superpose and fold: the receiver half
+# of the packed uplink, (q, scale, w, *, gains=None, qblock=0,
+# packed4=False) -> (M,) f32, and acc + the same superpose
+ota_dequant_superpose = ota_fused.ota_superpose
+ota_fold_packed = ota_fused.ota_fold
+
+
+def topk_cosine(
+    qm: torch.Tensor,
+    recs: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    n,
+    *,
+    k: int,
+    use_kernel: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched cosine top-k over an arena record slab: qm (Q, D) f32 unit
+    queries; recs (Np, D) f32 or int8 with Np a multiple of 256; scales the
+    int8 slab's (Np, D / qblock) grid or None; n the live record count ->
+    (scores (Q, k) f32, idx (Q, k) int32) under the tie contract. k <=
+    TOPK_LANES, as in the reference. ``use_kernel=False`` runs the plain
+    version on any device."""
+    assert 0 < k <= TOPK_LANES, k
+    if not use_kernel:
+        return topk_similarity.topk_plain(qm, recs, scales, int(n), k)
+    return topk_similarity.topk_cosine(qm, recs, scales, int(n), k=k)
 
 
 def quantize_weights(w: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,7 +138,8 @@ def qmatmul_int4(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -
 
 
 __all__ = [
-    "fake_quant", "fake_quant_scale", "flash_mha", "ota_aggregate", "ota_quantize_superpose",
-    "pack_int4", "qmatmul", "qmatmul_int4", "quantize_weights", "quantize_weights_int4",
-    "unpack_int4",
+    "fake_quant", "fake_quant_scale", "flash_mha", "ota_aggregate", "ota_dequant_superpose",
+    "ota_fold_packed", "ota_quantize_superpose", "pack_int4", "pack_int4_rows", "qmatmul",
+    "qmatmul_int4", "quantize_weights", "quantize_weights_int4", "topk_cosine", "unpack_int4",
+    "unpack_int4_rows",
 ]

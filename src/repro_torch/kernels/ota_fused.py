@@ -18,9 +18,13 @@ In-pass quantize-superpose (``csrc/ota_quantize_superpose.cu``):
 stochastically quantizes each f32 row k against the dither
 ``sr_dither(seed, k, m)`` on the grid (s_k, qmax_k) (qmax_k == 0 passes
 the row through), dequantizes, superposes with weights w_k in k order,
-and returns the aggregate with its sum of squares. Kernel and plain
-version agree bit for bit on the aggregate; the sum of squares is summed
-in another order (relative difference within 1e-5).
+and returns the aggregate with its sum of squares. One launch takes at
+most ``QS_MAX_K`` = 4,000 rows; a larger cohort runs as passes over
+consecutive chunks of rows, each continuing the previous pass's aggregate
+(``acc_in``) at its global row index (``k0``), so the result is the
+one-pass result bit for bit at every K. Kernel and plain version agree bit
+for bit on the aggregate; the sum of squares is summed in another order
+(relative difference within 1e-5).
 
 Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
 launches the kernel or raises. The kernels are memory-bound (see the
@@ -166,12 +170,22 @@ def ota_fold(
 
 
 def quantize_superpose_plain(
-    x: torch.Tensor, scale: torch.Tensor, qmax: torch.Tensor, w: torch.Tensor, seed: int
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    qmax: torch.Tensor,
+    w: torch.Tensor,
+    seed: int,
+    *,
+    acc_in: Optional[torch.Tensor] = None,
+    k0: int = 0,
 ):
     """Plain PyTorch version of the in-pass quantize-superpose kernel: the
     same ops in the same order, row by row. Per-row operands are (1,)
     slices of device tensors (never CPU scalars), so every division is a
-    correctly rounded f32 division. Returns (acc (M,), sumsq ())."""
+    correctly rounded f32 division. ``x`` holds rows k0 .. k0 + K - 1 of the
+    cohort (the dither follows the global row) and the sum continues from
+    ``acc_in`` (zeros when None), so one pass equals chunked passes bit for
+    bit. Returns (acc (M,), sumsq ())."""
     K, M = x.shape
     x = x.to(torch.float32)
     s = scale.to(torch.float32).reshape(K)
@@ -179,9 +193,11 @@ def quantize_superpose_plain(
     wv = w.to(torch.float32).reshape(K)
     pos = torch.arange(M, dtype=torch.int64, device=x.device)
     acc = torch.zeros(M, dtype=torch.float32, device=x.device)
+    if acc_in is not None:
+        acc = acc_in.to(torch.float32).clone()
     for k in range(K):
         s_k, q_k = s[k : k + 1], qm[k : k + 1]
-        u = sr_dither(seed, k, pos)
+        u = sr_dither(seed, k0 + k, pos)
         sc = x[k] / s_k
         fl = torch.floor(sc)
         q = fl + (u < (sc - fl)).to(torch.float32)
@@ -191,7 +207,33 @@ def quantize_superpose_plain(
     return acc, (acc * acc).sum()
 
 
-_QS_RUN, _QS_THREADS, _QS_MAX_K = 4, 256, 4000  # as in the CUDA source
+QS_MAX_K = 4000  # rows per launch (the CUDA source's MAX_K)
+_QS_RUN, _QS_THREADS = 4, 256  # as in the CUDA source
+
+
+def _qs_launch(x, scale, qmax, w, seed, acc_in, k0, with_sumsq):
+    """One launch over K <= QS_MAX_K rows starting at global row k0."""
+    K, M = x.shape
+    out = torch.empty(M, dtype=torch.float32, device=x.device)
+    partials = sumsq = None
+    n_blocks = -(-(-(-M // _QS_RUN)) // _QS_THREADS)
+    if with_sumsq:
+        partials = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
+        sumsq = torch.empty((), dtype=torch.float32, device=x.device)
+    aligned = int(M % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+                  and (acc_in is None or acc_in.data_ptr() % 16 == 0))
+    lib = _build.library("ota_quantize_superpose")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ota_quantize_superpose_launch(
+            x.data_ptr(), K, M, k0, scale.data_ptr(), qmax.data_ptr(), w.data_ptr(),
+            int(seed) & 0xFFFFFFFF, None if acc_in is None else acc_in.data_ptr(),
+            out.data_ptr(), None if partials is None else partials.data_ptr(), n_blocks,
+            None if sumsq is None else sumsq.data_ptr(), aligned, stream,
+        )
+    _build.check(rc, "ota_quantize_superpose_launch")
+    ota_quantize_superpose.launches += 1
+    return out, sumsq
 
 
 def ota_quantize_superpose(
@@ -199,15 +241,16 @@ def ota_quantize_superpose(
 ):
     """In-pass SR quantize -> dequant -> weighted superpose of (K, M) f32
     rows -> (acc (M,) f32, sumsq () f32). ``scale``/``qmax``/``w``: (K,);
-    ``seed``: the uint32 dither seed."""
+    ``seed``: the uint32 dither seed. On the card K > QS_MAX_K runs as one
+    launch per chunk of QS_MAX_K rows, in row order."""
     if not _build.on_card(x):
         return quantize_superpose_plain(x, scale, qmax, w, seed)
     dev = x.device
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be (K, M) float32, got {tuple(x.shape)} {x.dtype}")
     K, M = x.shape
-    if not (1 <= K <= _QS_MAX_K and M >= 1):
-        raise ValueError(f"x must have 1..{_QS_MAX_K} rows and >= 1 column, got {tuple(x.shape)}")
+    if K < 1 or M < 1:
+        raise ValueError(f"x must have >= 1 row and >= 1 column, got {tuple(x.shape)}")
     cols = []
     for name, t in (("x", x), ("scale", scale), ("qmax", qmax), ("w", w)):
         if t.device != dev:
@@ -217,23 +260,12 @@ def ota_quantize_superpose(
         if name != "x":
             if t.numel() != K:
                 raise ValueError(f"{name} must hold {K} values, got {tuple(t.shape)}")
-            cols.append(t)
-    n_blocks = -(-(-(-M // _QS_RUN)) // _QS_THREADS)
-    out = torch.empty(M, dtype=torch.float32, device=dev)
-    partials = torch.empty(n_blocks, dtype=torch.float32, device=dev)
-    sumsq = torch.empty((), dtype=torch.float32, device=dev)
-    aligned = int(M % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    lib = _build.library("ota_quantize_superpose")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ota_quantize_superpose_launch(
-            x.data_ptr(), K, M, cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
-            int(seed) & 0xFFFFFFFF, out.data_ptr(), partials.data_ptr(), n_blocks,
-            sumsq.data_ptr(), aligned, stream,
-        )
-    _build.check(rc, "ota_quantize_superpose_launch")
-    ota_quantize_superpose.launches += 1
-    return out, sumsq
+            cols.append(t.reshape(K))
+    acc = sumsq = None
+    for c0 in range(0, K, QS_MAX_K):
+        c1 = min(c0 + QS_MAX_K, K)
+        acc, sumsq = _qs_launch(x[c0:c1], *(t[c0:c1] for t in cols), seed, acc, c0, c1 == K)
+    return acc, sumsq
 
 
 # launches of each kernel wrapper (plain-version calls do not count)

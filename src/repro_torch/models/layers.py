@@ -266,7 +266,7 @@ def attention_block(
     if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
         # the flash kernel (forward-only: prefill and serving; it has no
         # backward, so training keeps the chunked path)
-        out = flash_mha(q, k, v)
+        out = flash_mha(q, k, v, causal=True)
     else:
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)

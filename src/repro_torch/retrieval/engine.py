@@ -2,11 +2,15 @@
 ``retrieval/engine.py``, single-device path).
 
 One selection contract everywhere: descending score, equal scores by
-ascending record index. Every query goes through
-``kernels.topk_similarity.topk_cosine`` on the engine's device: the CUDA
-kernel on a card, its plain PyTorch version on the CPU. The capacity
-slab is uploaded once per (buffer identity, live count) and kept on the
-device between appends.
+ascending record index. A query with k up to the kernel's ``MAX_K`` goes
+through ``kernels.topk_similarity.topk_cosine`` on the engine's device:
+the CUDA kernel on a card, its plain PyTorch version on the CPU. The
+capacity slab is uploaded once per (buffer identity, live count) and kept
+on the device between appends. A larger k takes the reference's host path
+(``_topk_numpy``): one GEMM over the live slab in numpy (int8 stores in
+chunks of ``CHUNK_ROWS`` rows, merged exactly) and ``stable_topk``; the
+numpy helpers below are the reference's, so the same numpy on the same
+host gives the same indices and scores bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +24,63 @@ from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.topk_similarity import MAX_K, topk_cosine
 from repro_torch.retrieval.arena import ArenaStore
+
+# int8 stores dequantize in row chunks of this size on the numpy path so
+# a large arena never materialises its full f32 slab
+CHUNK_ROWS = 1 << 15
+
+
+def stable_topk(scores: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact (Q, k) top-k of a (Q, N) score matrix under the tie contract:
+    the kth-largest value from ``np.partition``, then the candidates at or
+    above it stable-sorted by (-score, index)."""
+    q, n = scores.shape
+    k = min(k, n)
+    if k == n:
+        order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    else:
+        thresh = np.partition(scores, n - k, axis=1)[:, n - k]
+        order = np.empty((q, k), np.int64)
+        for r in range(q):
+            row = scores[r]
+            cand = np.nonzero(row >= thresh[r])[0]
+            order[r] = cand[np.lexsort((cand, -row[cand]))][:k]
+    return np.take_along_axis(scores, order, axis=1), order.astype(np.int32)
+
+
+def brute_force_topk(
+    vectors: np.ndarray, queries: np.ndarray, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The specification: full scores, full stable argsort, slice k."""
+    scores = queries @ vectors.T
+    k = min(k, vectors.shape[0])
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(scores, order, axis=1), order.astype(np.int32)
+
+
+def merge_candidates(cand_s, cand_i, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-way merge of per-chunk top-k candidate lists under the tie
+    contract: any global top-k member is top-k within its chunk, so
+    re-sorting the concatenated candidates by (-score, ascending global
+    index) reproduces the global selection."""
+    s_all = np.concatenate(cand_s, axis=1)
+    i_all = np.concatenate(cand_i, axis=1)
+    q = s_all.shape[0]
+    k = min(k, s_all.shape[1])
+    scores = np.empty((q, k), np.float32)
+    idx = np.empty((q, k), np.int32)
+    for r in range(q):
+        order = np.lexsort((i_all[r], -s_all[r]))[:k]
+        scores[r] = s_all[r, order]
+        idx[r] = i_all[r, order]
+    return scores, idx
+
+
+def normalize_rows(mat: np.ndarray) -> np.ndarray:
+    """Unit-normalize rows; all-zero rows stay zero."""
+    mat = np.asarray(mat, np.float32)
+    norms = np.linalg.norm(mat, axis=1, keepdims=True)
+    return np.where(norms > 0, mat / np.maximum(norms, 1e-30), mat)
 
 
 class RetrievalEngine:
@@ -57,12 +118,27 @@ class RetrievalEngine:
         k = min(k, n)
         if n == 0 or k <= 0 or q == 0:
             return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
-        if k > MAX_K:
-            raise ValueError(f"k = {k} exceeds the kernel's limit of {MAX_K}")
         with obs.span("retrieval.query", q=q, k=k, rows=n):
             obs.metrics.inc("retrieval.queries", q)
             obs.metrics.inc("retrieval.query_rows", q * n)
+            if k > MAX_K:
+                return self._topk_numpy(queries, k)
             data, scales = self._slab()
             qm = torch.from_numpy(queries).to(self.device)
             s, i = topk_cosine(qm, data, scales, n, k=k)
             return s.cpu().numpy(), i.cpu().numpy()
+
+    def _topk_numpy(self, queries, k):
+        """The reference's host path: past the kernel's k limit."""
+        store = self.store
+        n = len(store)
+        if store.storage == "f32":
+            return stable_topk(queries @ store.vectors().T, k)
+        # int8: per-chunk candidates, then one stable merge (exact)
+        cand_s, cand_i = [], []
+        for lo in range(0, n, CHUNK_ROWS):
+            hi = min(lo + CHUNK_ROWS, n)
+            s, i = stable_topk(queries @ store.dequantize_rows(lo, hi).T, k)
+            cand_s.append(s)
+            cand_i.append(i + lo)
+        return merge_candidates(cand_s, cand_i, k)

@@ -70,6 +70,27 @@ def test_topk_kernel_equals_plain(dev, storage):
     assert torch.equal(i, ip) and torch.equal(s, sp)
 
 
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_engine_topk_past_the_kernel_limit_on_the_card(dev, storage):
+    """k = 300 on an engine whose slab lives on the card: the host path,
+    equal to the CPU engine's answer; no kernel launch."""
+    from repro_torch.retrieval import RetrievalEngine
+
+    rng = np.random.RandomState(1)
+    vec = rng.randn(700, 64).astype(np.float32)
+    store = ArenaStore(64, storage=storage, capacity=1024)
+    store.add_batch(vec / np.linalg.norm(vec, axis=1, keepdims=True))
+    q = vec[:5] / np.linalg.norm(vec[:5], axis=1, keepdims=True)
+    eng = RetrievalEngine(store, device=dev)
+    eng.topk(q, 8)  # the slab goes to the card
+    before = ktk.topk_cosine.launches
+    s, i = eng.topk(q, 300)
+    assert ktk.topk_cosine.launches == before and s.shape == i.shape == (5, 300)
+    sc, ic = RetrievalEngine(store, device="cpu").topk(q, 300)
+    np.testing.assert_array_equal(i, ic)
+    np.testing.assert_array_equal(s, sc)
+
+
 def test_round_on_the_card_launches_every_kernel(dev):
     cfg = FLConfig(n_clients=4, clients_per_round=4, local_steps=1, local_batch=2)
     srv = FLServer(cfg, get_arch("deepspeech2").with_(n_layers=1, d_model=32), shard_size=8)
@@ -99,6 +120,24 @@ def test_quantize_superpose_kernel_equals_plain(dev, bits, m):
     acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xC0FFEE)
     assert torch.equal(acc, acc_p)
     assert torch.equal(acc, acc2) and torch.equal(ss, ss2)
+    assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
+
+
+@pytest.mark.parametrize("m", [10_000, 10_003])
+@pytest.mark.parametrize("K", [4001, 8000])
+def test_quantize_superpose_past_one_launch_equals_plain(dev, K, m):
+    """K above the per-launch row limit: one launch per 4,000-row chunk, each
+    continuing the last; bit for bit with the one-pass plain version."""
+    gen = torch.Generator(device=dev).manual_seed(K + m)
+    bits = [(2, 4, 8, 16, 24, 31, 32)[i % 7] for i in range(K)]
+    x = torch.randn((K, m), generator=gen, device=dev) * 0.01
+    scale, qmax = ota._client_grid(bits, x.abs().amax(dim=1))
+    w = torch.rand((K,), generator=gen, device=dev) / K
+    before = kota.ota_quantize_superpose.launches
+    acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, 0xBEEF)
+    assert kota.ota_quantize_superpose.launches == before + -(-K // kota.QS_MAX_K)
+    acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xBEEF)
+    assert torch.equal(acc, acc_p)
     assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
 
 
@@ -154,17 +193,56 @@ def test_flash_kernel_equals_plain(dev, dtype, D, S, G):
 
 def test_flash_wrapper_rejects_bad_inputs(dev):
     z = torch.zeros((1, 64, 2, 128), device=dev)
+    before = kfa.flash_mha.launches
     with pytest.raises(ValueError):  # non-contiguous
         kfa.flash_mha(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2))
-    with pytest.raises(TypeError):  # float16
+    with pytest.raises(ValueError):  # float16
         h = z.half()
         kfa.flash_mha(h, h, h)
-    with pytest.raises(ValueError):  # head dim 96
-        w = torch.zeros((1, 64, 2, 96), device=dev)
+    with pytest.raises(ValueError):  # head dim 192: wider than any instantiation
+        w = torch.zeros((1, 64, 2, 192), device=dev)
         kfa.flash_mha(w, w, w)
+    with pytest.raises(ValueError, match="tile-aligned Sk"):  # the reference's padding
+        kfa.flash_mha(z, z, z, causal=False)
+    assert kfa.flash_mha.launches == before  # no plain-version fallback, no launch
     with pytest.raises(ValueError):  # 3 KV heads for 4 query heads
         kfa.flash_mha(torch.zeros((1, 64, 4, 64), device=dev),
                       *(torch.zeros((1, 64, 3, 64), device=dev),) * 2)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(256, 384, False), (200, 256, False),
+                                          (384, 256, True), (130, 256, True)])
+@pytest.mark.parametrize("D", [32, 80, 96, 112])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_equals_plain_at_every_width_and_mask(dev, dtype, D, Sq, Sk, causal):
+    H, KV = 8, 2
+    gen = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    q = torch.randn((2, Sq, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, Sk, KV, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, Sk, KV, D), generator=gen, device=dev).to(dtype)
+    before = kfa.flash_mha.launches
+    out = kfa.flash_mha(q, k, v, causal=causal)
+    assert kfa.flash_mha.launches == before + 1
+    plain = kfa.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    mm = kfa.mismatch(out, plain)
+    assert mm["within"], mm
+
+
+@pytest.mark.parametrize("D", [1, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_padded_head_width_equals_plain(dev, dtype, D):
+    """A width the kernel does not instantiate runs zero-padded to the next
+    one, with the true width's scale; the output is sliced back."""
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((1, 256, 4, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, 256, 2, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, 256, 2, D), generator=gen, device=dev).to(dtype)
+    for causal in (True, False):
+        out = kfa.flash_mha(q, k, v, causal=causal)
+        assert out.shape == q.shape and out.is_contiguous()
+        mm = kfa.mismatch(out, kfa.flash_attention_plain(q, k, v, causal=causal))
+        assert mm["within"], mm
 
 
 def test_flash_on_cpu_tensors_runs_plain_and_does_not_count(dev):

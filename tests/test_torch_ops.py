@@ -1,7 +1,8 @@
 """Parity of the port's kernel entry points (``repro_torch.kernels.ops``)
 with the JAX package's ``repro.kernels.ops``, on the CPU: fake-quant,
-the OTA aggregate, the weight quantizer, the int4 pack and the weight-only
-int8/int4 matrix product.
+the OTA aggregate, the weight quantizer, the int4 packs, the weight-only
+int8/int4 matrix product, the packed OTA superpose and fold, and the cosine
+top-k (flash attention: ``tests/test_torch_flash.py``).
 
 Inputs are made from a fixed seed with numpy and fed to both packages. The
 reference runs as its own tests run it on the CPU: its jitted entry points
@@ -15,7 +16,10 @@ bit (correctly rounded elementwise math and integer ops). The OTA aggregate
 is a sum of K products in another order than XLA's, so it is held to the
 f32 summation bound 2 K 2**-24 (|w| @ |x| + |std noise|) per element. The
 matrix product is held to ``kernels.qmatmul.mismatch``'s rule,
-``TOL_C`` sqrt(K) 2**-24 (|x| @ |w_deq|) per element.
+``TOL_C`` sqrt(K) 2**-24 (|x| @ |w_deq|) per element. The packed superpose
+and fold reassociate the K-sum: rtol 1e-4, atol 1e-6 max |reference|, as in
+``tests/test_torch_dataplane.py``. The top-k's indices are bit for bit (the
+tie contract), its scores within 1e-6.
 """
 
 import math
@@ -30,6 +34,7 @@ from repro.core.quant import qrange
 from repro.kernels import ops as jops
 from repro.kernels import quantize as jquantize
 import repro_torch.kernels as tkernels
+from repro_torch.core import wire
 from repro_torch.kernels import _build, ota_fused, topk_similarity
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.qmatmul import TOL_C, mismatch, split_k
@@ -235,6 +240,112 @@ def test_split_k_cuts_k_into_nonempty_ranges(M, N, K, bf16):
     assert (splits - 1) * k_chunk < K <= splits * k_chunk
 
 
+# ------------------------------------------------- packed superpose and fold
+
+
+def _group(kind, K, M, qblock, seed):
+    """One storage group's symbols (numpy), scales, weights, gains and acc."""
+    rng = np.random.RandomState(seed)
+    if kind == "int4":
+        q = rng.randint(0, 256, (K, M // 2)).astype(np.uint8)
+    elif kind == "float32":
+        q = (rng.randn(K, M) * 1e-2).astype(np.float32)
+    else:
+        lim = {"int8": 127, "int16": 32767}[kind]
+        q = rng.randint(-lim, lim + 1, (K, M)).astype(kind)
+    nb = -(-M // qblock) if qblock else 1
+    scale = (rng.rand(K, nb) * 1e-2 + 1e-4).astype(np.float32)
+    if not qblock:
+        scale = scale[:, 0]
+    w = rng.rand(K).astype(np.float32)
+    gains = rng.rand(K).astype(np.float32)
+    acc = rng.randn(M).astype(np.float32)
+    return q, scale, w, gains, acc
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6 * np.abs(want).max())
+
+
+GROUPS = [("int8", 0, False), ("int4", 256, True), ("int16", 256, False), ("float32", 0, True)]
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("kind,qblock,gained", GROUPS)
+def test_packed_superpose_and_fold_within_tolerance_of_reference(kind, qblock, gained, fold):
+    M = 4134  # not a multiple of the reference's 2048-column tile
+    q, scale, w, gains, acc = _group(kind, 5, M, qblock, len(kind) + qblock)
+    kw = dict(qblock=qblock, packed4=kind == "int4")
+    gj, gt = (jnp.asarray(gains), _t(gains)) if gained else (None, None)
+    if fold:
+        got = tops.ota_fold_packed(_t(acc), _t(q), _t(scale), _t(w), gains=gt, **kw)
+        want = jops.ota_fold_packed(jnp.asarray(acc), jnp.asarray(q), jnp.asarray(scale),
+                                    jnp.asarray(w), gains=gj, **kw)
+    else:
+        got = tops.ota_dequant_superpose(_t(q), _t(scale), _t(w), gains=gt, **kw)
+        want = jops.ota_dequant_superpose(jnp.asarray(q), jnp.asarray(scale), jnp.asarray(w),
+                                          gains=gj, **kw)
+    _close(got, want)
+    # the reference's identity, exact inside the port
+    sup = tops.ota_dequant_superpose(_t(q), _t(scale), _t(w), gains=gt, **kw)
+    assert torch.equal(tops.ota_fold_packed(torch.zeros(M), _t(q), _t(scale), _t(w),
+                                            gains=gt, **kw), sup)
+
+
+def _slab(storage, n, cap, seed, D=64):
+    from repro_torch.retrieval.arena import ArenaStore
+
+    rng = np.random.RandomState(seed)
+    vec = rng.randn(n, D).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    vec[200:230] = vec[10:40]  # exact ties across record tiles
+    store = ArenaStore(D, storage=storage, capacity=cap)
+    store.add_batch(vec)
+    qm = rng.randn(10, D).astype(np.float32)
+    qm /= np.linalg.norm(qm, axis=1, keepdims=True)
+    qm[:3] = vec[10:13]
+    data, scales = store.raw()
+    return qm, data, scales
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("storage,k", [("f32", 32), ("int8", 128), ("f32", 1)])
+def test_topk_cosine_indices_bit_equal_to_reference(storage, k, use_kernel):
+    qm, data, scales = _slab(storage, 400, 512, k)
+    sj, ij = jops.topk_cosine(jnp.asarray(qm), jnp.asarray(data),
+                              None if scales is None else jnp.asarray(scales), jnp.int32(400),
+                              k=k, use_kernel=use_kernel)
+    st, it = tops.topk_cosine(_t(qm), _t(data), None if scales is None else _t(scales),
+                              torch.tensor(400), k=k, use_kernel=use_kernel)
+    assert it.shape == (10, k) and it.dtype == torch.int32
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=1e-6)
+
+
+def test_topk_cosine_keeps_the_reference_k_limit():
+    qm, data, _ = _slab("f32", 300, 512, 1)
+    with pytest.raises(AssertionError):
+        jops.topk_cosine(jnp.asarray(qm), jnp.asarray(data), None, jnp.int32(300), k=129)
+    with pytest.raises(AssertionError):
+        tops.topk_cosine(_t(qm), _t(data), None, 300, k=129)
+
+
+@pytest.mark.parametrize("shape,n", [((3, 7), None), ((3, 7), 7), ((2, 4134), 4133), ((5,), 3)])
+def test_pack_unpack_int4_rows_bit_equal_to_reference(shape, n):
+    rng = np.random.RandomState(sum(shape))
+    q = rng.randint(-8, 8, shape).astype(np.int8)
+    pj = np.asarray(jops.pack_int4_rows(jnp.asarray(q)))
+    pt = tops.pack_int4_rows(_t(q))
+    np.testing.assert_array_equal(pt.numpy(), pj)
+    uj = np.asarray(jops.unpack_int4_rows(jnp.asarray(pj), n))
+    ut = tops.unpack_int4_rows(pt, n)
+    assert ut.dtype == torch.int8
+    np.testing.assert_array_equal(ut.numpy(), uj)
+    assert tops.pack_int4_rows is wire.pack_int4_rows  # one copy of the code
+
+
 # ------------------------------------------------------------------ package
 
 
@@ -244,6 +355,19 @@ def test_kernels_package_exports_the_reference_names():
     for n in names:
         assert callable(getattr(jkernels, n)) and callable(getattr(tkernels, n))
     assert tkernels.qmatmul is tops.qmatmul and tkernels.fake_quant is tops.fake_quant
+
+
+def test_kernels_package_exports_the_remaining_ops_names():
+    """The reference's other ``ops`` entry names, with the same signatures'
+    keywords, exported by the port's kernels package."""
+    import inspect
+
+    for n in ("ota_dequant_superpose", "ota_fold_packed", "topk_cosine", "pack_int4_rows",
+              "unpack_int4_rows", "flash_mha"):
+        got, want = getattr(tkernels, n), getattr(jops, n)
+        assert got is getattr(tops, n)
+        pj = inspect.signature(getattr(want, "__wrapped__", want)).parameters
+        assert list(inspect.signature(got).parameters) == list(pj), n
 
 
 _META = torch.empty((4, 8), device="meta")

@@ -116,6 +116,26 @@ def test_cpu_tensors_take_the_plain_version():
     assert tfused.ota_quantize_superpose.launches == before
 
 
+def test_quantize_superpose_in_one_pass_equals_chunked_passes():
+    """K = 9 rows in one pass, and as rows 0-3 then rows 4-8 continuing the
+    first pass's aggregate at their global row index (how the card runs a
+    cohort above its per-launch row limit): bit for bit, sum of squares
+    included."""
+    x = _rows(11, 9)
+    bits = [2, 4, 8, 16, 32, 24, 4, 31, 8]
+    st, qt = tota._client_grid(bits, _t(np.abs(x).max(axis=1)))
+    w = _t(np.random.RandomState(12).uniform(0.1, 1.0, 9).astype(np.float32))
+    one, ss_one = tfused.quantize_superpose_plain(_t(x), st, qt, w, SEED)
+    a, _ = tfused.quantize_superpose_plain(_t(x[:4]), st[:4], qt[:4], w[:4], SEED)
+    two, ss_two = tfused.quantize_superpose_plain(_t(x[4:]), st[4:], qt[4:], w[4:], SEED,
+                                                  acc_in=a, k0=4)
+    assert torch.equal(one, two) and torch.equal(ss_one, ss_two)
+    # the dither follows the global row: the second chunk at k0 = 0 differs
+    wrong, _ = tfused.quantize_superpose_plain(_t(x[4:]), st[4:], qt[4:], w[4:], SEED,
+                                               acc_in=a)
+    assert not torch.equal(one, wrong)
+
+
 def _trees(k, seed=0):
     rng = np.random.RandomState(seed)
     return [

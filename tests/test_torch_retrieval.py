@@ -110,6 +110,44 @@ def test_engine_matches_numpy_engine(storage):
     assert empty[0].shape == (12, 0) and empty[1].shape == (12, 0)
 
 
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("k", [257, 300, 400])
+def test_engine_past_the_kernel_limit_takes_the_reference_host_path(storage, k):
+    """k above the kernel's MAX_K (256; k = 400 is every live record): the
+    reference's numpy path, indices and scores bit-equal to the reference."""
+    ja, ta, q = _slab(storage, 400, 512, k)
+    sj, ij = JEngine(ja, use_kernel=False).topk(q, k)
+    st, it = TEngine(ta, device="cpu").topk(q, k)
+    assert st.shape == it.shape == (12, k)
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_array_equal(st.view(np.uint32), sj.view(np.uint32))
+    assert st[0, 0] == st[0, 1] and it[0, 0] < it[0, 1]  # the tie contract
+
+
+def test_engine_numpy_helpers_are_the_reference_helpers():
+    """The port's private copies of the reference's numpy helpers give the
+    same arrays on the same inputs."""
+    from repro.retrieval import engine as je
+    from repro_torch.retrieval import engine as te
+
+    assert te.CHUNK_ROWS == je.CHUNK_ROWS
+    rng = np.random.RandomState(3)
+    vec = rng.randn(300, 16).astype(np.float32)
+    vec[200:220] = vec[0:20]
+    vec[5] = 0.0  # a zero row stays zero
+    qs = rng.randn(6, 16).astype(np.float32)
+    np.testing.assert_array_equal(te.normalize_rows(vec), je.normalize_rows(vec))
+    for name, args in (("brute_force_topk", (vec, qs, 40)), ("stable_topk", (qs @ vec.T, 40)),
+                       ("stable_topk", (qs @ vec.T, 300))):
+        for got, want in zip(getattr(te, name)(*args), getattr(je, name)(*args)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    cand = [te.stable_topk(qs @ vec[lo:lo + 100].T, 30) for lo in (0, 100, 200)]
+    cs, ci = [c[0] for c in cand], [c[1] + lo for c, lo in zip(cand, (0, 100, 200))]
+    for got, want in zip(te.merge_candidates(cs, ci, 30), je.merge_candidates(cs, ci, 30)):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_plan_cohort_decisions_exact_over_feedback_rounds():
     """Same users, fleet and feedback -> identical bit plans, 3 rounds."""
     n = 20
