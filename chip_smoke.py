@@ -151,6 +151,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_queued(fn, n: int = 10, reps: int = 5, warmup: int = 3) -> float:
+    """Median over ``reps`` of the mean CUDA-event time of ``n`` calls of
+    ``fn`` enqueued back to back: the host's per-call work hides behind the
+    device's wherever a call runs longer on the device than on the host, so
+    this reads device time where ``cuda_ms`` (one call between two events)
+    also counts the host's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> float:
     """Least time for the work: bytes over HBM rate vs ops over ``peak``."""
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
@@ -167,7 +191,39 @@ def tensor_bytes(*ts) -> int:
 # ---------------------------------------------------------------- phase 1
 
 
+def ptxas_report(log: str) -> dict:
+    """Per entry function of a ``-Xptxas -v`` log: registers, stack frame
+    and spill bytes."""
+    import re
+
+    funcs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_fwd_hopper<128>`` from a mangled flash kernel name."""
+    import re
+
+    m = re.search(r"\d+(flash_fwd_\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
 def phase_build():
+    """Build every source; print nvcc's seconds and ptxas's report, each
+    flash_attention kernel by name. A flash_fwd_hopper instantiation with a
+    stack frame or spills fails the run."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -176,7 +232,21 @@ def phase_build():
     print(f"build: {secs:.2f} s for {len(_build.sources())} sources -> {_build.build_dir()}")
     for name, rec in sorted(_build.BUILD_LOG.items()):
         print(f"  {name}.cu nvcc {rec['seconds']:.2f} s")
-        for line in str(rec["log"]).splitlines():
+        log = str(rec["log"])
+        if name == "flash_attention":
+            funcs = ptxas_report(log)
+            for fn, r in funcs.items():
+                label = _kernel_label(fn)
+                print(f"    {label}: {r.get('registers')} registers, {r.get('stack')} bytes "
+                      f"stack frame, spill stores/loads {r.get('spill_stores')}/"
+                      f"{r.get('spill_loads')}")
+                if "flash_fwd_hopper" in fn and (r.get("stack") != 0 or r.get("spill_stores")
+                                                 or r.get("spill_loads")):
+                    _fail(f"{label} has a stack frame or spills: {r}")
+            if not any("flash_fwd_hopper" in fn for fn in funcs):
+                _fail("ptxas reported no flash_fwd_hopper instantiation")
+            continue
+        for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"    {line.strip()}")
     return secs
@@ -458,6 +528,17 @@ def check_flash(dev, timing: bool):
 
     from repro_torch.kernels import flash_attention as kfa
 
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_attention") if dev.type == "cuda" else None
+    for D in kfa.HEAD_DIMS if lib is not None else ():  # the C route table vs kernel_design
+        for dtype, code in kfa._DTYPE_CODE.items():
+            got = kfa.DESIGNS[lib.flash_attention_design(D, code)]
+            if got != kfa.kernel_design(dtype, D):
+                _fail(f"the C launcher runs {got} at {dtype}, D {D}; kernel_design says "
+                      f"{kfa.kernel_design(dtype, D)}")
+    if lib is not None and lib.flash_attention_design(40, 1) != -1:
+        _fail("the C launcher takes D = 40 (the wrapper must pad it)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(777)
     worst, rec = 0.0, None
@@ -475,8 +556,9 @@ def check_flash(dev, timing: bool):
             _fail(f"flash output {tuple(out.shape)} {out.dtype} not finite or misshapen ({label})")
         mm = kfa.mismatch(out, plain)
         worst = max(worst, mm["max_abs_err"])
-        print(f"flash {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} causal={causal} {dt}: "
-              f"{json.dumps(mm)} {_flash_tol(dtype)}")
+        design = kfa.kernel_design(dtype, D)
+        print(f"flash {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} causal={causal} {dt} "
+              f"design={design}: {json.dumps(mm)} {_flash_tol(dtype)}")
         if not mm["within"]:
             _fail(f"flash kernel != plain beyond tolerance ({label}): {mm}")
         if timing:
@@ -489,13 +571,16 @@ def check_flash(dev, timing: bool):
                                                       enable_gqa=True)
 
             r = {
-                "case": label, "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v, causal=causal)),
+                "case": label, "design": design,
+                "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v, causal=causal)),
                 "bound_ms": bound_ms(nbytes, flops, peak),
                 "bound_by": bound_by(nbytes, flops, peak),
                 "bound_bytes": nbytes, "bound_flops": flops,
             }
+            r["ms_queued"] = cuda_ms_queued(lambda: kfa.flash_mha(q, k, v, causal=causal))
             r["library_ms"], why = _time_library(sdpa)
             if why is None:
+                r["library_ms_queued"] = cuda_ms_queued(sdpa)
                 r["library_max_abs_diff"] = float(
                     (sdpa().transpose(1, 2).float() - plain.float()).abs().max())
             else:
@@ -1009,7 +1094,8 @@ def _remaining_ops_checks(inp: dict, out: dict, dev):
     for (case, (q, k, v)), o in zip(inp["flash"], out["flash"]):
         mm = kfa.mismatch(o, kfa.flash_attention_plain(q, k, v, causal=case[7]))
         worst = max(worst, mm["max_abs_err"])
-        print(f"  ops.flash_mha {case[0]}: causal={case[7]} {json.dumps(mm)} "
+        print(f"  ops.flash_mha {case[0]}: causal={case[7]} "
+              f"design={kfa.kernel_design(q.dtype, q.shape[3])} {json.dumps(mm)} "
               f"{_flash_tol(q.dtype)}")
         if o.shape != q.shape or not mm["within"]:
             _fail(f"ops.flash_mha != plain beyond tolerance ({case[0]}): {mm}")

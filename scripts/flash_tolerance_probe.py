@@ -144,6 +144,7 @@ def kernel_readings(dev) -> list:
             cand[f] = plain_with_fault(q, k, v, f, causal)
         for name, out in cand.items():
             r = dict(case=label, dtype=dt, causal=causal, Sq=Sq, Sk=Sk, D=D, variant=name,
+                     design=kfa.kernel_design(dtype, D) if name == "kernel" else None,
                      **reading(out, plain))
             print(json.dumps(r), flush=True)
             rows.append(r)

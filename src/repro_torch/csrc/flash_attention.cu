@@ -1,5 +1,7 @@
-// Flash attention forward, causal (top-left) or not, Sq != Sk allowed: bf16
-// through mma.sync tensor-core tiles, f32 through scalar f32 FMAs.
+// Flash attention forward, causal (top-left) or not, Sq != Sk allowed, in
+// three kernels: bf16 at the serving widths D 64 and 128 on Hopper's
+// wgmma (flash_fwd_hopper), bf16 at the other widths on mma.sync
+// (flash_fwd_bf16), f32 on scalar FMAs (flash_fwd_f32).
 //
 // Replaces the TPU kernel flash_attention (src/repro/kernels/
 // flash_attention.py:87, reached through ops.flash_mha). That kernel walks a
@@ -19,42 +21,70 @@
 //
 // Key tiles are 128 keys, the TPU kernel's BK, so every query row sees the
 // same sequence of running maxima as the TPU kernel and the plain version
-// in kernels/flash_attention.py; the three differ only by summation order
+// in kernels/flash_attention.py; they differ only by summation order
 // inside a tile. A CTA's last key tile is (Sk - 1) / 128 without the causal
 // mask, and min(the CTA's last row, Sk - 1) / 128 with it: a later tile is
 // entirely above every row's diagonal, gives p = exp(-1e30 - m) = 0 and
-// corr = 1 exactly, so skipping it changes no bit. With the causal mask and
-// Sq > Sk, rows at or past Sk see every key.
+// corr = 1 exactly, so skipping it changes no bit (a row of the CTA whose
+// own diagonal ends earlier sees such tiles too, masked per element, to the
+// same effect). With the causal mask and Sq > Sk, rows at or past Sk see
+// every key.
 //
 // Layout: q and o are the model's (B, Sq, H, D), k and v (B, Sk, KV, D).
 // Query head h reads KV head h / (H / KV): the GQA repeat is an index, not a
 // copy. Rows at or past Sq and keys at or past Sk are zero-filled on load;
 // such rows are never stored and such keys are masked, so the ragged edges
-// need no padding. D is one of 32, 64, 80, 96, 112, 128 (a multiple of 16:
-// the m16n8k16 k-step and ldmatrix); the wrapper zero-pads other widths.
+// need no padding. D is one of 32, 64, 80, 96, 112, 128; the wrapper
+// zero-pads other widths. Which kernel runs is fixed by (dtype, D) alone
+// (design(), mirrored by kernels/flash_attention.kernel_design): a route,
+// never a fallback.
 //
-// bf16: 4 warps, 64 query rows per CTA (16 per warp). Q, one K tile and one
-// V tile sit in shared memory (row pitch D + 8: conflict-free ldmatrix at
-// every D above), filled by cp.async; the next K tile loads while the
-// softmax and PV of the current one run, the next V tile while the next
-// QK^T runs. S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 in, f32
-// accumulate); P goes from the S accumulators to A fragments in registers,
-// rounded to bf16 on the way (the reference's p.astype(v.dtype)). Per
-// thread: 64 f32 scores and D / 2 f32 output accumulators.
+// flash_fwd_hopper (bf16, D 64 / 128): 384 threads, 128 query rows per
+// CTA. Warpgroup 0 is the producer (setmaxnreg down to 24): one thread
+// issues TMA loads, Q once and K / V tiles into a two-stage ring with a
+// full and an empty mbarrier per stage. Warpgroups 1 and 2 are consumers
+// (setmaxnreg up to 240) of 64 rows each (wgmma's M); they run independently,
+// so one's softmax overlaps the other's products. The tensor maps are rank
+// 4, (D, heads, S, B) over the (B, S, heads, D) strides, encoded per launch
+// through libcuda's entry point (the build links only the runtime): rows
+// past S are zero-filled per batch, never read from the next batch. Tiles
+// land in the 128-byte swizzled layout (D / 64 column blocks of rows x 128
+// bytes, 16-byte chunk c of row r at c ^ (r & 7); bases 1,024-byte aligned;
+// 160 KB at D 128). S = Q K^T is wgmma.m64n128k16 with both operands
+// K-major from shared memory (SW128 descriptors; the start address moves
+// 32 bytes a k16 step inside an atom, a whole column block after four); its
+// accumulator is the m16n8 C layout per warp, so the softmax works on it in
+// place. p is rounded to bf16 into the m16n8k16 A layout in registers and
+// O += P V is wgmma.m64n{D}k16 with A from registers and V from shared
+// memory, MN-major (keys x D with D contiguous: transposed B, leading byte
+// offset = one column block, stride byte offset = 8 rows). Per consumer
+// thread: 64 f32 scores, 32 packed p, D / 2 f32 output accumulators.
+// Register fences keep the compiler from touching accumulators between an
+// async wgmma and its wait. The softmax runs in base 2: scores scaled by
+// scale * log2 e, p = exp2f(x - m), corr = exp2f(m - m') (the other two
+// kernels use expf); the element and share limits hold unchanged.
 //
-// f32: 128 threads, 32 query rows per CTA, 4 threads per row; each thread
-// scores 32 of the tile's 128 keys with scalar fmaf (no TF32), the row's p
-// goes through shared memory, and each thread accumulates D / 4 output
-// columns of its row.
+// flash_fwd_bf16 (bf16, D 32 / 80 / 96 / 112): 4 warps, 64 query rows per
+// CTA. Q, one K tile and one V tile in shared memory (row pitch D + 8:
+// conflict-free ldmatrix), cp.async; S = Q K^T and O += P V are
+// mma.sync.m16n8k16 through ldmatrix.
+//
+// flash_fwd_f32: 128 threads, 32 query rows per CTA, 4 threads per row; each
+// thread scores 32 of the tile's 128 keys with scalar fmaf (no TF32), the
+// row's p goes through shared memory, and each thread accumulates D / 4
+// output columns of its row.
 //
 // Bound: at the serving shapes (Qwen3-8B prefill, B = 4, S = 2048, H = 32,
 // KV = 8, D = 128) the causal work is 4 D S (S + 1) / 2 flops per head,
 // 1.375e11 in all, 0.139 ms at 989 TFLOP/s, against 168 MB of q, k, v and
 // o (0.050 ms at 3.35 TB/s): bound by the tensor cores' operations, as is
-// every case the repository's configs give. This design uses mma.sync (not
-// wgmma) and exact expf, so it sits well below that bound; wgmma and TMA
-// are later work.
+// every case the repository's configs give. flash_fwd_hopper puts both
+// products on wgmma fed by TMA; within a consumer warpgroup the products
+// and the softmax still run one after another (no overlap of one tile's
+// softmax with the next tile's QK^T), which is what keeps it from that
+// bound.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -65,7 +95,7 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 128;  // keys per tile
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------- bf16, mma.sync (D 32 / 80 / 96 / 112)
 
 constexpr int BQ16 = 64;
 constexpr int THREADS16 = 128;
@@ -445,6 +475,373 @@ __global__ void __launch_bounds__(THREADS32)
   }
 }
 
+// ------------------------------------------------- bf16 on Hopper, D 64 / 128
+
+constexpr int BQH = 128;  // query rows per CTA: two consumer warpgroups of 64 (wgmma's M)
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets in 16-byte units, layout type 1 (SW128)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins a register's reads and writes to this side of an async wgmma
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(i) WG_F4(i), WG_F4(i + 4), WG_F4(i + 8), WG_F4(i + 12)
+#define WG_D32                                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_D64                                                                              \
+  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "   \
+         "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
+         "%63"
+
+// d (64 x 128, f32) = (scale_d ? d : 0) + A (64 x 16) . B (128 x 16)^T; A and
+// B bf16 from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64 "}, %64, %65, p, 1, 1, "
+      "0, 0;\n}\n"
+      : WG_F16(0), WG_F16(16), WG_F16(32), WG_F16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers, the mma.sync A
+// layout) . B (16 x N, bf16 in shared memory, N contiguous: MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64 "}, {%64, %65, %66, "
+      "%67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F16(0), WG_F16(16), WG_F16(32), WG_F16(48)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D32 "}, {%32, %33, %34, "
+      "%35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F16(0), WG_F16(16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a0, a1, a2, a3, db);
+  } else {
+    wgmma_rs_n64(d, a0, a1, a2, a3, db);
+  }
+}
+
+constexpr int THREADS_H = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
+
+template <int D>
+struct TileH {
+  static constexpr uint32_t Q_BYTES = BQH * D * 2;
+  static constexpr uint32_t KV_BYTES = BK * D * 2;
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + 2 * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + 2 * KV_BYTES;  // 9 mbarriers
+  static constexpr size_t BYTES = BAR_OFF + 128 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// spins until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra LAB_WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box (64 of D, 1 head, 128 rows, 1 batch) of a rank-4 map over
+// (D, heads, S, B) into shared memory at dst, 128-byte swizzled; rows past S
+// (per batch) arrive as zeros
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, int d0, int head,
+                                          int row, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_H, 1)
+    flash_fwd_hopper(const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+                     int Sq, int Sk, int H, int KV, int causal, float scale) {
+  static_assert(D == 64 || D == 128, "whole 128-byte swizzle atoms");
+  using T = TileH<D>;
+  constexpr int NS = BK / 8;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t Qs = base, Ks = base + T::K_OFF, Vs = base + T::V_OFF;
+  // mbarriers: Q full, K full x 2, V full x 2, K empty x 2, V empty x 2
+  const uint32_t q_full = base + T::BAR_OFF;
+  const uint32_t k_full = q_full + 8, v_full = q_full + 24;
+  const uint32_t k_empty = q_full + 40, v_empty = q_full + 56;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQH;  // longest rows first
+  const int last_row = min(q0 + BQH, Sq) - 1;
+  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the two-stage K and V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+#pragma unroll
+      for (int db = 0; db < D / 64; ++db)
+        tma_load4(Qs + db * (BQH * 128), &tmq, db * 64, h, q0, b, q_full);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt & 1;
+        const uint32_t ph = (kt >> 1) & 1;
+        if (kt >= 2) mbar_wait(k_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
+#pragma unroll
+        for (int db = 0; db < D / 64; ++db)
+          tma_load4(Ks + s * T::KV_BYTES + db * (BK * 128), &tmk, db * 64, kvh, kt * BK, b,
+                    k_full + 8 * s);
+        if (kt >= 2) mbar_wait(v_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * s, T::KV_BYTES);
+#pragma unroll
+        for (int db = 0; db < D / 64; ++db)
+          tma_load4(Vs + s * T::KV_BYTES + db * (BK * 128), &tmv, db * 64, kvh, kt * BK, b,
+                    v_full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    // scores in base 2: exp(x - m) = exp2(x log2 e - m log2 e), so m and the
+    // masked -1e30 live in the same units
+    const float scale2 = scale * 1.4426950408889634f;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {NEG_INF, NEG_INF};
+    float l_run[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt & 1;
+      const uint32_t ph = (kt >> 1) & 1;
+      const uint32_t kb = Ks + st * T::KV_BYTES, vb = Vs + st * T::KV_BYTES;
+      mbar_wait(k_full + 8 * st, ph);
+
+      float s[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = sw128_desc(Qs + (kk >> 2) * (BQH * 128) + cw * (64 * 128) +
+                                           (kk & 3) * 32, 16, 1024);
+        const uint64_t db = sw128_desc(kb + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024);
+        wgmma_ss_n128(s, da, db, kk);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) reg_fence(s[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+
+      const int key0 = kt * BK;
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = key0 + n * 8 + 2 * t + (c & 1);
+          const int row = row0 + (c >> 1) * 8;
+          const float x = s[4 * n + c] * scale2;
+          s[4 * n + c] = (key < Sk && (!causal || key <= row)) ? x : NEG_INF;
+          mx[c >> 1] = fmaxf(mx[c >> 1], s[4 * n + c]);
+        }
+      }
+      float rs[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m_run[r] - mx[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = exp2f(s[i] - mx[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l_run[r] = l_run[r] * corr[r] + rs[r];
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      uint32_t pa[BK / 4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      mbar_wait(v_full + 8 * st, ph);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) reg_fence(pa[i]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = sw128_desc(vb + kk * (16 * 128), BK * 128, 1024);
+        wgmma_rs<D>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], db);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) reg_fence(pa[i]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row < Sq) {
+        const float den = fmaxf(l_run[r], 1e-30f);
+        __nv_bfloat16* og = o + (((long long)b * Sq + row) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          *reinterpret_cast<uint32_t*>(og + n * 8) =
+              pack_bf16(acc[4 * n + 2 * r] / den, acc[4 * n + 2 * r + 1] / den);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the build links
+// only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// rank-4 map of a (B, S, heads, D) bf16 tensor as (D, heads, S, B), boxes of
+// (64, 1, 128, 1), 128-byte swizzle, zeros past every edge
+int make_map(CUtensorMap* map, const void* t, int D, int heads, int S, int B) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                  int H, int KV, int causal, float scale, cudaStream_t st) {
+  CUtensorMap tmq, tmk, tmv;
+  int rc = make_map(&tmq, q, D, H, Sq, B);
+  if (rc == 0) rc = make_map(&tmk, k, D, KV, Sk, B);
+  if (rc == 0) rc = make_map(&tmv, v, D, KV, Sk, B);
+  if (rc != 0) return rc;
+  const size_t smem = TileH<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_hopper<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Sq + BQH - 1) / BQH);
+  flash_fwd_hopper<D><<<grid, THREADS_H, smem, st>>>(
+      tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                 int H, int KV, int causal, float scale, cudaStream_t st) {
@@ -474,11 +871,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   return (int)cudaGetLastError();
 }
 
+// The kernel a (dtype, D) runs, fixed by the two alone: 2 flash_fwd_hopper
+// (bf16, D 64 or 128), 1 flash_fwd_bf16 (bf16, other D), 0 flash_fwd_f32;
+// -1 for a D with no instantiation. kernels/flash_attention.kernel_design
+// is the same table.
+int design(int D, int is_bf16) {
+  if (D != 32 && D != 64 && D != 80 && D != 96 && D != 112 && D != 128) return -1;
+  if (!is_bf16) return 0;
+  return (D == 64 || D == 128) ? 2 : 1;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
            int KV, int is_bf16, int causal, float scale, cudaStream_t st) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st)
-                 : launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+  if (!is_bf16) return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+  if constexpr (D == 64 || D == 128) {
+    return launch_hopper<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+  } else {
+    return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
+  }
 }
 
 }  // namespace
@@ -503,3 +914,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// design(D, is_bf16) above, for the wrapper to hold its table against
+extern "C" int flash_attention_design(int D, int is_bf16) { return design(D, is_bf16); }

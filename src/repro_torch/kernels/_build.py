@@ -59,6 +59,7 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_design": [_I, _I],
     },
     "topk_cosine": {
         "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],

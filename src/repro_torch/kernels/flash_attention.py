@@ -35,6 +35,14 @@ change no score; the scale stays D**-0.5 of the true D) and slices the
 output back. D > 128 and other dtypes raise on the card; the plain version
 takes any D and dtype.
 
+Three CUDA kernels share the source, one per route, fixed by the dtype and
+the instantiated width alone (``kernel_design``; the C launcher's
+``design()`` is the same table): bf16 at D 64 and 128, the serving widths,
+runs ``flash_fwd_hopper`` (128-row CTAs, 128-byte swizzled tiles for the
+Hopper tensor cores); bf16 at D 32, 80, 96, 112 runs ``flash_fwd_bf16``
+(mma.sync); float32 runs ``flash_fwd_f32``. A route is not a fallback: a
+kernel that fails to build or launch raises.
+
 Dispatch: CPU tensors run the plain version; CUDA tensors launch the
 kernel or raise. The kernel has no backward: training keeps
 ``models/layers.chunked_attention``.
@@ -50,6 +58,9 @@ BK = 128  # keys per tile (the TPU kernel's BK)
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)  # the kernel's instantiated widths
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 0}
+# the kernels by the code csrc/flash_attention.cu's design() gives them
+DESIGNS = ("flash_fwd_f32", "flash_fwd_bf16", "flash_fwd_hopper")
+HOPPER_DIMS = (64, 128)  # bf16 widths on flash_fwd_hopper
 
 
 def flash_attention_plain(
@@ -184,6 +195,16 @@ def _check_card(q, k, v) -> None:
 def kernel_head_dim(D: int) -> int:
     """The instantiated width a head of width D runs at (zero-padded)."""
     return next(d for d in HEAD_DIMS if d >= D)
+
+
+def kernel_design(dtype: torch.dtype, D: int) -> str:
+    """The kernel a card call of this dtype and head width launches (D
+    zero-padded to ``kernel_head_dim`` first)."""
+    if dtype not in _DTYPE_CODE or not 1 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"no flash kernel for {dtype} at head dim {D}")
+    if dtype == torch.float32:
+        return DESIGNS[0]
+    return DESIGNS[2] if kernel_head_dim(D) in HOPPER_DIMS else DESIGNS[1]
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:

@@ -14,7 +14,9 @@ j <= i), the head widths of the repository's configs (80: zamba2-2.7b, 112:
 kimi-k2-1t-a32b) and a width the kernel does not instantiate (40, which the
 card zero-pads to 64). f32 is held to rtol/atol 1e-5 (summation order only),
 bf16 to ``flash_attention.mismatch``'s per-element rule. Inputs outside the
-reference's padding precondition raise ``ValueError``.
+reference's padding precondition raise ``ValueError``. The route table
+(``kernel_design``: which CUDA kernel each dtype and head width runs) is a
+pure function, held here; ``chip_smoke.py`` holds the C launcher to it.
 """
 
 import jax.numpy as jnp
@@ -101,3 +103,30 @@ def test_flash_mha_raises_where_the_reference_sees_its_padding(Sq, Sk, causal):
                                     (128, 128)])
 def test_kernel_head_dim_is_the_next_instantiated_width(D, want):
     assert kfa.kernel_head_dim(D) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", kfa.HEAD_DIMS)
+def test_kernel_design_routes_every_instantiated_width(dtype, D):
+    """bf16 at the serving widths 64 and 128 runs the Hopper kernel; the
+    other bf16 widths the mma.sync kernel; float32 the scalar kernel."""
+    if dtype == torch.float32:
+        want = "flash_fwd_f32"
+    else:
+        want = "flash_fwd_hopper" if D in (64, 128) else "flash_fwd_bf16"
+    assert kfa.kernel_design(dtype, D) == want
+    assert want in kfa.DESIGNS
+
+
+@pytest.mark.parametrize("D,want", [(1, "flash_fwd_bf16"), (40, "flash_fwd_hopper"),
+                                    (65, "flash_fwd_bf16"), (100, "flash_fwd_bf16"),
+                                    (120, "flash_fwd_hopper")])
+def test_kernel_design_follows_the_padded_width(D, want):
+    assert kfa.kernel_design(torch.bfloat16, D) == want
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 192),
+                                     (torch.float32, 0)])
+def test_kernel_design_rejects_what_no_kernel_takes(dtype, D):
+    with pytest.raises(ValueError):
+        kfa.kernel_design(dtype, D)

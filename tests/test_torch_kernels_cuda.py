@@ -191,6 +191,59 @@ def test_flash_kernel_equals_plain(dev, dtype, D, S, G):
     assert mm["within"], mm
 
 
+# (B, Sq, Sk, H, KV, causal): one tile, Sq = 1 / 127 / 129 / 2,000 with
+# Sk = Sq (causal), Sq > Sk, B = 3 with ragged S (every batch's data
+# differs, so a read across batches shows), H / KV in {1, 4, 8}
+HOPPER_CASES = [
+    (1, 128, 128, 8, 8, False), (1, 128, 128, 8, 8, True),
+    (1, 1, 1, 8, 1, True), (1, 127, 127, 8, 2, True), (2, 129, 129, 8, 8, True),
+    (1, 2000, 2000, 8, 1, True), (2, 384, 256, 8, 2, True), (3, 200, 200, 8, 1, True),
+    (3, 300, 384, 4, 1, False), (1, 1, 256, 8, 8, False), (2, 256, 512, 8, 2, False),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HOPPER_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_hopper_kernel_equals_plain(dev, D, B, Sq, Sk, H, KV, causal):
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + Sq + Sk + D + H // KV)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, Sk, KV, D), generator=gen, device=dev).bfloat16()
+    before = kfa.flash_mha.launches
+    out = kfa.flash_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.flash_mha.launches == before + 1
+    assert kfa.kernel_design(q.dtype, D) == "flash_fwd_hopper"
+    mm = kfa.mismatch(out, kfa.flash_attention_plain(q, k, v, causal=causal))
+    assert mm["within"], mm
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, D) for D in (32, 80, 96, 112)]
+                         + [(torch.float32, D) for D in kfa.HEAD_DIMS])
+def test_flash_other_routes_keep_their_kernel(dev, dtype, D):
+    """bf16 at D 32/80/96/112 and every float32 width stay on the kernels of
+    before the Hopper route (flash_fwd_bf16, flash_fwd_f32), within the rule."""
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((2, 200, 8, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
+    out = kfa.flash_mha(q, k, v, causal=True)
+    want = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_bf16"
+    assert kfa.kernel_design(dtype, D) == want
+    mm = kfa.mismatch(out, kfa.flash_attention_plain(q, k, v, causal=True))
+    assert mm["within"], mm
+
+
+def test_flash_launcher_route_table_is_kernel_design(dev):
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_attention")
+    for D in kfa.HEAD_DIMS:
+        for dtype, code in kfa._DTYPE_CODE.items():
+            assert kfa.DESIGNS[lib.flash_attention_design(D, code)] == kfa.kernel_design(dtype, D)
+    assert lib.flash_attention_design(40, 1) == -1
+
+
 def test_flash_wrapper_rejects_bad_inputs(dev):
     z = torch.zeros((1, 64, 2, 128), device=dev)
     before = kfa.flash_mha.launches
