@@ -6,7 +6,9 @@
 Phases, each of which fails the run on error:
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
-             parallel) and print the build seconds and ptxas report.
+             parallel) and print the build seconds and ptxas report (a
+             ``flash_fwd_hopper`` or ``qmm_hopper`` with a stack frame or
+             spills fails the run).
 2. kernels — every kernel against its plain PyTorch version on the card at
              the main path's shapes: the packed OTA superpose/fold over every
              storage class, per-row and blockwise scales, gains absent and
@@ -54,7 +56,12 @@ Phases, each of which fails the run on error:
              w_gate (4,096 x 12,288 bf16) at 8 bits; ``ota_aggregate`` of K =
              20 DeepSpeech2 rows (FedAvg weights, seeded noise, std 0.1);
              ``qmatmul`` on the int8 (``quantize_weights``) w_gate and w_down
-             with bf16 x at M = 4 and 8,192 and f32 x at M = 4 and 1,000, and
+             with bf16 x at M = 4, 8,192 and 1,000 (the last two on the
+             Hopper route) and f32 x at M = 4 and 1,000, each printed with
+             its ``design``, launched twice (the same bits) and timed one
+             call (``ms``) and ten queued (``ms_queued``) beside
+             ``torch.matmul`` both ways, with TFLOP/s and the share of the
+             bound; the C launcher's route table against ``kernel_design``;
              ``qmatmul_int4`` at w_gate, M = 4; ``pack_int4_rows`` /
              ``unpack_int4_rows``, ``ota_dequant_superpose`` and
              ``ota_fold_packed`` on K = 20 int4 DeepSpeech2 rows (blockwise
@@ -233,6 +240,17 @@ def phase_build():
     for name, rec in sorted(_build.BUILD_LOG.items()):
         print(f"  {name}.cu nvcc {rec['seconds']:.2f} s")
         log = str(rec["log"])
+        if name == "qmatmul":
+            funcs = ptxas_report(log)
+            for fn, r in funcs.items():
+                print(f"    {fn}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+                      f"frame, spill stores/loads {r.get('spill_stores')}/{r.get('spill_loads')}")
+                if "qmm_hopper" in fn and (r.get("stack") != 0 or r.get("spill_stores")
+                                           or r.get("spill_loads")):
+                    _fail(f"{fn} has a stack frame or spills: {r}")
+            if not any("qmm_hopper" in fn for fn in funcs):
+                _fail("ptxas reported no qmm_hopper kernel")
+            continue
         if name == "flash_attention":
             funcs = ptxas_report(log)
             for fn, r in funcs.items():
@@ -960,9 +978,11 @@ def phase_stream(dev):
 # ---------------------------------------------------------------- phase 6
 
 OPS_K, OPS_STD = 20, 0.1
-# (x dtype, M) of each qmatmul case: a decode step at batch 4 and the serve
-# phase's 4 x 2,048 prefill in bf16; f32 at a decode step and a ragged M
-QMM_CASES = (("bfloat16", 4), ("bfloat16", 8192), ("float32", 4), ("float32", 1000))
+# (x dtype, M) of each qmatmul case: a decode step at batch 4, the serve
+# phase's 4 x 2,048 prefill and a ragged M in bf16 (the last two on the
+# Hopper route); f32 at a decode step and a ragged M
+QMM_CASES = (("bfloat16", 4), ("bfloat16", 8192), ("bfloat16", 1000), ("float32", 4),
+             ("float32", 1000))
 FQ_OPS_PER_ELEMENT = 8  # divide, round (or floor, subtract, compare, add), 2 clips, multiply
 
 
@@ -1141,6 +1161,36 @@ def _remaining_ops_checks(inp: dict, out: dict, dev):
     return errs, timings
 
 
+def check_qmatmul_route_table(dev):
+    """The C launcher's route (``qmatmul_design``) against ``kernel_design``
+    over dtype, M at 16/17, K and N at and off TMA's multiples, and bases
+    off 16-byte alignment."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.qmatmul import DESIGNS, kernel_design
+
+    lib = _build.library("qmatmul")
+    buf = torch.zeros(1 << 16, dtype=torch.float32, device=dev)
+    w8 = torch.zeros(1 << 16, dtype=torch.int8, device=dev)
+    n, hopper = 0, 0
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        xb = buf.to(dtype)
+        for M in (4, 16, 17, 8192):
+            for K in (64, 100, 4096, 4104):
+                for N in (16, 24, 1008, 12288):
+                    for xo, wo in ((0, 0), (1, 0), (0, 1), (8, 16)):
+                        x, w = xb[xo:], w8[wo:]
+                        got = DESIGNS[lib.qmatmul_design(code, M, N, K, x.data_ptr(),
+                                                         w.data_ptr())]
+                        want = kernel_design(dtype, M, N, K, x, w)
+                        if got != want:
+                            _fail(f"the C launcher routes {dtype} M={M} K={K} N={N} (offsets "
+                                  f"{xo}, {wo}) to {got}; kernel_design says {want}")
+                        n, hopper = n + 1, hopper + (got == "hopper")
+    print(f"  qmatmul route table: C design() == kernel_design at {n} cases ({hopper} hopper)")
+
+
 def phase_ops(dev):
     """The kernel entry points (``repro_torch.kernels.ops``) at the widths of
     the repository's models: fake-quant over every leaf of a DeepSpeech2
@@ -1158,7 +1208,7 @@ def phase_ops(dev):
     from repro_torch.kernels import ota_fused as kota
     from repro_torch.kernels import topk_similarity as ktk
     from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
-    from repro_torch.kernels.qmatmul import TOL_C, mismatch, qmatmul_plain
+    from repro_torch.kernels.qmatmul import TOL_C, kernel_design, mismatch, qmatmul_plain
     from repro_torch.kernels.qmatmul import qmatmul as qmm
     from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
     from repro_torch.models.layers import dense_init
@@ -1257,10 +1307,16 @@ def phase_ops(dev):
     for label, out, x, q, s in qmm_checks:
         mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
         err_qmm, worst_ratio = max(err_qmm, mm["max_abs_err"]), max(worst_ratio, mm["max_ratio"])
-        print(f"  qmatmul {label} K={x.shape[1]} N={q.shape[1]}: {json.dumps(mm)} (tolerance "
-              f"per element {TOL_C:g} sqrt(K) 2**-24 (|x| @ |w_deq|))")
-        if out.shape != (x.shape[0], q.shape[1]) or not mm["within"]:
-            _fail(f"qmatmul kernel != plain beyond tolerance ({label}): {mm}")
+        M, K, N = x.shape[0], x.shape[1], q.shape[1]
+        design = kernel_design(x.dtype, M, N, K, x, q)
+        again = qmm(x, q, s)  # a second launch: the same bits
+        mm["bit_stable"] = bool(torch.equal(again, out))
+        print(f"  qmatmul {label} K={K} N={N} design={design}: {json.dumps(mm)} (tolerance "
+              f"per element {TOL_C:g} sqrt(K) 2**-24 (|x| @ |w_deq|); two launches equal)")
+        if out.shape != (M, N) or not mm["within"] or not mm["bit_stable"]:
+            _fail(f"qmatmul kernel != plain beyond tolerance or not bit-stable ({label}): {mm}")
+        del again
+    check_qmatmul_route_table(dev)
     for bad in (
         lambda: fake_quant_2d(weights["w_gate"].half(), s_qwen, 8),
         lambda: ops.qmatmul(x4.t().contiguous().t(), *quant["w_gate"]),
@@ -1327,12 +1383,17 @@ def phase_ops(dev):
         peak = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
         w_deq = (q.float() * s).to(x.dtype)  # dequantized beforehand, not timed
         rec = dict(
-            shape=f"{wn} x {dt} M={M} K={K} N={N}",
+            shape=f"{wn} x {dt} M={M} K={K} N={N}", design=kernel_design(x.dtype, M, N, K, x, q),
             ms=cuda_ms(lambda: qmm(x, q, s)),
+            ms_queued=cuda_ms_queued(lambda: qmm(x, q, s)),
             plain_ms=cuda_ms(lambda: qmatmul_plain(x, q, s), reps=3),
             bound_ms=bound_ms(nbytes, flops, peak), bound_by=bound_by(nbytes, flops, peak),
             library_ms=cuda_ms(lambda: torch.matmul(x, w_deq)),
+            library_ms_queued=cuda_ms_queued(lambda: torch.matmul(x, w_deq)),
             library=f"torch.matmul on weights dequantized to {dt} beforehand (not timed)")
+        rec["tflops_queued"] = flops / rec["ms_queued"] / 1e9
+        rec["of_bound_queued"] = rec["bound_ms"] / rec["ms_queued"]
+        rec["library_of_bound_queued"] = rec["bound_ms"] / rec["library_ms_queued"]
         if dt == "bfloat16" and M == 4:
             qt = q.t().contiguous()
             s16 = s.to(x.dtype)

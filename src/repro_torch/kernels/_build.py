@@ -72,6 +72,7 @@ SIGNATURES = {
     },
     "qmatmul": {
         "qmatmul_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "qmatmul_design": [_I, _I, _I, _I, _P, _P],
     },
 }
 

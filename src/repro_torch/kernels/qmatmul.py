@@ -13,6 +13,16 @@ the two differ by summation order and by where the scale is rounded in, so
 they agree within the tolerance below, element by element. M, K and N may
 be any size; the kernel masks the ragged edges itself.
 
+Three CUDA kernels share the source, one per route, fixed by dtype, shape
+and alignment alone (``kernel_design``; the C launcher's ``design()`` is
+the same table): bf16 x with M > SMALL_M whose rows of x and w are whole
+16-byte multiples (K % 8 == 0, N % 16 == 0) from 16-byte-aligned bases,
+what TMA takes, runs ``qmm_hopper`` (wgmma on 256 x 128 tiles, each int8
+weight tile converted to bf16 in shared memory); other bf16 x runs
+``qmm_bf16`` (mma.sync; split k at M <= SMALL_M); float32 x runs
+``qmm_f32``. A route is not a fallback: a kernel that fails to build,
+encode its tensor maps or launch raises.
+
 Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
 launches the kernel or raises.
 """
@@ -31,6 +41,8 @@ BK = 32  # k_chunk granularity: a multiple of both kernels' k tile
 SMALL_M = 16  # M at or below this takes the 16-row tiles (a decode step)
 MAX_SPLITS = 32
 BLOCKS_PER_SM = 4  # split k until about this many blocks per SM are in flight
+# the kernels by the code csrc/qmatmul.cu's design() gives them
+DESIGNS = ("f32", "bf16", "hopper")
 
 
 def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -50,11 +62,15 @@ def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> to
 # sum of K terms grow like sqrt(K) units of 2**-24 times the sum of the
 # terms' magnitudes. On an H100 at Qwen3-8B's MLP widths
 # (``scripts/qmatmul_tolerance_probe.py``) the sound kernel read at most
-# 0.17 of these units, and on the CPU the port against the JAX kernel at
-# most 0.46 (K = 129). Planted faults in the same readings: x rounded to
-# TF32 (f32 x) 1.9-7.5 at most, 1.1-3.4 at the 99th percentile; the output
-# rounded to bf16 19-113; one weight row of K dropped 42-860. The limit
-# sits near the geometric middle of 0.46 and 1.9.
+# 0.17 of these units (0.17 on the Hopper route too, whose wgmma sums each
+# k16 step in its own order; ``chip_smoke.py`` read it at 0.20 at M =
+# 1,000), and on the CPU the port against the JAX kernel at most 0.46 (K =
+# 129). Planted faults in the same readings (two probe runs): x rounded to
+# TF32 (f32 x) 1.5-7.5 at most, 1.1-3.4 at the 99th percentile; the output
+# rounded to bf16 19-113; one weight row of K dropped 42-860; on the Hopper
+# route one k16 step skipped 447-2,729 and the bf16 weight tile read
+# unswizzled 14,136-45,912. The limit sits between 0.46 and 1.5, near the
+# geometric middle of 0.46 and 1.9 (the first run's nearest fault).
 TOL_C = 1.0
 
 
@@ -95,6 +111,20 @@ def split_k(M: int, N: int, K: int, bf16: bool, sms: int) -> Tuple[int, int]:
     return -(-K // k_chunk), k_chunk
 
 
+def kernel_design(dtype: torch.dtype, M: int, N: int, K: int, x: torch.Tensor,
+                  w_q: torch.Tensor) -> str:
+    """The kernel a card call launches for x (M, K) of ``dtype`` and w_q
+    (K, N): ``"hopper"`` where TMA can load both (bf16, M > SMALL_M, K % 8
+    == 0, N % 16 == 0, both bases 16-byte aligned), else ``"bf16"`` or
+    ``"f32"`` by dtype."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"no qmatmul kernel for x of {dtype}")
+    if dtype == torch.float32:
+        return DESIGNS[0]
+    tma = K % 8 == 0 and N % 16 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0
+    return DESIGNS[2] if M > SMALL_M and tma else DESIGNS[1]
+
+
 _SMS: Dict[int, int] = {}
 
 
@@ -127,7 +157,10 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if not (x.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("x and w_q must be contiguous")
     s = scale.to(torch.float32).reshape(N).contiguous()
-    splits, k_chunk = split_k(M, N, K, x.dtype == torch.bfloat16, _sm_count(dev))
+    if kernel_design(x.dtype, M, N, K, x, w_q) == "hopper":  # one pass over k, no split
+        splits, k_chunk = 1, -(-K // BK) * BK
+    else:
+        splits, k_chunk = split_k(M, N, K, x.dtype == torch.bfloat16, _sm_count(dev))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = torch.empty(splits * M * N, dtype=torch.float32, device=dev) if splits > 1 else None
     lib = _build.library("qmatmul")

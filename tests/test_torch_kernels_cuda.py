@@ -11,12 +11,14 @@ import torch
 from repro_torch.configs import FLConfig, get_arch
 from repro_torch.core import ota, wire
 from repro_torch.fl.server import FLServer, StreamingFLServer
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ota_fused as kota
 from repro_torch.kernels import topk_similarity as ktk
 from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
-from repro_torch.kernels.qmatmul import mismatch, qmatmul_plain
+from repro_torch.kernels.qmatmul import DESIGNS, kernel_design, mismatch, qmatmul_plain
+from repro_torch.kernels.qmatmul import qmatmul as kqmm
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 from repro_torch.launch.serve import serve
 from repro_torch.retrieval.arena import ArenaStore
@@ -369,10 +371,12 @@ def test_ota_aggregate_kernel_equals_plain(dev, K, M, offset):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K,N", [(4, 4096, 12288), (4, 12288, 4096), (16, 64, 48),
                                    (17, 300, 129), (37, 301, 130), (300, 4096, 1000),
-                                   (1000, 4096, 12288)])
+                                   (1000, 4096, 12288), (8192, 4096, 12288),
+                                   (8192, 12288, 4096), (1000, 4104, 1008), (17, 64, 16)])
 def test_qmatmul_kernel_within_tolerance_of_plain(dev, dtype, M, K, N):
     """Decode (split k) and prefill tiles, ragged M, K and N (element loads
-    at the edges), Qwen3-8B's MLP widths; two launches give the same bits."""
+    at the edges; TMA's zero fill on the Hopper route), Qwen3-8B's MLP widths
+    at prefill; two launches give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
@@ -380,6 +384,39 @@ def test_qmatmul_kernel_within_tolerance_of_plain(dev, dtype, M, K, N):
     mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
     assert out.shape == (M, N) and mm["within"], mm
     assert torch.equal(out, ops.qmatmul(x, q, s))
+
+
+def test_qmatmul_launcher_route_table_is_kernel_design(dev):
+    lib = _build.library("qmatmul")
+    buf = torch.zeros(1 << 16, device=dev)
+    w8 = torch.zeros(1 << 16, dtype=torch.int8, device=dev)
+    seen = set()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        xb = buf.to(dtype)
+        for M, K, N in ((4, 64, 16), (16, 64, 16), (17, 64, 16), (17, 100, 16), (17, 64, 24),
+                        (8192, 4096, 12288), (1000, 4104, 1008)):
+            for xo, wo in ((0, 0), (1, 0), (0, 1), (8, 16)):
+                x, w = xb[xo:], w8[wo:]
+                got = DESIGNS[lib.qmatmul_design(code, M, N, K, x.data_ptr(), w.data_ptr())]
+                assert got == kernel_design(dtype, M, N, K, x, w), (dtype, M, K, N, xo, wo)
+                seen.add(got)
+    assert seen == set(DESIGNS)
+
+
+def test_qmatmul_misaligned_view_takes_the_old_kernel(dev):
+    """A contiguous bf16 x 2 bytes off alignment cannot be a TMA source: it
+    runs qmm_bf16 (element loads), within the rule and bit-stable."""
+    M, K, N = 300, 4096, 1024
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(M * K + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(M, K)
+    q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert kernel_design(x.dtype, M, N, K, x, q) == "bf16"
+    before = kqmm.launches
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+    assert torch.equal(out, ops.qmatmul(x, q, s)) and kqmm.launches == before + 2
 
 
 def test_qmatmul_int4_kernel_within_tolerance_of_plain(dev):

@@ -37,7 +37,7 @@ import repro_torch.kernels as tkernels
 from repro_torch.core import wire
 from repro_torch.kernels import _build, ota_fused, topk_similarity
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.qmatmul import TOL_C, mismatch, split_k
+from repro_torch.kernels.qmatmul import TOL_C, kernel_design, mismatch, split_k
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -229,6 +229,32 @@ def test_qmatmul_mismatch_rule_bounds_each_element():
     bad[2, 5] += 1.5 * TOL_C * math.sqrt(512) * 2.0**-24 * mag[2, 5]
     mm = mismatch(bad, plain, x, q, s)
     assert mm["over_element_bound"] == 1 and not mm["within"]
+
+
+@pytest.mark.parametrize("dtype,M,K,N,x_off,w_off,want", [
+    (torch.bfloat16, 17, 64, 16, 0, 0, "hopper"),  # the smallest Hopper call
+    (torch.bfloat16, 8192, 4096, 12288, 0, 0, "hopper"),  # Qwen3-8B w_gate at prefill
+    (torch.bfloat16, 1000, 4104, 1008, 0, 0, "hopper"),  # ragged inside the route
+    (torch.bfloat16, 16, 64, 16, 0, 0, "bf16"),  # a decode step: split k on mma.sync
+    (torch.bfloat16, 17, 100, 16, 0, 0, "bf16"),  # K % 8: x's rows not 16-byte multiples
+    (torch.bfloat16, 17, 64, 24, 0, 0, "bf16"),  # N % 16: w's rows not 16-byte multiples
+    (torch.bfloat16, 17, 64, 16, 1, 0, "bf16"),  # x a view 2 bytes off alignment
+    (torch.bfloat16, 17, 64, 16, 0, 1, "bf16"),  # w a view 1 byte off alignment
+    (torch.bfloat16, 17, 64, 16, 8, 16, "hopper"),  # views 16 bytes in: aligned again
+    (torch.float32, 8192, 4096, 12288, 0, 0, "f32"),
+    (torch.float32, 4, 64, 16, 0, 0, "f32"),
+])
+def test_kernel_design_takes_hopper_only_where_tma_can_load(dtype, M, K, N, x_off, w_off,
+                                                             want):
+    x = torch.zeros(x_off + min(M * K, 1 << 16), dtype=dtype)[x_off:]
+    w = torch.zeros(w_off + min(K * N, 1 << 16), dtype=torch.int8)[w_off:]
+    assert kernel_design(dtype, M, N, K, x, w) == want
+
+
+def test_kernel_design_rejects_what_no_kernel_takes():
+    x = torch.zeros((17, 64), dtype=torch.float16)
+    with pytest.raises(ValueError):
+        kernel_design(torch.float16, 17, 16, 64, x, torch.zeros((64, 16), dtype=torch.int8))
 
 
 @pytest.mark.parametrize("M,N,K,bf16", [(4, 12288, 4096, True), (4, 4096, 12288, True),
