@@ -125,12 +125,6 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
-# elementwise ops per (row, column) of the quantize-superpose kernel, each
-# integer or float op counted once against F32_FLOPS: the dither 12 (xor,
-# 3 x (shift, xor), 2 multiplies, shift, convert, scale), the quantizer 11
-# (divide, floor, subtract, compare, select, add, max, min, test, select,
-# multiply), the weighted add 2
-QS_OPS_PER_ELEMENT = 25
 STREAM_GRACE_S = 8.0
 
 
@@ -193,6 +187,59 @@ def bound_by(nbytes: float, flops: float, peak: float = F32_FLOPS) -> str:
 
 def tensor_bytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts if t is not None))
+
+
+# operations of the quantize-superpose function: per quantized element
+# (qmax > 0) the dither's 10 integer ops (xor with the row key, 3 x (shift,
+# xor), 2 multiplies, the shift to 24 bits), its int-to-float conversion
+# and 11 f32 ops (scale, divide, floor, subtract, compare, add, max, min,
+# dequantizing multiply, weighting multiply, add); per passthrough element
+# (qmax == 0) 2 f32 ops (multiply, add)
+QS_INT_OPS, QS_CVT_OPS, QS_F32_OPS, QS_PASS_F32_OPS = 10, 1, 11, 2
+# the H100's rates relative to its f32 peak (an SM: 128 f32 lanes, an FMA 2
+# flops): a single f32 op at half F32_FLOPS, an int32 op (64 lanes) at a
+# quarter, a conversion (16 lanes) at a sixteenth; and the issue of any
+# op, 4 warp-instructions a clock an SM, at half F32_FLOPS too
+F32_OPS_PER_S, INT32_OPS_PER_S, CVT_OPS_PER_S = F32_FLOPS / 2, F32_FLOPS / 4, F32_FLOPS / 16
+ISSUE_OPS_PER_S = F32_FLOPS / 2
+
+
+def qs_bounds(nbytes: float, qmax, M: int) -> dict:
+    """The bounds of one quantize-superpose call, from the function's own
+    work on these inputs: its bytes over the HBM rate, and its operations
+    (rows with qmax > 0 quantized, the others passed through) over the
+    rate of each pipe they need and over the issue rate, the slowest of
+    those setting ``bound_ops_ms`` (``bound_issue_ms`` the issue alone).
+    ``bound_ms`` is the larger of bytes and operations."""
+    quantized = float(int((qmax > 0).sum())) * M
+    passed = float(qmax.numel()) * M - quantized
+    f32 = QS_F32_OPS * quantized + QS_PASS_F32_OPS * passed
+    every = f32 + (QS_INT_OPS + QS_CVT_OPS) * quantized
+    issue_ms = 1e3 * every / ISSUE_OPS_PER_S
+    ops_ms = max(issue_ms, 1e3 * f32 / F32_OPS_PER_S,
+                 1e3 * QS_INT_OPS * quantized / INT32_OPS_PER_S,
+                 1e3 * QS_CVT_OPS * quantized / CVT_OPS_PER_S)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms, "bound_issue_ms": issue_ms}
+
+
+def qs_other_layout(x, scale, qmax, w, seed, wide, acc_p, ss_p) -> dict:
+    """The quantize-superpose kernel in the layout its wrapper does not
+    choose at this M, held to the plain version's ``acc_p`` (bit for bit)
+    and ``ss_p`` (within 1e-5) and timed beside the chosen one."""
+    import torch
+
+    from repro_torch.kernels import ota_fused as kota
+
+    acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, seed, wide=wide)
+    rel = abs(ss.item() - ss_p.item()) / abs(ss_p.item())
+    name = "wide" if wide else "narrow"
+    if not torch.equal(acc, acc_p) or rel > 1e-5:
+        _fail(f"quantize-superpose in the {name} layout != plain at {tuple(x.shape)}")
+    ms = cuda_ms(lambda: kota.ota_quantize_superpose(x, scale, qmax, w, seed, wide=wide), reps=10)
+    return {"other_layout": name, "other_layout_ms": ms}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -267,6 +314,11 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"    {line.strip()}")
+    lib = _build.library("ota_quantize_superpose")
+    per_sm = lib.ota_quantize_superpose_blocks_per_sm
+    print(f"  quantize-superpose blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+          f"narrow_kernel {per_sm(0, 4000)}, wide_kernel {per_sm(1, 20)} at K = 20 and "
+          f"{per_sm(1, 4000)} at K = 4,000")
     return secs
 
 
@@ -844,17 +896,18 @@ def phase_flat(dev, plan_bits):
         _fail(f"quantize-superpose sumsq rel err {rel} > 1e-5")
     if not (torch.equal(acc, acc2) and torch.equal(ss, ss2)):
         _fail("quantize-superpose differs between two launches")
+    wide = M >= kota._QS_WIDE_M
+    other = qs_other_layout(X, scale, qmax, w, seed, not wide, acc_p, ss_p)
 
     # timing on the path's inputs, and the all-32-bit case beside torch.mv
     nbytes = tensor_bytes(X, scale, qmax, w) + 4 * M
-    ops = float(QS_OPS_PER_ELEMENT) * K * M
     ones, zeros, xt = torch.ones_like(scale), torch.zeros_like(qmax), X.t()
     rec = {
-        "K": K, "M": M, "bits": bits,
+        "K": K, "M": M, "bits": bits, "layout": "wide" if wide else "narrow", **other,
         "ms": cuda_ms(lambda: kota.ota_quantize_superpose(X, scale, qmax, w, seed)),
         "plain_ms": cuda_ms(lambda: kota.quantize_superpose_plain(X, scale, qmax, w, seed), reps=5),
-        "bound_ms": bound_ms(nbytes, ops), "bound_by": bound_by(nbytes, ops),
-        "bound_bytes": nbytes, "bound_ops": ops,
+        "bound_bytes": nbytes,
+        **qs_bounds(nbytes, qmax, M),
         "all32_ms": cuda_ms(lambda: kota.ota_quantize_superpose(X, ones, zeros, w, seed)),
         "library_ms": cuda_ms(lambda: torch.mv(xt, w)),
     }
@@ -1136,14 +1189,16 @@ def _remaining_ops_checks(inp: dict, out: dict, dev):
               f"err {rel:.3e} (tolerance 1e-5)")
         if not torch.equal(acc, acc_p) or not torch.isfinite(acc).all() or rel > 1e-5:
             _fail(f"chunked quantize-superpose != plain at K={K}")
+        wide = QS_BIG_M >= kota._QS_WIDE_M
+        other = qs_other_layout(X[:K], scale[:K], qmax[:K], w[:K], seed, not wide, acc_p, ss_p)
         nbytes = tensor_bytes(X[:K], scale[:K], qmax[:K], w[:K]) + 4.0 * QS_BIG_M
-        ops_n = float(QS_OPS_PER_ELEMENT) * K * QS_BIG_M
         xt, ones, zeros = X[:K].t(), torch.ones_like(scale[:K]), torch.zeros_like(qmax[:K])
         timings[f"ota_quantize_superpose K={K}"] = dict(
+            layout="wide" if wide else "narrow", **other,
             ms=cuda_ms(lambda: kota.ota_quantize_superpose(X[:K], scale[:K], qmax[:K], w[:K],
                                                            seed), reps=10),
             plain_ms=start.elapsed_time(end),
-            bound_ms=bound_ms(nbytes, ops_n), bound_by=bound_by(nbytes, ops_n),
+            **qs_bounds(nbytes, qmax[:K], QS_BIG_M),
             all32_ms=cuda_ms(lambda: kota.ota_quantize_superpose(X[:K], ones, zeros, w[:K],
                                                                  seed), reps=10),
             library_ms=cuda_ms(lambda: torch.mv(xt, w[:K]), reps=10),
@@ -1159,6 +1214,90 @@ def _remaining_ops_checks(inp: dict, out: dict, dev):
                                                            and (s_big == s_cpu).all()):
         _fail(f"RetrievalEngine.topk at k={ENGINE_BIG_K} misshapen or != the CPU engine")
     return errs, timings
+
+
+HOST_CALLS, HOST_LOOPS = 1000, 5  # the host-time reading: the least of 5 loops of 1,000 calls
+
+
+def host_us_per_call(dev) -> dict:
+    """Host microseconds a call of each kernel wrapper takes on a small
+    input (about 1,024 elements, or the smallest shape the kernel takes),
+    beside one PyTorch call for the same function where there is one:
+    HOST_CALLS calls timed with ``time.perf_counter`` around the loop and
+    one ``torch.cuda.synchronize()`` at its end, the least of HOST_LOOPS
+    such loops (other work on a shared host only adds to a loop). The
+    device's work on these inputs is a few microseconds a call, so the loop
+    reads the host."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+    from repro_torch.kernels.ota_aggregate import ota_aggregate_2d
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.quantize import fake_quant_2d
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    x = rand(1024)
+    s = x.abs().amax() / 127
+    s_float = s.item()
+    xk, wk, nz = rand(4, 256), rand(4), rand(256)
+    xkt = xk.t()
+    xq = rand(4, 64).to(torch.bfloat16)
+    wq = (rand(64, 16) * 254 - 127).to(torch.int8)
+    sq = rand(16)
+    w_deq = (wq.float() * sq).to(torch.bfloat16)
+    q8 = (rand(4, 256) * 254 - 127).to(torch.int8)
+    qs_scale, qs_qmax = rand(4) * 1e-2 + 1e-3, torch.full((4,), 127.0, device=dev)
+    recs = rand(256, 4)
+    qm = rand(1, 4)
+    fq, fk, fv = (rand(1, 32, 1, 32) for _ in range(3))
+    ft = [t.transpose(1, 2).contiguous() for t in (fq, fk, fv)]
+    cases = {
+        "fake_quant": (lambda: fake_quant_2d(x, s, 8),
+                       lambda: torch.fake_quantize_per_tensor_affine(x, s_float, 0, -127, 127),
+                       "torch.fake_quantize_per_tensor_affine"),
+        "ota_aggregate": (lambda: ota_aggregate_2d(xk, wk, nz, 0.1),
+                          lambda: torch.addmv(nz, xkt, wk, beta=0.1), "torch.addmv"),
+        "qmatmul": (lambda: qmatmul(xq, wq, sq), lambda: torch.matmul(xq, w_deq),
+                    "torch.matmul"),
+        "ota_superpose": (lambda: kota.ota_superpose(q8, wk, wk), None, None),
+        "ota_fold": (lambda: kota.ota_fold(nz, q8, wk, wk), None, None),
+        "ota_quantize_superpose": (
+            lambda: kota.ota_quantize_superpose(xk, qs_scale, qs_qmax, wk, 7),
+            lambda: torch.mv(xkt, wk), "torch.mv"),
+        "topk_cosine": (lambda: ktk.topk_cosine(qm, recs, None, 256, k=1), None, None),
+        "flash_attention": (lambda: kfa.flash_mha(fq, fk, fv),
+                            lambda: F.scaled_dot_product_attention(*ft, is_causal=True),
+                            "scaled_dot_product_attention"),
+    }
+
+    def per_call(fn):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(HOST_LOOPS):
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            loops.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        return min(loops)
+
+    out = {}
+    for name, (fn, lib, lib_name) in cases.items():
+        out[name] = {"us": per_call(fn), "library_us": None if lib is None else per_call(lib),
+                     "library": lib_name}
+    print(f"  host us per call (least of {HOST_LOOPS} loops of {HOST_CALLS} calls on ~1,024 "
+          f"elements): {json.dumps(out)}")
+    return out
 
 
 def check_qmatmul_route_table(dev):
@@ -1329,6 +1468,7 @@ def phase_ops(dev):
         _fail("an ops kernel wrapper accepted a float16, non-contiguous or float64 input")
     rest_errs, rest_timings = _remaining_ops_checks(rest, rest_out, dev)
     del rest, rest_out
+    host_us_per_call(dev)
 
     # timing on the inputs above
     timings = {}

@@ -31,7 +31,8 @@ constexpr int THREADS = 256;  // threads per block
 __global__ void __launch_bounds__(THREADS)
     ota_aggregate_kernel(const float* __restrict__ x, int K, long long M,
                          const float* __restrict__ w, const float* __restrict__ noise,
-                         const float* __restrict__ std_p, float* __restrict__ out, int aligned) {
+                         const float* __restrict__ std_p, float std_value, float* __restrict__ out,
+                         int aligned) {
   const long long m0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * RUN;
   if (m0 >= M) return;
   const int n = (M - m0) < RUN ? (int)(M - m0) : RUN;
@@ -57,7 +58,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < RUN; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], wk));
   }
-  const float sd = std_p[0];
+  const float sd = std_p != nullptr ? std_p[0] : std_value;
   if (full) {
     const float4 z = *reinterpret_cast<const float4*>(noise + m0);
     *reinterpret_cast<float4*>(out + m0) =
@@ -72,17 +73,18 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// x: (K, M) f32 rows; w: (K,) f32; noise: (M,) f32; std: one f32 on the
-// device. out: (M,) f32. aligned != 0 promises 16-byte aligned x, noise,
-// out and M % 4 == 0. One launch on ``stream``; returns cudaGetLastError().
+// x: (K, M) f32 rows; w: (K,) f32; noise: (M,) f32; std_p: one f32 on the
+// device, or null to take std_value. out: (M,) f32. aligned != 0 promises
+// 16-byte aligned x, noise, out and M % 4 == 0. One launch on ``stream``;
+// returns cudaGetLastError().
 extern "C" int ota_aggregate_launch(const float* x, int K, long long M, const float* w,
-                                    const float* noise, const float* std_p, float* out,
-                                    int aligned, void* stream) {
+                                    const float* noise, const float* std_p, float std_value,
+                                    float* out, int aligned, void* stream) {
   const long long threads = (M + RUN - 1) / RUN;
   const long long blocks = (threads + THREADS - 1) / THREADS;
   if (K < 1 || M < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ota_aggregate_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(x, K, M, w, noise, std_p, out,
-                                                            aligned);
+  ota_aggregate_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(x, K, M, w, noise, std_p,
+                                                            std_value, out, aligned);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@ the wrappers pass pointers and the stream as ``c_void_p`` and each C entry
 point returns ``cudaGetLastError()`` after its launch. No fast-math flag:
 the kernels' parity rests on IEEE f32 arithmetic.
 
+``launch`` calls an entry point on the current stream of a tensor's device
+(``torch.cuda.stream(...)`` contexts included) with as little host work as
+it can: the raw stream pointer from ``torch._C``, and no device switch when
+that device is already current.
+
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 
@@ -29,6 +34,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -55,7 +62,8 @@ SIGNATURES = {
     },
     "ota_quantize_superpose": {
         "ota_quantize_superpose_launch": [_P, _I, _L, _I, _P, _P, _P, _U, _P, _P, _P, _L, _P, _I,
-                                          _P],
+                                          _I, _P],
+        "ota_quantize_superpose_blocks_per_sm": [_I, _I],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -68,7 +76,7 @@ SIGNATURES = {
         "fake_quant_launch": [_P, _I, _L, _P, _P, _F, _P, _I, _P],
     },
     "ota_aggregate": {
-        "ota_aggregate_launch": [_P, _I, _L, _P, _P, _P, _P, _I, _P],
+        "ota_aggregate_launch": [_P, _I, _L, _P, _P, _P, _F, _P, _I, _P],
     },
     "qmatmul": {
         "qmatmul_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -177,14 +185,23 @@ def library(name: str) -> ctypes.CDLL:
 def on_card(t) -> bool:
     """True where a wrapper launches its kernel (a CUDA tensor), False where
     it runs its plain version (a CPU tensor); any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+def launch(fn, index: int, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with the raw pointer of
+    the current stream of CUDA device ``index`` and raise on the
+    ``cudaError_t`` it returns. Enters ``torch.cuda.device(index)`` only
+    where another device is current (a kernel launches on the current
+    device)."""
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")

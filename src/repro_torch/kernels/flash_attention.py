@@ -180,11 +180,12 @@ def _check_card(q, k, v) -> None:
     if D > HEAD_DIMS[-1]:
         raise ValueError(f"head dim {D} is not supported on the card (the kernel takes "
                          f"D <= {HEAD_DIMS[-1]})")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or k.dtype is not q.dtype or v.dtype is not q.dtype:
         raise ValueError(f"q, k, v must share one dtype of bfloat16/float32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+    idx = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
+        if t.get_device() != idx:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -215,14 +216,9 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if Dk != D:  # zero columns change no score; the scale stays D**-0.5
         q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _build.library("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, KV, Dk, _DTYPE_CODE[q.dtype], int(causal), D**-0.5, stream,
-        )
-    _build.check(rc, "flash_attention_launch")
+    _build.launch(_build.library("flash_attention").flash_attention_launch, q.get_device(),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Sq, Sk, H, KV, Dk, _DTYPE_CODE[q.dtype], int(causal), D**-0.5)
     return out if Dk == D else out[..., :D].contiguous()
 
 

@@ -54,32 +54,31 @@ def ota_aggregate_2d(
     noise_std a float or a one-value tensor -> (M,) f32."""
     if not _build.on_card(x):
         return ota_aggregate_plain(x, w, noise, noise_std)
-    dev = x.device
-    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[0] < 1 or x.shape[1] < 1:
+    idx = x.get_device()
+    if x.dim() != 2 or x.dtype is not torch.float32 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"x must be (K, M) float32 with K, M >= 1, got {tuple(x.shape)} "
                          f"{x.dtype}")
     K, M = x.shape
     if w.numel() != K:
         raise ValueError(f"w must hold {K} values, got {tuple(w.shape)}")
-    if noise.shape != (M,) or noise.dtype != torch.float32:
+    if noise.shape != (M,) or noise.dtype is not torch.float32:
         raise ValueError(f"noise must be ({M},) float32, got {tuple(noise.shape)} {noise.dtype}")
-    for name, t in (("x", x), ("w", w), ("noise", noise)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    for name, t in (("w", w), ("noise", noise)):
+        if t.get_device() != idx:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if not (x.is_contiguous() and noise.is_contiguous()):
         raise ValueError("x and noise must be contiguous")
-    wv, nz, std = _operands(x, w, noise, noise_std)
-    wv = wv.contiguous()
-    out = torch.empty(M, dtype=torch.float32, device=dev)
-    aligned = int(M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, nz, out)))
-    lib = _build.library("ota_aggregate")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ota_aggregate_launch(
-            x.data_ptr(), K, M, wv.data_ptr(), nz.data_ptr(), std.data_ptr(),
-            out.data_ptr(), aligned, stream,
-        )
-    _build.check(rc, "ota_aggregate_launch")
+    if w.dtype is not torch.float32 or not w.is_contiguous():
+        w = w.to(torch.float32).contiguous()
+    std = None  # a Python number goes by value, rounded to f32 by ctypes
+    if isinstance(noise_std, torch.Tensor):
+        std = noise_std.to(device=x.device, dtype=torch.float32).reshape(())
+    out = torch.empty(M, dtype=torch.float32, device=x.device)
+    aligned = M % 4 == 0 and (x.data_ptr() | noise.data_ptr() | out.data_ptr()) % 16 == 0
+    _build.launch(_build.library("ota_aggregate").ota_aggregate_launch, idx,
+                  x.data_ptr(), K, M, w.data_ptr(), noise.data_ptr(),
+                  None if std is None else std.data_ptr(),
+                  0.0 if std is not None else float(noise_std), out.data_ptr(), int(aligned))
     ota_aggregate_2d.launches += 1
     return out
 

@@ -79,56 +79,57 @@ def superpose_plain(
     return part if acc is None else acc.to(torch.float32) + part
 
 
+def _as_f32_vector(t: torch.Tensor, K: int) -> torch.Tensor:
+    """t as K contiguous f32 values (itself where it already is one)."""
+    if t.dtype is torch.float32 and t.is_contiguous() and t.numel() == K:
+        return t
+    return t.to(torch.float32).reshape(K)
+
+
 def _launch(acc, q, scale, w, gains, qblock, packed4) -> torch.Tensor:
-    dev = q.device
-    if q.dim() != 2 or q.shape[0] < 1 or q.shape[1] < 1:
-        raise ValueError(f"q must be (K, cols) with K, cols >= 1, got {tuple(q.shape)}")
-    K, cols = q.shape
+    idx = q.get_device()
+    shape = q.shape
+    if len(shape) != 2 or shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"q must be (K, cols) with K, cols >= 1, got {tuple(shape)}")
+    K, cols = shape
     if packed4:
-        if q.dtype != torch.uint8:
+        if q.dtype is not torch.uint8:
             raise TypeError(f"packed4 rows must be uint8, got {q.dtype}")
         kind, M = _KIND_INT4, 2 * cols
     else:
-        if q.dtype not in _KIND_CODE:
+        kind = _KIND_CODE.get(q.dtype)
+        if kind is None:
             raise TypeError(f"unsupported symbol dtype {q.dtype}")
-        kind, M = _KIND_CODE[q.dtype], cols
-    scales = _scale_matrix(scale, K)
-    if scales.dim() != 2 or scales.shape[0] != K:
-        raise ValueError(f"scale must be (K,) or (K, n_blocks), got {tuple(scale.shape)}")
-    if qblock <= 0 and scales.shape[1] != 1:
+        M = cols
+    if scale.dim() <= 1 and scale.dtype is torch.float32 and scale.numel() == K:
+        scales, nb = scale, 1  # per row: the (K, 1) matrix's memory as it is
+    else:
+        scales = _scale_matrix(scale, K)
+        if scales.dim() != 2 or scales.shape[0] != K:
+            raise ValueError(f"scale must be (K,) or (K, n_blocks), got {tuple(scale.shape)}")
+        nb = scales.shape[1]
+    if qblock <= 0 and nb != 1:
         raise ValueError("a blockwise scale matrix needs qblock > 0")
-    wv = w.to(torch.float32).reshape(K)
-    gv = None if gains is None else gains.to(torch.float32).reshape(K)
-    av = None
-    if acc is not None:
-        if acc.shape != (M,) or acc.dtype != torch.float32:
-            raise ValueError(f"acc must be ({M},) float32, got {tuple(acc.shape)} {acc.dtype}")
-        av = acc
-    for name, t in (("q", q), ("scale", scales), ("w", wv), ("gains", gv), ("acc", av)):
+    wv = _as_f32_vector(w, K)
+    gv = None if gains is None else _as_f32_vector(gains, K)
+    if acc is not None and (acc.shape != (M,) or acc.dtype is not torch.float32):
+        raise ValueError(f"acc must be ({M},) float32, got {tuple(acc.shape)} {acc.dtype}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("scale", scales), ("w", wv), ("gains", gv), ("acc", acc)):
         if t is None:
             continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.get_device() != idx:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    out = torch.empty(M, dtype=torch.float32, device=dev)
+    out = torch.empty(M, dtype=torch.float32, device=q.device)
     row_bytes = cols * q.element_size()
-    aligned = int(
-        q.data_ptr() % 16 == 0
-        and row_bytes % 16 == 0
-        and out.data_ptr() % 16 == 0
-        and (av is None or av.data_ptr() % 16 == 0)
-    )
-    lib = _build.library("ota_superpose")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ota_superpose_launch(
-            q.data_ptr(), kind, K, M, row_bytes,
-            scales.data_ptr(), scales.shape[1], int(qblock),
-            wv.data_ptr(), None if gv is None else gv.data_ptr(),
-            None if av is None else av.data_ptr(), out.data_ptr(), aligned, stream,
-        )
-    _build.check(rc, "ota_superpose_launch")
+    qp, op, ap = q.data_ptr(), out.data_ptr(), (None if acc is None else acc.data_ptr())
+    _build.launch(_build.library("ota_superpose").ota_superpose_launch, idx,
+                  qp, kind, K, M, row_bytes, scales.data_ptr(), nb, int(qblock), wv.data_ptr(),
+                  None if gv is None else gv.data_ptr(), ap, op,
+                  int((qp | row_bytes | op | (ap or 0)) % 16 == 0))
     return out
 
 
@@ -208,63 +209,77 @@ def quantize_superpose_plain(
 
 
 QS_MAX_K = 4000  # rows per launch (the CUDA source's MAX_K)
-_QS_RUN, _QS_THREADS = 4, 256  # as in the CUDA source
+_QS_THREADS = 256  # as in the CUDA source
+# the wide kernel (4 columns a thread) from this many columns on, the
+# narrow one (2 columns a thread) under it: see the CUDA source's note
+_QS_WIDE_M = 1 << 20
 
 
-def _qs_launch(x, scale, qmax, w, seed, acc_in, k0, with_sumsq):
-    """One launch over K <= QS_MAX_K rows starting at global row k0."""
+def _qs_launch(x, scale, qmax, w, seed, acc_in, k0, with_sumsq, wide=None):
+    """One launch over K <= QS_MAX_K rows starting at global row k0 (and
+    the sum of squares' second), by the wide kernel where ``wide`` says so
+    (by default where M >= _QS_WIDE_M)."""
     K, M = x.shape
+    idx = x.get_device()
+    if wide is None:
+        wide = M >= _QS_WIDE_M
     out = torch.empty(M, dtype=torch.float32, device=x.device)
     partials = sumsq = None
-    n_blocks = -(-(-(-M // _QS_RUN)) // _QS_THREADS)
+    n_blocks = -(-(-(-M // (4 if wide else 2))) // _QS_THREADS)
     if with_sumsq:
         partials = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
         sumsq = torch.empty((), dtype=torch.float32, device=x.device)
-    aligned = int(M % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-                  and (acc_in is None or acc_in.data_ptr() % 16 == 0))
-    lib = _build.library("ota_quantize_superpose")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ota_quantize_superpose_launch(
-            x.data_ptr(), K, M, k0, scale.data_ptr(), qmax.data_ptr(), w.data_ptr(),
-            int(seed) & 0xFFFFFFFF, None if acc_in is None else acc_in.data_ptr(),
-            out.data_ptr(), None if partials is None else partials.data_ptr(), n_blocks,
-            None if sumsq is None else sumsq.data_ptr(), aligned, stream,
-        )
-    _build.check(rc, "ota_quantize_superpose_launch")
+    ptrs = x.data_ptr() | out.data_ptr() | (0 if acc_in is None else acc_in.data_ptr())
+    _build.launch(
+        _build.library("ota_quantize_superpose").ota_quantize_superpose_launch, idx,
+        x.data_ptr(), K, M, k0, scale.data_ptr(), qmax.data_ptr(), w.data_ptr(),
+        int(seed) & 0xFFFFFFFF, None if acc_in is None else acc_in.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(), n_blocks,
+        None if sumsq is None else sumsq.data_ptr(),
+        int(M % 4 == 0 and ptrs % 16 == 0), int(wide))
     ota_quantize_superpose.launches += 1
     return out, sumsq
 
 
 def ota_quantize_superpose(
-    x: torch.Tensor, scale: torch.Tensor, qmax: torch.Tensor, w: torch.Tensor, seed: int
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    qmax: torch.Tensor,
+    w: torch.Tensor,
+    seed: int,
+    *,
+    wide: Optional[bool] = None,
 ):
     """In-pass SR quantize -> dequant -> weighted superpose of (K, M) f32
     rows -> (acc (M,) f32, sumsq () f32). ``scale``/``qmax``/``w``: (K,);
     ``seed``: the uint32 dither seed. On the card K > QS_MAX_K runs as one
-    launch per chunk of QS_MAX_K rows, in row order."""
+    launch per chunk of QS_MAX_K rows, in row order; ``wide`` picks the
+    kernel (by default from M; both give the same acc)."""
     if not _build.on_card(x):
         return quantize_superpose_plain(x, scale, qmax, w, seed)
-    dev = x.device
-    if x.dim() != 2 or x.dtype != torch.float32:
+    if x.dim() != 2 or x.dtype is not torch.float32:
         raise ValueError(f"x must be (K, M) float32, got {tuple(x.shape)} {x.dtype}")
     K, M = x.shape
     if K < 1 or M < 1:
         raise ValueError(f"x must have >= 1 row and >= 1 column, got {tuple(x.shape)}")
-    cols = []
-    for name, t in (("x", x), ("scale", scale), ("qmax", qmax), ("w", w)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous float32")
+    idx = x.get_device()
+    for name, t in (("scale", scale), ("qmax", qmax), ("w", w)):
+        if t.get_device() != idx:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype is not torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-        if name != "x":
-            if t.numel() != K:
-                raise ValueError(f"{name} must hold {K} values, got {tuple(t.shape)}")
-            cols.append(t.reshape(K))
+        if t.numel() != K:
+            raise ValueError(f"{name} must hold {K} values, got {tuple(t.shape)}")
+    if K <= QS_MAX_K:  # contiguous K-value tensors: their data pointers are the (K,) rows
+        return _qs_launch(x, scale, qmax, w, seed, None, 0, True, wide)
+    cols = [t.reshape(K) for t in (scale, qmax, w)]
     acc = sumsq = None
     for c0 in range(0, K, QS_MAX_K):
         c1 = min(c0 + QS_MAX_K, K)
-        acc, sumsq = _qs_launch(x[c0:c1], *(t[c0:c1] for t in cols), seed, acc, c0, c1 == K)
+        acc, sumsq = _qs_launch(x[c0:c1], *(t[c0:c1] for t in cols), seed, acc, c0, c1 == K,
+                                wide)
     return acc, sumsq
 
 

@@ -29,6 +29,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -98,6 +99,7 @@ def mismatch(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor, w_q: torch
             "within": over == 0 and bool(torch.isfinite(out).all())}
 
 
+@functools.lru_cache(maxsize=256)
 def split_k(M: int, N: int, K: int, bf16: bool, sms: int) -> Tuple[int, int]:
     """(splits, k_chunk): cut k into ranges of k_chunk (a multiple of BK)
     until the (m, n) tiles times the splits give about BLOCKS_PER_SM blocks
@@ -128,8 +130,7 @@ def kernel_design(dtype: torch.dtype, M: int, N: int, K: int, x: torch.Tensor,
 _SMS: Dict[int, int] = {}
 
 
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+def _sm_count(idx: int) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
@@ -140,10 +141,11 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     scale (N,)) -> (M, N) float32."""
     if not _build.on_card(x):
         return qmatmul_plain(x, w_q, scale)
-    dev = x.device
-    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+    idx = x.get_device()
+    code = _DTYPE_CODE.get(x.dtype)
+    if x.dim() != 2 or code is None:
         raise TypeError(f"x must be (M, K) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
-    if w_q.dim() != 2 or w_q.dtype != torch.int8:
+    if w_q.dim() != 2 or w_q.dtype is not torch.int8:
         raise TypeError(f"w_q must be (K, N) int8, got {tuple(w_q.shape)} {w_q.dtype}")
     M, K = x.shape
     K2, N = w_q.shape
@@ -151,26 +153,22 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError(f"shapes x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not match")
     if scale.numel() != N:
         raise ValueError(f"scale must hold {N} values, got {tuple(scale.shape)}")
-    for name, t in (("x", x), ("w_q", w_q), ("scale", scale)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    for name, t in (("w_q", w_q), ("scale", scale)):
+        if t.get_device() != idx:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if not (x.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("x and w_q must be contiguous")
-    s = scale.to(torch.float32).reshape(N).contiguous()
+    if scale.dtype is not torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
     if kernel_design(x.dtype, M, N, K, x, w_q) == "hopper":  # one pass over k, no split
         splits, k_chunk = 1, -(-K // BK) * BK
     else:
-        splits, k_chunk = split_k(M, N, K, x.dtype == torch.bfloat16, _sm_count(dev))
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    ws = torch.empty(splits * M * N, dtype=torch.float32, device=dev) if splits > 1 else None
-    lib = _build.library("qmatmul")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qmatmul_launch(
-            x.data_ptr(), _DTYPE_CODE[x.dtype], w_q.data_ptr(), s.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), M, N, K, splits, k_chunk, stream,
-        )
-    _build.check(rc, "qmatmul_launch")
+        splits, k_chunk = split_k(M, N, K, code == 1, _sm_count(idx))
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device) if splits > 1 else None
+    _build.launch(_build.library("qmatmul").qmatmul_launch, idx,
+                  x.data_ptr(), code, w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                  None if ws is None else ws.data_ptr(), M, N, K, splits, k_chunk)
     qmatmul.launches += 1
     return out
 

@@ -56,31 +56,31 @@ def fake_quant_2d(
     uniforms in [0, 1)) selects stochastic rounding. Returns x's dtype."""
     if not _build.on_card(x):
         return fake_quant_plain(x, scale, bits, noise)
-    dev = x.device
-    if x.dtype not in _DTYPE_CODE:
+    idx = x.get_device()
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.numel() < 1 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous and non-empty, got {tuple(x.shape)}")
-    if scale.numel() != 1 or scale.device != dev:
-        raise ValueError(f"scale must be one value on {dev}, got {tuple(scale.shape)} on "
+    if scale.numel() != 1 or scale.get_device() != idx:
+        raise ValueError(f"scale must be one value on {x.device}, got {tuple(scale.shape)} on "
                          f"{scale.device}")
-    s = scale.to(torch.float32).reshape(1)
+    if scale.dtype is not torch.float32:
+        scale = scale.to(torch.float32)
+    out = torch.empty_like(x)
+    xp, op = x.data_ptr(), out.data_ptr()
+    ptrs = xp | op
     if noise is not None:
-        if noise.shape != x.shape or noise.dtype != torch.float32 or noise.device != dev:
-            raise ValueError(f"noise must be float32 of shape {tuple(x.shape)} on {dev}")
+        if (noise.shape != x.shape or noise.dtype is not torch.float32
+                or noise.get_device() != idx):
+            raise ValueError(f"noise must be float32 of shape {tuple(x.shape)} on {x.device}")
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
-    out = torch.empty_like(x)
-    aligned = int(all(t.data_ptr() % 16 == 0 for t in (x, out, noise) if t is not None))
-    lib = _build.library("fake_quant")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fake_quant_launch(
-            x.data_ptr(), _DTYPE_CODE[x.dtype], x.numel(), s.data_ptr(),
-            None if noise is None else noise.data_ptr(), float(qrange(bits)),
-            out.data_ptr(), aligned, stream,
-        )
-    _build.check(rc, "fake_quant_launch")
+        ptrs |= noise.data_ptr()
+    _build.launch(_build.library("fake_quant").fake_quant_launch, idx,
+                  xp, code, x.numel(), scale.data_ptr(),
+                  None if noise is None else noise.data_ptr(), float(qrange(bits)), op,
+                  int(ptrs % 16 == 0))
     fake_quant_2d.launches += 1
     return out
 

@@ -58,12 +58,12 @@ def topk_plain(
 
 
 def _launch(qm, recs, scales, n, k):
-    dev = qm.device
+    idx = qm.get_device()
     if qm.dim() != 2 or recs.dim() != 2 or qm.shape[1] != recs.shape[1]:
         raise ValueError(f"shapes {tuple(qm.shape)} x {tuple(recs.shape)} do not match")
     Q, D = qm.shape
     Np = recs.shape[0]
-    if qm.dtype != torch.float32:
+    if qm.dtype is not torch.float32:
         raise TypeError(f"queries must be float32, got {qm.dtype}")
     if Np % TILE_N or Np == 0:
         raise ValueError(f"slab rows {Np} must be a positive multiple of {TILE_N}")
@@ -75,33 +75,30 @@ def _launch(qm, recs, scales, n, k):
             raise ValueError("int8 records need an (Np, n_blocks) scale grid")
         if D % scales.shape[1]:
             raise ValueError(f"{scales.shape[1]} scale blocks do not divide D = {D}")
-        if scales.dtype != torch.float32:
+        if scales.dtype is not torch.float32:
             raise TypeError(f"scales must be float32, got {scales.dtype}")
-    elif recs.dtype != torch.float32:
+    elif recs.dtype is not torch.float32:
         raise TypeError(f"records must be float32 or int8, got {recs.dtype}")
     for name, t in (("qm", qm), ("recs", recs), ("scales", scales if is_int8 else None)):
         if t is None:
             continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if t.get_device() != idx:
+            raise ValueError(f"{name} is on {t.device}, queries on {qm.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    chunks = Np // TILE_N
-    part_s = torch.empty((Q, chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, chunks, k), dtype=torch.int32, device=dev)
+    n_part = Q * (Np // TILE_N) * k
+    dev = qm.device
+    # the per-chunk lists: (Q, chunks, k) f32 scores, then as many int32
+    # indices, in one scratch allocation
+    part = torch.empty(2 * n_part, dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    lib = _build.library("topk_cosine")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.topk_cosine_launch(
-            qm.data_ptr(), Q, D, recs.data_ptr(), int(is_int8),
-            scales.data_ptr() if is_int8 else None,
-            scales.shape[1] if is_int8 else 1, Np, int(n), k,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            stream,
-        )
-    _build.check(rc, "topk_cosine_launch")
+    _build.launch(_build.library("topk_cosine").topk_cosine_launch, idx,
+                  qm.data_ptr(), Q, D, recs.data_ptr(), int(is_int8),
+                  scales.data_ptr() if is_int8 else None,
+                  scales.shape[1] if is_int8 else 1, Np, int(n), k,
+                  part.data_ptr(), part.data_ptr() + 4 * n_part, out_s.data_ptr(),
+                  out_i.data_ptr())
     return out_s, out_i
 
 

@@ -143,6 +143,145 @@ def test_quantize_superpose_past_one_launch_equals_plain(dev, K, m):
     assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
 
 
+QS_UNROLL = 4  # rows a group of loads of the narrow layout in csrc/ota_quantize_superpose.cu
+
+
+def _qs_rows(K, M, gen, dev, offset=0):
+    """K rows of M at bits 2/4/8/16/24/31/32 in turn, with 32-bit
+    (qmax == 0) rows first, last and inside the first group of loads; a
+    base ``offset`` floats past 16-byte alignment."""
+    bits = [(2, 4, 8, 16, 24, 31, 32)[i % 7] for i in range(K)]
+    for i in (0, K - 1, QS_UNROLL // 2):
+        if i < K:
+            bits[i] = 32
+    x = (torch.randn(K * M + offset, generator=gen, device=dev) * 0.01)[offset:].view(K, M)
+    scale, qmax = ota._client_grid(bits, x.abs().amax(dim=1))
+    return x, scale, qmax, torch.rand((K,), generator=gen, device=dev) / K
+
+
+@pytest.mark.parametrize("M", [1, 3, 10_003, 262_147])
+@pytest.mark.parametrize("K", [1, 3, QS_UNROLL + 1, 20, 4001, 8000])
+def test_quantize_superpose_kernel_equals_plain_at_every_group_edge(dev, K, M):
+    """Whole and partial groups of loads, a chunk of parameters past the
+    first (K > 256), passes past one launch (K > 4,000), ragged M, in both
+    layouts: acc bit for bit, sumsq within rtol 1e-5 and the same over two
+    launches."""
+    gen = torch.Generator(device=dev).manual_seed(K * 7 + M)
+    x, scale, qmax, w = _qs_rows(K, M, gen, dev)
+    acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xA11CE)
+    for wide in (False, True):
+        acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, 0xA11CE, wide=wide)
+        acc2, ss2 = kota.ota_quantize_superpose(x, scale, qmax, w, 0xA11CE, wide=wide)
+        assert torch.equal(acc, acc_p), wide
+        assert torch.equal(acc, acc2) and torch.equal(ss, ss2), wide
+        assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item()), wide
+
+
+@pytest.mark.parametrize("dM", [-1, 0, 3])
+def test_quantize_superpose_equals_plain_at_the_layout_threshold(dev, dM):
+    """M just under the wide layout's threshold (narrow) and at and past it
+    (wide), by the wrapper's own choice: acc bit for bit, sumsq within rtol
+    1e-5."""
+    K, M = QS_UNROLL + 3, kota._QS_WIDE_M + dM
+    gen = torch.Generator(device=dev).manual_seed(M)
+    x, scale, qmax, w = _qs_rows(K, M, gen, dev)
+    acc, ss = kota.ota_quantize_superpose(x, scale, qmax, w, 0xBEEF)
+    acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xBEEF)
+    assert torch.equal(acc, acc_p)
+    assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("with_sumsq", [False, True])
+def test_quantize_superpose_launch_continues_acc_in_at_k0(dev, offset, with_sumsq, wide):
+    """One launch from a given acc_in at global row k0 > 0, on rows whose
+    base is 16-byte aligned or one float past it (element loads), in either
+    layout, equals the plain version continuing the same sum."""
+    K, M, k0 = 37, 10_000, 4_003
+    gen = torch.Generator(device=dev).manual_seed(offset + 2 * with_sumsq)
+    x, scale, qmax, w = _qs_rows(K, M, gen, dev, offset)
+    acc_in = torch.randn((M,), generator=gen, device=dev)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    acc, ss = kota._qs_launch(x, scale, qmax, w, 0xF00D, acc_in, k0, with_sumsq, wide)
+    acc_p, ss_p = kota.quantize_superpose_plain(x, scale, qmax, w, 0xF00D, acc_in=acc_in, k0=k0)
+    assert torch.equal(acc, acc_p)
+    if with_sumsq:
+        assert abs(ss.item() - ss_p.item()) <= 1e-5 * abs(ss_p.item())
+    else:
+        assert ss is None
+
+
+def _stream_cases(dev):
+    """Per wrapper: (the input a stream writes, the wrapper's call on it,
+    the plain version's call, how the two are held)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(5000, generator=gen, device=dev)
+    xk = torch.randn((7, 3000), generator=gen, device=dev)
+    w = torch.rand(7, generator=gen, device=dev)
+    nz = torch.randn(3000, generator=gen, device=dev)
+    q8 = torch.randint(-127, 128, (7, 3000), generator=gen, device=dev).to(torch.int8)
+    s8 = torch.rand(7, generator=gen, device=dev) * 1e-3
+    xq = torch.randn((4, 256), generator=gen, device=dev)
+    wq, sq = ops.quantize_weights(torch.randn((256, 64), generator=gen, device=dev))
+    scale, qmax = ota._client_grid([4, 8, 32, 16, 2, 24, 31], xk.abs().amax(dim=1))
+    qm, recs, sc = _topk_slab_small(gen, dev)
+    fq = torch.randn((1, 256, 2, 64), generator=gen, device=dev).to(torch.bfloat16)
+    fkv = torch.randn((1, 256, 1, 64), generator=gen, device=dev).to(torch.bfloat16)
+    s_fq = ops.fake_quant_scale(x, 8)
+    exact = torch.equal
+    return {
+        "fake_quant_2d": (x, lambda t: fake_quant_2d(t, s_fq, 8),
+                          lambda t: fake_quant_plain(t, s_fq, 8), exact),
+        "ota_aggregate_2d": (xk, lambda t: ota_aggregate_2d(t, w, nz, 0.1),
+                             lambda t: ota_aggregate_plain(t, w, nz, 0.1), exact),
+        "qmatmul": (xq, lambda t: kqmm(t, wq, sq), lambda t: qmatmul_plain(t, wq, sq),
+                    lambda a, b: mismatch(a, b, xq, wq, sq)["within"]),
+        "ota_superpose": (q8, lambda t: kota.ota_superpose(t, s8, w),
+                          lambda t: kota.superpose_plain(t, s8, w), exact),
+        "ota_fold": (q8, lambda t: kota.ota_fold(nz, t, s8, w),
+                     lambda t: kota.superpose_plain(t, s8, w, acc=nz), exact),
+        "ota_quantize_superpose": (
+            xk, lambda t: kota.ota_quantize_superpose(t, scale, qmax, w, 5)[0],
+            lambda t: kota.quantize_superpose_plain(t, scale, qmax, w, 5)[0], exact),
+        "topk_cosine": (recs, lambda t: ktk.topk_cosine(qm, t, sc, 1000, k=8)[1],
+                        lambda t: ktk.topk_plain(qm, t, sc, 1000, 8)[1], exact),
+        "flash_mha": (fq, lambda t: kfa.flash_mha(t, fkv, fkv),
+                      lambda t: kfa.flash_attention_plain(t, fkv, fkv),
+                      lambda a, b: kfa.mismatch(a, b)["within"]),
+    }
+
+
+def _topk_slab_small(gen, dev):
+    vec = torch.randn((1000, 32), generator=gen, device=dev)
+    store = ArenaStore(32, storage="f32", capacity=1024)
+    store.add_batch((vec / vec.norm(dim=1, keepdim=True)).cpu().numpy())
+    data, scales = store.raw()
+    qm = torch.randn((3, 32), generator=gen, device=dev)
+    return (qm / qm.norm(dim=1, keepdim=True), torch.from_numpy(np.ascontiguousarray(data)).to(dev),
+            None if scales is None else torch.from_numpy(scales).to(dev))
+
+
+@pytest.mark.parametrize("name", ["fake_quant_2d", "ota_aggregate_2d", "qmatmul", "ota_superpose",
+                                  "ota_fold", "ota_quantize_superpose", "topk_cosine",
+                                  "flash_mha"])
+def test_wrapper_launches_on_the_current_stream(dev, name):
+    """Inside ``torch.cuda.stream(s)``, right after a long wait on s and a
+    copy on s that writes the wrapper's input, with no synchronisation
+    between: the wrapper sees the written input (it launched on s, after
+    the copy), so its result equals the plain version's on that input."""
+    src, call, plain, same = _stream_cases(dev)[name]
+    target = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)  # tens of milliseconds of the card's time on s
+        target.copy_(src)
+        out = call(target)
+    torch.cuda.synchronize()
+    assert same(out, plain(src))
+
+
 def test_flat_aggregate_on_the_card_launches_quantize_superpose(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     trees = [{"a": torch.randn(300, 7, generator=gen, device=dev) * 0.01,
