@@ -27,6 +27,12 @@ Phases, each of which fails the run on error:
              round's packed rows are re-aggregated with the plain versions on
              the card and must match the kernel path exactly; the byte
              accounting must match the wire format; params must be finite.
+             Then, on the last round's own inputs, the superpose, the folds
+             and the planner's top-k (bit for bit against its plain
+             version) are timed one call (``ms``, host work included) and
+             ten queued (``ms_queued``, device time), and the engine's
+             ``retrieval.query`` is split into the slab's upload, the
+             queries' upload, the kernel call and the copy back.
 
 4. flat    — the one-shot f32 aggregation (``ota.ota_aggregate`` on update
              trees): K = 20 DeepSpeech2-shaped f32 trees (full width, seeded,
@@ -78,7 +84,10 @@ Phases, each of which fails the run on error:
              attention within ``kernels/flash_attention.mismatch``'s. Each
              kernel is timed beside its plain version, its bound and a library
              call (``library_ms``, timed only).
-7. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
+7. host    — each kernel wrapper's host microseconds a call on ~1,024
+             elements (the least of 5 loops of 1,000 calls), beside one
+             PyTorch call for the same function where there is one.
+8. serve   — Qwen3-8B at full width (36 layers, d_model 4,096, 32/8 heads
              of 128, vocab 151,936, bf16, random weights from a seed) through
              ``launch.serve.serve`` with ``use_flash_kernel``: 4 prompts of
              2,048 tokens, prefill (the flash counter must rise by exactly 36),
@@ -108,7 +117,9 @@ the card's name and power limit (``nvidia-smi``), and last the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or outside the repository, it exits non-zero and prints
 no result. ``--phases build,kernels`` (or ``build,ops``) runs only the named
-phases (no result lines).
+phases (no result lines). ``--phases build,rows`` reads rows 1-3 at the
+barrier round's shapes on seeded data without training (``phase_rows``):
+seconds a tree, to compare two trees in one call.
 """
 
 from __future__ import annotations
@@ -152,12 +163,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# cycles of ``torch.cuda._sleep`` ahead of a queued reading (about 2 ms on
+# an H100): the host enqueues the calls while the card sleeps
+QUEUE_SLEEP_CYCLES = 4_000_000
+
+
 def cuda_ms_queued(fn, n: int = 10, reps: int = 5, warmup: int = 3) -> float:
     """Median over ``reps`` of the mean CUDA-event time of ``n`` calls of
-    ``fn`` enqueued back to back: the host's per-call work hides behind the
-    device's wherever a call runs longer on the device than on the host, so
-    this reads device time where ``cuda_ms`` (one call between two events)
-    also counts the host's."""
+    ``fn`` enqueued back to back behind a sleeping kernel: the host enqueues
+    the calls and both events while the card sleeps, so the events read the
+    card's time for the n calls (device time, the gaps between launches
+    included), where ``cuda_ms`` (one call between two events) also counts
+    the host's wrapper work. Without the sleep, a call whose host work
+    outlasts its device work would read the host's time."""
     import torch
 
     for _ in range(warmup):
@@ -167,6 +185,7 @@ def cuda_ms_queued(fn, n: int = 10, reps: int = 5, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         start.record()
         for _ in range(n):
             fn()
@@ -747,7 +766,11 @@ def phase_rounds(dev):
 
 
 def time_round_kernels(srv, round_inputs, dev):
-    """Each kernel's time per round on the last round's own inputs."""
+    """Each kernel's time per round on the last round's own inputs: one call
+    (``ms``, the host's wrapper work included) and queued back to back
+    (``ms_queued``, device time); the top-k held bit for bit against its
+    plain version there; and the engine's ``retrieval.query`` split into its
+    parts (``retrieval_query_split``)."""
     import torch
 
     from repro_torch.core.ota import _group_rows
@@ -787,11 +810,13 @@ def time_round_kernels(srv, round_inputs, dev):
     b_fold = sum(tensor_bytes(*c[:3]) + 8 * M for c in rest)
     f_fold = sum(3.0 * c[0].shape[0] * M + M for c in rest)
     out = {
-        "ota_superpose": dict(ms=cuda_ms(sup), plain_ms=cuda_ms(sup_plain),
+        "ota_superpose": dict(ms=cuda_ms(sup), ms_queued=cuda_ms_queued(sup),
+                              plain_ms=cuda_ms(sup_plain),
                               bound_ms=bound_ms(b_sup, f_sup),
                               bound_by=bound_by(b_sup, f_sup), library_ms=None,
                               shape=f"{kinds[0]} K_g={first[0].shape[0]}"),
         "ota_fold": dict(ms=cuda_ms(folds) if rest else 0.0,
+                         ms_queued=cuda_ms_queued(folds) if rest else 0.0,
                          plain_ms=cuda_ms(folds_plain) if rest else 0.0,
                          bound_ms=bound_ms(b_fold, f_fold),
                          bound_by=bound_by(b_fold, f_fold), library_ms=None,
@@ -806,18 +831,185 @@ def time_round_kernels(srv, round_inputs, dev):
 
     profiles = [srv.planner.profiles[u.user_id].features()
                 for u in srv.users[:srv.cfg.clients_per_round]]
-    qv = torch.from_numpy(embed_batch(profiles)).to(dev)
+    q_np = embed_batch(profiles)
+    qv = torch.from_numpy(q_np).to(dev)
     k = min(32, n)
+    s, i = ktk.topk_cosine(qv, data, sc, n, k=k)
+    sp, ip = ktk.topk_plain(qv, data, sc, n, k)
+    if not (torch.equal(i, ip) and torch.equal(s.view(torch.int32), sp.view(torch.int32))):
+        _fail(f"top-k != plain on the planner's slab (Q={qv.shape[0]} n={n} k={k})")
     nbytes = tensor_bytes(qv) + n * data.shape[1] * data.element_size() + 20 * k * 8
     flops = 2.0 * qv.shape[0] * n * data.shape[1]
     out["topk_cosine"] = dict(
         ms=cuda_ms(lambda: ktk.topk_cosine(qv, data, sc, n, k=k)),
+        ms_queued=cuda_ms_queued(lambda: ktk.topk_cosine(qv, data, sc, n, k=k)),
         plain_ms=cuda_ms(lambda: ktk.topk_plain(qv, data, sc, n, k)),
         bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops),
         library_ms=None, shape=f"Q={qv.shape[0]} Np={data.shape[0]} n={n} k={k}",
     )
     for name, rec in out.items():
         print(f"  per-round timing {name}: " + json.dumps(rec))
+    print("  retrieval.query split (host clock, synchronised, median of 20; ms): "
+          + json.dumps(retrieval_query_split(eng, q_np, k, dev)))
+    return out
+
+
+def retrieval_query_split(eng, q_np, k, dev) -> dict:
+    """The engine's ``topk`` (the ``retrieval.query`` span) on the planner's
+    store, whole (``cold``: the slab uploaded again, as after each round's
+    appends; ``warm``: the slab cached) and by part: the slab's upload, the
+    queries' upload, the kernel call, and the copy of both results back
+    (each ``.cpu()`` synchronises). A reading only: ``cold`` drops the
+    engine's slab cache, which its next query refills."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import topk_similarity as ktk
+
+    data_np, scales_np = eng.store.raw()
+    n = len(eng.store)
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def cold():
+        eng._dev_cache = None
+        eng.topk(q_np, k)
+
+    data, sc = eng._slab()
+    qv = torch.from_numpy(q_np).to(dev)
+    s, i = ktk.topk_cosine(qv, data, sc, n, k=k)
+    return {
+        "cold_ms": host_ms(cold),
+        "warm_ms": host_ms(lambda: eng.topk(q_np, k)),
+        "slab_upload_ms": host_ms(lambda: (torch.from_numpy(data_np).to(dev),
+                                           None if scales_np is None
+                                           else torch.from_numpy(scales_np).to(dev))),
+        "query_upload_ms": host_ms(lambda: torch.from_numpy(np.ascontiguousarray(q_np)).to(dev)),
+        "kernel_ms": host_ms(lambda: ktk.topk_cosine(qv, data, sc, n, k=k)),
+        "copy_back_ms": host_ms(lambda: (s.cpu().numpy(), i.cpu().numpy())),
+        "slab_bytes": int(data_np.nbytes + (0 if scales_np is None else scales_np.nbytes)),
+    }
+
+
+# the barrier round's storage groups as the rounds phase reads them at
+# seed 0 (the last round's int4 group, then its int8 and int16 groups),
+# the planner's top-k after two rounds (Q, D, Np, n, k) and the ops phase's
+ROWS_SUPERPOSE = (("int4", 2),)
+ROWS_FOLDS = (("int8", 6), ("int16", 12))
+ROWS_TOPK = (("f32", 20, 256, 1024, 40, 32), ("int8", 20, 256, 4096, 3996, 128))
+
+
+def _sparse_queries_and_slab(storage, Q, D, Np, n, gen, dev):
+    """Sparse unit records and queries like the planner's hashed embeddings
+    (4 nonzeros of +-1/2 each), through an arena of capacity Np."""
+    import torch
+
+    from repro_torch.retrieval.arena import ArenaStore
+
+    def sparse(rows):
+        v = torch.zeros((rows, D))
+        idx = torch.rand((rows, D), generator=gen).argsort(dim=1)[:, :4]
+        sign = torch.randint(0, 2, (rows, 4), generator=gen).float() - 0.5
+        return v.scatter_(1, idx, sign)
+
+    store = ArenaStore(D, storage=storage, capacity=Np)
+    store.add_batch(sparse(n).numpy())
+    data, scales = store.raw()
+    return (sparse(Q).to(dev), torch.from_numpy(data).to(dev),
+            None if scales is None else torch.from_numpy(scales).to(dev))
+
+
+def phase_rows(dev):
+    """Rows 1-3 at the barrier round's shapes on seeded data (no training):
+    the superpose of the round's first storage group, the folds of the
+    rest, the planner's top-k and the ops phase's; each held bit for bit
+    against its plain version and timed one call (``ms``) and queued
+    (``ms_queued``). Seconds of work: the way to read two trees in turns."""
+    import torch
+
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+
+    M = _ds2_layout_size(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    groups = {}
+    for kind, K in ROWS_SUPERPOSE + ROWS_FOLDS:
+        q, scale = _make_group(kind, K, M, 256, gen, dev)
+        w = torch.rand((K,), generator=gen, device=dev) / 20
+        groups[kind] = (q, scale, w)
+    acc = torch.randn((M,), generator=gen, device=dev)
+    recs = {}
+
+    def sup():
+        return [kota.ota_superpose(*groups[k], qblock=256, packed4=k == "int4")
+                for k, _ in ROWS_SUPERPOSE]
+
+    def folds():
+        return [kota.ota_fold(acc, *groups[k], qblock=256, packed4=k == "int4")
+                for k, _ in ROWS_FOLDS]
+
+    for (kind, _), got in zip(ROWS_SUPERPOSE, sup()):
+        if not torch.equal(got, kota.superpose_plain(*groups[kind], qblock=256,
+                                                     packed4=kind == "int4")):
+            _fail(f"superpose != plain ({kind})")
+    for (kind, _), got in zip(ROWS_FOLDS, folds()):
+        if not torch.equal(got, kota.superpose_plain(*groups[kind], qblock=256, acc=acc)):
+            _fail(f"fold != plain ({kind})")
+    recs["ota_superpose " + " + ".join(f"{k} K_g={K}" for k, K in ROWS_SUPERPOSE)] = dict(
+        ms=cuda_ms(sup), ms_queued=cuda_ms_queued(sup))
+    recs["ota_fold " + " + ".join(f"{k} K_g={K}" for k, K in ROWS_FOLDS)] = dict(
+        ms=cuda_ms(folds), ms_queued=cuda_ms_queued(folds))
+    cpu_gen = torch.Generator().manual_seed(21)
+    topk_calls = {}
+    for storage, Q, D, Np, n, k in ROWS_TOPK:
+        qm, data, sc = _sparse_queries_and_slab(storage, Q, D, Np, n, cpu_gen, dev)
+        s, i = ktk.topk_cosine(qm, data, sc, n, k=k)
+        sp, ip = ktk.topk_plain(qm, data, sc, n, k)
+        if not (torch.equal(i, ip) and torch.equal(s.view(torch.int32), sp.view(torch.int32))):
+            _fail(f"top-k != plain ({storage} Np={Np} n={n} k={k})")
+        name = f"topk_cosine {storage} Q={Q} Np={Np} n={n} k={k}"
+        topk_calls[name] = (lambda qm=qm, data=data, sc=sc, n=n, k=k:
+                            ktk.topk_cosine(qm, data, sc, n, k=k))
+        recs[name] = dict(ms=cuda_ms(topk_calls[name]), ms_queued=cuda_ms_queued(topk_calls[name]))
+    for name, rec in recs.items():
+        print(f"  rows {name}: " + json.dumps(rec))
+    prof = {"ota_superpose": profiled_kernel_us(sup), "ota_fold": profiled_kernel_us(folds)}
+    prof.update({name: profiled_kernel_us(fn) for name, fn in topk_calls.items()})
+    print("  rows kernel us a call (torch.profiler, 10 calls each): " + json.dumps(prof))
+    return recs
+
+
+def profiled_kernel_us(fn, calls: int = 10) -> dict:
+    """Device microseconds a call of each kernel ``fn`` launches, as the
+    profiler's CUDA activity records them (the kernel's own duration,
+    without the gaps between launches); {} where the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us and ev.count:
+            out[ev.key[:60]] = dev_us / calls
     return out
 
 
@@ -1163,7 +1355,10 @@ def _remaining_ops_checks(inp: dict, out: dict, dev):
           f"{torch.equal(i, ip)}, max_abs_err {errs['topk_cosine']} (tolerance: exact)")
     if not (torch.equal(i, ip) and torch.equal(s, sp)):
         _fail("ops.topk_cosine != plain")
-    worst, timings = 0.0, {}
+    timings = {"topk_cosine int8 Np=4096 n=3996 k=128": dict(
+        ms=cuda_ms(lambda: ktk.topk_cosine(qm, recs, scales, 3996, k=OPS_TOPK_K)),
+        ms_queued=cuda_ms_queued(lambda: ktk.topk_cosine(qm, recs, scales, 3996, k=OPS_TOPK_K)))}
+    worst = 0.0
     for (case, (q, k, v)), o in zip(inp["flash"], out["flash"]):
         mm = kfa.mismatch(o, kfa.flash_attention_plain(q, k, v, causal=case[7]))
         worst = max(worst, mm["max_abs_err"])
@@ -1468,7 +1663,6 @@ def phase_ops(dev):
         _fail("an ops kernel wrapper accepted a float16, non-contiguous or float64 input")
     rest_errs, rest_timings = _remaining_ops_checks(rest, rest_out, dev)
     del rest, rest_out
-    host_us_per_call(dev)
 
     # timing on the inputs above
     timings = {}
@@ -1709,7 +1903,9 @@ def phase_serve(dev):
 # ---------------------------------------------------------------- main
 
 
-PHASES = ("build", "kernels", "rounds", "flat", "stream", "ops", "serve")
+# a full run's phases; ``--phases`` may also name ``rows`` (phase_rows), which
+# a full run leaves out
+PHASES = ("build", "kernels", "rounds", "flat", "stream", "ops", "host", "serve")
 
 
 def main() -> None:
@@ -1752,6 +1948,10 @@ def main() -> None:
         stream_counts = phase_stream(dev)
     if "ops" in phases:
         ops_counts, ops_errs, ops_rows = phase_ops(dev)
+    if "host" in phases:
+        host_us_per_call(dev)
+    if "rows" in phases:
+        phase_rows(dev)
     if "serve" in phases:
         serve_rec = phase_serve(dev)
     if set(phases) != set(PHASES):

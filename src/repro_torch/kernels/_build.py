@@ -70,7 +70,7 @@ SIGNATURES = {
         "flash_attention_design": [_I, _I],
     },
     "topk_cosine": {
-        "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],
+        "topk_cosine_launch": [_P, _I, _I, _P, _I, _P, _I, _L, _L, _I, _P, _P, _P],
     },
     "fake_quant": {
         "fake_quant_launch": [_P, _I, _L, _P, _P, _F, _P, _I, _P],

@@ -12,7 +12,8 @@ Each score is the dot product accumulated over d = 0..D-1 in order, every
 product and sum rounded on its own; the plain version does exactly that
 and selects with a stable sort, so kernel and plain version return the
 same scores and indices bit for bit. Entries past the live count are
--inf with ascending indices.
+-inf with ascending indices. The kernel selects by sorting one 64-bit key
+per record (``sort_key`` states it here), in one launch.
 
 Dispatch: CPU tensors run the plain version; CUDA tensors launch the
 kernel or raise.
@@ -57,6 +58,22 @@ def topk_plain(
     return vals[:, :k].contiguous(), order[:, :k].to(torch.int32).contiguous()
 
 
+def sort_key(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's selection key (``csrc/topk_cosine.cu``, ``make_key``) as
+    a signed int64: descending key order is the tie contract (score
+    descending, equal scores by ascending index), -0.0 tying +0.0.
+
+    The high word holds the score's order-preserving bits (its int32 bit
+    pattern where the score is >= +0, that pattern with every bit but the
+    sign flipped where it is < 0), the low word ~index. The kernel's key is
+    this one as an unsigned 64-bit integer plus 2^63 (its high word's top
+    bit set for scores >= +0): both orders agree."""
+    s = torch.where(scores == 0, torch.zeros_like(scores), scores.to(torch.float32))
+    bits = s.view(torch.int32).to(torch.int64)
+    hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return hi * (1 << 32) + (~idx.to(torch.int64) & 0xFFFFFFFF)
+
+
 def _launch(qm, recs, scales, n, k):
     idx = qm.get_device()
     if qm.dim() != 2 or recs.dim() != 2 or qm.shape[1] != recs.shape[1]:
@@ -86,19 +103,15 @@ def _launch(qm, recs, scales, n, k):
             raise ValueError(f"{name} is on {t.device}, queries on {qm.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n_part = Q * (Np // TILE_N) * k
-    dev = qm.device
-    # the per-chunk lists: (Q, chunks, k) f32 scores, then as many int32
-    # indices, in one scratch allocation
-    part = torch.empty(2 * n_part, dtype=torch.int32, device=dev)
-    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    # both outputs in one allocation: (Q, k) f32 scores, then (Q, k) int32
+    # indices; the kernel needs no scratch
+    out = torch.empty((2, Q, k), dtype=torch.int32, device=qm.device)
+    out_s, out_i = out[0].view(torch.float32), out[1]
     _build.launch(_build.library("topk_cosine").topk_cosine_launch, idx,
                   qm.data_ptr(), Q, D, recs.data_ptr(), int(is_int8),
                   scales.data_ptr() if is_int8 else None,
                   scales.shape[1] if is_int8 else 1, Np, int(n), k,
-                  part.data_ptr(), part.data_ptr() + 4 * n_part, out_s.data_ptr(),
-                  out_i.data_ptr())
+                  out_s.data_ptr(), out_i.data_ptr())
     return out_s, out_i
 
 

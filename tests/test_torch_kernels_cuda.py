@@ -72,6 +72,56 @@ def test_topk_kernel_equals_plain(dev, storage):
     assert torch.equal(i, ip) and torch.equal(s, sp)
 
 
+def _sparse_slab(storage, n, Np, Q, seed, dev):
+    """Sparse unit records and queries like the planner's hashed embeddings
+    (D = 256, 4 nonzeros of +-1/2 each): most scores are exact ties, zeros
+    most of all; records past n are left as the arena leaves them."""
+    rng = np.random.RandomState(seed)
+
+    def sparse(rows):
+        v = np.zeros((rows, 256), np.float32)
+        for r in range(rows):
+            v[r, rng.choice(256, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+        return v
+
+    store = ArenaStore(256, storage=storage, capacity=Np)
+    store.add_batch(sparse(n))
+    data, scales = store.raw()
+    assert data.shape[0] == Np
+    return (torch.from_numpy(sparse(Q)).to(dev), torch.from_numpy(np.ascontiguousarray(data)).to(dev),
+            None if scales is None else torch.from_numpy(scales).to(dev))
+
+
+@pytest.mark.parametrize("Q", [1, 20])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("k", [1, 32, 128, 256])
+@pytest.mark.parametrize("n", [1, 40, 255, 256, 257, 3996])
+def test_topk_kernel_equals_plain_on_tie_heavy_slabs(dev, n, k, storage, Q):
+    """Scores and indices bit for bit (k > n included: -inf with ascending
+    indices) on a slab of one chunk or several (the least capacity that holds
+    n), and on a 4,096-record slab, most of whose chunks are past n."""
+    for Np in sorted({max(256, -(-n // 256) * 256), 4096}):
+        qm, recs, sc = _sparse_slab(storage, n, Np, Q, n * 7 + k, dev)
+        s, i = ktk.topk_cosine(qm, recs, sc, n, k=k)
+        sp, ip = ktk.topk_plain(qm, recs, sc, n, k)
+        assert torch.equal(i, ip), Np
+        assert torch.equal(s.view(torch.int32), sp.view(torch.int32)), Np
+
+
+def test_topk_kernel_carries_nothing_between_calls(dev):
+    """One launch a call, and calls in a row (several chunks, one chunk, then
+    the first again) each equal the plain version: no state survives a
+    call."""
+    cases = [_sparse_slab("int8", 3996, 4096, 20, 1, dev) + (3996, 128),
+             _sparse_slab("f32", 40, 256, 20, 2, dev) + (40, 32)]
+    for qm, recs, sc, n, k in cases + cases[:1]:
+        before = ktk.topk_cosine.launches
+        s, i = ktk.topk_cosine(qm, recs, sc, n, k=k)
+        assert ktk.topk_cosine.launches == before + 1
+        sp, ip = ktk.topk_plain(qm, recs, sc, n, k)
+        assert torch.equal(i, ip) and torch.equal(s, sp)
+
+
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_engine_topk_past_the_kernel_limit_on_the_card(dev, storage):
     """k = 300 on an engine whose slab lives on the card: the host path,
@@ -91,6 +141,58 @@ def test_engine_topk_past_the_kernel_limit_on_the_card(dev, storage):
     sc, ic = RetrievalEngine(store, device="cpu").topk(q, 300)
     np.testing.assert_array_equal(i, ic)
     np.testing.assert_array_equal(s, sc)
+
+
+OTA_KINDS = {"int4": (7, None), "int8": (127, torch.int8), "int16": (32767, torch.int16),
+             "int32": (2**30, torch.int32), "float32": (None, torch.float32)}
+
+
+def _ota_group(kind, K, M, qblock, gen, dev, offset):
+    """K rows of M symbols of one storage class (int4 as M / 2 packed bytes),
+    their scales (per row, or one per qblock symbols), a base ``offset``
+    elements past 16-byte alignment."""
+    lim, dt = OTA_KINDS[kind]
+    cols = M // 2 if kind == "int4" else M
+    n = K * cols + offset
+    if kind == "int4":
+        flat = torch.randint(0, 256, (n,), generator=gen, device=dev).to(torch.uint8)
+    elif kind == "float32":
+        flat = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    else:
+        flat = torch.randint(-lim, lim + 1, (n,), generator=gen, device=dev).to(dt)
+    q = flat[offset:].view(K, cols)
+    if qblock:
+        scale = torch.rand((K, -(-M // qblock)), generator=gen, device=dev) * 1e-3 + 1e-6
+    else:
+        scale = torch.rand((K,), generator=gen, device=dev) * 1e-3 + 1e-6
+    return q, scale
+
+
+@pytest.mark.parametrize("layout", ["whole", "ragged", "unaligned"])
+@pytest.mark.parametrize("K", [1, 2, 7])
+@pytest.mark.parametrize("qblock", [0, 256, 100])
+@pytest.mark.parametrize("kind", list(OTA_KINDS))
+def test_superpose_and_fold_equal_plain_in_every_layout(dev, kind, qblock, K, layout):
+    """Bit for bit with the plain version, with and without gains, and
+    fold(zeros, b) == superpose(b): M a whole number of warp segments (32
+    runs of 16 bytes), a ragged M (M % run != 0, a partial last segment), or
+    rows, acc and their bases off 16-byte alignment; scales per row,
+    blockwise in runs' multiples (256) or straddling runs (100)."""
+    M = {"whole": 65_536, "ragged": 10_002 if kind == "int4" else 10_003,
+         "unaligned": 20_002}[layout]
+    off = 1 if layout == "unaligned" else 0
+    gen = torch.Generator(device=dev).manual_seed(K * 131 + M + qblock)
+    q, scale = _ota_group(kind, K, M, qblock, gen, dev, off)
+    w = torch.rand((K,), generator=gen, device=dev)
+    acc = torch.randn((M + off,), generator=gen, device=dev)[off:]
+    assert (q.data_ptr() % 16 == 0) == (off == 0)
+    for gains in (None, torch.rand((K,), generator=gen, device=dev)):
+        kw = dict(gains=gains, qblock=qblock, packed4=kind == "int4")
+        sup = kota.ota_superpose(q, scale, w, **kw)
+        assert torch.equal(sup, kota.superpose_plain(q, scale, w, **kw))
+        fold = kota.ota_fold(acc, q, scale, w, **kw)
+        assert torch.equal(fold, kota.superpose_plain(q, scale, w, acc=acc, **kw))
+        assert torch.equal(kota.ota_fold(torch.zeros_like(acc), q, scale, w, **kw), sup)
 
 
 def test_round_on_the_card_launches_every_kernel(dev):

@@ -99,6 +99,45 @@ def test_plain_topk_tail_past_live_count():
     assert torch.isinf(s[0, 5:]).all() and i[0, 5:].tolist() == [5, 6, 7]
 
 
+def _tie_heavy_scores(seed, Q=6, N=600):
+    """Sparse scores: many exact ties (zeros most of all), +-0.0, -inf tails."""
+    rng = np.random.RandomState(seed)
+    s = rng.choice(np.float32([0.5, 0.25, -0.25, 1.0, -1.0, 3e-39, -3e-39]), (Q, N))
+    s[rng.rand(Q, N) < 0.5] = 0.0
+    s[rng.rand(Q, N) < 0.2] = -0.0
+    s[:, N - 50:] = -np.inf  # positions past a live count
+    s[0, :] = 0.0  # a row of ties only
+    s[1, ::2] = -0.0
+    return torch.from_numpy(s.astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sort_key_order_is_the_stable_sort(seed):
+    """Descending order of the kernel's 64-bit key is torch.sort(stable=True)
+    by descending score: equal scores (+0.0 and -0.0 among them) by
+    ascending index, -inf last."""
+    s = _tie_heavy_scores(seed)
+    idx = torch.arange(s.shape[1]).expand_as(s)
+    key = ttk.sort_key(s, idx)
+    by_key = torch.sort(key, dim=1, descending=True).indices
+    _, by_score = torch.sort(s, dim=1, descending=True, stable=True)
+    assert torch.equal(by_key, by_score)
+    assert all(row.unique().numel() == row.numel() for row in key)  # a total order
+
+
+def test_sort_key_is_the_kernels_unsigned_key_less_two_to_the_63():
+    """The Python key against the kernel's make_key written out bit by bit in
+    numpy (uint64): high word ~u for a negative score, u | 2^31 otherwise
+    (-0.0 first mapped to +0.0), low word ~index."""
+    s = _tie_heavy_scores(3).numpy()
+    idx = np.broadcast_to(np.arange(s.shape[1], dtype=np.uint64), s.shape)
+    u = np.where(s == 0, np.float32(0), s).view(np.uint32).astype(np.uint64)
+    hi = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    want = (hi << np.uint64(32)) | (~idx & np.uint64(0xFFFFFFFF))
+    got = ttk.sort_key(torch.from_numpy(s), torch.from_numpy(idx.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64) ^ np.uint64(1 << 63), want)
+
+
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_engine_matches_numpy_engine(storage):
     ja, ta, q = _slab(storage, 900, 1024, 7)
