@@ -22,7 +22,8 @@ Phases, each of which fails the run on error:
              the same function, that call's (library_ms).
 3. rounds  — two ``FLServer`` rounds at the full DeepSpeech2 width (20
              clients, 20 per round, default local steps/batch, RAG planner,
-             quant_block 256), with the launch counters zeroed just before
+             quant_block 256, FedAvgM 0.9 with a bf16 velocity), with the
+             launch counters zeroed just before
              and read just after; every kernel must have launched. The
              round's packed rows are re-aggregated with the plain versions on
              the card and must match the kernel path exactly; the byte
@@ -33,6 +34,25 @@ Phases, each of which fails the run on error:
              ten queued (``ms_queued``, device time), and the engine's
              ``retrieval.query`` is split into the slab's upload, the
              queries' upload, the kernel call and the copy back.
+   state   — on the rounds' server (``--phases build,rounds,state``): its
+             params and bf16 FedAvgM velocity saved through
+             ``ckpt.CheckpointManager(keep=2)`` at steps 1-3 (step 1 must be
+             gone, the restore on the card bit for bit; codec flag, file
+             and raw bytes, save and load ms); the planner's feedback
+             database saved and restored into a fresh one on the card, whose
+             queries (through the top-k kernel, counters zeroed just before)
+             must equal the saved one's bit for bit; the per-tree oracle
+             ``ota.ota_aggregate_pertree`` against the flat path (row 4) on
+             20 seeded updates of the server's layout at bits 4/8/16/32 with
+             the same ``TorchRoundDraws`` (participation equal, noise_std
+             within 1e-6, leaves within rtol 1e-4 / atol 1e-5, the
+             reference's tolerance for the same comparison), both timed; the
+             uplink API on one row at 4, 8 and 16 bits (blockwise scales:
+             error within one scale up to f32 rounding, ``wire_nbytes`` ==
+             ``packing.row_wire_bytes``) and ``digital_uplink_bits``; and the
+             rounds' spans and metrics through ``obs.export.dump_telemetry``
+             (every JSONL line parses, the Perfetto trace names every round
+             stage).
 
 4. flat    — the one-shot f32 aggregation (``ota.ota_aggregate`` on update
              trees): K = 20 DeepSpeech2-shaped f32 trees (full width, seeded,
@@ -127,6 +147,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -708,11 +729,14 @@ def phase_rounds(dev):
     from repro_torch.kernels import ota_fused as kota
     from repro_torch.kernels import topk_similarity as ktk
 
-    cfg = FLConfig(n_clients=20, clients_per_round=20, seed=0)
+    # FedAvgM with the velocity kept in bf16: the state phase checkpoints it
+    cfg = FLConfig(n_clients=20, clients_per_round=20, seed=0, server_momentum=0.9,
+                   quantize_server_state=True)
     srv = FLServer(cfg, device=dev)
     M = srv.layout.padded_size
     print(f"rounds: DeepSpeech2 {srv.layout.size} params, M={M}, K={cfg.clients_per_round}, "
-          f"local_steps={cfg.local_steps}, local_batch={cfg.local_batch}")
+          f"local_steps={cfg.local_steps}, local_batch={cfg.local_batch}, server_momentum "
+          f"{cfg.server_momentum} (bf16 velocity)")
     round_inputs = []
     kota.ota_superpose.launches = 0
     kota.ota_fold.launches = 0
@@ -720,7 +744,10 @@ def phase_rounds(dev):
     for rnd in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with obs.enabled() as tracer:  # host-clock spans of the round stages
+        # host-clock spans of the round stages; both rounds' stay recorded
+        # for the state phase's telemetry export
+        with obs.enabled(fresh=rnd == 0) as tracer:
+            n0 = len(tracer.events)
             log = srv.run_round(rnd)
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -731,7 +758,10 @@ def phase_rounds(dev):
               f"uplink {log.uplink_bytes} B downlink {log.downlink_bytes} B "
               f"participating {log.n_participating} loss {log.train_loss:.4f} "
               f"seconds {secs:.2f}")
-        spans = {k: round(v["total_us"] / 1e3, 3) for k, v in tracer.summary().items()}
+        spans = {}
+        for e in tracer.events[n0:]:
+            spans[e.name] = spans.get(e.name, 0.0) + e.dur_us / 1e3
+        spans = {k: round(v, 3) for k, v in spans.items()}
         print(f"    stage ms (host clock, spans): {json.dumps(spans)}")
         rows = srv.last_round["rows"]
         info = srv.last_round["info"]
@@ -898,6 +928,220 @@ def retrieval_query_split(eng, q_np, k, dev) -> dict:
         "copy_back_ms": host_ms(lambda: (s.cpu().numpy(), i.cpu().numpy())),
         "slab_bytes": int(data_np.nbytes + (0 if scales_np is None else scales_np.nbytes)),
     }
+
+
+# ---------------------------------------------------------------- phase 3b
+
+# the legacy oracle's tolerance against the flat path, the reference's own
+# for the same comparison (tests/test_ota.py)
+PERTREE_RTOL, PERTREE_ATOL = 1e-4, 1e-5
+STATE_BITS = (4, 8, 16, 32)
+ROUND_STAGES = ("round", "plan", "retrieval.query", "client_train", "uplink_encode", "fold",
+                "finalize", "optimizer", "broadcast_encode", "feedback")
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (NaN payloads and -0.0 included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def uplink_error_bound(x, scale):
+    """One scale per element, plus the f32 rounding of x / scale and of
+    q * scale: |q| <= |x| / scale + 1, and each operation errs by at most
+    2^-24 of its result, so |dq - x| < scale + 2^-23 (|x| + 2 scale)."""
+    return scale + 2.0**-23 * (x.abs() + 2 * scale)
+
+
+def phase_state(srv, dev):
+    """The rounds' server state through checkpoints, the planner's database
+    restored on the card, the legacy per-tree oracle against row 4, the
+    uplink API at full width, and the telemetry export. Returns the
+    launches of the paths it drove and its readings."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import QUANT_BLOCK
+    from repro_torch.core import ota, packing
+    from repro_torch.core.profiling.ragdb import RETRIEVE_K, ContextQuantFeedbackDB, embed_batch
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+
+    rec = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    try:
+        # 1. server state through CheckpointManager
+        velocity = getattr(srv, "_velocity", None)
+        if velocity is None:
+            _fail("the rounds' server has no FedAvgM velocity to save")
+        state = {"params": srv.params, "velocity": velocity}
+        leaves = tree_flatten(state)[0]
+        raw = sum(t.numel() * t.element_size() for t in leaves)
+        mgr = CheckpointManager(os.path.join(tmp, "server"), keep=2)
+        save_ms = []
+        for step in (1, 2, 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(step, state, meta={"round": len(srv.round_logs)})
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+        if sorted(mgr._steps()) != [2, 3] or os.path.exists(mgr.path(1)):
+            _fail(f"CheckpointManager(keep=2) left steps {sorted(mgr._steps())}, want [2, 3]")
+        t0 = time.perf_counter()
+        got, meta = mgr.restore_latest()
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        if meta != {"round": len(srv.round_logs), "step": 3}:
+            _fail(f"restored meta {meta}")
+        got_leaves = tree_flatten(got)[0]
+        if len(got_leaves) != len(leaves) or tree_flatten(got)[1] != tree_flatten(state)[1]:
+            _fail("the restored server state has another structure")
+        for a, b in zip(leaves, got_leaves):
+            if b.device.type != "cuda" or not _same_bits(a, b):
+                _fail(f"a restored leaf {tuple(b.shape)} {b.dtype} on {b.device} differs "
+                      "from the saved one")
+        with open(mgr.path(3), "rb") as f:
+            flag = f.read(1)
+        nbytes = os.path.getsize(mgr.path(3))
+        rec.update(codec=flag.decode(), file_bytes=nbytes, raw_bytes=raw,
+                   ratio=raw / nbytes, save_ms=save_ms, load_ms=load_ms,
+                   velocity_dtype=str(velocity.dtype).replace("torch.", ""))
+        print(f"state: server params + FedAvgM velocity ({len(leaves)} leaves, {raw} B raw) "
+              f"through CheckpointManager(keep=2): codec {flag!r}, file {nbytes} B "
+              f"(ratio {raw / nbytes:.4f}), save ms {[round(t, 3) for t in save_ms]}, load ms "
+              f"{load_ms:.3f}; step 1 gone, restored leaves on the card bit for bit")
+
+        # 2. the planner's feedback database, restored into a fresh one
+        db = srv.planner.cqf_db
+        profiles = [srv.planner.profiles[u.user_id].features()
+                    for u in srv.users[: srv.cfg.clients_per_round]]
+        q_np = embed_batch(profiles)
+        s0, i0 = db.engine.topk(q_np, RETRIEVE_K)
+        hits0 = db.query_batch(q_np, k=RETRIEVE_K)
+        db_path = os.path.join(tmp, "cqf_db.ckpt")
+        db.save(db_path)
+        fresh = ContextQuantFeedbackDB(device=dev)
+        fresh.restore(db_path)
+        ktk.topk_cosine.launches = 0
+        s1, i1 = fresh.engine.topk(q_np, RETRIEVE_K)
+        hits1 = fresh.query_batch(q_np, k=RETRIEVE_K)
+        torch.cuda.synchronize()
+        topk_launches = ktk.topk_cosine.launches
+        if topk_launches <= 0:
+            _fail("the restored database's queries did not launch topk_cosine")
+        if not (np.array_equal(i0, i1) and np.array_equal(s0.view(np.int32), s1.view(np.int32))):
+            _fail("the restored database's top-k differs from the saved one's")
+        if [[(s, r.features, r.payload) for s, r in h] for h in hits0] != \
+                [[(s, r.features, r.payload) for s, r in h] for h in hits1]:
+            _fail("the restored database's hits differ from the saved one's")
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fresh.engine.topk(q_np, RETRIEVE_K)
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec.update(db_records=len(fresh), db_file_bytes=os.path.getsize(db_path),
+                   restored_query_ms=statistics.median(times))
+        print(f"  feedback database: {len(fresh)} records, file {rec['db_file_bytes']} B, "
+              f"restored on the card; {q_np.shape[0]} planner queries at k {RETRIEVE_K}: "
+              f"indices and scores bit for bit, topk_cosine launches {topk_launches}, query "
+              f"ms {rec['restored_query_ms']:.4f} (host clock, median of 20)")
+
+        # 3. the legacy per-tree oracle against the flat path (row 4)
+        K = 20
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2025)
+        trees = [tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * 0.01,
+                          srv.params) for _ in range(K)]
+        bits = [STATE_BITS[i % len(STATE_BITS)] for i in range(K)]
+        weights = (torch.rand((K,), generator=gen, device=dev) + 0.5).tolist()
+        draws = ota.TorchRoundDraws(4242, dev)
+        kota.ota_quantize_superpose.launches = 0
+        flat, finfo = ota.ota_aggregate(draws, trees, bits, weights)
+        torch.cuda.synchronize()
+        qs_launches = kota.ota_quantize_superpose.launches
+        if qs_launches != 1:
+            _fail(f"ota_quantize_superpose launched {qs_launches} times on the flat path (want 1)")
+        tree, tinfo = ota.ota_aggregate_pertree(draws, trees, bits, weights)
+        torch.cuda.synchronize()
+        if finfo["participation"] != tinfo["participation"]:
+            _fail("participation differs between the per-tree oracle and the flat path")
+        dstd = abs(finfo["noise_std"] - tinfo["noise_std"])
+        if not dstd <= 1e-6:
+            _fail(f"noise_std differs by {dstd} (tolerance 1e-6)")
+        worst, n_out, n_all = 0.0, 0, 0
+        for a, b in zip(tree_flatten(flat)[0], tree_flatten(tree)[0]):
+            d = (a - b).abs()
+            worst = max(worst, d.max().item())
+            n_out += int((d > PERTREE_ATOL + PERTREE_RTOL * b.abs()).sum())
+            n_all += b.numel()
+        if n_out:
+            _fail(f"{n_out} of {n_all} elements of the flat path differ from the per-tree "
+                  f"oracle beyond rtol {PERTREE_RTOL} / atol {PERTREE_ATOL} (max {worst})")
+        flat_ms = cuda_ms(lambda: ota.ota_aggregate(draws, trees, bits, weights), reps=5)
+        pertree_ms = cuda_ms(lambda: ota.ota_aggregate_pertree(draws, trees, bits, weights),
+                             reps=3, warmup=1)
+        rec.update(pertree_ms=pertree_ms, flat_ms=flat_ms, pertree_max_abs_diff=worst,
+                   noise_std_diff=dstd)
+        print(f"  per-tree oracle vs flat path: K {K}, bits {bits[:4]} x 5, participating "
+              f"{tinfo['n_participating']}, noise_std diff {dstd!r}, max |diff| {worst!r}, "
+              f"elements beyond rtol {PERTREE_RTOL} / atol {PERTREE_ATOL}: 0 of {n_all}; "
+              f"per-tree ms {pertree_ms:.3f}, flat ms {flat_ms:.3f} (CUDA events, "
+              f"ota_aggregate whole)")
+
+        # 4. the uplink API at full width
+        layout = packing.make_layout(srv.params)
+        row = packing.pack(trees[0], layout)
+        M = layout.padded_size
+        for b in (4, 8, 16):
+            wire_row = ota.quantize_uplink(row, b, draws.sr_seed, 0, block=QUANT_BLOCK)
+            dq = ota.dequantize_uplink(wire_row, M)
+            scale = wire_row.scale.reshape(-1).repeat_interleave(QUANT_BLOCK)[:M]
+            d = (dq - row).abs()
+            err = (d / scale).max().item()
+            n_out = int((d > uplink_error_bound(row, scale)).sum())
+            want_bytes = packing.row_wire_bytes(b, M, QUANT_BLOCK)
+            print(f"  uplink {b} bits: {wire_row.kind}, wire {wire_row.wire_nbytes} B "
+                  f"(row_wire_bytes {want_bytes}), max |dq - row| / scale {err!r}, elements "
+                  f"past one scale (with f32 rounding) {n_out}")
+            if wire_row.wire_nbytes != want_bytes:
+                _fail(f"{b}-bit uplink row has {wire_row.wire_nbytes} B, the format "
+                      f"{want_bytes}")
+            if n_out:
+                _fail(f"{b}-bit uplink: {n_out} elements err more than one scale")
+        dbits = ota.digital_uplink_bits(bits, layout.size)
+        if dbits != sum(bits) * layout.size or ota.channel_uses(bits, layout.size) != layout.size:
+            _fail("digital_uplink_bits / channel_uses disagree with their definitions")
+        print(f"  digital_uplink_bits {dbits} = sum(bits) x {layout.size}; channel_uses "
+              f"{layout.size}")
+
+        # 5. telemetry of the rounds
+        jsonl, trace = os.path.join(tmp, "telemetry.jsonl"), os.path.join(tmp, "trace.json")
+        obs.export.dump_telemetry(jsonl, trace)
+        with open(jsonl) as f:
+            lines = [json.loads(line) for line in f]
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["name"] for e in events}
+        missing = [s for s in ROUND_STAGES if s not in names]
+        if missing:
+            _fail(f"the rounds' trace lacks the stages {missing}")
+        if {ln["name"] for ln in lines if ln["kind"] == "span"} != names:
+            _fail("the JSONL span lines and the Perfetto events name other spans")
+        rec.update(jsonl_lines=len(lines), trace_events=len(events))
+        print(f"  telemetry: {len(lines)} JSONL lines, {len(events)} Perfetto events of "
+              f"{len(names)} span names (the round stages all present)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("  state readings " + json.dumps(rec))
+    return {"topk_cosine": topk_launches, "ota_quantize_superpose": qs_launches}, rec
 
 
 # the barrier round's storage groups as the rounds phase reads them at
@@ -1905,7 +2149,7 @@ def phase_serve(dev):
 
 # a full run's phases; ``--phases`` may also name ``rows`` (phase_rows), which
 # a full run leaves out
-PHASES = ("build", "kernels", "rounds", "flat", "stream", "ops", "host", "serve")
+PHASES = ("build", "kernels", "rounds", "state", "flat", "stream", "ops", "host", "serve")
 
 
 def main() -> None:
@@ -1937,10 +2181,14 @@ def main() -> None:
         flash_err, flash_rec = check_flash(dev, timing=True)
         errs.update(flash_err)
     plan_bits = [8] * 20
+    if "state" in phases and "rounds" not in phases:
+        _fail("the state phase runs on the rounds phase's server: name both")
     if "rounds" in phases:
         srv, counts, round_inputs = phase_rounds(dev)
         timings = time_round_kernels(srv, round_inputs, dev)
         plan_bits = list(srv.round_logs[-1].bits.values())
+        if "state" in phases:
+            state_counts, _ = phase_state(srv, dev)
         del srv, round_inputs
     if "flat" in phases:
         qs_launches, qs_err, qs_rec = phase_flat(dev, plan_bits)
@@ -1980,6 +2228,8 @@ def main() -> None:
     # each path's count, read just after the path ran, summed over the paths
     launches = {n: counts[n] + stream_counts[n] for n in counts}
     launches["ota_quantize_superpose"] = qs_launches
+    for n, c in state_counts.items():
+        launches[n] += c
     launches["flash_attention"] = serve_rec["launches"]
     for n, c in ops_counts.items():
         launches[n] = launches.get(n, 0) + c

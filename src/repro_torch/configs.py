@@ -138,6 +138,15 @@ class FLConfig:
     fedprox_mu: float = 0.0
     server_momentum: float = 0.0
     quantize_server_state: bool = False
+    # paper Table II category mixture (unused by the round loops, as in
+    # the reference)
+    categories: Tuple[str, ...] = (
+        "entertainment",
+        "smart_home",
+        "general_query",
+        "personal_request",
+    )
+    category_probs: Tuple[float, ...] = (0.327, 0.160, 0.319, 0.194)
 
 
 def deepspeech2() -> ArchConfig:

@@ -16,6 +16,9 @@ streaming accumulator.
 - **Streaming** (``OtaAccumulator``): waves of packed rows fold into one
   persistent accumulator through the same group folds; a single wave in
   cohort order is the barrier aggregate bit for bit.
+- **The per-tree oracle** (``ota_aggregate_pertree``): the reference's
+  legacy per-client, per-leaf loop, the readable specification of the
+  f32 path, kept for equivalence checks.
 
 Randomness comes through the round-draws seam (``RoundDraws``): the
 uplink and downlink dither seeds, the channel coin-flip, the fading
@@ -37,7 +40,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import channel as chan
 from repro_torch.core import packing, wire
-from repro_torch.core.quant import ref_qmax
+from repro_torch.core.quant import _f32, qrange, ref_qmax, sr_dither
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.kernels import ota_fused as kota
 
 Tree = Any
@@ -172,6 +176,28 @@ def _client_grid(bits: Sequence[int], amax: torch.Tensor) -> Tuple[torch.Tensor,
     scale = torch.clamp_min(amax.to(torch.float32), 1e-12) / torch.clamp_min(qmax, 1.0)
     scale = torch.where(qmax > 0, scale, torch.ones_like(scale))
     return scale, qmax
+
+
+def quantize_uplink(
+    row: torch.Tensor,
+    bits: int,
+    sr_seed: int,
+    row_index: int,
+    *,
+    block: int = 0,
+) -> packing.PackedRow:
+    """Modulate one client's flat packed row onto the wire: a thin alias
+    of ``wire.encode_row``. ``row_index`` is the client's row in the
+    round's cohort; ``block`` > 0 ships blockwise scales
+    (``packing.QUANT_BLOCK`` is the FL default)."""
+    return wire.encode_row(row, bits, sr_seed, row_index, block=block)
+
+
+def dequantize_uplink(row: packing.PackedRow, n: Optional[int] = None) -> torch.Tensor:
+    """Reconstruct the f32 row a ``PackedRow`` encodes (q * scale[block]):
+    a thin alias of ``wire.decode_row``; ``n`` trims to the logical
+    (unpadded) length."""
+    return wire.decode_row(row, n)
 
 
 def ota_aggregate_flat(
@@ -515,6 +541,84 @@ def ota_aggregate(
         layout = packing.make_layout(updates[0])
     X = packing.pack_batch(updates, layout)
     return ota_aggregate_packed(draws, X, bits, weights, layout, cfg)
+
+
+def ota_aggregate_pertree(
+    draws: RoundDraws,
+    updates: Sequence[Tree],
+    bits: Sequence[int],
+    weights,
+    cfg: OTAConfig = OTAConfig(),
+) -> Tuple[Tree, AggregateInfo]:
+    """Reference oracle: the legacy per-client, per-leaf loop.
+
+    The same semantics as the flat path (the same ``sr_dither`` uniforms,
+    evaluated over the flat layout and sliced per leaf; the same AWGN
+    draw; one analog grid per update) in O(clients x leaves) eager ops.
+    The grid is the reference's eager one: ``max(amax, 1e-12) / qrange(b)``,
+    a true division by the exact integer, where the flat path multiplies
+    by the reciprocal of ``ref_qmax``; a symbol on a rounding boundary can
+    therefore land one step apart between the two.
+    """
+    n = len(updates)
+    layout = packing.make_layout(updates[0])
+    leaves0, structure = tree_flatten(updates[0])
+    device = leaves0[0].device
+    w_in = torch.as_tensor(weights, dtype=torch.float32).to(device)
+    habs, participate, w = round_channel(draws, w_in, cfg=cfg)
+
+    positions = torch.arange(layout.padded_size, dtype=torch.int64, device=device)
+    agg_leaves = [torch.zeros(l.shape, dtype=torch.float32, device=device) for l in leaves0]
+    for i in range(n):
+        leaves_i = [l.to(torch.float32) for l in tree_leaves(updates[i])]
+        b = int(bits[i])
+        if b >= 32:
+            dq_leaves = leaves_i
+        else:
+            qmax = _f32(float(qrange(b)), leaves_i[0])
+            amax = torch.stack([l.abs().max() for l in leaves_i]).max()
+            scale = torch.clamp_min(amax, 1e-12) / qmax
+            u_full = sr_dither(draws.sr_seed, i, positions)
+            dq_leaves = []
+            for leaf, off, size, shape in zip(
+                leaves_i, layout.offsets, layout.sizes, layout.shapes
+            ):
+                u = u_full[off : off + size].reshape(shape)
+                scaled = leaf / scale
+                floor = torch.floor(scaled)
+                q = floor + (u < (scaled - floor)).to(torch.float32)
+                q = torch.minimum(torch.maximum(q, -qmax), qmax)
+                dq_leaves.append(q * scale)
+        wi = w[i]
+        agg_leaves = [a + wi * l for a, l in zip(agg_leaves, dq_leaves)]
+
+    total = _f32(float(layout.size), agg_leaves[0])
+    agg_norm2 = sum((l * l).sum() for l in agg_leaves)
+    noise_std = torch.sqrt(agg_norm2 / total * 10 ** (-cfg.snr_db / 10))
+    n_full = draws.awgn(layout.size).to(device=device, dtype=torch.float32)
+    noisy = [
+        a + noise_std * n_full[off : off + size].reshape(a.shape)
+        for a, off, size in zip(agg_leaves, layout.offsets, layout.sizes)
+    ]
+    info = _participation_info(
+        participate, noise_std, channel_abs=[float(h) for h in habs.cpu()]
+    )
+    return tree_unflatten(structure, noisy), info
+
+
+def channel_uses(
+    bits: Sequence[int], n_params: int, cfg: OTAConfig = OTAConfig()
+) -> int:
+    """OTA channel uses for one aggregation round: mixed-precision
+    modulation shares symbols across precisions, so the round costs
+    n_params symbols whatever the clients' bits (it does not sum over
+    clients)."""
+    return n_params
+
+
+def digital_uplink_bits(bits: Sequence[int], n_params: int) -> int:
+    """Baseline comparison: digital per-client uplink cost (sums over clients)."""
+    return int(sum(int(b) * n_params for b in bits))
 
 
 def aggregate_plain(

@@ -172,10 +172,17 @@ def perf_from_hits(
 
 
 class _FeatureArenaStore(ArenaVectorStore):
-    """Feature-dict front end over the arena store (append-only)."""
+    """Feature-dict front end over the arena store (append-only; save /
+    restore serialize the Record list through the ckpt layer)."""
 
     def __init__(self, *, storage: str = "f32", device=None):
-        super().__init__(EMBED_DIM, storage=storage, device=device)
+        super().__init__(
+            EMBED_DIM,
+            storage=storage,
+            device=device,
+            to_doc=dataclasses.asdict,
+            from_doc=lambda d: Record(**d),
+        )
 
     def add(self, features: Dict[str, float], payload: Dict[str, Any]) -> None:
         self.add_vec(embed_features(features), Record(features, payload))

@@ -23,12 +23,15 @@ reference's jitted programs:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.packing import wire_kind
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+
+Tree = Any
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9  # Weyl increment decorrelating client rows
@@ -92,24 +95,46 @@ def _recip(qmax: float, like: torch.Tensor) -> torch.Tensor:
     return _f32(float(np.float32(1.0) / np.float32(qmax)), like)
 
 
-def quantize(x: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric round-to-nearest quantization -> (q int32, scale)."""
+def quantize(
+    x: torch.Tensor, bits: int, *, generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric quantization -> (q int32, scale f32 0-d).
+
+    Round-to-nearest; with ``generator`` the rounding is stochastic
+    (unbiased) against ``torch.rand`` of x's shape drawn from it on x's
+    device. The reference takes a ``jax.random`` key there, whose bits
+    PyTorch cannot reproduce: the two agree in distribution, not in bits.
+    """
     if bits >= 32:
         return x.to(torch.float32), torch.ones((), device=x.device)
     qmax = _f32(float(qrange(bits)), x)
     amax = x.abs().max().to(torch.float32)
     scale = torch.clamp_min(amax, 1e-12) * _recip(qrange(bits), x)
-    q = torch.round(x.to(torch.float32) / scale)
+    scaled = x.to(torch.float32) / scale
+    if generator is not None:
+        floor = torch.floor(scaled)
+        rnd = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+        q = floor + (rnd < (scaled - floor)).to(torch.float32)
+    else:
+        q = torch.round(scaled)
     q = torch.minimum(torch.maximum(q, -qmax), qmax)
     return q.to(torch.int32), scale
 
 
-def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+def dequantize(q: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    if bits >= 32:
+        return q.to(torch.float32)
+    return q.to(torch.float32) * scale
+
+
+def fake_quant(
+    x: torch.Tensor, bits: int, *, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
     """quantize -> dequantize (the client-side model degradation at b)."""
     if bits >= 32:
         return x
-    q, scale = quantize(x, bits)
-    return (q.to(torch.float32) * scale).to(x.dtype)
+    q, scale = quantize(x, bits, generator=generator)
+    return dequantize(q, scale, bits).to(x.dtype)
 
 
 class _SteFakeQuant(torch.autograd.Function):
@@ -169,3 +194,41 @@ def quantize_row_sr(
     q = floor + (u < (scaled - floor)).to(torch.float32)
     q = torch.minimum(torch.maximum(q, -qmax), qmax)
     return q.to(_STORAGE_DTYPE[kind]), scale
+
+
+# ---------------------------------------------------------------------------
+# tree-level helpers (client model / update quantization)
+# ---------------------------------------------------------------------------
+
+
+def quantize_tree(
+    tree: Tree, bits: int, *, generator: Optional[torch.Generator] = None
+) -> Tuple[Tree, Tree]:
+    """Quantize every leaf per-tensor -> (q_tree, scale_tree). One
+    ``generator`` is consumed leaf by leaf in flatten order."""
+    leaves, structure = tree_flatten(tree)
+    pairs = [quantize(leaf, bits, generator=generator) for leaf in leaves]
+    return (
+        tree_unflatten(structure, [q for q, _ in pairs]),
+        tree_unflatten(structure, [s for _, s in pairs]),
+    )
+
+
+def dequantize_tree(q_tree: Tree, scale_tree: Tree, bits: int) -> Tree:
+    return tree_map(lambda q, s: dequantize(q, s, bits), q_tree, scale_tree)
+
+
+def fake_quant_tree(
+    tree: Tree, bits: int, *, generator: Optional[torch.Generator] = None
+) -> Tree:
+    if bits >= 32:
+        return tree
+    return tree_map(lambda leaf: fake_quant(leaf, bits, generator=generator), tree)
+
+
+def quant_error(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """RMS relative quantization error (used by perf/accuracy priors)."""
+    fq = fake_quant(x, bits)
+    return torch.sqrt(torch.mean((x - fq) ** 2)) / torch.clamp_min(
+        torch.sqrt(torch.mean(x**2)), 1e-12
+    )

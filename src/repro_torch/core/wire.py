@@ -16,7 +16,7 @@ every client decodes the same row to bit-identical params.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -102,6 +102,30 @@ def decode_broadcast(
         return decoded
     assert base is not None, "quantized broadcast needs the current replica"
     return base.to(torch.float32)[: decoded.shape[0]] + decoded
+
+
+def encode_rows(
+    rows: Sequence[torch.Tensor],
+    bits: Sequence[int],
+    seed: int,
+    *,
+    block: int = 0,
+    first_row: int = 0,
+) -> List[packing.PackedRow]:
+    """Encode a batch of flat rows; row ``j`` dithers as row
+    ``first_row + j`` of ``seed``'s stream."""
+    assert len(rows) == len(bits), (len(rows), len(bits))
+    return [
+        encode_row(r, int(b), seed, first_row + j, block=block)
+        for j, (r, b) in enumerate(zip(rows, bits))
+    ]
+
+
+def decode_rows(
+    rows: Sequence[packing.PackedRow], n: Optional[int] = None
+) -> List[torch.Tensor]:
+    """Decode a batch of wire rows back to f32 (see ``decode_row``)."""
+    return [decode_row(r, n) for r in rows]
 
 
 def wire_bytes(rows: Sequence[packing.PackedRow]) -> int:

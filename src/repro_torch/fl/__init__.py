@@ -7,6 +7,7 @@ from repro_torch.fl.server import (
     StreamRoundLog,
     make_planner,
     plan_stream,
+    round_rng,
 )
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "StreamingFLServer",
     "make_planner",
     "plan_stream",
+    "round_rng",
 ]

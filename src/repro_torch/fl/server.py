@@ -322,6 +322,9 @@ class FLServer:
             self.last_downlink_bytes = row.wire_nbytes
             self.params = packing.unpack(self._bcast, self.layout)
 
+    def model_params_fn(self):
+        return self.params
+
     @property
     def server_state_nbytes(self) -> int:
         v = getattr(self, "_velocity", None)

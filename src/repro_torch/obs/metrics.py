@@ -8,7 +8,7 @@ series ``ota.rows{kind=int4}``.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 def _series(name: str, labels: Dict[str, Any]) -> str:
@@ -50,6 +50,18 @@ class Registry:
                 h["min"] = min(h["min"], v)
                 h["max"] = max(h["max"], v)
 
+    def get(self, name: str, default: Optional[float] = None, **labels: Any):
+        """One series' value: counter/gauge float, histogram dict."""
+        key = _series(name, labels)
+        with self._lock:
+            if key in self._counters:
+                return self._counters[key]
+            if key in self._gauges:
+                return self._gauges[key]
+            if key in self._hists:
+                return dict(self._hists[key])
+        return default
+
     def snapshot(self) -> Dict[str, Dict[str, Any]]:
         with self._lock:
             return {
@@ -58,10 +70,19 @@ class Registry:
                 "histograms": {k: dict(v) for k, v in self._hists.items()},
             }
 
+    def reset(self) -> None:
+        """Zero every series (fresh bench/test scope)."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+
 
 REGISTRY = Registry()
 
 inc = REGISTRY.inc
 set_gauge = REGISTRY.set_gauge
 observe = REGISTRY.observe
+get = REGISTRY.get
 snapshot = REGISTRY.snapshot
+reset = REGISTRY.reset

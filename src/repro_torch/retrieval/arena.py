@@ -1,5 +1,5 @@
 """Growable vector arena — the storage layer of the retrieval engine (the
-JAX package's ``retrieval/arena.py`` without save/load).
+JAX package's ``retrieval/arena.py`` without its shard views).
 
 One contiguous (capacity, D) numpy buffer with amortized-doubling
 appends. Two storage classes: ``f32``, and ``int8`` — int8 symbols plus a
@@ -7,15 +7,18 @@ appends. Two storage classes: ``f32``, and ``int8`` — int8 symbols plus a
 symmetric amax/qmax grid. Capacity stays a multiple of
 ``kernels.topk_similarity.TILE_N`` and padding rows stay exact zeros
 (scales 1.0), so the top-k kernel consumes the raw capacity slab with
-the live count beside it.
+the live count beside it. ``save``/``load`` write and read the
+reference's ``arena_store`` checkpoint (``ckpt/checkpoint.py``), so an
+arena crosses between both packages.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.quant import qrange
 from repro_torch.kernels.topk_similarity import TILE_N
 
@@ -129,3 +132,42 @@ class ArenaStore:
         """The full capacity buffers (data, scales-or-None) the top-k
         kernel consumes beside the live count ``len(self)``."""
         return self._data, self._scales
+
+    # -- persistence (ckpt layer) ------------------------------------------
+
+    def save(self, path: str, meta: Optional[Dict[str, Any]] = None) -> None:
+        tree = {"data": self._data[: self._n].copy()}
+        if self._scales is not None:
+            tree["scales"] = self._scales[: self._n].copy()
+        save_checkpoint(
+            path,
+            tree,
+            meta={
+                "kind": "arena_store",
+                "dim": self.dim,
+                "storage": self.storage,
+                "qblock": self.qblock,
+                "n": self._n,
+                "extra": meta or {},
+            },
+        )
+
+    @classmethod
+    def load(cls, path: str) -> Tuple["ArenaStore", Dict[str, Any]]:
+        """Returns (store, extra-meta dict passed to ``save``); the arena
+        is host memory, so its leaves load on the CPU."""
+        tree, meta = load_checkpoint(path, device="cpu")
+        if meta.get("kind") != "arena_store":
+            raise ValueError(f"{path} is not an arena checkpoint")
+        store = cls(
+            meta["dim"],
+            storage=meta["storage"],
+            qblock=meta["qblock"] or 64,
+            capacity=max(int(meta["n"]), 1),
+        )
+        n = int(meta["n"])
+        store._data[:n] = tree["data"].numpy()
+        if store._scales is not None:
+            store._scales[:n] = tree["scales"].numpy()
+        store._n = n
+        return store, meta["extra"]

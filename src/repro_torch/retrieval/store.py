@@ -8,13 +8,14 @@ cohort instead of one numpy scan per client.
 
 The store is strictly append-only: feedback writeback only ever appends
 (vector, record) pairs, so record indices are stable for the lifetime of
-the store. Persistence (save/restore through a checkpoint layer) is not
-part of this package yet.
+the store and a reload resumes appending where the save left off.
+Persistence rides the arena's checkpoint format with records serialized
+into the metadata document via the ``to_doc``/``from_doc`` codec hooks.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,10 +35,14 @@ class ArenaVectorStore:
         storage: str = "f32",
         qblock: int = 64,
         device=None,
+        to_doc: Optional[Callable[[Any], Any]] = None,
+        from_doc: Optional[Callable[[Any], Any]] = None,
     ):
         self.arena = ArenaStore(dim, storage=storage, qblock=qblock)
         self.engine = RetrievalEngine(self.arena, device=device)
         self.records: List[Any] = []
+        self._to_doc = to_doc or (lambda r: r)
+        self._from_doc = from_doc or (lambda d: d)
 
     def __len__(self) -> int:
         return len(self.records)
@@ -60,3 +65,21 @@ class ArenaVectorStore:
             [(float(s), self.records[j]) for s, j in zip(srow, irow)]
             for srow, irow in zip(scores, idx)
         ]
+
+    # -- persistence --------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        self.arena.save(path, meta={"records": [self._to_doc(r) for r in self.records]})
+
+    def restore(self, path: str) -> None:
+        """Replace this store's contents from a ``save`` checkpoint (the
+        codec hooks and the engine's device of this instance are kept)."""
+        arena, extra = ArenaStore.load(path)
+        if arena.dim != self.arena.dim or arena.storage != self.arena.storage:
+            raise ValueError(
+                f"checkpoint is ({arena.dim}, {arena.storage}), store is "
+                f"({self.arena.dim}, {self.arena.storage})"
+            )
+        self.arena = arena
+        self.engine = RetrievalEngine(arena, device=self.engine.device)
+        self.records = [self._from_doc(d) for d in extra["records"]]
