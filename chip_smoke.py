@@ -115,6 +115,22 @@ Phases, each of which fails the run on error:
              the same prefill through the plain ``chunked_attention``
              (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
              params (max_batch 4, cache_len 256) draining 8 requests.
+9. train   — stablelm-1.6b at full width and depth (24 layers, d_model
+             2,048, 32 heads of 64, d_ff 5,632, vocab 100,352, bf16, the
+             config's remat=True, random weights from a seed) through
+             ``launch.train``'s body: 6 AdamW steps (lr 1e-3, warmup 1) of 4 x
+             2,048 Markov tokens with f32 moments, each step's loss, grad
+             norm, synchronised ms, tokens/s and host ms drawing the batch,
+             the peak device memory and the step's bound
+             (``train_bound_ms``); one more step split by CUDA events into
+             forward+backward, clip, optimizer and update; 3 steps from the
+             same params and batches with quantized moments (state <= 0.5x,
+             the first loss equal bit for bit); the chunked ``lm_loss``
+             against ``F.cross_entropy`` over full logits (CE_RTOL); the
+             gradients at 2 layers with remat on and off (bit for bit but
+             the embedding's and head's, which accumulate by index); a
+             reduced run checkpointed at steps 2 and 4 and resumed to 6. No
+             kernel's launch count may move.
 
 The ``kernels`` phase also holds the quantize-superpose kernel against its
 plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
@@ -139,7 +155,10 @@ Without a CUDA card, or outside the repository, it exits non-zero and prints
 no result. ``--phases build,kernels`` (or ``build,ops``) runs only the named
 phases (no result lines). ``--phases build,rows`` reads rows 1-3 at the
 barrier round's shapes on seeded data without training (``phase_rows``):
-seconds a tree, to compare two trees in one call.
+seconds a tree, to compare two trees in one call. ``--phases
+build,trainprof`` profiles one full-width training step (``phase_trainprof``:
+device busy and idle share, kernel time by class and name, the chunked
+attention's share, the stacked leaves unbound against indexed).
 """
 
 from __future__ import annotations
@@ -2144,12 +2163,419 @@ def phase_serve(dev):
                 max_dlogsoftmax=dmax, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------- phase 9
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_Q_STEPS = "stablelm-1.6b", 4, 2048, 6, 3
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
+# |lm_loss - F.cross_entropy| / F.cross_entropy on one batch: the chunked
+# loss takes the gold logit as an f32 dot with the head's column, the
+# yardstick from the bf16-rounded logits; a token's gap is one bf16
+# rounding of its gold logit, and the mean over 2,047 tokens averages it
+CE_RTOL = 1e-4
+
+
+def _kernel_wrappers():
+    """Every kernel's launch-counting wrapper, by the JSON line's name."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+    from repro_torch.kernels.ota_aggregate import ota_aggregate_2d
+    from repro_torch.kernels.qmatmul import qmatmul as qmm
+    from repro_torch.kernels.quantize import fake_quant_2d
+
+    return {"ota_superpose": kota.ota_superpose, "ota_fold": kota.ota_fold,
+            "topk_cosine": ktk.topk_cosine,
+            "ota_quantize_superpose": kota.ota_quantize_superpose,
+            "flash_attention": kfa.flash_mha, "fake_quant": fake_quant_2d, "qmatmul": qmm,
+            "ota_aggregate": ota_aggregate_2d}
+
+
+def train_bound_ms(cfg, B: int, S: int) -> dict:
+    """The least time of one train step: the bf16 matrix products' 6 N T
+    over the bf16 peak (N the blocks' and the head's matrix params, T the
+    step's tokens), plus the chunked attention's f32 einsums (forward, its
+    recompute under remat, and a backward of twice the forward) over the
+    f32 peak. The two parts are summed: they run one after the other."""
+    d, H, KV, Dh, F_ = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(),
+                        cfg.d_ff)
+    n_block = d * (H + 2 * KV) * Dh + H * Dh * d + 3 * d * F_
+    n_matmul = cfg.n_layers * n_block + d * cfg.vocab_size
+    T = B * S
+    bf16_flops = 6 * n_matmul * T
+    c = min(cfg.attn_chunk, S)
+    n = -(-S // c)
+    pairs = n * (n + 1) // 2  # causal block skip: query chunk i visits key chunks 0..i
+    fwd = pairs * 2 * (2 * B * H * c * c * Dh)  # QK^T and PV
+    attn_flops = cfg.n_layers * fwd * (1 + (1 if cfg.remat else 0) + 2)
+    return {"n_matmul": n_matmul, "tokens": T, "bf16_flops": bf16_flops,
+            "attn_f32_flops": attn_flops, "bf16_ms": 1e3 * bf16_flops / BF16_FLOPS,
+            "attn_ms": 1e3 * attn_flops / F32_FLOPS,
+            "bound_ms": 1e3 * (bf16_flops / BF16_FLOPS + attn_flops / F32_FLOPS)}
+
+
+def _step_ms(log) -> list:
+    """Synchronised ms of each logged step, the batch's host draw excluded."""
+    return [e["ms_per_step"] - e["batch_ms"] for e in log]
+
+
+def _grads(model, params, batch):
+    """(loss, gradient leaves in flatten order) of ``model.loss``."""
+    from repro_torch.launch.steps import _value_and_grad
+    from repro_torch.core.tree import tree_leaves
+
+    loss, _, grads, _ = _value_and_grad(model, params, batch)
+    return loss, tree_leaves(grads)
+
+
+def _step_split(model, opt, state, batch) -> dict:
+    """One train step's stages (``make_train_step``'s, in its order) between
+    CUDA events: forward and backward, the clip, the optimizer, the update
+    applied; and the host's enqueue time beside the synchronised total."""
+    import torch
+
+    from repro_torch.launch.steps import _apply, _value_and_grad
+    from repro_torch.optim import clip_by_global_norm
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    _, _, grads, params = _value_and_grad(model, state["params"], batch)
+    ev[1].record()
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    ev[2].record()
+    updates, opt_state = opt.update(grads, state["opt"], params, state["step"])
+    ev[3].record()
+    new_params = _apply(params, updates)
+    ev[4].record()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    ev[4].synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    del grads, params, updates, opt_state, new_params
+    names = ("forward_backward_ms", "clip_ms", "optimizer_ms", "apply_ms")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    return dict(out, enqueue_ms=enqueue, synced_ms=total)
+
+
+def phase_train(dev):
+    """stablelm-1.6b at full width and depth (bf16, remat) through the
+    training entry point: 6 AdamW steps of 4 x 2,048 Markov tokens with f32
+    moments, 3 with quantized moments from the same params and batches;
+    the chunked loss against ``F.cross_entropy``; remat on and off at two
+    layers; a reduced run checkpointed and resumed. No kernel launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_flatten, tree_leaves
+    from repro_torch.data.lm import token_batches
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine, state_nbytes
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = get_arch(TRAIN_ARCH)
+    bound = train_bound_ms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads} of {cfg.resolved_head_dim()}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}, remat {cfg.remat}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; "
+          f"bound {json.dumps(bound)}")
+    if not cfg.remat:
+        _fail("stablelm-1.6b's config lost the reference's remat=True")
+
+    # -- f32 moments, through the CLI's body (``main`` returns its log)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
+            "--seed", "0", "--log-every", "1", "--device", str(dev)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, log = train.run(train.parse_args(argv))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    f32_opt = state_nbytes(state["opt"])
+    model = build_model(cfg)
+    batch = {"tokens": torch.as_tensor(
+        next(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))["tokens"], device=dev)}
+    split = _step_split(model, adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)),
+                        state, batch)
+    print(f"  one more step split (CUDA events, ms): {json.dumps(split)}")
+    del state
+    torch.cuda.empty_cache()
+    steps = _step_ms(log)
+    for e, ms in zip(log, steps):
+        print(f"  step {e['step']}: loss {e['loss']!r} grad_norm {e['grad_norm']!r} "
+              f"step {ms:.2f} ms synchronised, {tokens / ms * 1e3:.0f} tokens/s, batch draw "
+              f"{e['batch_ms']:.2f} ms (host)")
+    steady = statistics.median(steps[1:])
+    print(f"  f32 moments: {n_params} params, optimizer state {f32_opt} B; peak device memory "
+          f"{peak} B; steady step (median of steps 2-{TRAIN_STEPS}) {steady:.2f} ms, "
+          f"{tokens / steady * 1e3:.0f} tokens/s, bound share {bound['bound_ms'] / steady:.4f}; "
+          f"run {run_s:.2f} s")
+    if n_params != 1_644_267_520:
+        _fail(f"stablelm-1.6b has {n_params} params, want 1,644,267,520")
+    losses = [e["loss"] for e in log]
+    if not all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"]) for e in log):
+        _fail(f"non-finite loss or grad norm: {log}")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.5:
+        _fail(f"first loss {losses[0]} is not within 1.5 of ln V = {np.log(cfg.vocab_size)}")
+    if not losses[-1] < losses[0]:
+        _fail(f"the loss did not fall: {losses}")
+
+    # -- quantized moments: the same params (the generator's seed) and batches
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS), quantize=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    qstate = init_train_state(model, opt, gen)
+    q_opt = state_nbytes(qstate["opt"])
+    step_fn = make_train_step(model, opt)
+    data = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    qlog = []
+    for _ in range(TRAIN_Q_STEPS):
+        batch = {"tokens": torch.as_tensor(next(data)["tokens"], device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qstate, metrics = step_fn(qstate, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        qlog.append((loss, gnorm, (time.perf_counter() - t0) * 1e3))
+    ratio = q_opt / f32_opt
+    print(f"  quantized moments: optimizer state {q_opt} B = {ratio:.4f} x the f32 moments'; "
+          f"steps (loss, grad_norm, ms): {qlog!r}")
+    if not ratio <= 0.5:
+        _fail(f"quantized optimizer state is {ratio} x the f32 state's, want <= 0.5")
+    if not all(np.isfinite(lq) and np.isfinite(g) for lq, g, _ in qlog):
+        _fail("non-finite loss with quantized moments")
+    if qlog[0][0] != losses[0]:
+        _fail(f"first loss {qlog[0][0]!r} differs from the f32 run's {losses[0]!r}")
+    params = qstate["params"]
+    del qstate, metrics
+    torch.cuda.empty_cache()
+
+    # -- the chunked loss against the library's cross-entropy
+    toks = torch.as_tensor(next(token_batches(cfg.vocab_size, 1, TRAIN_SEQ, seed=7))["tokens"],
+                           device=dev)
+    with torch.no_grad():
+        ce, _ = TF.lm_loss(params, {"tokens": toks}, cfg)
+        x, head, _ = TF.lm_logits_and_aux(params, {"tokens": toks}, cfg)
+        logits = (x[:, :-1] @ head).to(torch.float32)
+        lib = F.cross_entropy(logits.reshape(-1, cfg.vocab_size), toks[:, 1:].reshape(-1).long())
+    ce, lib = float(ce), float(lib)
+    rel = abs(ce - lib) / abs(lib)
+    print(f"  chunked lm_loss {ce!r} vs F.cross_entropy {lib!r} on 1 x {TRAIN_SEQ}: relative "
+          f"{rel!r} (tolerance {CE_RTOL})")
+    if not rel <= CE_RTOL:
+        _fail(f"lm_loss and F.cross_entropy disagree: {rel} > {CE_RTOL}")
+    del params, x, head, logits
+
+    # -- remat on and off at two layers of the full width
+    cfg2 = cfg.with_(n_layers=2)
+    gen.manual_seed(1)
+    p2 = build_model(cfg2).init(gen, dev)
+    batch = {"tokens": torch.as_tensor(
+        next(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))["tokens"], device=dev)}
+    l_off, g_off = _grads(build_model(cfg2.with_(remat=False)), p2, batch)
+    l_on, g_on = _grads(build_model(cfg2.with_(remat=True)), p2, batch)
+    names = [n for n, _ in _leaf_names(p2)]
+    diffs = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names, g_off, g_on)}
+    print(f"  remat on vs off at 2 layers: loss {float(l_on)!r} / {float(l_off)!r}; max |d grad| "
+          f"per leaf {json.dumps(diffs)}")
+    if not torch.equal(l_on, l_off):
+        _fail("remat changed the loss")
+    # the embedding's and the head's gradients gather rows and columns, whose
+    # backward accumulates into bf16 rows by index; every other leaf must be
+    # bit for bit
+    for n, a, b in zip(names, g_off, g_on):
+        scale = float(a.float().abs().max())
+        if n in ("embed", "lm_head"):
+            if diffs[n] > 2**-6 * scale:
+                _fail(f"remat moved {n}'s gradient by {diffs[n]} (max |g| {scale})")
+        elif diffs[n] != 0.0:
+            _fail(f"remat changed {n}'s gradient: max |diff| {diffs[n]}")
+    del p2, g_off, g_on
+
+    # -- a reduced run checkpointed every 2 steps, then resumed
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        rargv = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "2", "--seq", "64",
+                 "--log-every", "1", "--ckpt-dir", ck, "--ckpt-every", "2", "--device", str(dev)]
+        saved, log4 = train.run(train.parse_args(rargv + ["--steps", "4"]))
+        restored, meta = load_checkpoint(f"{ck}/ckpt_00000004.msgpack.zst", dev)
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(tree_flatten(saved)[0], tree_flatten(restored)[0]))
+        log6 = train.main(rargv + ["--steps", "6"])
+    print(f"  resume: steps {[e['step'] for e in log4]} then {[e['step'] for e in log6]}; the "
+          f"step-4 file restores the saved state bit for bit: {same} (meta step {meta['step']})")
+    if not same or meta["step"] != 4:
+        _fail("the checkpoint does not restore the saved train state")
+    if [e["step"] for e in log6] != [5, 6]:
+        _fail(f"the resumed run did not continue from step 4: {log6}")
+
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    print(f"  kernel launches during training: {launches}")
+    if any(launches.values()):
+        _fail(f"training launched a kernel: {launches}")
+    torch.cuda.empty_cache()
+    return dict(steady_ms=steady, peak_bytes=peak, bound=bound, split=split,
+                quantized_ratio=ratio, ce_rel=rel, remat_diffs=diffs)
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    if any(k in n for k in ("index", "scatter", "gather", "sort", "radix")):
+        return "index"
+    if any(k in n for k in ("reduce", "softmax", "norm")):
+        return "reduce"
+    if "copy" in n or "cat" in n:
+        return "copy"
+    return "elementwise"
+
+
+def phase_trainprof(dev):
+    """Where a full-width training step's device time goes (not in a full
+    run: ``--phases build,trainprof``). One steady AdamW step of
+    stablelm-1.6b (4 x 2,048 tokens, remat) under ``torch.profiler``: the
+    device's busy and idle share of the step and its kernel time by class
+    and by name; the chunked attention of one layer forward, and forward
+    with backward, at the step's shapes (CUDA events), times the layers;
+    and the step with the stacked layer leaves indexed layer by layer in
+    place of unbound once, in turns (step ms and peak memory)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import token_batches
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(model, opt, gen)
+    step_fn = make_train_step(model, opt)
+    batch = {"tokens": torch.as_tensor(
+        next(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0))["tokens"], device=dev)}
+
+    def one_step():
+        new, m = step_fn(state, batch)
+        float(m["loss"])
+        del new
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None and e.device_type.name == "CUDA"]
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_class, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        c = _kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        rec = by_name.setdefault(e.name[:90], [0, 0.0])
+        rec[0] += 1
+        rec[1] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    print(f"trainprof: one steady step under torch.profiler: wall {wall_us / 1e3:.2f} ms, "
+          f"{len(kernels)} kernels, device busy {busy / 1e3:.2f} ms, idle share "
+          f"{1 - busy / wall_us:.4f}")
+    print(f"  kernel ms by class: {json.dumps({k: round(v, 3) for k, v in by_class.items()})}")
+    for name, (count, ms) in top:
+        print(f"  {ms:10.3f} ms {count:6d} x {name}")
+
+    # one layer's chunked attention at the step's shapes
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim()
+    shape = (TRAIN_BATCH, TRAIN_SEQ, H, Dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def fwd():
+        return L.chunked_attention(q, k, v, q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), g)
+
+    f_ms, fb_ms = cuda_ms(fwd, reps=5, warmup=1), cuda_ms(fwd_bwd, reps=5, warmup=1)
+    attn_step = cfg.n_layers * (f_ms + fb_ms)  # forward, then remat's recompute + backward
+    print(f"  chunked attention, one layer (B {TRAIN_BATCH}, S {TRAIN_SEQ}, H {H}, D {Dh}): "
+          f"forward {f_ms:.3f} ms, forward+backward {fb_ms:.3f} ms; x {cfg.n_layers} layers "
+          f"with remat: {attn_step:.2f} ms a step")
+    del q, k, v, g
+
+    # the stacked leaves unbound once (shipped) against indexed layer by layer
+    def timed():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        one_step()
+        return (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(dev)
+
+    shipped = TF._unstack
+    indexed = lambda stacked, n: [TF._layer(stacked, i) for i in range(n)]  # noqa: E731
+    readings = []
+    for name, fn in (("unbind", shipped), ("index", indexed), ("index", indexed),
+                     ("unbind", shipped)):
+        TF._unstack = fn
+        readings.append((name,) + timed())
+    TF._unstack = shipped
+    print(f"  stacked leaves per step, in turns (variant, step ms, peak B): {readings!r}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, by_class=by_class,
+                attn_step_ms=attn_step, readings=readings)
+
+
+def _leaf_names(tree, prefix=""):
+    """(dotted name, leaf) in flatten order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)
+        return out
+    return [(prefix, tree)]
+
+
 # ---------------------------------------------------------------- main
 
 
-# a full run's phases; ``--phases`` may also name ``rows`` (phase_rows), which
-# a full run leaves out
-PHASES = ("build", "kernels", "rounds", "state", "flat", "stream", "ops", "host", "serve")
+# a full run's phases; ``--phases`` may also name ``rows`` (phase_rows) and
+# ``trainprof`` (phase_trainprof), which a full run leaves out
+PHASES = ("build", "kernels", "rounds", "state", "flat", "stream", "ops", "host", "serve",
+          "train")
 
 
 def main() -> None:
@@ -2202,6 +2628,10 @@ def main() -> None:
         phase_rows(dev)
     if "serve" in phases:
         serve_rec = phase_serve(dev)
+    if "train" in phases:
+        phase_train(dev)
+    if "trainprof" in phases:
+        phase_trainprof(dev)
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}) done in {time.perf_counter() - t_start:.1f} s")
         return

@@ -1,11 +1,13 @@
-"""Configs of the port: the architectures (DeepSpeech2 and the dense LMs
-the serving path runs), the FL experiment and the precision levels.
+"""Configs of the port: the architectures (DeepSpeech2 and the dense LMs),
+the FL experiment and the precision levels.
 
 The fields and defaults are those of the JAX package's ``configs/base.py``,
-``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py`` and
-``configs/qwen3_8b.py``, cut to what the federated round and the dense
-serving path read. Every config is a frozen dataclass, so configs hash and
-compare.
+``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py``,
+``configs/qwen3_8b.py``, ``configs/deepseek_67b.py`` and
+``configs/qwen1p5_110b.py``, cut to what the federated round and the dense
+LM's training and serving paths read. Every config is a frozen dataclass,
+so configs hash and compare. ``register_arch`` adds a config to
+``ARCH_REGISTRY``, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,8 +46,17 @@ class ArchConfig:
     window: int = 8192
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # recompute each block's activations in the backward pass
+    # (torch.utils.checkpoint; the reference's jax.checkpoint)
+    remat: bool = False
+    # the reference's XLA lowering controls (a Python loop over the layers
+    # either way here); accepted, and they change no result
+    unroll_layers: bool = False
+    unroll_attn: bool = False
     # query/key chunk of the plain chunked attention
     attn_chunk: int = 1024
+    # sequence chunk of the training loss's logits
+    loss_chunk: int = 512
     # route causal prefill attention through the flash kernel
     # (kernels/flash_attention.py); windowed, non-causal and differentiable
     # attention keep the chunked path
@@ -72,6 +83,7 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             head_dim=0,
             window=64,
+            remat=False,
             param_dtype="float32",
             compute_dtype="float32",
         )
@@ -149,6 +161,18 @@ class FLConfig:
     category_probs: Tuple[float, ...] = (0.327, 0.160, 0.319, 0.194)
 
 
+ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ArchConfig]):
+        ARCH_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+@register_arch("deepspeech2")
 def deepspeech2() -> ArchConfig:
     """The paper's DeepSpeech2-style ASR model: 3 bi-GRU layers of 256,
     80 mel features, a 64-symbol vocabulary (arXiv:1512.02595)."""
@@ -163,6 +187,7 @@ def deepspeech2() -> ArchConfig:
     )
 
 
+@register_arch("stablelm-1.6b")
 def stablelm_1p6b() -> ArchConfig:
     """stablelm-1.6b: dense, MHA (32 heads of 64)."""
     return ArchConfig(
@@ -177,9 +202,11 @@ def stablelm_1p6b() -> ArchConfig:
         source="hf:stabilityai/stablelm-2-1_6b",
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
+        remat=True,
     )
 
 
+@register_arch("qwen3-8b")
 def qwen3_8b() -> ArchConfig:
     """qwen3-8b: dense, GQA (32 query heads over 8 KV heads of 128),
     qk-norm, RoPE theta 1e6, untied embeddings."""
@@ -197,17 +224,56 @@ def qwen3_8b() -> ArchConfig:
         source="hf:Qwen/Qwen3-8B",
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
+        remat=True,
     )
 
 
-ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {
-    "deepspeech2": deepspeech2,
-    "stablelm-1.6b": stablelm_1p6b,
-    "qwen3-8b": qwen3_8b,
-}
+@register_arch("deepseek-67b")
+def deepseek_67b() -> ArchConfig:
+    """deepseek-67b: dense llama-arch, GQA (64 query heads over 8 KV heads
+    of 128)."""
+    return ArchConfig(
+        name="deepseek-67b",
+        family="dense",
+        n_layers=95,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        d_ff=22016,
+        vocab_size=102_400,
+        source="arXiv:2401.02954",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("qwen1.5-110b")
+def qwen1p5_110b() -> ArchConfig:
+    """qwen1.5-110b: dense, GQA (64 query heads over 8 KV heads of 128),
+    QKV bias."""
+    return ArchConfig(
+        name="qwen1.5-110b",
+        family="dense",
+        n_layers=80,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        d_ff=49152,
+        vocab_size=152_064,
+        qkv_bias=True,
+        source="hf:Qwen/Qwen1.5-0.5B",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]()
+
+
+def list_archs() -> Tuple[str, ...]:
+    return tuple(sorted(ARCH_REGISTRY))

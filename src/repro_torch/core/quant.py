@@ -77,10 +77,12 @@ def sr_dither(seed, rows, pos) -> torch.Tensor:
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+def _f32(x: float, like) -> torch.Tensor:
     """A 0-d f32 tensor on ``like``'s device (an operand that is never a
-    CPU scalar)."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    CPU scalar; the CPU where ``like`` is a Python number), filled by a
+    kernel: no blocking host-to-device copy."""
+    dev = like.device if isinstance(like, torch.Tensor) else torch.device("cpu")
+    return torch.full((), x, dtype=torch.float32, device=dev)
 
 
 def ref_qmax(bits: int) -> float:
@@ -194,6 +196,57 @@ def quantize_row_sr(
     q = floor + (u < (scaled - floor)).to(torch.float32)
     q = torch.minimum(torch.maximum(q, -qmax), qmax)
     return q.to(_STORAGE_DTYPE[kind]), scale
+
+
+# ---------------------------------------------------------------------------
+# quantized optimizer/server state
+# ---------------------------------------------------------------------------
+
+# symbols per scale for resident quantized state (the wire's QUANT_BLOCK)
+STATE_BLOCK = 256
+
+
+def quantize_state(x: torch.Tensor, *, bits: int = 8, block: int = STATE_BLOCK):
+    """Blockwise symmetric quantization of one resident state tensor.
+
+    ``x`` is flattened and split into ``block``-value runs (the last one
+    ragged); each run is rounded to nearest on its own amax/qmax grid,
+    ``scale = max(amax, 1e-12) / qmax`` (a multiply by ``_recip``, as in
+    the reference's jitted program). Returns (q int8 in x's shape, scale
+    (n_blocks,) f32 in flattened order); ``block`` <= 0 or >= size gives
+    one per-tensor scale.
+    """
+    if not 2 <= bits <= 8:
+        raise ValueError(f"int8 storage class: 2..8 bits, got {bits}")
+    flat = x.to(torch.float32).reshape(-1)
+    M = flat.shape[0]
+    qmax = _f32(float(qrange(bits)), flat)
+    recip = _recip(float(qrange(bits)), flat)
+    if 0 < block < M:
+        n_blocks = -(-M // block)
+        pad = n_blocks * block - M
+        padded = torch.nn.functional.pad(flat, (0, pad)) if pad else flat
+        amax = padded.reshape(n_blocks, block).abs().amax(dim=1)
+        scale = torch.clamp_min(amax, 1e-12) * recip
+        cols = scale.repeat_interleave(block)[:M]
+    else:
+        scale = (torch.clamp_min(flat.abs().max(), 1e-12) * recip).reshape(1)
+        cols = scale[0]
+    q = torch.minimum(torch.maximum(torch.round(flat / cols), -qmax), qmax)
+    return q.to(torch.int8).reshape(x.shape), scale
+
+
+def dequantize_state(q: torch.Tensor, scale: torch.Tensor, *,
+                     block: int = STATE_BLOCK) -> torch.Tensor:
+    """Inverse of ``quantize_state``: q * scale[block], in q's shape."""
+    flat = q.reshape(-1).to(torch.float32)
+    scale = torch.atleast_1d(scale.to(torch.float32))
+    if scale.shape[0] > 1:
+        bid = torch.arange(flat.shape[0], device=flat.device) // block
+        flat = flat * scale[torch.clamp_max(bid, scale.shape[0] - 1)]
+    else:
+        flat = flat * scale[0]
+    return flat.reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Synthetic federated voice corpus (the LM token streams wait for the
-port's LM training)."""
+"""Synthetic federated voice corpus and the LM token streams."""
 
+from repro_torch.data.lm import MarkovTokens, token_batches
 from repro_torch.data.voice import (
     CHAR_TO_ID,
     FEAT_DIM,
@@ -21,6 +21,7 @@ __all__ = [
     "CHAR_TO_ID",
     "FEAT_DIM",
     "FRAMES_PER_CHAR",
+    "MarkovTokens",
     "VOCAB",
     "VOCAB_SIZE",
     "ClientShard",
@@ -31,4 +32,5 @@ __all__ = [
     "make_eval_set",
     "sample_command",
     "synth_frames",
+    "token_batches",
 ]

@@ -1,6 +1,10 @@
-"""Step functions (the JAX package's ``launch/steps.py``): the client's
-quantized local training step, with PyTorch autograd, and the serving
-path's prefill and decode steps.
+"""Step functions (the JAX package's ``launch/steps.py``): the train
+state, the training step and the client's quantized local training step,
+with PyTorch autograd, and the serving path's prefill and decode steps.
+
+A train state is ``{"params", "opt", "step"}``, ``step`` a 0-d int32
+tensor on the params' device, as the reference's, so a checkpoint of it
+loads in either package.
 """
 
 from __future__ import annotations
@@ -13,6 +17,54 @@ from repro_torch.core import quant
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models.registry import Model
 from repro_torch.optim import Optimizer, clip_by_global_norm
+
+
+def init_train_state(model: Model, opt: Optimizer, generator: torch.Generator) -> Dict[str, Any]:
+    """Random params from ``generator``, on the generator's device."""
+    params = model.init(generator, generator.device)
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=generator.device)}
+
+
+def train_state_shapes(model: Model, opt: Optimizer) -> Dict[str, Any]:
+    """The train state's shapes and dtypes as meta tensors (no allocation,
+    no random draws)."""
+    meta = torch.device("meta")
+    params = model.init(None, meta)
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=meta)}
+
+
+def _value_and_grad(model: Model, params: Any, batch: Dict[str, torch.Tensor], transform=None):
+    """(loss, metrics, grads, detached params) of ``model.loss`` at
+    ``params``; ``transform`` maps the live params before the forward."""
+    leaves, structure = tree_flatten(params)
+    live = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    tree = tree_unflatten(structure, live)
+    loss, metrics = model.loss(tree if transform is None else transform(tree), batch)
+    grads = tree_unflatten(structure, list(torch.autograd.grad(loss, live)))
+    return loss.detach(), metrics, grads, tree_unflatten(structure, [p.detach() for p in live])
+
+
+def _apply(params: Any, updates: Any) -> Any:
+    return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates)
+
+
+def make_train_step(model: Model, opt: Optimizer, *, clip_norm: float = 1.0) -> Callable:
+    """One step: loss and gradients, global-norm clip, the optimizer, the
+    update added in f32 and cast back to each param's dtype."""
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        loss, metrics, grads, params = _value_and_grad(model, state["params"], batch)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = opt.update(grads, state["opt"], params, state["step"])
+        del grads
+        new_state = {"params": _apply(params, updates), "opt": opt_state,
+                     "step": state["step"] + 1}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    return train_step
 
 
 def make_quantized_train_step(
@@ -30,15 +82,10 @@ def make_quantized_train_step(
     to ``clip_norm``."""
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        leaves, structure = tree_flatten(state["params"])
-        live = [leaf.detach().requires_grad_(True) for leaf in leaves]
-        params = tree_unflatten(structure, live)
-        qparams = tree_map(
-            lambda p: quant.ste_fake_quant(p, bits) if p.dim() >= 2 else p, params
-        )
-        loss, metrics = model.loss(qparams, batch)
-        grads = tree_unflatten(structure, list(torch.autograd.grad(loss, live)))
-        params = tree_unflatten(structure, [p.detach() for p in live])
+        loss, metrics, grads, params = _value_and_grad(
+            model, state["params"], batch,
+            lambda tree: tree_map(
+                lambda p: quant.ste_fake_quant(p, bits) if p.dim() >= 2 else p, tree))
         if fedprox_mu > 0.0 and "anchor" in state:
             grads = tree_map(
                 lambda g, p, a: g + (fedprox_mu * (
@@ -47,13 +94,11 @@ def make_quantized_train_step(
             )
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         updates, opt_state = opt.update(grads, state["opt"], params, state["step"])
-        params = tree_map(
-            lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates
-        )
-        new_state = {"params": params, "opt": opt_state, "step": state["step"] + 1}
+        new_state = {"params": _apply(params, updates), "opt": opt_state,
+                     "step": state["step"] + 1}
         if "anchor" in state:
             new_state["anchor"] = state["anchor"]
-        return new_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+        return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
 

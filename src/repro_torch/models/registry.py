@@ -4,7 +4,7 @@
 ``build_model(cfg)`` returns a ``Model`` with:
 - ``init(gen, device)``                -> params (random weights from a
                                           ``torch.Generator``)
-- ``loss(params, batch)``              -> (scalar, metrics)   [ds2]
+- ``loss(params, batch)``              -> (scalar, metrics)
 - ``prefill(params, batch)``           -> (logits, cache)     [dense]
 - ``init_cache(B, cache_len, device)`` -> cache               [dense]
 - ``decode(params, cache, batch, window=0)`` -> (logits, cache) [dense]
@@ -23,10 +23,6 @@ from repro_torch.models import transformer as TF
 
 # decode beyond this cache length switches to the sliding-window ring buffer
 FULL_CACHE_MAX = 32_768
-
-
-def _lm_loss_not_ported(params, batch):
-    raise NotImplementedError("LM training is not ported yet")
 
 
 @dataclasses.dataclass
@@ -82,7 +78,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen, device: TF.init_lm(gen, cfg, device),
-            loss=_lm_loss_not_ported,
+            loss=lambda p, b: TF.lm_loss(p, b, cfg),
             init_cache=lambda B, n, device: TF.init_decode_cache(cfg, B, n, device),
             decode=lambda p, c, b, window=0: TF.decode_step(p, c, b, cfg, window=window),
             prefill=lambda p, b: TF.prefill(p, b, cfg),

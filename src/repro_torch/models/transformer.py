@@ -3,25 +3,33 @@
 
 Layers are *stacked*: every per-layer param has a leading ``n_layers``
 axis, as in the reference, so ``convert.py`` maps the JAX params one to
-one. The reference scans the stack; here a Python loop indexes it.
+one. The reference scans the stack; here a Python loop runs the layers,
+each leaf unbound once a forward (one ``stack`` in its backward, where
+indexing layer by layer would allocate a whole-stack gradient per layer).
+``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 Entry points:
+- ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
 - ``prefill(params, batch, cfg)``        full-sequence forward + KV cache.
 - ``decode_step(params, cache, batch, cfg)``  one token against the cache.
 - ``init_decode_cache(cfg, B, cache_len, device)``.
-``lm_loss`` (training) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+
+LOSS_CHUNK = 512  # sequence chunk for logit materialisation (ArchConfig.loss_chunk)
 
 
 # ------------------------------------------------------------------------ init
@@ -104,16 +112,85 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
 # --------------------------------------------------------------------- forward
 
 
+def _unstack(stacked: Any, n: int) -> List[Any]:
+    """The stacked tree as ``n`` per-layer trees (each leaf unbound once)."""
+    if isinstance(stacked, dict):
+        per = {k: _unstack(v, n) for k, v in stacked.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(stacked.unbind(0))
+
+
 def _run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                 window: int, collect_kv: bool = False, differentiable: bool = True):
-    """Apply the stacked layers in order. Returns (x, [(k, v)] | None)."""
+    """Apply the stacked layers in order. Returns (x, aux_total, [(k, v)] |
+    None); the dense family's aux (the MoE router loss) is zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = [] if collect_kv else None
-    for i in range(cfg.n_layers):
-        x, kv = _block(_layer(params["layers"], i), x, cfg, positions, window,
-                       differentiable)
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
+    for layer_p in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            # the block draws no random numbers: no RNG state to replay
+            x = checkpoint(lambda xc, lp: _block(lp, xc, cfg, positions, window,
+                                                 differentiable)[0],
+                           x, layer_p, use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, kv = _block(layer_p, x, cfg, positions, window, differentiable)
         if collect_kv:
             kvs.append(kv)
-    return x, kvs
+    return x, aux, kvs
+
+
+def lm_logits_and_aux(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """Final-norm hidden states (B, S, d), the head (d, V) and aux."""
+    x = _embed_inputs(params, batch, cfg)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    x, aux, _ = _run_layers(params, x, cfg, positions, window=0)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, _head(params, cfg), aux
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """Next-token CE on the token segment; logits materialised per chunk.
+
+    As the reference: targets are ``labels`` (else ``tokens``) shifted by
+    one, weighted by ``mask``; chunks of ``min(cfg.loss_chunk, T)``
+    positions, the tail zero-padded and masked out; logits are the
+    compute-dtype product cast to f32, and the gold logit is the f32 dot
+    of the hidden state with the gathered head column.
+    """
+    x, head, aux = lm_logits_and_aux(params, batch, cfg)
+    tokens = batch["tokens"]
+    h = x[:, -tokens.shape[1]:][:, :-1]  # predict tokens[t + 1] from position t
+    targets = batch.get("labels", tokens)[:, 1:].long()
+    mask = batch.get("mask")
+    mask = torch.ones_like(targets) if mask is None else mask[..., : targets.shape[1]]
+    T = h.shape[1]
+    chunk = min(cfg.loss_chunk, T)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n):
+        hh = h[:, c * chunk:(c + 1) * chunk]
+        tt = targets[:, c * chunk:(c + 1) * chunk]
+        mm = mask[:, c * chunk:(c + 1) * chunk]
+        logits = (hh @ head).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        # gold logit = <h, head[:, target]>: gather head columns, not logits
+        cols = head[:, tt.reshape(-1)].reshape(head.shape[0], *tt.shape)  # (d, B, c)
+        gold = torch.einsum("bcd,dbc->bc", hh.to(torch.float32), cols.to(torch.float32))
+        nll = (logz - gold) * mm
+        tot = tot + nll.sum()
+        cnt = cnt + mm.sum()
+    loss = tot / torch.clamp_min(cnt, 1.0)
+    # the reference adds router_aux_coef * aux / n_layers: zero for the
+    # dense family, whose aux is zero
+    return loss, {"ce": loss, "aux": aux}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
@@ -123,8 +200,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         x = _embed_inputs(params, batch, cfg)
         B, S = x.shape[:2]
         positions = _positions(B, S, x.device)
-        x, kvs = _run_layers(params, x, cfg, positions, window=0, collect_kv=True,
-                             differentiable=False)
+        x, _, kvs = _run_layers(params, x, cfg, positions, window=0, collect_kv=True,
+                                differentiable=False)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = (x[:, -1] @ _head(params, cfg)).to(torch.float32)
         cache = {

@@ -1,3 +1,27 @@
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm, sgd, state_nbytes
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    Schedule,
+    adam,
+    adamw,
+    clip_by_global_norm,
+    constant_schedule,
+    cosine_schedule,
+    linear_warmup_cosine,
+    momentum,
+    sgd,
+    state_nbytes,
+)
 
-__all__ = ["Optimizer", "clip_by_global_norm", "sgd", "state_nbytes"]
+__all__ = [
+    "Optimizer",
+    "Schedule",
+    "adam",
+    "adamw",
+    "clip_by_global_norm",
+    "constant_schedule",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+    "momentum",
+    "sgd",
+    "state_nbytes",
+]

@@ -222,15 +222,12 @@ def test_fl_config_fields_equal_the_reference():
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-ITEM3 = "ROADMAP §1 item 3 (dense-LM training)"
 ITEM4 = "ROADMAP §1 item 4 (the other model families)"
 ITEM5 = "ROADMAP §1 item 5 (the mesh on torch.distributed)"
 JAX_KEY = "a jax.random key split; the port's round-draws seam (RoundDraws) replaces it"
 PALLAS = "a Pallas kernel or its TPU tile constant; the port's CUDA wrapper takes its place"
 
 MODULES_ABSENT = {
-    "data/lm.py": ITEM3,
-    "launch/train.py": ITEM3,
     "models/ssm.py": ITEM4,
     "models/hybrid.py": ITEM4,
     "models/whisper.py": ITEM4,
@@ -264,37 +261,18 @@ NAMES_ABSENT = {
     ("kernels/quantize.py", "LANES"): PALLAS,
     ("kernels/topk_similarity.py", "TOPK_LANES"): PALLAS,
     ("kernels/topk_similarity.py", "topk_similarity_2d"): PALLAS,
-    ("core/quant.py", "STATE_BLOCK"): ITEM3,
-    ("core/quant.py", "quantize_state"): ITEM3,
-    ("core/quant.py", "dequantize_state"): ITEM3,
-    ("data/__init__.py", "MarkovTokens"): ITEM3,
-    ("data/__init__.py", "token_batches"): ITEM3,
-    ("launch/steps.py", "make_train_step"): ITEM3,
-    ("launch/steps.py", "init_train_state"): ITEM3,
-    ("launch/steps.py", "train_state_shapes"): ITEM3,
-    ("models/transformer.py", "LOSS_CHUNK"): ITEM3,
-    ("models/transformer.py", "lm_loss"): ITEM3,
-    ("models/transformer.py", "lm_logits_and_aux"): ITEM3,
     ("models/layers.py", "apply_mrope"): ITEM4,
     ("models/layers.py", "init_moe"): ITEM4,
     ("models/layers.py", "moe_block"): ITEM4,
     ("models/layers.py", "moe_uses_shard_map"): ITEM5,
     ("configs", "INPUT_SHAPES"): ITEM5 + " (launch/dryrun)",
     ("configs", "InputShape"): ITEM5 + " (launch/dryrun)",
-    ("configs", "register_arch"): ITEM3 + ": per-file config registration comes with the configs",
-    ("configs", "list_archs"): ITEM3 + ": per-file config registration comes with the configs",
     ("configs", "ASSIGNED_ARCHS"): ITEM4,
-    **{(m, n): ITEM3 for m in ("optim/__init__.py", "optim/optimizers.py")
-       for n in ("momentum", "adam", "adamw", "constant_schedule", "cosine_schedule",
-                 "linear_warmup_cosine")},
-    ("optim/optimizers.py", "Schedule"): ITEM3,
     ("launch/steps.py", "Pytree"): "a type alias (Any) the port's module does not annotate with",
     ("serve/engine.py", "Pytree"): "a type alias (Any) the port's module does not annotate with",
 }
 
 MEMBERS_ABSENT = {
-    **{("configs", "ArchConfig", f): ITEM3
-       for f in ("loss_chunk", "remat", "unroll_attn", "unroll_layers")},
     **{("configs", "ArchConfig", f): ITEM4
        for f in ("attn_every", "d_inner", "dense_residual", "dt_rank", "encoder_layers",
                  "encoder_seq", "experts_per_token", "frontend", "moe_d_ff", "mrope",
@@ -311,15 +289,16 @@ MEMBERS_ABSENT = {
 # the reference's type alias and the port's
 ALIASES = {"Pytree": "Tree"}
 
-# this slice's names, held to the reference's parameters; the port takes
-# a torch.Generator for a key, a device for a sharding target, and the
-# round-draws seam for a round key
+# the names of the slices since PR 22, held to the reference's parameters;
+# the port takes a torch.Generator for a key, a device for a sharding
+# target, and the round-draws seam for a round key
 SLICE = {
     "ckpt/checkpoint.py": ("save_checkpoint", "load_checkpoint", "CheckpointManager.__init__",
                            "CheckpointManager.path", "CheckpointManager.save",
                            "CheckpointManager.latest_step", "CheckpointManager.restore_latest"),
     "core/quant.py": ("quantize", "dequantize", "fake_quant", "quantize_tree",
-                      "dequantize_tree", "fake_quant_tree", "quant_error"),
+                      "dequantize_tree", "fake_quant_tree", "quant_error", "quantize_state",
+                      "dequantize_state"),
     "core/wire.py": ("encode_rows", "decode_rows"),
     "core/ota.py": ("quantize_uplink", "dequantize_uplink", "ota_aggregate_pertree",
                     "channel_uses", "digital_uplink_bits"),
@@ -330,6 +309,12 @@ SLICE = {
                       "write_bench_report"),
     "retrieval/arena.py": ("ArenaStore.save", "ArenaStore.load"),
     "retrieval/store.py": ("ArenaVectorStore.save", "ArenaVectorStore.restore"),
+    "optim/optimizers.py": ("sgd", "momentum", "adam", "adamw", "constant_schedule",
+                            "cosine_schedule", "linear_warmup_cosine", "clip_by_global_norm",
+                            "state_nbytes"),
+    "launch/steps.py": ("init_train_state", "train_state_shapes", "make_train_step"),
+    "models/transformer.py": ("lm_logits_and_aux", "lm_loss"),
+    "data/lm.py": ("MarkovTokens.__init__", "MarkovTokens.sample", "token_batches"),
 }
 RENAMES = {"key": "generator", "shardings": "device"}
 RENAMES_OTA = {"key": "draws"}
@@ -443,8 +428,7 @@ def test_every_reference_config_is_registered_or_queued():
         for node in ast.walk(ast.parse(p.read_text())):
             if (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "register_arch"):
                 registered.add(node.args[0].value)
-    queued = {"deepseek-67b", "qwen1.5-110b"}  # ITEM3
-    queued |= {"kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b", "falcon-mamba-7b",
+    queued = {"kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b", "falcon-mamba-7b",
                "zamba2-2.7b", "whisper-tiny"}  # ITEM4
     assert registered - set(tconfigs.ARCH_REGISTRY) == queued
 

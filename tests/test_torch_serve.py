@@ -109,15 +109,19 @@ def test_decode_steps_after_grow_cache(arch, window, P):
 
 
 def test_model_api_matches_reference():
-    jm, tm, _, _ = _models("qwen3-8b")
+    jm, tm, jp, tp = _models("qwen3-8b")
     for n in (100, 32_768, 40_000):
         assert tm.cache_len_for(n) == jm.cache_len_for(n)
         assert tm.decode_window_for(n) == jm.decode_window_for(n)
     jc = jm.init_cache(2, 10)
     tc = tm.init_cache(2, 10, "cpu")
     _close_cache(tc, jc)
-    with pytest.raises(NotImplementedError):
-        tm.loss(None, None)
+    # the dense loss is the training loss (tests/test_torch_train.py holds
+    # it and its gradients against the jitted reference)
+    toks = np.random.RandomState(5).randint(0, jm.cfg.vocab_size, (2, 16)).astype(np.int32)
+    jl, _ = jax.jit(jm.loss)(jax.tree.map(jnp.asarray, jp), {"tokens": jnp.asarray(toks)})
+    tl, _ = tm.loss(tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
 
 def _requests(cls, n, seed=0, vocab=512):
