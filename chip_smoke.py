@@ -115,6 +115,29 @@ Phases, each of which fails the run on error:
              the same prefill through the plain ``chunked_attention``
              (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
              params (max_batch 4, cache_len 256) draining 8 requests.
+   families — the moe and vlm families at full width through the same
+             entry points, one config at a time (the previous one's params
+             freed), bf16, random weights from a seed, ``use_flash_kernel``:
+             kimi-k2-1t-a32b at 1 of 61 layers (19,378,623,488 params:
+             384 experts of 2,048, top 8, 64/8 heads of 112 on the mma.sync
+             flash route), arctic-480b at 2 of 35 (27,681,131,520: 128
+             experts of 4,864, top 2, a dense residual MLP, 56/8 heads of
+             128) and qwen2-vl-2b at full depth (1,779,447,296: M-RoPE, 8
+             zero patch embeddings ahead of the prompt, 12/2 heads of 128).
+             Per config: the param count and bytes, the init's seconds and
+             peak (at most the params' bytes + 4 GiB: leaves are drawn a
+             slab at a time); ``launch.serve.serve`` on 4 prompts of 2,048
+             tokens with 32 generated (the flash counter must rise by
+             exactly n_layers, logits finite, ids in the vocabulary); flash
+             against chunked prefill (for qwen2-vl the serve phase's check;
+             for the MoE configs each layer's attention output against
+             ``chunked_attention`` on the prefill's own q, k, v within
+             ``flash_attention.mismatch``, the routing differences per
+             layer, and the last-position log-softmax within
+             SERVE_LOGIT_TOL on the rows whose last token routes alike);
+             ``ServeEngine`` draining 8 requests; prefill ms, decode ms a
+             token, engine seconds and peak memory beside the bounds of
+             ``family_bounds``.
 9. train   — stablelm-1.6b at full width and depth (24 layers, d_model
              2,048, 32 heads of 64, d_ff 5,632, vocab 100,352, bf16, the
              config's remat=True, random weights from a seed) through
@@ -140,7 +163,9 @@ bf16), a ragged S = 2,000, StableLM-1.6B's widths (MHA, D 64), two f32
 cases, and the other configs' widths and masks (zamba2-2.7b D 80,
 kimi-k2-1t-a32b 64/8 heads of 112, Qwen3-8B non-causal, whisper-tiny's
 encoder keys cut to a tile-aligned 1,536, causal Sq > Sk, f32 D 32, a
-zero-padded D 40), element by element and by the share of elements that
+zero-padded D 40), the families phase's prefills at B 4, S 2,048
+(kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128),
+element by element and by the share of elements that
 differ (``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py``
 takes the readings behind its limits). It times the kernel at each case
 beside its bound and ``scaled_dot_product_attention`` (``library_ms``,
@@ -610,7 +635,8 @@ def flash_work(B: int, Sq: int, Sk: int, H: int, KV: int, D: int, causal: bool, 
 # (label, B, Sq, Sk, H, KV, D, causal, dtype): the serve phase's shapes
 # (Qwen3-8B), a ragged length, StableLM-1.6B's MHA widths and small f32
 # cases; then the widths and masks of the repository's other configs,
-# through ``ops.flash_mha`` in the ops phase too (OPS_FLASH_CASES)
+# through ``ops.flash_mha`` in the ops phase too (OPS_FLASH_CASES); then
+# the families phase's prefills (FAMILY_FLASH_CASES)
 FLASH_CASES = (
     ("qwen3-8b", 4, 2048, 2048, 32, 8, 128, True, "bfloat16"),
     ("qwen3-8b ragged", 4, 2000, 2000, 32, 8, 128, True, "bfloat16"),
@@ -629,6 +655,12 @@ FLASH_CASES = (
     ("d40 zero-padded to 64", 1, 256, 384, 4, 2, 40, False, "bfloat16"),
 )
 OPS_FLASH_CASES = FLASH_CASES[5:]
+FAMILY_FLASH_CASES = (
+    ("kimi-k2-1t-a32b prefill", 4, 2048, 2048, 64, 8, 112, True, "bfloat16"),
+    ("arctic-480b prefill", 4, 2048, 2048, 56, 8, 128, True, "bfloat16"),
+    ("qwen2-vl-2b prefill", 4, 2048, 2048, 12, 2, 128, True, "bfloat16"),
+)
+FLASH_CASES += FAMILY_FLASH_CASES
 
 
 def _flash_inputs(case, gen, dev):
@@ -2163,6 +2195,324 @@ def phase_serve(dev):
                 max_dlogsoftmax=dmax, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------- phase 8b
+
+# (arch, layers kept, params, parameter bytes): full width, depth cut to
+# what one card holds (a kimi-k2 layer is 17.03e9 params, 34.1 GB; an
+# arctic layer 13.61e9, 27.2 GB); qwen2-vl-2b at full depth. Arctic keeps
+# two layers so that a second layer's attention runs over MoE outputs.
+FAMILIES = (("kimi-k2-1t-a32b", 1, 19_378_623_488, 38_762_752_000),
+            ("arctic-480b", 2, 27_681_131_520, 55_365_933_056),
+            ("qwen2-vl-2b", 28, 1_779_447_296, 3_558_894_592))
+# init draws each leaf a slab at a time: its peak may pass the params' own
+# bytes by at most this much
+INIT_HEADROOM_BYTES = 4 * 2**30
+VLM_PATCHES = 8  # the reference serve flow's zero patch embeddings
+
+
+def family_bounds(cfg, B: int, S: int, param_bytes: int, cache_len: int) -> dict:
+    """The least time of a prefill of B x S positions and of one decode
+    step of B tokens: the larger of the bytes over the HBM rate and the
+    bf16 products' FLOPs over the bf16 peak. Bytes: every param but the
+    embedding table (a gather reads B S of its rows), plus the KV cache a
+    decode step reads. Prefill FLOPs, as the reference computes them: q/k/v
+    /o projections, causal attention (QK^T and PV over the kept pairs), the
+    dense MLP or the MoE's experts over their whole (E, C, d) capacity
+    buffers (C = int(T K / E * 1.25)) and the router, arctic's dense
+    residual MLP, the patch projector, and the head at the last position."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    nl, T = cfg.n_layers, B * S
+    embed_bytes = cfg.vocab_size * d * 2
+    flops = 2.0 * T * d * (H + 2 * KV) * Dh + 2.0 * T * H * Dh * d
+    flops += 4.0 * B * H * Dh * S * (S + 1) / 2
+    if cfg.family == "moe":
+        E, K, F_ = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff or cfg.d_ff
+        C = max(1, int(T * K / E * 1.25))
+        flops += 2.0 * E * C * 3 * d * F_ + 2.0 * T * d * E
+        if cfg.dense_residual:
+            flops += 2.0 * T * 3 * d * cfg.d_ff
+    else:
+        flops += 2.0 * T * 3 * d * cfg.d_ff
+    flops = nl * flops + 2.0 * B * d * cfg.vocab_size
+    if cfg.frontend == "vision":
+        flops += 2.0 * B * VLM_PATCHES * cfg.frontend_dim * d
+    weight_bytes = param_bytes - embed_bytes
+    kv_bytes = nl * B * cache_len * KV * Dh * 2 * 2
+    out = {"weight_bytes": weight_bytes, "prefill_bf16_flops": flops,
+           "prefill_bound_ms": bound_ms(weight_bytes, flops, BF16_FLOPS),
+           "prefill_bound_by": bound_by(weight_bytes, flops, BF16_FLOPS),
+           "decode_bytes": weight_bytes + kv_bytes}
+    out["decode_bound_ms"] = 1e3 * out["decode_bytes"] / HBM_BYTES_PER_S
+    return out
+
+
+class _PrefillRecorder:
+    """Within ``with``: every flash call's (q, k, v, out) and every MoE
+    routing's expert ids (T, K) and keep flags (T, K) of one prefill, layer
+    by layer, by wrapping ``models.layers.flash_mha`` and ``_route_local``.
+    The ids are recomputed from the router's own inputs with the same top-k
+    (``_route_local`` returns them masked by keep)."""
+
+    def __init__(self):
+        self.attn, self.routes = [], []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers as L
+
+        self._L, self._flash, self._route = L, L.flash_mha, L._route_local
+
+        def flash(q, k, v, *, causal=True):
+            out = self._flash(q, k, v, causal=causal)
+            self.attn.append((q, k, v, out))
+            return out
+
+        def route(xf, router, E, K, capacity):
+            got = self._route(xf, router, E, K, capacity)
+            _, ids = L._top_k(torch.softmax(xf.to(torch.float32) @ router, dim=-1), K)
+            self.routes.append((ids, got[3].reshape(-1, K)))
+            return got
+
+        L.flash_mha, L._route_local = flash, route
+        return self
+
+    def __exit__(self, *exc):
+        self._L.flash_mha, self._L._route_local = self._flash, self._route
+        return False
+
+
+def _routing_diffs(a, b, B: int, S: int) -> dict:
+    """Per layer, how many (token, slot) expert ids and keep flags differ
+    between two prefills' routings, how many tokens route to a different
+    set of experts or keep a different subset; and the batch rows whose
+    last token routes and keeps alike in every layer."""
+    import torch
+
+    per_layer, last_same = [], torch.ones(B, dtype=torch.bool, device=a[0][0].device)
+    for (ia, ka), (ib, kb) in zip(a, b):
+        sa, oa = ia.sort(dim=-1)
+        sb, ob = ib.sort(dim=-1)
+        # keep flags aligned by expert id within each token
+        kas, kbs = ka.gather(1, oa), kb.gather(1, ob)
+        token_same = (sa == sb).all(-1) & (kas == kbs).all(-1)
+        per_layer.append({"ids_differ": int((ia != ib).sum()),
+                          "keep_differ": int((ka != kb).sum()),
+                          "tokens_routed_differently": int((~token_same).sum()),
+                          "pairs_dropped": [int((~ka).sum()), int((~kb).sum())]})
+        last_same &= token_same.reshape(B, S)[:, -1]
+    return {"layers": per_layer, "last_token_same": last_same.tolist()}
+
+
+def phase_families(dev):
+    """The moe and vlm families at full width through the serving entry
+    points, one config at a time: kimi-k2-1t-a32b (1 layer), arctic-480b
+    (2 layers), qwen2-vl-2b (28 layers, full depth), bf16, random weights
+    from a seed, the flash prefill. Per config: the param count and the
+    init's peak; ``launch.serve.serve`` (4 x 2,048 tokens, 32 generated);
+    flash against chunked prefill; ``ServeEngine`` draining 8 requests;
+    each reading beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    launches_total, out = 0, {}
+    for arch, n_layers, want_params, want_bytes in FAMILIES:
+        cfg = get_arch(arch).with_(n_layers=n_layers, use_flash_kernel=True)
+        model = build_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        params = model.init(gen, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev) - base
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        print(f"families: {arch} {cfg.n_layers} of {get_arch(arch).n_layers} layers, d_model "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+              f"{cfg.resolved_head_dim()} (flash design "
+              f"{kfa.kernel_design(torch.bfloat16, cfg.resolved_head_dim())}), experts "
+              f"{cfg.n_experts} top {cfg.experts_per_token} of {cfg.moe_d_ff}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}: {n_params} params, {n_bytes} B; init {init_s:.2f} s, "
+              f"peak {init_peak} B over the params' bytes by {init_peak - n_bytes} B")
+        if n_params != want_params or n_bytes != want_bytes:
+            _fail(f"{arch} has {n_params} params / {n_bytes} B, want {want_params} / "
+                  f"{want_bytes}")
+        if init_peak > n_bytes + INIT_HEADROOM_BYTES:
+            _fail(f"{arch}'s init peaked at {init_peak} B, over its {n_bytes} B of params "
+                  f"+ {INIT_HEADROOM_BYTES}")
+        if cfg.family == "moe" and params["layers"]["moe"]["router"].dtype != torch.float32:
+            _fail("the MoE router is not f32")
+
+        kw = dict(batch=B, prompt_len=P, seed=0, device=dev, params=params)
+        serve(cfg, gen=2, **kw)  # warm-up: cuBLAS handles, first launches
+        torch.cuda.reset_peak_memory_stats(dev)
+        kfa.flash_mha.launches = 0
+        res = serve(cfg, gen=G, **kw)
+        launches = kfa.flash_mha.launches
+        launches_total += launches
+        toks = res.tokens.cpu().numpy()
+        S = P + (VLM_PATCHES if cfg.family == "vlm" else 0)
+        bounds = family_bounds(cfg, B, S, n_bytes, res.cache["k"].shape[2])
+        rec = {"init_s": init_s, "init_peak_bytes": init_peak, "param_bytes": n_bytes,
+               "prefill_ms": res.prefill_s * 1e3,
+               "decode_ms_per_token": res.decode_s / (G - 1) * 1e3, "launches": launches}
+        print(f"  serve B={B} S={S}: prefill {rec['prefill_ms']:.1f} ms (bound "
+              f"{bounds['prefill_bound_ms']:.3f} ms, {bounds['prefill_bound_by']}), decode "
+              f"{rec['decode_ms_per_token']:.2f} ms/token (bound {bounds['decode_bound_ms']:.3f} "
+              f"ms: {bounds['decode_bytes']} B a step); flash launches {launches}; "
+              f"bounds {json.dumps(bounds)}")
+        print(f"  sample token ids: {toks[0, :16].tolist()} / {toks[1, :8].tolist()}")
+        if launches != cfg.n_layers:
+            _fail(f"{arch}: the flash prefill launched the kernel {launches} times, want "
+                  f"{cfg.n_layers}")
+        if not res.all_finite or toks.shape != (B, G):
+            _fail(f"{arch}: serve logits not finite or tokens misshapen")
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            _fail(f"{arch}: token ids out of the vocabulary")
+        flash_logits = res.prefill_logits
+        del res
+
+        if cfg.family == "moe":
+            rec.update(_families_moe_check(cfg, model, params, dev))
+        else:
+            plain = serve(cfg.with_(use_flash_kernel=False), gen=1, **kw)
+            if kfa.flash_mha.launches != launches:
+                _fail("the chunked prefill launched the flash kernel")
+            lf = torch.log_softmax(flash_logits, -1)
+            lc = torch.log_softmax(plain.prefill_logits, -1)
+            dmax = float((lf - lc).abs().max())
+            top2 = plain.prefill_logits.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            agree = (flash_logits.argmax(-1) == plain.prefill_logits.argmax(-1)).tolist()
+            print(f"  chunked prefill: {plain.prefill_s * 1e3:.1f} ms; flash vs chunked max "
+                  f"|d log_softmax| {dmax!r} (tolerance {SERVE_LOGIT_TOL}), top-1 agree "
+                  f"{agree}, chunked top-2 margins {[round(m, 4) for m in margin]}")
+            if not dmax <= SERVE_LOGIT_TOL:
+                _fail(f"{arch}: flash and chunked prefill disagree: {dmax} > {SERVE_LOGIT_TOL}")
+            if any(not a and m > 2 * SERVE_LOGIT_TOL for a, m in zip(agree, margin)):
+                _fail(f"{arch}: flash and chunked prefill pick different top-1 tokens away "
+                      "from a near tie")
+            rec.update(chunked_prefill_ms=plain.prefill_s * 1e3, max_dlogsoftmax=dmax)
+            del plain
+        del flash_logits
+        if L.flash_mha is not kfa.flash_mha:
+            _fail("the prefill recorder was left installed")
+
+        eng = ServeEngine(cfg, max_batch=4, cache_len=256, device=dev, params=params)
+        calls, inner = [0], eng._decode
+
+        def counted(p, c, b, inner=inner):
+            calls[0] += 1
+            return inner(p, c, b)
+
+        eng._decode = counted
+        rng = np.random.RandomState(1)
+        reqs = [Request(i, rng.randint(0, cfg.vocab_size, size=rng.randint(16, 65)).astype(
+                    np.int32), max_new_tokens=int(rng.randint(8, 25))) for i in range(8)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = eng.stats()
+        eng_bound_s = calls[0] * family_bounds(cfg, 4, 1, n_bytes, 256)["decode_bound_ms"] / 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"  engine: 8 requests, max_batch 4, cache_len 256: {secs:.2f} s for {calls[0]} "
+              f"decode calls (bound {eng_bound_s:.3f} s), stats {json.dumps(st)}; peak device "
+              f"memory since the warm-up {peak} B")
+        if len(done) != 8 or st["completed"] != 8:
+            _fail(f"{arch}: the engine completed {len(done)} of 8 requests")
+        if any(not (1 <= len(r.generated) <= r.max_new_tokens) for r in done):
+            _fail(f"{arch}: a request generated a token count outside 1..max_new_tokens")
+        rec.update(engine_s=secs, engine_calls=calls[0], engine_bound_s=eng_bound_s,
+                   peak_bytes=peak, bounds=bounds)
+        out[arch] = rec
+        del eng, params, model, kw
+        torch.cuda.empty_cache()
+        if torch.cuda.memory_allocated(dev) > base + 2**30:
+            _fail(f"{arch}'s tensors outlived its turn: {torch.cuda.memory_allocated(dev)} B "
+                  f"allocated, {base} B before")
+    return dict(out, launches=launches_total)
+
+
+def _families_moe_check(cfg, model, params, dev) -> dict:
+    """Flash against chunked prefill for an MoE config. Routing is a
+    discontinuous function of the attention output, and a bf16 rounding
+    difference between the two prefills can flip a near-tied top-K choice,
+    which can then, through capacity, drop a later token's pair. So: (a)
+    each layer's flash output against ``chunked_attention`` on that
+    prefill's own q, k, v, at the kernel's 128-key tile (the two then round
+    p against the same running maxima) by ``flash_attention.mismatch``'s
+    rule, and read at the config's ``attn_chunk``; (b) per layer, how many
+    (token, slot) expert ids and keep flags differ between the flash and
+    the chunked prefill; (c) the last-position log-softmax within
+    SERVE_LOGIT_TOL on every batch row whose last token routes and keeps
+    alike in every layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, P))
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev)}
+    chunked_model = build_model(cfg.with_(use_flash_kernel=False))
+    with _PrefillRecorder() as fl:
+        lf, _ = model.prefill(params, batch)
+    with _PrefillRecorder() as ch:
+        lc, _ = chunked_model.prefill(params, batch)
+    torch.cuda.synchronize()
+    if len(fl.attn) != cfg.n_layers or ch.attn or len(fl.routes) != cfg.n_layers \
+            or len(ch.routes) != cfg.n_layers:
+        _fail(f"recorded {len(fl.attn)} flash calls and {len(fl.routes)} / {len(ch.routes)} "
+              f"routings for {cfg.n_layers} layers")
+    attn = []
+    for i, (q, k, v, o) in enumerate(fl.attn):
+        tile = kfa.mismatch(o, L.chunked_attention(q, k, v, q_chunk=kfa.BK, k_chunk=kfa.BK))
+        wide = kfa.mismatch(o, L.chunked_attention(q, k, v, q_chunk=cfg.attn_chunk,
+                                                   k_chunk=cfg.attn_chunk))
+        print(f"  layer {i} attention, flash vs chunked at the {kfa.BK}-key tile: "
+              f"{json.dumps(tile)}; at attn_chunk {cfg.attn_chunk} (read only): "
+              f"{json.dumps(wide)} {_flash_tol(torch.bfloat16)}")
+        attn.append({"tile": tile, "attn_chunk": wide})
+    del fl.attn
+    diffs = _routing_diffs(fl.routes, ch.routes, B, P)
+    for i, d in enumerate(diffs["layers"]):
+        print(f"  layer {i} routing, flash vs chunked prefill over {B * P} tokens x "
+              f"{cfg.experts_per_token}: {json.dumps(d)}")
+    rows = [b for b, same in enumerate(diffs["last_token_same"]) if same]
+    dl = (torch.log_softmax(lf, -1) - torch.log_softmax(lc, -1)).abs().amax(-1).tolist()
+    print(f"  last-position max |d log_softmax| by row {dl} (tolerance {SERVE_LOGIT_TOL}); "
+          f"rows held: {rows}; rows left out (the last token routes or keeps differently): "
+          f"{[b for b in range(B) if b not in rows]}")
+    for i, a in enumerate(attn):
+        if not a["tile"]["within"]:
+            _fail(f"layer {i}: flash attention != chunked beyond tolerance: {a['tile']}")
+    if not rows:
+        _fail("no batch row's last token routes alike in both prefills: nothing to hold")
+    if any(dl[b] > SERVE_LOGIT_TOL for b in rows):
+        _fail(f"flash and chunked prefill disagree on a row that routes alike: {dl}")
+    return {"attention": attn, "routing": diffs, "max_dlogsoftmax_rows": dl, "rows_held": rows}
+
+
 # ---------------------------------------------------------------- phase 9
 
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_Q_STEPS = "stablelm-1.6b", 4, 2048, 6, 3
@@ -2575,7 +2925,7 @@ def _leaf_names(tree, prefix=""):
 # a full run's phases; ``--phases`` may also name ``rows`` (phase_rows) and
 # ``trainprof`` (phase_trainprof), which a full run leaves out
 PHASES = ("build", "kernels", "rounds", "state", "flat", "stream", "ops", "host", "serve",
-          "train")
+          "families", "train")
 
 
 def main() -> None:
@@ -2628,6 +2978,8 @@ def main() -> None:
         phase_rows(dev)
     if "serve" in phases:
         serve_rec = phase_serve(dev)
+    if "families" in phases:
+        families_rec = phase_families(dev)
     if "train" in phases:
         phase_train(dev)
     if "trainprof" in phases:
@@ -2660,7 +3012,7 @@ def main() -> None:
     launches["ota_quantize_superpose"] = qs_launches
     for n, c in state_counts.items():
         launches[n] += c
-    launches["flash_attention"] = serve_rec["launches"]
+    launches["flash_attention"] = serve_rec["launches"] + families_rec["launches"]
     for n, c in ops_counts.items():
         launches[n] = launches.get(n, 0) + c
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)

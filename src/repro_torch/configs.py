@@ -1,11 +1,12 @@
-"""Configs of the port: the architectures (DeepSpeech2 and the dense LMs),
-the FL experiment and the precision levels.
+"""Configs of the port: the architectures (DeepSpeech2, the dense LMs, the
+MoE LMs and the VLM backbone), the FL experiment and the precision levels.
 
 The fields and defaults are those of the JAX package's ``configs/base.py``,
 ``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py``,
-``configs/qwen3_8b.py``, ``configs/deepseek_67b.py`` and
-``configs/qwen1p5_110b.py``, cut to what the federated round and the dense
-LM's training and serving paths read. Every config is a frozen dataclass,
+``configs/qwen3_8b.py``, ``configs/deepseek_67b.py``,
+``configs/qwen1p5_110b.py``, ``configs/kimi_k2_1t_a32b.py``,
+``configs/arctic_480b.py`` and ``configs/qwen2_vl_2b.py``, cut to what the
+federated round and the LMs' training and serving paths read. Every config is a frozen dataclass,
 so configs hash and compare. ``register_arch`` adds a config to
 ``ARCH_REGISTRY``, as in the reference.
 """
@@ -22,11 +23,11 @@ QUANT_BLOCK = 256
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The architecture fields the DeepSpeech2 model and the dense LM
-    family read."""
+    """The architecture fields the DeepSpeech2 model and the dense, moe and
+    vlm LM families read."""
 
     name: str
-    family: str  # "ds2" | "dense"
+    family: str  # "ds2" | "dense" | "moe" | "vlm"
     n_layers: int
     d_model: int
     vocab_size: int
@@ -39,8 +40,18 @@ class ArchConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    mrope: bool = False  # sectioned multimodal RoPE (qwen2-vl)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False  # arctic: dense FFN in parallel with the MoE branch
+    router_aux_coef: float = 0.01
+    # modality frontend stub ("none" | "audio" | "vision")
+    frontend: str = "none"
     frontend_dim: int = 0
     # sliding-window KV cache size for long-context decode
     window: int = 8192
@@ -69,7 +80,8 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads, f32."""
+        """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads, <= 4
+        experts, f32."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else 0
@@ -87,8 +99,20 @@ class ArchConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
-        if self.frontend_dim:
+        if self.n_experts:
+            kw.update(
+                n_experts=min(self.n_experts, 4),
+                experts_per_token=min(self.experts_per_token, 2),
+                moe_d_ff=min(self.moe_d_ff or self.d_ff, 256),
+            )
+        if self.frontend != "none":
             kw.update(frontend_dim=d_model)
+        if self.mrope:
+            # rescale the M-RoPE sections to the reduced head_dim
+            half = (d_model // n_heads) // 2
+            t = max(1, half // 4)
+            rest = (half - t) // 2
+            kw.update(mrope_sections=(t, rest, half - t - rest))
         return self.with_(**kw)
 
 
@@ -182,6 +206,7 @@ def deepspeech2() -> ArchConfig:
         n_layers=3,
         d_model=256,
         vocab_size=64,
+        frontend="audio",
         frontend_dim=80,
         source="arXiv:1512.02595",
     )
@@ -263,6 +288,81 @@ def qwen1p5_110b() -> ArchConfig:
         vocab_size=152_064,
         qkv_bias=True,
         source="hf:Qwen/Qwen1.5-0.5B",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("kimi-k2-1t-a32b")
+def kimi_k2_1t_a32b() -> ArchConfig:
+    """kimi-k2-1t-a32b: MoE, 384 experts of 2,048 (top 8), GQA (64 query
+    heads over 8 KV heads of 112)."""
+    return ArchConfig(
+        name="kimi-k2-1t-a32b",
+        family="moe",
+        n_layers=61,
+        d_model=7168,
+        n_heads=64,
+        n_kv_heads=8,
+        d_ff=2048,
+        moe_d_ff=2048,
+        n_experts=384,
+        experts_per_token=8,
+        vocab_size=163_840,
+        source="arXiv:2501.kimi2",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("arctic-480b")
+def arctic_480b() -> ArchConfig:
+    """arctic-480b: MoE, 128 experts of 4,864 (top 2) with a dense MLP of
+    4,864 in parallel, GQA (56 query heads over 8 KV heads of 128)."""
+    return ArchConfig(
+        name="arctic-480b",
+        family="moe",
+        n_layers=35,
+        d_model=7168,
+        n_heads=56,
+        n_kv_heads=8,
+        d_ff=4864,
+        moe_d_ff=4864,
+        n_experts=128,
+        experts_per_token=2,
+        dense_residual=True,
+        vocab_size=32_000,
+        source="hf:Snowflake/snowflake-arctic-base",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("qwen2-vl-2b")
+def qwen2_vl_2b() -> ArchConfig:
+    """qwen2-vl-2b: the VLM's language decoder, GQA (12 query heads over 2
+    KV heads of 128), QKV bias, M-RoPE over (16, 24, 24) rotary pairs. The
+    vision encoder is a stub: patch embeddings of ``frontend_dim`` arrive
+    precomputed and are projected and prepended to the tokens."""
+    return ArchConfig(
+        name="qwen2-vl-2b",
+        family="vlm",
+        n_layers=28,
+        d_model=1536,
+        n_heads=12,
+        n_kv_heads=2,
+        d_ff=8960,
+        vocab_size=151_936,
+        qkv_bias=True,
+        mrope=True,
+        mrope_sections=(16, 24, 24),
+        rope_theta=1_000_000.0,
+        frontend="vision",
+        frontend_dim=1536,
+        source="arXiv:2409.12191",
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
         remat=True,

@@ -6,7 +6,10 @@ CPU usage (reduced config, real tokens):
 
 Without ``--device`` it runs on the CUDA card (and raises without one).
 Runs prefill over a batch of synthetic prompts, then step-decodes greedily
-with the KV cache (a ring-buffer window when ``--window`` is set).
+with the KV cache (a ring-buffer window when ``--window`` is set). As the
+reference, the vlm family prefills 8 zero patch embeddings (f32) ahead of
+the prompt and decodes from position P, not 8 + P: the decode steps write
+over the cache slots of the prompt's last 8 tokens.
 ``serve(cfg, ...)`` is the same driver for a given ``ArchConfig`` (for
 example ``cfg.with_(use_flash_kernel=True)``), optionally on given params.
 """
@@ -63,6 +66,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 3
     rng = np.random.RandomState(seed)
     prompts = rng.randint(0, cfg.vocab_size, (B, P))
     inputs = {"tokens": torch.as_tensor(prompts, dtype=torch.int32, device=dev)}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.zeros((B, 8, cfg.frontend_dim), dtype=torch.float32,
+                                        device=dev)
     total = P + gen
     window = window or 0
 

@@ -37,12 +37,16 @@ def train_state_shapes(model: Model, opt: Optimizer) -> Dict[str, Any]:
 
 def _value_and_grad(model: Model, params: Any, batch: Dict[str, torch.Tensor], transform=None):
     """(loss, metrics, grads, detached params) of ``model.loss`` at
-    ``params``; ``transform`` maps the live params before the forward."""
+    ``params``; ``transform`` maps the live params before the forward. A
+    param the loss does not reach (the vlm projector on a batch without
+    patches) gets a zero gradient, as from ``jax.grad``."""
     leaves, structure = tree_flatten(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
     tree = tree_unflatten(structure, live)
     loss, metrics = model.loss(tree if transform is None else transform(tree), batch)
-    grads = tree_unflatten(structure, list(torch.autograd.grad(loss, live)))
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = tree_unflatten(structure, [torch.zeros_like(p) if g is None else g
+                                       for p, g in zip(live, grads)])
     return loss.detach(), metrics, grads, tree_unflatten(structure, [p.detach() for p in live])
 
 

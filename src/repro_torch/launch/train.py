@@ -1,4 +1,4 @@
-"""Training driver for the dense LMs (the JAX package's ``launch/train.py``).
+"""Training driver for the LMs (the JAX package's ``launch/train.py``).
 
 CPU usage (reduced config, real steps):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -9,7 +9,8 @@ Markov tokens (``data/lm.py``) feed ``make_train_step`` (``lm_loss``,
 autograd, global-norm clip at 1.0, AdamW on a linear-warmup cosine
 schedule); ``--ckpt-dir`` saves the train state every ``--ckpt-every``
 steps and resumes from the latest file. As in the reference, a resumed
-run restarts the token stream at its first batch.
+run restarts the token stream at its first batch, and a vlm model gets 8
+zero patch embeddings ahead of every batch's tokens.
 
 ``main(argv)`` returns the logged entries: step, loss, grad_norm, the
 host-clock ms a step since the previous log (the logged loss is read
@@ -91,6 +92,9 @@ def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], List[Dict[str, float]
         host = next(data)
         batch_s += time.perf_counter() - tb
         batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        if cfg.family == "vlm":  # the reference's stub: 8 zero patch embeddings
+            batch["patches"] = torch.zeros((args.batch, 8, cfg.frontend_dim),
+                                           dtype=torch.float32, device=dev)
         state, metrics = step_fn(state, batch)
         if (i + 1) % args.log_every == 0:
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])

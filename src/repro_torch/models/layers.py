@@ -1,6 +1,8 @@
 """Neural layers of the port (the JAX package's ``models/layers.py``):
-initialisers, norms, RoPE, chunked attention, decode attention, the
-attention block and the SwiGLU MLP. Pure functions over param dicts.
+initialisers, norms, RoPE and sectioned M-RoPE, chunked attention, decode
+attention, the attention block, the SwiGLU MLP and the MoE block (top-k
+router, sort-based capacity dispatch into an (E, C, d) buffer, batched
+expert products). Pure functions over param dicts.
 
 Attention keeps the reference's layouts: q (B, S, H, D), k/v (B, S, KV, D),
 GQA by grouping the H query heads over the KV heads. ``chunked_attention``
@@ -11,7 +13,7 @@ is the plain, flash-style path (online softmax over KV chunks); with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,40 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------- initialisers
 
 
+# a leaf of more elements than this is drawn a slab at a time (a layer, then
+# an expert, then a block of rows), so that the f32 draw beside a bf16 leaf
+# of many GB stays at most 256 MB; smaller leaves are drawn whole
+_SLAB = 1 << 26
+
+
+def _slabs(t: torch.Tensor) -> Iterator[torch.Tensor]:
+    """Views that tile ``t`` in order, each of at most ``_SLAB`` elements
+    (or one row of a wider 2-D leaf)."""
+    if t.numel() <= _SLAB or t.dim() < 2:
+        yield t
+    elif t.dim() > 2:
+        for sub in t.unbind(0):
+            yield from _slabs(sub)
+    else:
+        rows = max(1, _SLAB // t.shape[1])
+        for r in range(0, t.shape[0], rows):
+            yield t[r:r + rows]
+
+
+def _draw(shape: Sequence[int], dtype: torch.dtype, device, fill) -> torch.Tensor:
+    """A leaf of ``shape`` and ``dtype`` whose slabs ``fill`` draws in f32,
+    in order, and casts into place."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    for s in _slabs(out):
+        if dtype == torch.float32:
+            fill(s)
+        else:
+            w = torch.empty(s.shape, dtype=torch.float32, device=device)
+            fill(w)
+            s.copy_(w)
+    return out
+
+
 def dense_init(
     gen: torch.Generator,
     shape: Sequence[int],
@@ -40,15 +76,20 @@ def dense_init(
     """Truncated-normal (+-2 sigma) fan-in init."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = fan_in**-0.5
-    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+
+    def fill(w):
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.mul_(std)
+
+    return _draw(shape, dtype, device, fill)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                device) -> torch.Tensor:
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
-    return (w * 0.02).to(dtype)
+    def fill(w):
+        w.normal_(generator=gen).mul_(0.02)
+
+    return _draw(shape, dtype, device, fill)
 
 
 # ----------------------------------------------------------------------- norms
@@ -85,15 +126,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """Standard RoPE. x: (..., S, H, D); positions: (..., S) int."""
     if theta <= 0:
         return x
-    half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D // 2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x (..., S, H, D) by angles (..., S, D // 2)."""
+    half = x.shape[-1] // 2
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL sectioned M-RoPE. x: (B, S, H, D); positions: (B, 3, S),
+    the temporal / height / width streams. ``sections`` partitions the
+    rotary half-dim; section i rotates with stream i (sum == D // 2)."""
+    if theta <= 0:
+        return x
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to D // 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    # the reference selects each frequency's stream by a one-hot product,
+    # which picks the same f32 angle exactly
+    pos = positions.to(torch.float32)
+    angles, start = [], 0
+    for i, n in enumerate(sections):
+        angles.append(pos[:, i, :, None] * freqs[start:start + n])
+        start += n
+    return _rotate(x, torch.cat(angles, dim=-1))
 
 
 # ----------------------------------------------------------- chunked attention
@@ -249,11 +316,19 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
     return q, k, v
 
 
+def _position(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """RoPE, or M-RoPE for ``cfg.mrope``, on q and k."""
+    if cfg.mrope:
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+
+
 def attention_block(
     p: Params,
     x: torch.Tensor,  # (B, S, d)
     cfg: ArchConfig,
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (B, 3, S) for mrope
     *,
     causal: bool = True,
     window: int = 0,
@@ -261,8 +336,7 @@ def attention_block(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention. Returns (out, (k, v)) for cache priming."""
     q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _position(q, k, positions, cfg)
     if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
         # the flash kernel (forward-only: prefill and serving; it has no
         # backward, so training keeps the chunked path)
@@ -292,8 +366,10 @@ def attention_decode_block(
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    positions = pos[:, None]  # (B, 1)
+    if cfg.mrope:
+        positions = positions[:, None, :].expand(B, 3, 1)
+    q, k = _position(q, k, positions, cfg)
     W = cache["k"].shape[1]
     slot = pos % W
     bidx = torch.arange(B, device=x.device)
@@ -319,3 +395,100 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, 
 
 def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ------------------------------------------------------------------------- MoE
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device,
+             lead: Tuple[int, ...] = ()) -> Params:
+    """The MoE block's params: the router in f32 whatever ``dtype`` (the
+    reference keeps it high-precision), the experts' SwiGLU stacked on an
+    expert axis, and with ``dense_residual`` a dense MLP of ``d_ff``."""
+    d, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    p: Params = {
+        "router": dense_init(gen, (*lead, d, E), torch.float32, device),
+        "w_gate": dense_init(gen, (*lead, E, d, F_), dtype, device),
+        "w_up": dense_init(gen, (*lead, E, d, F_), dtype, device),
+        "w_down": dense_init(gen, (*lead, E, F_, d), dtype, device),
+    }
+    if cfg.dense_residual:
+        p["dense_mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device, lead)
+    return p
+
+
+def _top_k(probs: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the K largest along the last axis, ties to the
+    lower index (``jax.lax.top_k``'s order): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :K], idx[..., :K]
+
+
+def _route_local(xf: torch.Tensor, router: torch.Tensor, E: int, K: int, capacity: int):
+    """Top-K routing and each pair's rank within its expert. xf: (T, d).
+
+    Returns (gate_vals (T, K), safe_expert (TK,), safe_rank (TK,), keep
+    (TK,), aux): pairs in token-major order; a pair whose rank reaches
+    ``capacity`` is dropped (keep False, expert and rank 0); aux is the
+    Switch load-balance loss E * sum_e f_e p_e.
+    """
+    T = xf.shape[0]
+    logits = xf.to(torch.float32) @ router  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, K)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert_ids[:, 0], E).to(torch.float32).mean(dim=0)
+    aux = E * (me * ce).sum()
+
+    flat_expert = expert_ids.reshape(-1)  # (TK,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    first = torch.searchsorted(sorted_expert, torch.arange(E, device=xf.device), side="left")
+    rank_sorted = torch.arange(T * K, device=xf.device) - first[sorted_expert]
+    rank = torch.empty_like(rank_sorted).index_put_((order,), rank_sorted)
+    keep = rank < capacity
+    safe_expert = torch.where(keep, flat_expert, 0)
+    safe_rank = torch.where(keep, rank, 0)
+    return gate_vals, safe_expert, safe_rank, keep, aux
+
+
+def _moe_math_local(xf: torch.Tensor, p: Params, E: int, K: int, cap_factor: float):
+    """Single-device MoE: route -> (E, C, d) buffer -> batched expert
+    products -> gather and f32 combine. Returns ((T, d), aux).
+
+    The reference scatter-adds each pair into its (expert, rank) slot, at
+    most one non-zero a slot; here the kept pairs are assigned to their
+    slots and the dropped ones to a spare row past the buffer, which is cut
+    off: the same buffer, with no host sync and no accumulation.
+    """
+    T, d = xf.shape
+    C = max(1, int(T * K / E * cap_factor))
+    gate_vals, safe_expert, safe_rank, keep, aux = _route_local(xf, p["router"], E, K, C)
+    tok_of = torch.arange(T * K, device=xf.device) // K
+    slot = torch.where(keep, safe_expert * C + safe_rank, E * C)
+    buf = xf.new_zeros((E * C + 1, d)).index_put((slot,), xf[tok_of])[: E * C]
+    buf = buf.reshape(E, C, d)
+    h = torch.bmm(buf, p["w_gate"])
+    u = torch.bmm(buf, p["w_up"])
+    y = torch.bmm(F.silu(h) * u, p["w_down"])  # (E, C, d)
+    gathered = y.reshape(E * C, d)[safe_expert * C + safe_rank]  # (TK, d)
+    gate = torch.where(keep, gate_vals.reshape(-1), torch.zeros((), device=xf.device))
+    weighted = gathered.to(torch.float32) * gate[:, None]
+    out = weighted.reshape(T, K, d).sum(dim=1)
+    return out.to(xf.dtype), aux
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux load-balance loss), on one
+    device: every expert computes over its (C, d) capacity buffer, and
+    pairs past an expert's capacity are dropped (GShard-style). With
+    ``dense_residual`` the dense MLP's output is added."""
+    B, S, d = x.shape
+    out, aux = _moe_math_local(x.reshape(B * S, d), p, cfg.n_experts, cfg.experts_per_token,
+                               capacity_factor)
+    out = out.reshape(B, S, d)
+    if cfg.dense_residual:
+        out = out + mlp_block(p["dense_mlp"], x)
+    return out, aux

@@ -1,13 +1,15 @@
 """Uniform model API (the JAX package's ``models/registry.py``, families
-``ds2`` and ``dense`` so far).
+``ds2``, ``dense``, ``moe`` and ``vlm`` so far).
 
 ``build_model(cfg)`` returns a ``Model`` with:
 - ``init(gen, device)``                -> params (random weights from a
                                           ``torch.Generator``)
 - ``loss(params, batch)``              -> (scalar, metrics)
-- ``prefill(params, batch)``           -> (logits, cache)     [dense]
-- ``init_cache(B, cache_len, device)`` -> cache               [dense]
-- ``decode(params, cache, batch, window=0)`` -> (logits, cache) [dense]
+- ``prefill(params, batch)``           -> (logits, cache)     [LMs]
+- ``init_cache(B, cache_len, device)`` -> cache               [LMs]
+- ``decode(params, cache, batch, window=0)`` -> (logits, cache) [LMs]
+
+The LM families (dense, moe, vlm) share ``models/transformer.py``.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def build_model(cfg: ArchConfig) -> Model:
             init=lambda gen, device: DS2.init_ds2(gen, cfg, device),
             loss=lambda p, b: DS2.ds2_loss(p, b, cfg),
         )
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             cfg=cfg,
             init=lambda gen, device: TF.init_lm(gen, cfg, device),

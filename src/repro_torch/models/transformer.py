@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense family (the JAX package's
-``models/transformer.py``, dense family only).
+"""Decoder-only LM of the dense, moe and vlm families (the JAX package's
+``models/transformer.py`` without its ssm branch).
 
 Layers are *stacked*: every per-layer param has a leading ``n_layers``
 axis, as in the reference, so ``convert.py`` maps the JAX params one to
@@ -7,7 +7,11 @@ one. The reference scans the stack; here a Python loop runs the layers,
 each leaf unbound once a forward (one ``stack`` in its backward, where
 indexing layer by layer would allocate a whole-stack gradient per layer).
 ``cfg.remat`` recomputes each block in the backward pass
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). The moe
+family's blocks return the router's load-balance loss, summed over the
+layers into ``lm_loss``; the vlm family prepends projected patch
+embeddings (``batch["patches"]``) to the tokens and rotates q and k by
+M-RoPE over (B, 3, S) positions.
 
 Entry points:
 - ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
@@ -38,16 +42,22 @@ LOSS_CHUNK = 512  # sequence chunk for logit materialisation (ArchConfig.loss_ch
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device) -> Params:
     """Every layer's params, stacked on a leading ``n_layers`` axis."""
     nl, d = cfg.n_layers, cfg.d_model
-    return {
+    p: Params = {
         "attn_norm": torch.ones((nl, d), dtype=dtype, device=device),
         "mlp_norm": torch.ones((nl, d), dtype=dtype, device=device),
         "attn": L.init_attention(gen, cfg, dtype, device, lead=(nl,)),
-        "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, device, lead=(nl,)),
     }
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(gen, cfg, dtype, device, lead=(nl,))
+    else:
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, device, lead=(nl,))
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    """Random weights from ``gen`` (on ``device``) in ``cfg.param_dtype``."""
+    """Random weights from ``gen`` (on ``device``) in ``cfg.param_dtype``
+    (the MoE router in f32). Leaves are drawn in place a slab at a time, so
+    the peak stays near the params' own bytes."""
     dtype = L.dtype_of(cfg.param_dtype)
     p: Params = {
         "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
@@ -56,6 +66,9 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+    if cfg.frontend == "vision":
+        # projector from the stub's patch embeddings to d_model
+        p["vis_proj"] = L.dense_init(gen, (cfg.frontend_dim, cfg.d_model), dtype, device)
     return p
 
 
@@ -69,16 +82,24 @@ def _layer(stacked: Any, i: int) -> Any:
 # ---------------------------------------------------------------------- blocks
 
 
+def _ffn(p: Params, hn: torch.Tensor, cfg: ArchConfig):
+    """The block's feed-forward half: (out, aux), aux the MoE router's
+    load-balance loss (None for the MLP, whose loss is zero)."""
+    if cfg.family == "moe":
+        return L.moe_block(p["moe"], hn, cfg)
+    return L.mlp_block(p["mlp"], hn), None
+
+
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
            window: int, differentiable: bool = True):
-    """Full-sequence layer. Returns (x, (k, v))."""
+    """Full-sequence layer. Returns (x, aux | None, (k, v))."""
     h, kv = L.attention_block(
         p["attn"], L.rms_norm(x, p["attn_norm"], cfg.norm_eps), cfg, positions,
         causal=True, window=window, differentiable=differentiable,
     )
     x = x + h
-    hn = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_block(p["mlp"], hn), kv
+    h2, aux = _ffn(p, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), cfg)
+    return x + h2, aux, kv
 
 
 def _block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor,
@@ -88,20 +109,29 @@ def _block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
         window=window,
     )
     x = x + h
-    hn = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_block(p["mlp"], hn), new_cache
+    h2, _ = _ffn(p, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), cfg)
+    return x + h2, new_cache
 
 
 # --------------------------------------------------------- embeddings / positions
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
+    """(B, S) int32; (B, 3, S) for M-RoPE, whose stub frontend gives all
+    three streams the same sequential positions, as the reference's."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+    if cfg.mrope:
+        return pos[:, None, :].expand(B, 3, S)
+    return pos
 
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """tokens -> (B, S, d) in the compute dtype."""
+    """tokens (and, for the vision frontend, the patch embeddings projected
+    and prepended) -> (B, S_total, d) in the compute dtype."""
     x = params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "vision" and "patches" in batch:
+        vis = batch["patches"].to(x.dtype) @ params["vis_proj"]
+        x = torch.cat([vis, x], dim=1)
     return x.to(L.dtype_of(cfg.compute_dtype))
 
 
@@ -123,20 +153,23 @@ def _unstack(stacked: Any, n: int) -> List[Any]:
 def _run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                 window: int, collect_kv: bool = False, differentiable: bool = True):
     """Apply the stacked layers in order. Returns (x, aux_total, [(k, v)] |
-    None); the dense family's aux (the MoE router loss) is zero."""
+    None); aux sums the MoE router's loss over the layers (zero for the
+    other families)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = [] if collect_kv else None
     remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
     for layer_p in _unstack(params["layers"], cfg.n_layers):
         if remat:
             # the block draws no random numbers: no RNG state to replay
-            x = checkpoint(lambda xc, lp: _block(lp, xc, cfg, positions, window,
-                                                 differentiable)[0],
-                           x, layer_p, use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, kv = _block(layer_p, x, cfg, positions, window, differentiable)
-        if collect_kv:
-            kvs.append(kv)
+            x, a = checkpoint(lambda xc, lp: _block(lp, xc, cfg, positions, window,
+                                                    differentiable)[:2],
+                              x, layer_p, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a, kv = _block(layer_p, x, cfg, positions, window, differentiable)
+            if collect_kv:
+                kvs.append(kv)
+        if a is not None:
+            aux = aux + a
     return x, aux, kvs
 
 
@@ -144,7 +177,7 @@ def lm_logits_and_aux(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchC
     """Final-norm hidden states (B, S, d), the head (d, V) and aux."""
     x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    positions = _positions(B, S, x.device)
+    positions = _positions(cfg, B, S, x.device)
     x, aux, _ = _run_layers(params, x, cfg, positions, window=0)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, _head(params, cfg), aux
@@ -188,18 +221,18 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         tot = tot + nll.sum()
         cnt = cnt + mm.sum()
     loss = tot / torch.clamp_min(cnt, 1.0)
-    # the reference adds router_aux_coef * aux / n_layers: zero for the
-    # dense family, whose aux is zero
-    return loss, {"ce": loss, "aux": aux}
+    total = loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+    return total, {"ce": loss, "aux": aux}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Full forward; returns (last-position logits (B, V) f32, primed KV
-    cache {"k", "v": (nl, B, S, KV, Dh), "pos": (nl, B, S) int32})."""
+    cache {"k", "v": (nl, B, S, KV, Dh), "pos": (nl, B, S) int32}); S
+    counts the prepended patches too."""
     with torch.no_grad():
         x = _embed_inputs(params, batch, cfg)
         B, S = x.shape[:2]
-        positions = _positions(B, S, x.device)
+        positions = _positions(cfg, B, S, x.device)
         x, _, kvs = _run_layers(params, x, cfg, positions, window=0, collect_kv=True,
                                 differentiable=False)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -207,7 +240,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         cache = {
             "k": torch.stack([k for k, _ in kvs]),
             "v": torch.stack([v for _, v in kvs]),
-            "pos": _positions(B, S, x.device)[None].expand(cfg.n_layers, B, S).contiguous(),
+            "pos": torch.arange(S, dtype=torch.int32, device=x.device).expand(
+                cfg.n_layers, B, S).contiguous(),
         }
     return logits, cache
 

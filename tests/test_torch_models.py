@@ -51,17 +51,20 @@ ARCHS = ["stablelm-1.6b", "qwen3-8b"]
 
 
 def test_port_configs_match_reference():
-    for name in ARCHS:
+    for name in (*ARCHS, "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b"):
         j, t = jget_arch(name), tget_arch(name)
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
-                  "qk_norm", "qkv_bias", "rope_theta", "tie_embeddings", "norm_eps",
-                  "window", "attn_chunk", "use_flash_kernel", "param_dtype",
-                  "compute_dtype", "source"):
+        for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                  "vocab_size", "qk_norm", "qkv_bias", "rope_theta", "tie_embeddings",
+                  "norm_eps", "window", "attn_chunk", "use_flash_kernel", "param_dtype",
+                  "compute_dtype", "source", "remat", "n_experts", "experts_per_token",
+                  "moe_d_ff", "dense_residual", "router_aux_coef", "mrope", "mrope_sections",
+                  "frontend", "frontend_dim"):
             assert getattr(j, f) == getattr(t, f), (name, f)
         assert j.resolved_head_dim() == t.resolved_head_dim()
         jr, tr = j.reduced(), t.reduced()
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                  "vocab_size", "head_dim", "window", "param_dtype"):
+                  "vocab_size", "head_dim", "window", "param_dtype", "n_experts",
+                  "experts_per_token", "moe_d_ff", "mrope_sections", "frontend_dim"):
             assert getattr(jr, f) == getattr(tr, f), (name, f)
     # the DeepSpeech2 config keeps the reference's attention defaults
     ds2 = tget_arch("deepspeech2")
