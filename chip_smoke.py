@@ -115,21 +115,33 @@ Phases, each of which fails the run on error:
              the same prefill through the plain ``chunked_attention``
              (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
              params (max_batch 4, cache_len 256) draining 8 requests.
-   families — the moe and vlm families at full width through the same
-             entry points, one config at a time (the previous one's params
-             freed), bf16, random weights from a seed, ``use_flash_kernel``:
-             kimi-k2-1t-a32b at 1 of 61 layers (19,378,623,488 params:
-             384 experts of 2,048, top 8, 64/8 heads of 112 on the mma.sync
-             flash route), arctic-480b at 2 of 35 (27,681,131,520: 128
-             experts of 4,864, top 2, a dense residual MLP, 56/8 heads of
-             128) and qwen2-vl-2b at full depth (1,779,447,296: M-RoPE, 8
-             zero patch embeddings ahead of the prompt, 12/2 heads of 128).
+   families — the moe, vlm, ssm and hybrid families at full width through
+             the same entry points, one config at a time (the previous one's
+             params freed), bf16, random weights from a seed,
+             ``use_flash_kernel``: kimi-k2-1t-a32b at 1 of 61 layers
+             (19,378,623,488 params: 384 experts of 2,048, top 8, 64/8 heads
+             of 112 on the mma.sync flash route), arctic-480b at 2 of 35
+             (27,681,131,520: 128 experts of 4,864, top 2, a dense residual
+             MLP, 56/8 heads of 128), and at full depth qwen2-vl-2b
+             (1,779,447,296: M-RoPE, 8 zero patch embeddings ahead of the
+             prompt, 12/2 heads of 128), falcon-mamba-7b (7,272,665,088:
+             64 Mamba-1 layers, d_inner 8,192, state 16, no attention) and
+             zamba2-2.7b (2,435,777,440: 54 Mamba-2 layers of 80 SSD heads
+             of 64, state 64, and one shared attention + MLP block, 32/32
+             heads of 80 on the mma.sync route, after every 6 of them).
              Per config: the param count and bytes, the init's seconds and
              peak (at most the params' bytes + 4 GiB: leaves are drawn a
-             slab at a time); ``launch.serve.serve`` on 4 prompts of 2,048
-             tokens with 32 generated (the flash counter must rise by
-             exactly n_layers, logits finite, ids in the vocabulary); flash
-             against chunked prefill (for qwen2-vl the serve phase's check;
+             slab at a time; for ssm and hybrid A_log, D and dt_bias must
+             be f32); ``launch.serve.serve`` on 4 prompts of 2,048 tokens
+             with 32 generated (the flash counter must rise by exactly one
+             launch an attention layer: n_layers, 0 for falcon-mamba, 9
+             shared-block applications for zamba2; logits finite, ids in
+             the vocabulary); for ssm and hybrid layer 0's chunked scan on the
+             prefill's own inputs against its step-by-step recurrence (y and
+             the final state within rtol/atol 1e-4, the reference tests'
+             tolerance), each scan timed and its share of the prefill and of
+             a decode step; flash against chunked prefill (none for
+             falcon-mamba; for qwen2-vl and zamba2 the serve phase's check;
              for the MoE configs each layer's attention output against
              ``chunked_attention`` on the prefill's own q, k, v within
              ``flash_attention.mismatch``, the routing differences per
@@ -164,7 +176,8 @@ cases, and the other configs' widths and masks (zamba2-2.7b D 80,
 kimi-k2-1t-a32b 64/8 heads of 112, Qwen3-8B non-causal, whisper-tiny's
 encoder keys cut to a tile-aligned 1,536, causal Sq > Sk, f32 D 32, a
 zero-padded D 40), the families phase's prefills at B 4, S 2,048
-(kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128),
+(kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128,
+zamba2 32/32 of 80),
 element by element and by the share of elements that
 differ (``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py``
 takes the readings behind its limits). It times the kernel at each case
@@ -659,6 +672,7 @@ FAMILY_FLASH_CASES = (
     ("kimi-k2-1t-a32b prefill", 4, 2048, 2048, 64, 8, 112, True, "bfloat16"),
     ("arctic-480b prefill", 4, 2048, 2048, 56, 8, 128, True, "bfloat16"),
     ("qwen2-vl-2b prefill", 4, 2048, 2048, 12, 2, 128, True, "bfloat16"),
+    ("zamba2-2.7b prefill", 4, 2048, 2048, 32, 32, 80, True, "bfloat16"),
 )
 FLASH_CASES += FAMILY_FLASH_CASES
 
@@ -2199,49 +2213,121 @@ def phase_serve(dev):
 
 # (arch, layers kept, params, parameter bytes): full width, depth cut to
 # what one card holds (a kimi-k2 layer is 17.03e9 params, 34.1 GB; an
-# arctic layer 13.61e9, 27.2 GB); qwen2-vl-2b at full depth. Arctic keeps
-# two layers so that a second layer's attention runs over MoE outputs.
+# arctic layer 13.61e9, 27.2 GB); qwen2-vl-2b, falcon-mamba-7b and
+# zamba2-2.7b at full depth. Arctic keeps two layers so that a second
+# layer's attention runs over MoE outputs.
 FAMILIES = (("kimi-k2-1t-a32b", 1, 19_378_623_488, 38_762_752_000),
             ("arctic-480b", 2, 27_681_131_520, 55_365_933_056),
-            ("qwen2-vl-2b", 28, 1_779_447_296, 3_558_894_592))
+            ("qwen2-vl-2b", 28, 1_779_447_296, 3_558_894_592),
+            ("falcon-mamba-7b", 64, 7_272_665_088, 14_564_204_544),
+            ("zamba2-2.7b", 54, 2_435_777_440, 4_871_580_800))
 # init draws each leaf a slab at a time: its peak may pass the params' own
 # bytes by at most this much
 INIT_HEADROOM_BYTES = 4 * 2**30
 VLM_PATCHES = 8  # the reference serve flow's zero patch embeddings
 
 
+# f32 operations of the Mamba-1 chunked scan per (token, channel, state):
+# pass 1 exp(dt A) (2), the input term (1), h = a h + b (2), the decay
+# product (1); pass 3 the same but the product (5) and y's contraction (2)
+MAMBA1_SCAN_OPS = 13
+SSD_CHUNK = 64  # models/ssm._ssd_scan's default chunk
+
+
+def _ssd_f32_flops(B: int, S: int, H: int, P: int, N: int) -> float:
+    """f32 operations of one ``_ssd_scan`` over (B, S): the intra-chunk
+    scores (C B^T) and their decay weights (difference, mask, exp,
+    product), the products with x dt, the chunk states' weighting and
+    product with B, the inter-chunk recurrence, and the entering states'
+    product with C and its decay."""
+    L = min(SSD_CHUNK, S)
+    nc = -(-S // L)
+    bc = float(B * nc)
+    return bc * (2.0 * L * L * N + 4.0 * L * L * H + 2.0 * H * L * L * P
+                 + L * H * P + 2.0 * L * H * P * N + 2.0 * H * P * N
+                 + 2.0 * L * N * H * P + L * H * P)
+
+
+def _attn_flops(cfg, B: int, S: int) -> float:
+    """q/k/v/o projections and causal attention (QK^T and PV over the kept
+    pairs) of one attention block over B x S positions."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    T = B * S
+    return (2.0 * T * d * (H + 2 * KV) * Dh + 2.0 * T * H * Dh * d
+            + 4.0 * B * H * Dh * S * (S + 1) / 2)
+
+
+def _flash_launches(cfg) -> int:
+    """Flash launches of one prefill: one an attention layer; none for ssm;
+    one a shared-block application for hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return max(1, cfg.n_layers // (cfg.attn_every or cfg.n_layers))
+    return cfg.n_layers
+
+
 def family_bounds(cfg, B: int, S: int, param_bytes: int, cache_len: int) -> dict:
     """The least time of a prefill of B x S positions and of one decode
-    step of B tokens: the larger of the bytes over the HBM rate and the
-    bf16 products' FLOPs over the bf16 peak. Bytes: every param but the
-    embedding table (a gather reads B S of its rows), plus the KV cache a
-    decode step reads. Prefill FLOPs, as the reference computes them: q/k/v
-    /o projections, causal attention (QK^T and PV over the kept pairs), the
-    dense MLP or the MoE's experts over their whole (E, C, d) capacity
-    buffers (C = int(T K / E * 1.25)) and the router, arctic's dense
-    residual MLP, the patch projector, and the head at the last position."""
-    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
-    nl, T = cfg.n_layers, B * S
+    step of B tokens. Bytes: every param but the embedding table (a gather
+    reads B S of its rows), the hybrid's shared block once an application
+    (an H100's 50 MB of L2 cannot hold its 236 MB), plus the KV cache a
+    decode step reads and the SSM state it reads and writes. Prefill
+    operations, as the reference computes them: the bf16 products (q/k/v/o
+    projections, causal attention over the kept pairs, the dense MLP or
+    the MoE's experts over their whole (E, C, d) capacity buffers (C =
+    int(T K / E * 1.25)) and the router, arctic's dense residual MLP, the
+    patch projector; ssm: the in/x/dt/out projections; hybrid: the Mamba-2
+    in/out projections in every layer and the shared block's in_proj,
+    attention and MLP once an application; the head at the last position)
+    over the bf16 peak, plus the scans' f32 operations over the f32 peak.
+    The prefill bound is the larger of its bytes and operations times."""
+    d, nl, T = cfg.d_model, cfg.n_layers, B * S
     embed_bytes = cfg.vocab_size * d * 2
-    flops = 2.0 * T * d * (H + 2 * KV) * Dh + 2.0 * T * H * Dh * d
-    flops += 4.0 * B * H * Dh * S * (S + 1) / 2
-    if cfg.family == "moe":
-        E, K, F_ = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff or cfg.d_ff
-        C = max(1, int(T * K / E * 1.25))
-        flops += 2.0 * E * C * 3 * d * F_ + 2.0 * T * d * E
-        if cfg.dense_residual:
-            flops += 2.0 * T * 3 * d * cfg.d_ff
+    weight_bytes = param_bytes - embed_bytes
+    f32_flops, state_bytes, kv_bytes = 0.0, 0, 0
+    if cfg.family == "ssm":
+        di, N, R, K = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_dt_rank(), cfg.ssm_conv
+        flops = nl * 2.0 * T * (d * 2 * di + di * (R + 2 * N) + R * di + di * d)
+        f32_flops = nl * MAMBA1_SCAN_OPS * float(T) * di * N
+        state_bytes = 2 * nl * B * (di * N * 4 + (K - 1) * di * 2)
+    elif cfg.family == "hybrid":
+        n_seg = _flash_launches(cfg)
+        nm = n_seg * (cfg.attn_every or cfg.n_layers)
+        di, H, N, K = cfg.resolved_d_inner(), cfg.resolved_ssm_heads(), cfg.ssm_state, \
+            cfg.ssm_conv
+        H_, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        flops = nm * 2.0 * T * (d * (2 * di + 2 * N + H) + di * d)
+        flops += n_seg * (_attn_flops(cfg, B, S) + 2.0 * T * 3 * d * cfg.d_ff
+                          + 2.0 * T * 2 * d * d)
+        f32_flops = nm * _ssd_f32_flops(B, S, H, di // H, N)
+        shared_bytes = 2 * (2 * d * d + d * (H_ + 2 * KV) * Dh + H_ * Dh * d
+                            + 3 * d * cfg.d_ff + 2 * d)
+        weight_bytes += (n_seg - 1) * shared_bytes
+        state_bytes = 2 * nm * B * (H * (di // H) * N * 4 + (K - 1) * (di + 2 * N) * 2)
+        kv_bytes = n_seg * B * cache_len * KV * Dh * 2 * 2
     else:
-        flops += 2.0 * T * 3 * d * cfg.d_ff
-    flops = nl * flops + 2.0 * B * d * cfg.vocab_size
+        flops = _attn_flops(cfg, B, S)
+        if cfg.family == "moe":
+            E, K, F_ = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff or cfg.d_ff
+            C = max(1, int(T * K / E * 1.25))
+            flops += 2.0 * E * C * 3 * d * F_ + 2.0 * T * d * E
+            if cfg.dense_residual:
+                flops += 2.0 * T * 3 * d * cfg.d_ff
+        else:
+            flops += 2.0 * T * 3 * d * cfg.d_ff
+        flops = nl * flops
+        kv_bytes = nl * B * cache_len * cfg.n_kv_heads * cfg.resolved_head_dim() * 2 * 2
+    flops += 2.0 * B * d * cfg.vocab_size
     if cfg.frontend == "vision":
         flops += 2.0 * B * VLM_PATCHES * cfg.frontend_dim * d
-    weight_bytes = param_bytes - embed_bytes
-    kv_bytes = nl * B * cache_len * KV * Dh * 2 * 2
+    ops_ms = 1e3 * (flops / BF16_FLOPS + f32_flops / F32_FLOPS)
+    bytes_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
     out = {"weight_bytes": weight_bytes, "prefill_bf16_flops": flops,
-           "prefill_bound_ms": bound_ms(weight_bytes, flops, BF16_FLOPS),
-           "prefill_bound_by": bound_by(weight_bytes, flops, BF16_FLOPS),
-           "decode_bytes": weight_bytes + kv_bytes}
+           "prefill_f32_flops": f32_flops,
+           "prefill_bound_ms": max(bytes_ms, ops_ms),
+           "prefill_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "decode_bytes": weight_bytes + kv_bytes + state_bytes}
     out["decode_bound_ms"] = 1e3 * out["decode_bytes"] / HBM_BYTES_PER_S
     return out
 
@@ -2282,6 +2368,119 @@ class _PrefillRecorder:
         return False
 
 
+class _ScanRecorder:
+    """Within ``with``: the first call of each scan function of
+    ``models/ssm.py`` in a prefill (T > 1) and in a decode step (T = 1),
+    its inputs and outputs cloned, by wrapping the module's
+    ``_mamba1_chunked_scan``, ``_ssd_scan`` and ``_ssd_step`` (the
+    blocks look them up at each call). The first calls are layer 0's."""
+
+    NAMES = ("_mamba1_chunked_scan", "_ssd_scan", "_ssd_step")
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.models import ssm as S
+
+        self._S, self._orig = S, {n: getattr(S, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def recorded(*args):
+                out = fn(*args)
+                # _ssd_step's inputs have no time axis: it is decode's
+                phase = "decode" if name == "_ssd_step" or args[0].shape[1] == 1 else "prefill"
+                if (name, phase) not in self.calls:
+                    self.calls[(name, phase)] = (tuple(a.clone() for a in args),
+                                                 tuple(o.clone() for o in out))
+                return out
+
+            return recorded
+
+        for n, fn in self._orig.items():
+            setattr(S, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self._S, n, fn)
+        return False
+
+
+# the reference's own tolerance for a chunked scan against its recurrence
+# (tests/test_models.py)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _families_scan_check(cfg, scans, prefill_ms: float, decode_ms: float) -> dict:
+    """Layer 0's chunked scan, on the inputs a full-width prefill gave it,
+    against the step-by-step recurrence (its plain version) within
+    SCAN_TOL: y and the final state. Each scan timed on those inputs, and
+    the decode step's scan (Mamba-1: the chunked scan at T = 1; SSD: its
+    one-step recurrence) on the first decode step's; times the Mamba
+    layers, their share of the prefill and of a decode step."""
+    import torch
+
+    from repro_torch.models import ssm as S
+
+    if cfg.family == "ssm":
+        name, step_name, plain = "_mamba1_chunked_scan", "_mamba1_chunked_scan", \
+            S.mamba1_scan_plain
+        n_mamba = cfg.n_layers
+    else:
+        name, step_name, plain = "_ssd_scan", "_ssd_step", S.ssd_scan_plain
+        n_mamba = _flash_launches(cfg) * cfg.attn_every
+    if (name, "prefill") not in scans.calls or (step_name, "decode") not in scans.calls:
+        _fail(f"{cfg.name}: the scans were not recorded: {sorted(scans.calls)}")
+    args, (y, h) = scans.calls[(name, "prefill")]
+    yp, hp = plain(*args)
+    torch.cuda.synchronize()
+    out = {}
+    for what, a, b in (("y", y, yp), ("h_final", h, hp)):
+        err = (a - b).abs()
+        out[f"{what}_max_abs_err"] = float(err.max())
+        out[f"{what}_max_excess"] = float((err - SCAN_TOL["rtol"] * b.abs()).max())
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, **SCAN_TOL)):
+            _fail(f"{cfg.name}: layer 0's chunked scan != its recurrence beyond "
+                  f"{SCAN_TOL}: {what} max |d| {out[f'{what}_max_abs_err']}")
+    fn = getattr(S, name)
+    out["scan_ms"] = cuda_ms(lambda: fn(*args), reps=3, warmup=1)
+    out["plain_ms"] = cuda_ms(lambda: plain(*args), reps=1, warmup=0)
+    step_args = scans.calls[(step_name, "decode")][0]
+    step = getattr(S, step_name)
+    out["decode_scan_ms"] = cuda_ms(lambda: step(*step_args), reps=10)
+    out["prefill_share"] = n_mamba * out["scan_ms"] / prefill_ms
+    out["decode_share"] = n_mamba * out["decode_scan_ms"] / decode_ms
+    shapes = [tuple(a.shape) for a in args]
+    print(f"  layer 0's {name} on the prefill's inputs {shapes} against its recurrence: "
+          f"y max |d| {out['y_max_abs_err']!r}, h_final max |d| {out['h_final_max_abs_err']!r} "
+          f"(tolerance {SCAN_TOL}); scan {out['scan_ms']:.3f} ms, recurrence "
+          f"{out['plain_ms']:.1f} ms; decode's {step_name} {out['decode_scan_ms']:.4f} ms; "
+          f"x {n_mamba} layers: {out['prefill_share']:.3f} of the prefill, "
+          f"{out['decode_share']:.3f} of a decode step")
+    return {"scan": out}
+
+
+def _family_line(cfg) -> str:
+    """The config's widths for the phase's first line."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    if cfg.family == "ssm":
+        return (f"Mamba-1 d_inner {cfg.resolved_d_inner()}, state {cfg.ssm_state}, dt rank "
+                f"{cfg.resolved_dt_rank()}, conv {cfg.ssm_conv}, no attention")
+    attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim()} (flash design "
+            f"{kfa.kernel_design(torch.bfloat16, cfg.resolved_head_dim())})")
+    if cfg.family == "hybrid":
+        H = cfg.resolved_ssm_heads()
+        return (f"Mamba-2 d_inner {cfg.resolved_d_inner()}, {H} SSD heads of "
+                f"{cfg.resolved_d_inner() // H}, state {cfg.ssm_state}; a shared block after "
+                f"every {cfg.attn_every}: {attn}, d_ff {cfg.d_ff}")
+    return (f"{attn}, experts {cfg.n_experts} top {cfg.experts_per_token} of {cfg.moe_d_ff}, "
+            f"d_ff {cfg.d_ff}")
+
+
 def _routing_diffs(a, b, B: int, S: int) -> dict:
     """Per layer, how many (token, slot) expert ids and keep flags differ
     between two prefills' routings, how many tokens route to a different
@@ -2305,13 +2504,15 @@ def _routing_diffs(a, b, B: int, S: int) -> dict:
 
 
 def phase_families(dev):
-    """The moe and vlm families at full width through the serving entry
-    points, one config at a time: kimi-k2-1t-a32b (1 layer), arctic-480b
-    (2 layers), qwen2-vl-2b (28 layers, full depth), bf16, random weights
-    from a seed, the flash prefill. Per config: the param count and the
-    init's peak; ``launch.serve.serve`` (4 x 2,048 tokens, 32 generated);
-    flash against chunked prefill; ``ServeEngine`` draining 8 requests;
-    each reading beside its bound."""
+    """The moe, vlm, ssm and hybrid families at full width through the
+    serving entry points, one config at a time: kimi-k2-1t-a32b (1 layer),
+    arctic-480b (2 layers), qwen2-vl-2b, falcon-mamba-7b and zamba2-2.7b
+    (full depth), bf16, random weights from a seed, the flash prefill.
+    Per config: the param count and the init's peak; ``launch.serve.serve``
+    (4 x 2,048 tokens, 32 generated); flash against chunked prefill (not
+    for ssm, which has no attention); for ssm and hybrid layer 0's scan
+    against its recurrence; ``ServeEngine`` draining 8 requests; each
+    reading beside its bound."""
     import numpy as np
     import torch
 
@@ -2342,12 +2543,9 @@ def phase_families(dev):
         n_params = sum(t.numel() for t in tree_leaves(params))
         n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         print(f"families: {arch} {cfg.n_layers} of {get_arch(arch).n_layers} layers, d_model "
-              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
-              f"{cfg.resolved_head_dim()} (flash design "
-              f"{kfa.kernel_design(torch.bfloat16, cfg.resolved_head_dim())}), experts "
-              f"{cfg.n_experts} top {cfg.experts_per_token} of {cfg.moe_d_ff}, d_ff {cfg.d_ff}, "
-              f"vocab {cfg.vocab_size}: {n_params} params, {n_bytes} B; init {init_s:.2f} s, "
-              f"peak {init_peak} B over the params' bytes by {init_peak - n_bytes} B")
+              f"{cfg.d_model}, {_family_line(cfg)}, vocab {cfg.vocab_size}: {n_params} params, "
+              f"{n_bytes} B; init {init_s:.2f} s, peak {init_peak} B over the params' bytes by "
+              f"{init_peak - n_bytes} B")
         if n_params != want_params or n_bytes != want_bytes:
             _fail(f"{arch} has {n_params} params / {n_bytes} B, want {want_params} / "
                   f"{want_bytes}")
@@ -2356,9 +2554,18 @@ def phase_families(dev):
                   f"+ {INIT_HEADROOM_BYTES}")
         if cfg.family == "moe" and params["layers"]["moe"]["router"].dtype != torch.float32:
             _fail("the MoE router is not f32")
+        # (no local name for the param subtree: it would outlive the turn)
+        if cfg.family in ("ssm", "hybrid") and any(
+                params["layers" if cfg.family == "ssm" else "segments"]["mamba"][n].dtype
+                != torch.float32 for n in ("A_log", "D", "dt_bias")):
+            _fail(f"{arch}: A_log, D and dt_bias are not all f32")
 
         kw = dict(batch=B, prompt_len=P, seed=0, device=dev, params=params)
-        serve(cfg, gen=2, **kw)  # warm-up: cuBLAS handles, first launches
+        # warm-up (cuBLAS handles, first launches): the same prompts and
+        # params as the measured run, so for the ssm families it records
+        # layer 0's scan inputs of that prefill and of the first decode step
+        with _ScanRecorder() as scans:
+            serve(cfg, gen=2, **kw)
         torch.cuda.reset_peak_memory_stats(dev)
         kfa.flash_mha.launches = 0
         res = serve(cfg, gen=G, **kw)
@@ -2366,7 +2573,8 @@ def phase_families(dev):
         launches_total += launches
         toks = res.tokens.cpu().numpy()
         S = P + (VLM_PATCHES if cfg.family == "vlm" else 0)
-        bounds = family_bounds(cfg, B, S, n_bytes, res.cache["k"].shape[2])
+        cache_len = res.cache["k"].shape[2] if "k" in res.cache else 0
+        bounds = family_bounds(cfg, B, S, n_bytes, cache_len)
         rec = {"init_s": init_s, "init_peak_bytes": init_peak, "param_bytes": n_bytes,
                "prefill_ms": res.prefill_s * 1e3,
                "decode_ms_per_token": res.decode_s / (G - 1) * 1e3, "launches": launches}
@@ -2376,9 +2584,9 @@ def phase_families(dev):
               f"ms: {bounds['decode_bytes']} B a step); flash launches {launches}; "
               f"bounds {json.dumps(bounds)}")
         print(f"  sample token ids: {toks[0, :16].tolist()} / {toks[1, :8].tolist()}")
-        if launches != cfg.n_layers:
+        if launches != _flash_launches(cfg):
             _fail(f"{arch}: the flash prefill launched the kernel {launches} times, want "
-                  f"{cfg.n_layers}")
+                  f"{_flash_launches(cfg)}")
         if not res.all_finite or toks.shape != (B, G):
             _fail(f"{arch}: serve logits not finite or tokens misshapen")
         if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -2386,9 +2594,13 @@ def phase_families(dev):
         flash_logits = res.prefill_logits
         del res
 
+        if cfg.family in ("ssm", "hybrid"):
+            rec.update(_families_scan_check(cfg, scans, rec["prefill_ms"],
+                                            rec["decode_ms_per_token"]))
+        del scans
         if cfg.family == "moe":
             rec.update(_families_moe_check(cfg, model, params, dev))
-        else:
+        elif cfg.family != "ssm":
             plain = serve(cfg.with_(use_flash_kernel=False), gen=1, **kw)
             if kfa.flash_mha.launches != launches:
                 _fail("the chunked prefill launched the flash kernel")

@@ -1,12 +1,14 @@
 """Configs of the port: the architectures (DeepSpeech2, the dense LMs, the
-MoE LMs and the VLM backbone), the FL experiment and the precision levels.
+MoE LMs, the VLM backbone, the Mamba-1 SSM and the Mamba-2 hybrid), the
+FL experiment and the precision levels.
 
 The fields and defaults are those of the JAX package's ``configs/base.py``,
 ``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py``,
 ``configs/qwen3_8b.py``, ``configs/deepseek_67b.py``,
 ``configs/qwen1p5_110b.py``, ``configs/kimi_k2_1t_a32b.py``,
-``configs/arctic_480b.py`` and ``configs/qwen2_vl_2b.py``, cut to what the
-federated round and the LMs' training and serving paths read. Every config is a frozen dataclass,
+``configs/arctic_480b.py``, ``configs/qwen2_vl_2b.py``,
+``configs/falcon_mamba_7b.py`` and ``configs/zamba2_2p7b.py``, cut to what
+the federated round and the LMs' training and serving paths read. Every config is a frozen dataclass,
 so configs hash and compare. ``register_arch`` adds a config to
 ``ARCH_REGISTRY``, as in the reference.
 """
@@ -23,11 +25,11 @@ QUANT_BLOCK = 256
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The architecture fields the DeepSpeech2 model and the dense, moe and
-    vlm LM families read."""
+    """The architecture fields the DeepSpeech2 model and the dense, moe,
+    vlm, ssm and hybrid LM families read."""
 
     name: str
-    family: str  # "ds2" | "dense" | "moe" | "vlm"
+    family: str  # "ds2" | "dense" | "moe" | "vlm" | "ssm" | "hybrid"
     n_layers: int
     d_model: int
     vocab_size: int
@@ -50,6 +52,15 @@ class ArchConfig:
     moe_d_ff: int = 0
     dense_residual: bool = False  # arctic: dense FFN in parallel with the MoE branch
     router_aux_coef: float = 0.01
+    # SSM (mamba1 / mamba2)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    d_inner: int = 0  # 0 -> 2 * d_model
+    ssm_heads: int = 0  # mamba2 heads; 0 -> d_inner // 64
+    dt_rank: int = 0  # mamba1 dt projection rank; 0 -> d_model // 16
+    # hybrid (zamba2): one shared attention block applied after every
+    # ``attn_every`` SSM layers, the same weights at each application
+    attn_every: int = 0
     # modality frontend stub ("none" | "audio" | "vision")
     frontend: str = "none"
     frontend_dim: int = 0
@@ -76,6 +87,15 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def resolved_d_inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    def resolved_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.resolved_d_inner() // 64)
+
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or max(1, self.d_model // 16)
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -94,6 +114,9 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
             head_dim=0,
+            d_inner=0,
+            dt_rank=0,
+            ssm_heads=0,
             window=64,
             remat=False,
             param_dtype="float32",
@@ -105,6 +128,8 @@ class ArchConfig:
                 experts_per_token=min(self.experts_per_token, 2),
                 moe_d_ff=min(self.moe_d_ff or self.d_ff, 256),
             )
+        if self.attn_every:
+            kw.update(attn_every=1, n_layers=2)
         if self.frontend != "none":
             kw.update(frontend_dim=d_model)
         if self.mrope:
@@ -363,6 +388,52 @@ def qwen2_vl_2b() -> ArchConfig:
         frontend="vision",
         frontend_dim=1536,
         source="arXiv:2409.12191",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("falcon-mamba-7b")
+def falcon_mamba_7b() -> ArchConfig:
+    """falcon-mamba-7b: attention-free Mamba-1 (d_inner 8,192, state 16,
+    dt rank 256, conv 4); each layer is one Mamba block, no MLP."""
+    return ArchConfig(
+        name="falcon-mamba-7b",
+        family="ssm",
+        n_layers=64,
+        d_model=4096,
+        n_heads=1,  # attention-free
+        n_kv_heads=1,
+        d_ff=0,  # no MLP: the mamba block is the whole layer
+        vocab_size=65_024,
+        ssm_state=16,
+        ssm_conv=4,
+        source="arXiv:2410.05355",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+        remat=True,
+    )
+
+
+@register_arch("zamba2-2.7b")
+def zamba2_2p7b() -> ArchConfig:
+    """zamba2-2.7b: 54 Mamba-2 layers (80 SSD heads of 64, state 64) and
+    one shared attention + MLP block (32 heads of 80, d_ff 10,240) applied
+    after every 6 of them."""
+    return ArchConfig(
+        name="zamba2-2.7b",
+        family="hybrid",
+        n_layers=54,
+        d_model=2560,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=10240,
+        vocab_size=32_000,
+        ssm_state=64,
+        ssm_conv=4,
+        attn_every=6,  # the shared attention block after every 6 mamba2 layers
+        source="arXiv:2411.15242",
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
         remat=True,

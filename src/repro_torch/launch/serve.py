@@ -4,6 +4,9 @@ CPU usage (reduced config, real tokens):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch stablelm-1.6b --reduced --batch 4 --prompt-len 32 --gen 32
 
+(``--arch falcon-mamba-7b`` and ``--arch zamba2-2.7b`` serve the ssm and
+hybrid families the same way.)
+
 Without ``--device`` it runs on the CUDA card (and raises without one).
 Runs prefill over a batch of synthetic prompts, then step-decodes greedily
 with the KV cache (a ring-buffer window when ``--window`` is set). As the
@@ -75,8 +78,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 3
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = make_prefill_step(model)(params, inputs)
-    # grow the cache to hold the generated tokens
-    cache = model.grow_cache(cache, window or total)
+    # grow the cache to hold the generated tokens (attention caches only)
+    if cfg.family != "ssm":
+        cache = model.grow_cache(cache, window or total)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits

@@ -1,4 +1,5 @@
-"""Model zoo of the port (DeepSpeech2 and the dense LMs so far)."""
+"""Model zoo of the port (DeepSpeech2 and the dense, moe, vlm, ssm and
+hybrid LMs so far)."""
 
 from repro_torch.models.registry import Model, build_model
 

@@ -1,5 +1,5 @@
 """Uniform model API (the JAX package's ``models/registry.py``, families
-``ds2``, ``dense``, ``moe`` and ``vlm`` so far).
+``ds2``, ``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid`` so far).
 
 ``build_model(cfg)`` returns a ``Model`` with:
 - ``init(gen, device)``                -> params (random weights from a
@@ -9,7 +9,8 @@
 - ``init_cache(B, cache_len, device)`` -> cache               [LMs]
 - ``decode(params, cache, batch, window=0)`` -> (logits, cache) [LMs]
 
-The LM families (dense, moe, vlm) share ``models/transformer.py``.
+The LM families dense, moe, vlm and ssm share ``models/transformer.py``;
+hybrid has ``models/hybrid.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import deepspeech2 as DS2
+from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
 
 # decode beyond this cache length switches to the sliding-window ring buffer
@@ -37,6 +39,8 @@ class Model:
     prefill: Optional[Callable] = None
 
     def cache_len_for(self, seq_len: int) -> int:
+        if self.cfg.family == "ssm":  # a fixed-size state, no KV slots
+            return 0
         if seq_len > FULL_CACHE_MAX:
             return self.cfg.window
         return seq_len
@@ -48,7 +52,8 @@ class Model:
 
     def grow_cache(self, cache, new_len: int):
         """Pad the K/V/pos slots to ``new_len`` (e.g. after prefill, before
-        decode): K/V with zeros, positions with -1 (empty)."""
+        decode): K/V with zeros, positions with -1 (empty). SSM state
+        leaves are fixed-size and come back unchanged."""
 
         def fit(name, cur):
             if name in ("k", "v"):
@@ -76,7 +81,7 @@ def build_model(cfg: ArchConfig) -> Model:
             init=lambda gen, device: DS2.init_ds2(gen, cfg, device),
             loss=lambda p, b: DS2.ds2_loss(p, b, cfg),
         )
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm", "ssm"):
         return Model(
             cfg=cfg,
             init=lambda gen, device: TF.init_lm(gen, cfg, device),
@@ -84,5 +89,15 @@ def build_model(cfg: ArchConfig) -> Model:
             init_cache=lambda B, n, device: TF.init_decode_cache(cfg, B, n, device),
             decode=lambda p, c, b, window=0: TF.decode_step(p, c, b, cfg, window=window),
             prefill=lambda p, b: TF.prefill(p, b, cfg),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, device: HY.init_hybrid(gen, cfg, device),
+            loss=lambda p, b: HY.hybrid_loss(p, b, cfg),
+            init_cache=lambda B, n, device: HY.init_hybrid_cache(cfg, B, n, device),
+            decode=lambda p, c, b, window=0: HY.hybrid_decode_step(p, c, b, cfg,
+                                                                   window=window),
+            prefill=lambda p, b: HY.hybrid_prefill(p, b, cfg),
         )
     raise ValueError(f"family {cfg.family!r} is not ported yet")

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, moe and vlm families (the JAX package's
-``models/transformer.py`` without its ssm branch).
+"""Decoder-only LM of the dense, moe, vlm and ssm families (the JAX
+package's ``models/transformer.py``).
 
 Layers are *stacked*: every per-layer param has a leading ``n_layers``
 axis, as in the reference, so ``convert.py`` maps the JAX params one to
@@ -11,7 +11,10 @@ indexing layer by layer would allocate a whole-stack gradient per layer).
 family's blocks return the router's load-balance loss, summed over the
 layers into ``lm_loss``; the vlm family prepends projected patch
 embeddings (``batch["patches"]``) to the tokens and rotates q and k by
-M-RoPE over (B, 3, S) positions.
+M-RoPE over (B, 3, S) positions. An ssm layer (falcon-mamba) is one
+Mamba-1 block (``models/ssm.py``) behind an RMS norm: no attention, no
+MLP, and a decode cache of {"h": (nl, B, d_inner, N) f32, "conv": (nl, B,
+K - 1, d_inner)} that does not grow with the sequence.
 
 Entry points:
 - ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
@@ -30,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
@@ -42,6 +46,9 @@ LOSS_CHUNK = 512  # sequence chunk for logit materialisation (ArchConfig.loss_ch
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device) -> Params:
     """Every layer's params, stacked on a leading ``n_layers`` axis."""
     nl, d = cfg.n_layers, cfg.d_model
+    if cfg.family == "ssm":
+        return {"norm": torch.ones((nl, d), dtype=dtype, device=device),
+                "mamba": S.init_mamba1(gen, cfg, dtype, device, lead=(nl,))}
     p: Params = {
         "attn_norm": torch.ones((nl, d), dtype=dtype, device=device),
         "mlp_norm": torch.ones((nl, d), dtype=dtype, device=device),
@@ -92,7 +99,10 @@ def _ffn(p: Params, hn: torch.Tensor, cfg: ArchConfig):
 
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
            window: int, differentiable: bool = True):
-    """Full-sequence layer. Returns (x, aux | None, (k, v))."""
+    """Full-sequence layer. Returns (x, aux | None, (k, v) | None)."""
+    if cfg.family == "ssm":
+        x = x + S.mamba1_block(p["mamba"], L.rms_norm(x, p["norm"], cfg.norm_eps), cfg)
+        return x, None, None
     h, kv = L.attention_block(
         p["attn"], L.rms_norm(x, p["attn_norm"], cfg.norm_eps), cfg, positions,
         causal=True, window=window, differentiable=differentiable,
@@ -104,6 +114,14 @@ def _block(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
 
 def _block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor,
                   cache: Dict[str, torch.Tensor], window: int):
+    """One token through a layer; the layer's cache tensors are updated
+    in place."""
+    if cfg.family == "ssm":
+        h, new_state = S.mamba1_decode(p["mamba"], L.rms_norm(x, p["norm"], cfg.norm_eps),
+                                       cfg, cache)
+        for name, t in new_state.items():
+            cache[name].copy_(t)
+        return x + h, cache
     h, new_cache = L.attention_decode_block(
         p["attn"], L.rms_norm(x, p["attn_norm"], cfg.norm_eps), cfg, pos, cache,
         window=window,
@@ -225,12 +243,33 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     return total, {"ce": loss, "aux": aux}
 
 
+def _ssm_prefill(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The ssm family's prefill: the layers in order, each Mamba-1 block's
+    final state and conv tail collected. Returns (x, cache)."""
+    h0 = torch.zeros((x.shape[0], cfg.resolved_d_inner(), cfg.ssm_state),
+                     dtype=torch.float32, device=x.device)
+    hs, convs = [], []
+    for layer_p in _unstack(params["layers"], cfg.n_layers):
+        xn = L.rms_norm(x, layer_p["norm"], cfg.norm_eps)
+        out, h_fin, conv_tail = S._mamba1_inner(layer_p["mamba"],
+                                                xn @ layer_p["mamba"]["in_proj"], cfg, h0)
+        x = x + out
+        hs.append(h_fin)
+        convs.append(conv_tail)
+    return x, {"h": torch.stack(hs), "conv": torch.stack(convs)}
+
+
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Full forward; returns (last-position logits (B, V) f32, primed KV
-    cache {"k", "v": (nl, B, S, KV, Dh), "pos": (nl, B, S) int32}); S
-    counts the prepended patches too."""
+    """Full forward; returns (last-position logits (B, V) f32, primed
+    cache): for attention {"k", "v": (nl, B, S, KV, Dh), "pos": (nl, B, S)
+    int32}, S counting the prepended patches too; for ssm {"h": (nl, B,
+    d_inner, N) f32, "conv": (nl, B, K - 1, d_inner)}."""
     with torch.no_grad():
         x = _embed_inputs(params, batch, cfg)
+        if cfg.family == "ssm":
+            x, cache = _ssm_prefill(params, x, cfg)
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return (x[:, -1] @ _head(params, cfg)).to(torch.float32), cache
         B, S = x.shape[:2]
         positions = _positions(cfg, B, S, x.device)
         x, _, kvs = _run_layers(params, x, cfg, positions, window=0, collect_kv=True,
@@ -247,8 +286,14 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
 
 
 def init_decode_cache(cfg: ArchConfig, B: int, cache_len: int, device) -> Params:
-    """Per-layer KV cache stacked on the layer axis; positions -1 = empty."""
+    """Per-layer cache stacked on the layer axis: KV with positions (-1 =
+    empty), or for ssm the Mamba state and conv tail (``cache_len``
+    unused)."""
     dt = L.dtype_of(cfg.param_dtype)
+    if cfg.family == "ssm":
+        nl, di, N, K = cfg.n_layers, cfg.resolved_d_inner(), cfg.ssm_state, cfg.ssm_conv
+        return {"h": torch.zeros((nl, B, di, N), dtype=torch.float32, device=device),
+                "conv": torch.zeros((nl, B, K - 1, di), dtype=dt, device=device)}
     nl, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim()
     return {
         "k": torch.zeros((nl, B, cache_len, KV, Dh), dtype=dt, device=device),

@@ -1,8 +1,8 @@
 """Continuous-batching serving engine (the JAX package's
-``serve/engine.py``) over the dense LM's decode step:
+``serve/engine.py``) over an LM's decode step:
 
-- fixed ``max_batch`` decode slots backed by one KV cache (a ring buffer
-  when ``window`` is set);
+- fixed ``max_batch`` decode slots backed by one cache (KV, SSM state or
+  both; the KV part a ring buffer when ``window`` is set);
 - a FIFO admission queue; finished slots are refilled between decode steps
   (continuous batching: no head-of-line blocking on long generations);
 - per-request states QUEUED -> PREFILL -> DECODE -> DONE, with max-token
@@ -92,11 +92,17 @@ class ServeEngine:
         self.queue.append(req)
 
     def _reset_slot_cache(self, slot: int) -> None:
-        """Invalidate one slot's cache entries (k/v/pos are (L, B, W, ...):
-        the slot is axis 1) before admitting a request, in place."""
-        self.cache["pos"][:, slot] = -1
-        self.cache["k"][:, slot] = 0
-        self.cache["v"][:, slot] = 0
+        """Invalidate one slot's cache entries before admitting a request,
+        in place. The slot's axis per leaf: attention k/v/pos are (L, B,
+        W, ...) and mamba h/conv (L, B, ...), axis 1; the hybrid's
+        ssm_h/ssm_conv are (n_seg, every, B, ...), axis 2."""
+        for name, t in self.cache.items():
+            if name == "pos":
+                t[:, slot] = -1
+            elif name in ("k", "v", "h", "conv"):
+                t[:, slot] = 0
+            elif name in ("ssm_h", "ssm_conv"):
+                t[:, :, slot] = 0
 
     def _admit(self) -> None:
         for slot in range(self.max_batch):

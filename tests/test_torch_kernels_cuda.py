@@ -565,6 +565,23 @@ def test_serve_on_the_card_prefills_through_the_kernel(dev):
     assert len(eng.run_until_drained()) == 4
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_families_serve_on_the_card(dev, arch):
+    """The ssm family launches no flash kernel; the hybrid's shared block
+    launches it once a segment. Both engines drain."""
+    cfg = get_arch(arch).reduced().with_(n_layers=4, param_dtype="bfloat16",
+                                          compute_dtype="bfloat16", use_flash_kernel=True)
+    before = kfa.flash_mha.launches
+    res = serve(cfg, batch=2, prompt_len=200, gen=6, device=dev)
+    want = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    assert kfa.flash_mha.launches == before + want
+    assert res.all_finite and res.tokens.shape == (2, 6)
+    eng = ServeEngine(cfg, max_batch=2, cache_len=64, device=dev, params=res.params)
+    for i in range(4):
+        eng.submit(Request(i, np.arange(1, 9 + i, dtype=np.int32), max_new_tokens=5))
+    assert len(eng.run_until_drained()) == 4
+
+
 # ------------------------------------------- the kernel entry points (ops)
 
 
@@ -680,3 +697,33 @@ def test_ops_wrappers_reject_bad_inputs(dev):
         ops.qmatmul(x, q, s.cpu())
     with pytest.raises(ValueError):
         ops.ota_aggregate(x, torch.ones(3, device=dev), torch.zeros(64, device=dev), 0.1)
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_full_width_scan_equals_its_recurrence(dev, family):
+    """The chunked scans at falcon-mamba's width (d_inner 8,192, N 16) and
+    zamba2's (80 heads of 64, N 64) on the card, over 256 steps (4 chunks)
+    from a random state, against the step-by-step recurrence at the
+    reference tests' rtol/atol 1e-4; ``chip_smoke.py`` holds them on a
+    prefill's own inputs."""
+    from repro_torch.models import ssm as S
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, T = 2, 256
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    if family == "ssm":
+        d, N = 8192, 16
+        args = (rnd(B, T, d).abs() * 0.1, -(rnd(d, N).abs() + 0.1), rnd(B, T, N), rnd(B, T, N),
+                rnd(B, T, d), rnd(B, d, N, scale=0.5))
+        got, want = S._mamba1_chunked_scan(*args), S.mamba1_scan_plain(*args)
+    else:
+        H, P, N = 80, 64, 64
+        args = (rnd(B, T, H, P), rnd(B, T, H).abs() * 0.2, -(rnd(H).abs() + 0.2), rnd(B, T, N),
+                rnd(B, T, N), rnd(B, H, P, N, scale=0.5))
+        got, want = S._ssd_scan(*args), S.ssd_scan_plain(*args)
+    for a, e in zip(got, want):
+        assert a.is_cuda and torch.isfinite(a).all()
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)

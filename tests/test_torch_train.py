@@ -159,7 +159,8 @@ def test_remat_and_unroll_change_no_bit(flags):
 
 def test_full_configs_carry_the_reference_fields():
     for name in ("stablelm-1.6b", "qwen3-8b", "deepseek-67b", "qwen1.5-110b",
-                 "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b"):
+                 "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b", "falcon-mamba-7b",
+                 "zamba2-2.7b"):
         j, t = jget_arch(name), tget_arch(name)
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
                   "qkv_bias", "qk_norm", "rope_theta", "source", "param_dtype", "remat",
@@ -168,7 +169,8 @@ def test_full_configs_carry_the_reference_fields():
         assert t.reduced().remat is False and t.remat is True
     assert TF.LOSS_CHUNK == 512 == tget_arch("stablelm-1.6b").loss_chunk
     assert {"deepspeech2", "stablelm-1.6b", "qwen3-8b", "deepseek-67b", "qwen1.5-110b",
-            "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b"} == set(list_archs())
+            "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b", "falcon-mamba-7b",
+            "zamba2-2.7b"} == set(list_archs())
 
 
 def test_qkv_bias_config_trains_like_the_reference():
