@@ -115,7 +115,7 @@ Phases, each of which fails the run on error:
              the same prefill through the plain ``chunked_attention``
              (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
              params (max_batch 4, cache_len 256) draining 8 requests.
-   families — the moe, vlm, ssm and hybrid families at full width through
+   families — the moe, vlm, ssm, hybrid and audio families at full width through
              the same entry points, one config at a time (the previous one's
              params freed), bf16, random weights from a seed,
              ``use_flash_kernel``: kimi-k2-1t-a32b at 1 of 61 layers
@@ -128,26 +128,33 @@ Phases, each of which fails the run on error:
              64 Mamba-1 layers, d_inner 8,192, state 16, no attention) and
              zamba2-2.7b (2,435,777,440: 54 Mamba-2 layers of 80 SSD heads
              of 64, state 64, and one shared attention + MLP block, 32/32
-             heads of 80 on the mma.sync route, after every 6 of them).
-             Per config: the param count and bytes, the init's seconds and
+             heads of 80 on the mma.sync route, after every 6 of them) and
+             whisper-tiny (61,221,888: 4 encoder layers over 1,500 frames
+             of 384 a request, drawn after the prompts, and 4 decoder
+             layers, 6/6 heads of 64 on the Hopper flash route, sinusoidal
+             positions). Per config: the param count and bytes, the init's seconds and
              peak (at most the params' bytes + 4 GiB: leaves are drawn a
              slab at a time; for ssm and hybrid A_log, D and dt_bias must
              be f32); ``launch.serve.serve`` on 4 prompts of 2,048 tokens
              with 32 generated (the flash counter must rise by exactly one
              launch an attention layer: n_layers, 0 for falcon-mamba, 9
-             shared-block applications for zamba2; logits finite, ids in
-             the vocabulary); for ssm and hybrid layer 0's chunked scan on the
+             shared-block applications for zamba2, 4 decoder layers for
+             whisper; logits finite, ids in the vocabulary); for whisper
+             the prefill's encoder and decoder timed apart beside their
+             bounds, the encoder's output held to the cached ``enc_out``; for ssm and hybrid layer 0's chunked scan on the
              prefill's own inputs against its step-by-step recurrence (y and
              the final state within rtol/atol 1e-4, the reference tests'
              tolerance), each scan timed and its share of the prefill and of
              a decode step; flash against chunked prefill (none for
-             falcon-mamba; for qwen2-vl and zamba2 the serve phase's check;
+             falcon-mamba; for qwen2-vl, zamba2 and whisper the serve
+             phase's check;
              for the MoE configs each layer's attention output against
              ``chunked_attention`` on the prefill's own q, k, v within
              ``flash_attention.mismatch``, the routing differences per
              layer, and the last-position log-softmax within
              SERVE_LOGIT_TOL on the rows whose last token routes alike);
-             ``ServeEngine`` draining 8 requests; prefill ms, decode ms a
+             ``ServeEngine`` draining 8 requests (whisper's decodes against
+             the all-zero ``enc_out``, as the reference's); prefill ms, decode ms a
              token, engine seconds and peak memory beside the bounds of
              ``family_bounds``.
 9. train   — stablelm-1.6b at full width and depth (24 layers, d_model
@@ -177,7 +184,7 @@ kimi-k2-1t-a32b 64/8 heads of 112, Qwen3-8B non-causal, whisper-tiny's
 encoder keys cut to a tile-aligned 1,536, causal Sq > Sk, f32 D 32, a
 zero-padded D 40), the families phase's prefills at B 4, S 2,048
 (kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128,
-zamba2 32/32 of 80),
+zamba2 32/32 of 80, whisper-tiny's decoder 6/6 of 64),
 element by element and by the share of elements that
 differ (``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py``
 takes the readings behind its limits). It times the kernel at each case
@@ -673,6 +680,7 @@ FAMILY_FLASH_CASES = (
     ("arctic-480b prefill", 4, 2048, 2048, 56, 8, 128, True, "bfloat16"),
     ("qwen2-vl-2b prefill", 4, 2048, 2048, 12, 2, 128, True, "bfloat16"),
     ("zamba2-2.7b prefill", 4, 2048, 2048, 32, 32, 80, True, "bfloat16"),
+    ("whisper-tiny decoder prefill", 4, 2048, 2048, 6, 6, 64, True, "bfloat16"),
 )
 FLASH_CASES += FAMILY_FLASH_CASES
 
@@ -2213,14 +2221,16 @@ def phase_serve(dev):
 
 # (arch, layers kept, params, parameter bytes): full width, depth cut to
 # what one card holds (a kimi-k2 layer is 17.03e9 params, 34.1 GB; an
-# arctic layer 13.61e9, 27.2 GB); qwen2-vl-2b, falcon-mamba-7b and
-# zamba2-2.7b at full depth. Arctic keeps two layers so that a second
-# layer's attention runs over MoE outputs.
+# arctic layer 13.61e9, 27.2 GB); qwen2-vl-2b, falcon-mamba-7b,
+# zamba2-2.7b and whisper-tiny (4 decoder and 4 encoder layers) at full
+# depth. Arctic keeps two layers so that a second layer's attention runs
+# over MoE outputs.
 FAMILIES = (("kimi-k2-1t-a32b", 1, 19_378_623_488, 38_762_752_000),
             ("arctic-480b", 2, 27_681_131_520, 55_365_933_056),
             ("qwen2-vl-2b", 28, 1_779_447_296, 3_558_894_592),
             ("falcon-mamba-7b", 64, 7_272_665_088, 14_564_204_544),
-            ("zamba2-2.7b", 54, 2_435_777_440, 4_871_580_800))
+            ("zamba2-2.7b", 54, 2_435_777_440, 4_871_580_800),
+            ("whisper-tiny", 4, 61_221_888, 122_443_776))
 # init draws each leaf a slab at a time: its peak may pass the params' own
 # bytes by at most this much
 INIT_HEADROOM_BYTES = 4 * 2**30
@@ -2258,13 +2268,42 @@ def _attn_flops(cfg, B: int, S: int) -> float:
 
 
 def _flash_launches(cfg) -> int:
-    """Flash launches of one prefill: one an attention layer; none for ssm;
-    one a shared-block application for hybrid."""
+    """Flash launches of one prefill: one an attention layer (for audio one
+    a decoder layer: the encoder's and the cross-attention are non-causal
+    and stay chunked); none for ssm; one a shared-block application for
+    hybrid."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return max(1, cfg.n_layers // (cfg.attn_every or cfg.n_layers))
     return cfg.n_layers
+
+
+def _whisper_flops(cfg, B: int, S: int):
+    """bf16 operations of a whisper prefill of B x S tokens over B x
+    ``encoder_seq`` frames: (the encoder: the frame projection, q/k/v/o,
+    non-causal attention over every pair, the SwiGLU MLP; the decoder:
+    self q/k/v/o and causal attention over the kept pairs, cross q/o,
+    cross k/v over the frames, cross-attention over S x T_enc pairs, the
+    MLP), the head not included."""
+    d, H, KV, Dh, T_e = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim(), cfg.encoder_seq
+    Fe, Fd = B * T_e, B * S
+    qkvo = lambda T: 2.0 * T * d * (H + 2 * KV) * Dh + 2.0 * T * H * Dh * d  # noqa: E731
+    mlp = lambda T: 2.0 * T * 3 * d * cfg.d_ff  # noqa: E731
+    enc = 2.0 * Fe * cfg.frontend_dim * d + cfg.encoder_layers * (
+        qkvo(Fe) + 4.0 * B * H * Dh * T_e * T_e + mlp(Fe))
+    dec = cfg.n_layers * (_attn_flops(cfg, B, S) + 2.0 * Fd * 2 * d * H * Dh
+                          + 2.0 * Fe * d * 2 * KV * Dh + 4.0 * B * H * Dh * S * T_e + mlp(Fd))
+    return enc, dec
+
+
+def _whisper_encoder_bytes(cfg) -> int:
+    """bf16 bytes of the encoder's params: the frame projection, the
+    layers and the final norm."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    layer = 2 * d + d * (H + 2 * KV) * Dh + H * Dh * d + 3 * d * cfg.d_ff
+    return 2 * (cfg.frontend_dim * d + cfg.encoder_layers * layer + d)
 
 
 def family_bounds(cfg, B: int, S: int, param_bytes: int, cache_len: int) -> dict:
@@ -2280,13 +2319,26 @@ def family_bounds(cfg, B: int, S: int, param_bytes: int, cache_len: int) -> dict
     patch projector; ssm: the in/x/dt/out projections; hybrid: the Mamba-2
     in/out projections in every layer and the shared block's in_proj,
     attention and MLP once an application; the head at the last position)
-    over the bf16 peak, plus the scans' f32 operations over the f32 peak.
-    The prefill bound is the larger of its bytes and operations times."""
+    over the bf16 peak, plus the scans' f32 operations over the f32 peak;
+    audio: ``_whisper_flops``, and apart the encoder's bound and the
+    decoder's (its params' bytes or its operations, the head's included).
+    The prefill bound is the larger of its bytes and operations times. An
+    audio decode step reads the decoder's params (not the encoder's) and
+    ``enc_out`` once a layer, and recomputes every layer's cross k/v from
+    it (bf16 operations); its bound is the larger of the two times."""
     d, nl, T = cfg.d_model, cfg.n_layers, B * S
     embed_bytes = cfg.vocab_size * d * 2
     weight_bytes = param_bytes - embed_bytes
-    f32_flops, state_bytes, kv_bytes = 0.0, 0, 0
-    if cfg.family == "ssm":
+    f32_flops, state_bytes, kv_bytes, decode_flops, enc_bytes = 0.0, 0, 0, 0.0, 0
+    if cfg.family == "audio":
+        enc_flops, dec_flops = _whisper_flops(cfg, B, S)
+        flops = enc_flops + dec_flops
+        enc_bytes = _whisper_encoder_bytes(cfg)  # a decode step runs no encoder
+        KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim()
+        kv_bytes = nl * B * cache_len * KV * Dh * 2 * 2
+        state_bytes = nl * B * cfg.encoder_seq * d * 2  # enc_out, read once a layer
+        decode_flops = nl * 2.0 * B * cfg.encoder_seq * d * 2 * KV * Dh
+    elif cfg.family == "ssm":
         di, N, R, K = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_dt_rank(), cfg.ssm_conv
         flops = nl * 2.0 * T * (d * 2 * di + di * (R + 2 * N) + R * di + di * d)
         f32_flops = nl * MAMBA1_SCAN_OPS * float(T) * di * N
@@ -2327,8 +2379,16 @@ def family_bounds(cfg, B: int, S: int, param_bytes: int, cache_len: int) -> dict
            "prefill_f32_flops": f32_flops,
            "prefill_bound_ms": max(bytes_ms, ops_ms),
            "prefill_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "decode_bytes": weight_bytes + kv_bytes + state_bytes}
-    out["decode_bound_ms"] = 1e3 * out["decode_bytes"] / HBM_BYTES_PER_S
+           "decode_bytes": weight_bytes - enc_bytes + kv_bytes + state_bytes}
+    out["decode_bound_ms"] = bound_ms(out["decode_bytes"], decode_flops, BF16_FLOPS)
+    if cfg.family == "audio":
+        out.update(decode_bf16_flops=decode_flops,
+                   decode_bound_by=bound_by(out["decode_bytes"], decode_flops, BF16_FLOPS),
+                   encoder_bytes=enc_bytes, encoder_bf16_flops=enc_flops,
+                   encoder_bound_ms=bound_ms(enc_bytes, enc_flops, BF16_FLOPS),
+                   decoder_bf16_flops=flops - enc_flops,
+                   decoder_bound_ms=bound_ms(weight_bytes - enc_bytes, flops - enc_flops,
+                                             BF16_FLOPS))
     return out
 
 
@@ -2472,6 +2532,9 @@ def _family_line(cfg) -> str:
                 f"{cfg.resolved_dt_rank()}, conv {cfg.ssm_conv}, no attention")
     attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim()} (flash design "
             f"{kfa.kernel_design(torch.bfloat16, cfg.resolved_head_dim())})")
+    if cfg.family == "audio":
+        return (f"{cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames of "
+                f"{cfg.frontend_dim}, {attn}, d_ff {cfg.d_ff}, sinusoidal positions")
     if cfg.family == "hybrid":
         H = cfg.resolved_ssm_heads()
         return (f"Mamba-2 d_inner {cfg.resolved_d_inner()}, {H} SSD heads of "
@@ -2504,15 +2567,17 @@ def _routing_diffs(a, b, B: int, S: int) -> dict:
 
 
 def phase_families(dev):
-    """The moe, vlm, ssm and hybrid families at full width through the
-    serving entry points, one config at a time: kimi-k2-1t-a32b (1 layer),
-    arctic-480b (2 layers), qwen2-vl-2b, falcon-mamba-7b and zamba2-2.7b
-    (full depth), bf16, random weights from a seed, the flash prefill.
-    Per config: the param count and the init's peak; ``launch.serve.serve``
-    (4 x 2,048 tokens, 32 generated); flash against chunked prefill (not
+    """The moe, vlm, ssm, hybrid and audio families at full width through
+    the serving entry points, one config at a time: kimi-k2-1t-a32b (1
+    layer), arctic-480b (2 layers), qwen2-vl-2b, falcon-mamba-7b,
+    zamba2-2.7b and whisper-tiny (full depth), bf16, random weights from a
+    seed, the flash prefill. Per config: the param count and the init's
+    peak; ``launch.serve.serve`` (4 x 2,048 tokens, 32 generated; for
+    whisper 1,500 frames a request); flash against chunked prefill (not
     for ssm, which has no attention); for ssm and hybrid layer 0's scan
-    against its recurrence; ``ServeEngine`` draining 8 requests; each
-    reading beside its bound."""
+    against its recurrence; for audio the prefill's encoder and decoder
+    timed apart; ``ServeEngine`` draining 8 requests; each reading beside
+    its bound."""
     import numpy as np
     import torch
 
@@ -2592,6 +2657,7 @@ def phase_families(dev):
         if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
             _fail(f"{arch}: token ids out of the vocabulary")
         flash_logits = res.prefill_logits
+        enc_out = res.cache.get("enc_out")
         del res
 
         if cfg.family in ("ssm", "hybrid"):
@@ -2620,7 +2686,9 @@ def phase_families(dev):
                       "from a near tie")
             rec.update(chunked_prefill_ms=plain.prefill_s * 1e3, max_dlogsoftmax=dmax)
             del plain
-        del flash_logits
+        if cfg.family == "audio":
+            rec.update(_families_whisper_split(cfg, params, enc_out, bounds, rec, dev))
+        del flash_logits, enc_out
         if L.flash_mha is not kfa.flash_mha:
             _fail("the prefill recorder was left installed")
 
@@ -2652,6 +2720,8 @@ def phase_families(dev):
             _fail(f"{arch}: the engine completed {len(done)} of 8 requests")
         if any(not (1 <= len(r.generated) <= r.max_new_tokens) for r in done):
             _fail(f"{arch}: a request generated a token count outside 1..max_new_tokens")
+        if cfg.family == "audio" and eng.cache["enc_out"].any():
+            _fail(f"{arch}: the engine wrote enc_out (the reference's decodes against zeros)")
         rec.update(engine_s=secs, engine_calls=calls[0], engine_bound_s=eng_bound_s,
                    peak_bytes=peak, bounds=bounds)
         out[arch] = rec
@@ -2661,6 +2731,49 @@ def phase_families(dev):
             _fail(f"{arch}'s tensors outlived its turn: {torch.cuda.memory_allocated(dev)} B "
                   f"allocated, {base} B before")
     return dict(out, launches=launches_total)
+
+
+def _families_whisper_split(cfg, params, enc_out, bounds, rec, dev) -> dict:
+    """whisper's prefill in two parts, each timed apart (CUDA events, the
+    median of 5 calls) beside its bound: ``whisper.encode`` on the serve
+    flow's frames (``RandomState(0)``, drawn after the prompts) and the
+    decoder (``decoder_forward`` with the flash self-attention, and the
+    head at the last position) on its prompts against that encoder output.
+    The encoder's output is held to the ``enc_out`` the serve flow's
+    prefill cached, and is finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import whisper as WH
+
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, P)), dtype=torch.int32, device=dev)
+    frames = torch.as_tensor(rng.randn(B, cfg.encoder_seq, cfg.frontend_dim),
+                             dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        enc = WH.encode(params, frames, cfg)
+
+        def decoder():
+            x, _ = WH.decoder_forward(params, toks, enc, cfg, differentiable=False)
+            return x[:, -1] @ params["lm_head"]
+
+        out = {"encoder_ms": cuda_ms(lambda: WH.encode(params, frames, cfg), reps=5, warmup=1),
+               "decoder_ms": cuda_ms(decoder, reps=5, warmup=1)}
+    torch.cuda.synchronize()
+    out["enc_out_max_abs_diff"] = float((enc.float() - enc_out.float()).abs().max())
+    out["share_encoder"] = out["encoder_ms"] / rec["prefill_ms"]
+    print(f"  prefill split: encoder {out['encoder_ms']:.3f} ms (bound "
+          f"{bounds['encoder_bound_ms']:.4f} ms, {bounds['encoder_bf16_flops']:.4g} bf16 "
+          f"operations over B {B} x {cfg.encoder_seq} frames), decoder + head "
+          f"{out['decoder_ms']:.3f} ms (bound {bounds['decoder_bound_ms']:.4f} ms); the encoder "
+          f"{out['share_encoder']:.3f} of the serve prefill; the encoder's output against "
+          f"the cached enc_out max |d| {out['enc_out_max_abs_diff']!r}")
+    if not bool(torch.isfinite(enc).all()) or enc.shape != (B, cfg.encoder_seq, cfg.d_model):
+        _fail(f"{cfg.name}: the encoder's output is misshapen or not finite")
+    if not torch.allclose(enc.float(), enc_out.float(), rtol=1e-2, atol=1e-2):
+        _fail(f"{cfg.name}: the cached enc_out is not the encoder's output on the frames")
+    return {"split": out}
 
 
 def _families_moe_check(cfg, model, params, dev) -> dict:

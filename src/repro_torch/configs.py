@@ -1,14 +1,15 @@
 """Configs of the port: the architectures (DeepSpeech2, the dense LMs, the
-MoE LMs, the VLM backbone, the Mamba-1 SSM and the Mamba-2 hybrid), the
-FL experiment and the precision levels.
+MoE LMs, the VLM backbone, the Mamba-1 SSM, the Mamba-2 hybrid and the
+whisper encoder-decoder), the FL experiment and the precision levels.
 
 The fields and defaults are those of the JAX package's ``configs/base.py``,
 ``configs/deepspeech2_paper.py``, ``configs/stablelm_1p6b.py``,
 ``configs/qwen3_8b.py``, ``configs/deepseek_67b.py``,
 ``configs/qwen1p5_110b.py``, ``configs/kimi_k2_1t_a32b.py``,
 ``configs/arctic_480b.py``, ``configs/qwen2_vl_2b.py``,
-``configs/falcon_mamba_7b.py`` and ``configs/zamba2_2p7b.py``, cut to what
-the federated round and the LMs' training and serving paths read. Every config is a frozen dataclass,
+``configs/falcon_mamba_7b.py``, ``configs/zamba2_2p7b.py`` and
+``configs/whisper_tiny.py``, cut to what the federated round and the
+models' training and serving paths read. Every config is a frozen dataclass,
 so configs hash and compare. ``register_arch`` adds a config to
 ``ARCH_REGISTRY``, as in the reference.
 """
@@ -25,11 +26,11 @@ QUANT_BLOCK = 256
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The architecture fields the DeepSpeech2 model and the dense, moe,
-    vlm, ssm and hybrid LM families read."""
+    """The architecture fields the DeepSpeech2 model, the dense, moe, vlm,
+    ssm and hybrid LM families and the audio encoder-decoder read."""
 
     name: str
-    family: str  # "ds2" | "dense" | "moe" | "vlm" | "ssm" | "hybrid"
+    family: str  # "ds2" | "dense" | "moe" | "vlm" | "ssm" | "hybrid" | "audio"
     n_layers: int
     d_model: int
     vocab_size: int
@@ -61,6 +62,9 @@ class ArchConfig:
     # hybrid (zamba2): one shared attention block applied after every
     # ``attn_every`` SSM layers, the same weights at each application
     attn_every: int = 0
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 1500  # whisper: 30 s of audio at 50 Hz after the conv
     # modality frontend stub ("none" | "audio" | "vision")
     frontend: str = "none"
     frontend_dim: int = 0
@@ -130,6 +134,8 @@ class ArchConfig:
             )
         if self.attn_every:
             kw.update(attn_every=1, n_layers=2)
+        if self.encoder_layers:
+            kw.update(encoder_layers=2, encoder_seq=32)
         if self.frontend != "none":
             kw.update(frontend_dim=d_model)
         if self.mrope:
@@ -438,6 +444,49 @@ def zamba2_2p7b() -> ArchConfig:
         compute_dtype="bfloat16",
         remat=True,
     )
+
+
+@register_arch("whisper-tiny")
+def whisper_tiny() -> ArchConfig:
+    """whisper-tiny: 4 encoder layers over 1,500 frames and 4 decoder
+    layers (causal self-attention and cross-attention), 6 heads of 64,
+    SwiGLU MLPs of 1,536, sinusoidal positions (no RoPE). The mel and conv
+    frontend is a stub: frame embeddings of ``frontend_dim`` arrive
+    precomputed."""
+    return ArchConfig(
+        name="whisper-tiny",
+        family="audio",
+        n_layers=4,  # decoder layers
+        encoder_layers=4,
+        encoder_seq=1500,
+        d_model=384,
+        n_heads=6,
+        n_kv_heads=6,
+        d_ff=1536,
+        vocab_size=51_865,
+        rope_theta=0.0,  # sinusoidal positions
+        frontend="audio",
+        frontend_dim=384,
+        source="arXiv:2212.04356",
+        param_dtype="bfloat16",
+        compute_dtype="bfloat16",
+    )
+
+
+# the repository's assigned architectures (the reference's
+# ``configs/all_archs.py``)
+ASSIGNED_ARCHS = (
+    "kimi-k2-1t-a32b",
+    "zamba2-2.7b",
+    "stablelm-1.6b",
+    "qwen3-8b",
+    "qwen2-vl-2b",
+    "deepseek-67b",
+    "whisper-tiny",
+    "qwen1.5-110b",
+    "falcon-mamba-7b",
+    "arctic-480b",
+)
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -20,6 +20,14 @@ streaming accumulator.
   legacy per-client, per-leaf loop, the readable specification of the
   f32 path, kept for equivalence checks.
 
+``use_kernel`` (on ``ota_aggregate_flat``, ``ota_aggregate_packed``,
+``ota_aggregate`` and ``OtaAccumulator``) takes the reference's keyword:
+False runs the kernels' plain PyTorch versions on any device, a CUDA
+tensor included, and launches nothing; True or None dispatch by device
+(``kernels/_build.on_card``): a CUDA tensor launches the kernel or raises,
+a CPU tensor runs the plain version (the port's stand-in for the
+reference's interpret-mode kernel).
+
 Randomness comes through the round-draws seam (``RoundDraws``): the
 uplink and downlink dither seeds, the channel coin-flip, the fading
 magnitudes and the AWGN normals. ``TorchRoundDraws`` draws them from
@@ -208,19 +216,22 @@ def ota_aggregate_flat(
     *,
     cfg: OTAConfig,
     n_valid: int,
+    use_kernel: Optional[bool] = None,
 ):
     """One-shot OTA aggregation of the flat (K, M) f32 client-update matrix.
 
     Rows are zero-padded packed updates; ``n_valid`` is the real parameter
-    count. The in-pass quantize-superpose kernel returns the pre-noise
-    aggregate and its sum of squares, which the AWGN epilogue uses as is.
+    count. The in-pass quantize-superpose kernel (its plain version with
+    ``use_kernel=False``) returns the pre-noise aggregate and its sum of
+    squares, which the AWGN epilogue uses as is.
     Returns (y (n_valid,), habs, participate, noise_std, acc).
     """
     X = X.to(torch.float32)
     w_in = torch.as_tensor(weights, dtype=torch.float32).to(X.device)
     habs, participate, w = round_channel(draws, w_in, cfg=cfg)
     scale, qmax = _client_grid(bits, X.abs().amax(dim=1))
-    acc, sumsq = kota.ota_quantize_superpose(X, scale, qmax, w, draws.sr_seed)
+    qs = kota.quantize_superpose_plain if use_kernel is False else kota.ota_quantize_superpose
+    acc, sumsq = qs(X, scale, qmax, w, draws.sr_seed)
     with obs.span("finalize"):
         y, noise_std = _awgn_epilogue(draws, acc, cfg=cfg, n_valid=n_valid, sumsq=sumsq)
     return y, habs, participate, noise_std, acc
@@ -251,12 +262,14 @@ def _group_rows(rows: Sequence[packing.PackedRow]):
     return tuple(kinds), tuple(datas), tuple(scales), perm
 
 
-def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None) -> torch.Tensor:
+def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Fold grouped rows into the running superposition ``acc``.
 
     ``acc`` None starts a fresh accumulator: the first group's superpose
     is the state, every later group folds in, in group order. ``wg`` and
-    ``gains`` are in group order.
+    ``gains`` are in group order. ``use_kernel=False`` runs the plain
+    version (``superpose_plain``) on any device.
     """
     with obs.span("fold", groups=len(kinds)):
         off = 0
@@ -266,20 +279,18 @@ def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None) -> torch.Tensor:
             wseg = wg[off : off + kg]
             gseg = None if gains is None else gains[off : off + kg]
             off += kg
-            packed4 = kind == "int4"
-            if acc is None:
-                acc = kota.ota_superpose(
-                    data, scale, wseg, gains=gseg, qblock=qblock, packed4=packed4
-                )
+            kw = dict(gains=gseg, qblock=qblock, packed4=kind == "int4")
+            if use_kernel is False:
+                acc = kota.superpose_plain(data, scale, wseg, acc=acc, **kw)
+            elif acc is None:
+                acc = kota.ota_superpose(data, scale, wseg, **kw)
             else:
-                acc = kota.ota_fold(
-                    acc, data, scale, wseg, gains=gseg, qblock=qblock, packed4=packed4
-                )
+                acc = kota.ota_fold(acc, data, scale, wseg, **kw)
     return acc
 
 
 def _aggregate_rows_flat(
-    draws, datas, scales, perm, weights, *, kinds, cfg, gains=None, n_valid
+    draws, datas, scales, perm, weights, *, kinds, cfg, gains=None, n_valid, use_kernel=None
 ):
     """Aggregate grouped rows: channel draw, group folds, AWGN epilogue.
 
@@ -298,7 +309,7 @@ def _aggregate_rows_flat(
         w = chan.combine_weights(weights, gains)
         gg = gains[perm]
     idx = torch.as_tensor(perm, dtype=torch.int64, device=w.device)
-    acc = _fold_groups(None, kinds, datas, scales, w[idx], gains=gg)
+    acc = _fold_groups(None, kinds, datas, scales, w[idx], gains=gg, use_kernel=use_kernel)
     with obs.span("finalize"):
         y, noise_std = _awgn_epilogue(draws, acc, cfg=cfg, n_valid=n_valid)
     return y, habs, participate, noise_std, acc
@@ -381,12 +392,15 @@ class OtaAccumulator:
     state through the superpose/fold kernels. ``finalize`` runs the AWGN
     epilogue and unpacks. One wave in cohort order with ``round_channel``
     weights is ``ota_aggregate_packed`` bit for bit; later waves
-    left-associate onto the state.
+    left-associate onto the state. ``use_kernel`` as the module's
+    docstring says.
     """
 
-    def __init__(self, layout: packing.Layout, cfg: OTAConfig = OTAConfig()):
+    def __init__(self, layout: packing.Layout, cfg: OTAConfig = OTAConfig(), *,
+                 use_kernel: Optional[bool] = None):
         self.layout = layout
         self.cfg = cfg
+        self.use_kernel = use_kernel
         self.reset()
 
     def reset(self) -> None:
@@ -418,7 +432,8 @@ class OtaAccumulator:
         kinds, datas, scales, perm = _group_rows(rows)
         idx = torch.as_tensor(perm, dtype=torch.int64, device=device)
         g = None if gains is None else torch.as_tensor(gains).to(device, torch.float32)[idx]
-        self._acc = _fold_groups(self._acc, kinds, datas, scales, w[idx], gains=g)
+        self._acc = _fold_groups(self._acc, kinds, datas, scales, w[idx], gains=g,
+                                 use_kernel=self.use_kernel)
         self.n_folded += len(rows)
         self.wire_bytes += wire.wire_bytes(rows)
         return self
@@ -460,6 +475,7 @@ def ota_aggregate_packed(
     cfg: OTAConfig = OTAConfig(),
     *,
     gains=None,
+    use_kernel: Optional[bool] = None,
 ) -> Tuple[Tree, AggregateInfo]:
     """Aggregate flat client updates; unpack the result per ``layout``.
 
@@ -477,7 +493,7 @@ def ota_aggregate_packed(
         if bits is None:
             raise ValueError("the f32 matrix needs the per-row bits")
         y, habs, participate, noise_std, acc = ota_aggregate_flat(
-            draws, X, bits, weights, cfg=cfg, n_valid=layout.size
+            draws, X, bits, weights, cfg=cfg, n_valid=layout.size, use_kernel=use_kernel
         )
         info = _participation_info(
             participate, noise_std, channel_abs=[float(h) for h in habs.cpu()]
@@ -494,7 +510,7 @@ def ota_aggregate_packed(
         g_in = None if gains is None else torch.as_tensor(gains).to(device)
         y, habs, participate, noise_std, acc = _aggregate_rows_flat(
             draws, datas, scales, perm, w_in, kinds=kinds, cfg=cfg, gains=g_in,
-            n_valid=layout.size,
+            n_valid=layout.size, use_kernel=use_kernel,
         )
         wire_kw = dict(
             uplink_bytes=wire.wire_bytes(rows),
@@ -527,6 +543,7 @@ def ota_aggregate(
     cfg: OTAConfig = OTAConfig(),
     *,
     layout: Optional[packing.Layout] = None,
+    use_kernel: Optional[bool] = None,
 ) -> Tuple[Tree, AggregateInfo]:
     """Aggregate client update trees over the simulated OTA channel.
 
@@ -536,11 +553,12 @@ def ota_aggregate(
     """
     if packing.is_packed_rows(updates):
         assert layout is not None, "packed rows need an explicit layout"
-        return ota_aggregate_packed(draws, updates, bits, weights, layout, cfg)
+        return ota_aggregate_packed(draws, updates, bits, weights, layout, cfg,
+                                    use_kernel=use_kernel)
     if layout is None:
         layout = packing.make_layout(updates[0])
     X = packing.pack_batch(updates, layout)
-    return ota_aggregate_packed(draws, X, bits, weights, layout, cfg)
+    return ota_aggregate_packed(draws, X, bits, weights, layout, cfg, use_kernel=use_kernel)
 
 
 def ota_aggregate_pertree(

@@ -4,15 +4,17 @@ CPU usage (reduced config, real tokens):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch stablelm-1.6b --reduced --batch 4 --prompt-len 32 --gen 32
 
-(``--arch falcon-mamba-7b`` and ``--arch zamba2-2.7b`` serve the ssm and
-hybrid families the same way.)
+(``--arch falcon-mamba-7b``, ``--arch zamba2-2.7b`` and ``--arch
+whisper-tiny`` serve the ssm, hybrid and audio families the same way.)
 
 Without ``--device`` it runs on the CUDA card (and raises without one).
 Runs prefill over a batch of synthetic prompts, then step-decodes greedily
 with the KV cache (a ring-buffer window when ``--window`` is set). As the
 reference, the vlm family prefills 8 zero patch embeddings (f32) ahead of
 the prompt and decodes from position P, not 8 + P: the decode steps write
-over the cache slots of the prompt's last 8 tokens.
+over the cache slots of the prompt's last 8 tokens. The audio family's
+frames (B, encoder_seq, frontend_dim) f32 are drawn from the same
+``RandomState`` right after the prompts, standard normal.
 ``serve(cfg, ...)`` is the same driver for a given ``ArchConfig`` (for
 example ``cfg.with_(use_flash_kernel=True)``), optionally on given params.
 """
@@ -72,6 +74,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 3
     if cfg.family == "vlm":
         inputs["patches"] = torch.zeros((B, 8, cfg.frontend_dim), dtype=torch.float32,
                                         device=dev)
+    if cfg.family == "audio":
+        frames = rng.randn(B, cfg.encoder_seq, cfg.frontend_dim)
+        inputs["frames"] = torch.as_tensor(frames, dtype=torch.float32, device=dev)
     total = P + gen
     window = window or 0
 

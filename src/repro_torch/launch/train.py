@@ -9,8 +9,10 @@ Markov tokens (``data/lm.py``) feed ``make_train_step`` (``lm_loss``,
 autograd, global-norm clip at 1.0, AdamW on a linear-warmup cosine
 schedule); ``--ckpt-dir`` saves the train state every ``--ckpt-every``
 steps and resumes from the latest file. As in the reference, a resumed
-run restarts the token stream at its first batch, and a vlm model gets 8
-zero patch embeddings ahead of every batch's tokens.
+run restarts the token stream at its first batch, a vlm model gets 8
+zero patch embeddings ahead of every batch's tokens, and an audio model
+gets step i's frames from ``np.random.RandomState(i)`` (standard normal,
+f32).
 
 ``main(argv)`` returns the logged entries: step, loss, grad_norm, the
 host-clock ms a step since the previous log (the logged loss is read
@@ -24,6 +26,7 @@ import argparse
 import time
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt import CheckpointManager
@@ -95,6 +98,10 @@ def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], List[Dict[str, float]
         if cfg.family == "vlm":  # the reference's stub: 8 zero patch embeddings
             batch["patches"] = torch.zeros((args.batch, 8, cfg.frontend_dim),
                                            dtype=torch.float32, device=dev)
+        if cfg.family == "audio":  # the reference's stub: seeded frames a step
+            frames = np.random.RandomState(i).randn(args.batch, cfg.encoder_seq,
+                                                    cfg.frontend_dim)
+            batch["frames"] = torch.as_tensor(frames, dtype=torch.float32, device=dev)
         state, metrics = step_fn(state, batch)
         if (i + 1) % args.log_every == 0:
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])

@@ -1,5 +1,5 @@
-"""Uniform model API (the JAX package's ``models/registry.py``, families
-``ds2``, ``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid`` so far).
+"""Uniform model API (the JAX package's ``models/registry.py``: families
+``ds2``, ``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid`` and ``audio``).
 
 ``build_model(cfg)`` returns a ``Model`` with:
 - ``init(gen, device)``                -> params (random weights from a
@@ -10,7 +10,8 @@
 - ``decode(params, cache, batch, window=0)`` -> (logits, cache) [LMs]
 
 The LM families dense, moe, vlm and ssm share ``models/transformer.py``;
-hybrid has ``models/hybrid.py``.
+hybrid has ``models/hybrid.py`` and audio ``models/whisper.py`` (its
+prefill batch also holds ``frames``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import deepspeech2 as DS2
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
+from repro_torch.models import whisper as WH
 
 # decode beyond this cache length switches to the sliding-window ring buffer
 FULL_CACHE_MAX = 32_768
@@ -53,7 +55,8 @@ class Model:
     def grow_cache(self, cache, new_len: int):
         """Pad the K/V/pos slots to ``new_len`` (e.g. after prefill, before
         decode): K/V with zeros, positions with -1 (empty). SSM state
-        leaves are fixed-size and come back unchanged."""
+        leaves and the encoder's ``enc_out`` are fixed-size and come back
+        unchanged."""
 
         def fit(name, cur):
             if name in ("k", "v"):
@@ -100,4 +103,14 @@ def build_model(cfg: ArchConfig) -> Model:
                                                                    window=window),
             prefill=lambda p, b: HY.hybrid_prefill(p, b, cfg),
         )
-    raise ValueError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, device: WH.init_whisper(gen, cfg, device),
+            loss=lambda p, b: WH.whisper_loss(p, b, cfg),
+            init_cache=lambda B, n, device: WH.init_whisper_cache(cfg, B, n, device),
+            decode=lambda p, c, b, window=0: WH.whisper_decode_step(p, c, b, cfg,
+                                                                    window=window),
+            prefill=lambda p, b: WH.whisper_prefill(p, b, cfg),
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -4,7 +4,9 @@
 One selection contract everywhere: descending score, equal scores by
 ascending record index. A query with k up to the kernel's ``MAX_K`` goes
 through ``kernels.topk_similarity.topk_cosine`` on the engine's device:
-the CUDA kernel on a card, its plain PyTorch version on the CPU. The
+the CUDA kernel on a card, its plain PyTorch version on the CPU, and the
+plain version on any device with ``use_kernel=False`` (the reference's
+keyword; True and None dispatch by device). The
 capacity slab is uploaded once per (buffer identity, live count) and kept
 on the device between appends. A larger k takes the reference's host path
 (``_topk_numpy``): one GEMM over the live slab in numpy (int8 stores in
@@ -15,14 +17,14 @@ host gives the same indices and scores bit for bit.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
-from repro_torch.kernels.topk_similarity import MAX_K, topk_cosine
+from repro_torch.kernels.topk_similarity import MAX_K, topk_cosine, topk_plain
 from repro_torch.retrieval.arena import ArenaStore
 
 # int8 stores dequantize in row chunks of this size on the numpy path so
@@ -86,8 +88,9 @@ def normalize_rows(mat: np.ndarray) -> np.ndarray:
 class RetrievalEngine:
     """Batched cosine top-k queries against one arena."""
 
-    def __init__(self, store: ArenaStore, *, device=None):
+    def __init__(self, store: ArenaStore, *, use_kernel: Optional[bool] = None, device=None):
         self.store = store
+        self.use_kernel = use_kernel
         self.device = resolve_device(device)
         # device copy of the capacity slab, keyed on (buffer identity,
         # live count): appends and grows invalidate it
@@ -125,7 +128,10 @@ class RetrievalEngine:
                 return self._topk_numpy(queries, k)
             data, scales = self._slab()
             qm = torch.from_numpy(queries).to(self.device)
-            s, i = topk_cosine(qm, data, scales, n, k=k)
+            if self.use_kernel is False:
+                s, i = topk_plain(qm, data, scales, n, k)
+            else:
+                s, i = topk_cosine(qm, data, scales, n, k=k)
             return s.cpu().numpy(), i.cpu().numpy()
 
     def _topk_numpy(self, queries, k):

@@ -34,12 +34,13 @@ class ArenaVectorStore:
         *,
         storage: str = "f32",
         qblock: int = 64,
+        use_kernel: Optional[bool] = None,
         device=None,
         to_doc: Optional[Callable[[Any], Any]] = None,
         from_doc: Optional[Callable[[Any], Any]] = None,
     ):
         self.arena = ArenaStore(dim, storage=storage, qblock=qblock)
-        self.engine = RetrievalEngine(self.arena, device=device)
+        self.engine = RetrievalEngine(self.arena, use_kernel=use_kernel, device=device)
         self.records: List[Any] = []
         self._to_doc = to_doc or (lambda r: r)
         self._from_doc = from_doc or (lambda d: d)
@@ -73,7 +74,8 @@ class ArenaVectorStore:
 
     def restore(self, path: str) -> None:
         """Replace this store's contents from a ``save`` checkpoint (the
-        codec hooks and the engine's device of this instance are kept)."""
+        codec hooks and the engine's kernel preference and device of this
+        instance are kept)."""
         arena, extra = ArenaStore.load(path)
         if arena.dim != self.arena.dim or arena.storage != self.arena.storage:
             raise ValueError(
@@ -81,5 +83,6 @@ class ArenaVectorStore:
                 f"({self.arena.dim}, {self.arena.storage})"
             )
         self.arena = arena
-        self.engine = RetrievalEngine(arena, device=self.engine.device)
+        self.engine = RetrievalEngine(arena, use_kernel=self.engine.use_kernel,
+                                      device=self.engine.device)
         self.records = [self._from_doc(d) for d in extra["records"]]

@@ -565,6 +565,93 @@ def test_serve_on_the_card_prefills_through_the_kernel(dev):
     assert len(eng.run_until_drained()) == 4
 
 
+def test_whisper_serves_on_the_card_with_the_flash_prefill(dev):
+    """whisper-tiny's widths (6 heads of 64: the Hopper route) at 2 layers
+    each side and 300 frames: the decoder's causal self-attention prefill
+    launches the kernel once a layer (the encoder and the cross-attention
+    stay chunked); flash against the chunked prefill within the serve
+    phase's 0.2 log-softmax bound (two bf16 layers); the engine drains and
+    leaves ``enc_out`` at zero."""
+    cfg = get_arch("whisper-tiny").with_(n_layers=2, encoder_layers=2, encoder_seq=300,
+                                         vocab_size=4096, use_flash_kernel=True)
+    assert kfa.kernel_design(torch.bfloat16, cfg.resolved_head_dim()) == "flash_fwd_hopper"
+    before = kfa.flash_mha.launches
+    res = serve(cfg, batch=2, prompt_len=256, gen=6, device=dev)
+    assert kfa.flash_mha.launches == before + cfg.n_layers
+    assert res.all_finite and res.tokens.shape == (2, 6)
+    assert res.cache["enc_out"].shape == (2, 300, 384)
+    plain = serve(cfg.with_(use_flash_kernel=False), batch=2, prompt_len=256, gen=1,
+                  device=dev, params=res.params)
+    assert kfa.flash_mha.launches == before + cfg.n_layers
+    d = (torch.log_softmax(res.prefill_logits, -1)
+         - torch.log_softmax(plain.prefill_logits, -1)).abs().max()
+    assert float(d) <= 0.2
+    eng = ServeEngine(cfg, max_batch=2, cache_len=64, device=dev, params=res.params)
+    for i in range(3):
+        eng.submit(Request(i, np.arange(1, 9 + i, dtype=np.int32), max_new_tokens=5))
+    assert len(eng.run_until_drained()) == 3
+    assert not eng.cache["enc_out"].any()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True, None])
+def test_use_kernel_picks_the_kernel_or_the_plain_version_on_the_card(dev, use_kernel):
+    """On CUDA tensors ``use_kernel=False`` launches nothing and gives the
+    plain versions' results bit for bit; True and None launch the
+    kernels: the flat path's quantize-superpose, the packed path's
+    superpose and fold, the accumulator's and the engine's top-k."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bits = [4, 8, 16, 32, 8]
+    trees = [{"a": torch.randn(300, 7, generator=gen, device=dev) * 0.01,
+              "b": torch.randn(50, generator=gen, device=dev)} for _ in bits]
+    weights = [1.0, 2.0, 3.0, 4.0, 5.0]
+    rows = [wire.encode_row(torch.randn(5000, generator=gen, device=dev) * 0.01, b, 5, i,
+                            block=256) for i, b in enumerate(bits)]
+    from repro_torch.core import packing
+
+    layout = packing.make_layout({"w": torch.zeros(5000, device=dev)})
+
+    def counts():
+        return (kota.ota_quantize_superpose.launches, kota.ota_superpose.launches,
+                kota.ota_fold.launches, ktk.topk_cosine.launches)
+
+    def run(uk):
+        flat, _ = ota.ota_aggregate(ota.TorchRoundDraws(1, dev), trees, bits, weights,
+                                    use_kernel=uk)
+        packed, _ = ota.ota_aggregate_packed(ota.TorchRoundDraws(2, dev), rows, bits, weights,
+                                             layout, use_kernel=uk)
+        acc = ota.OtaAccumulator(layout, use_kernel=uk).fold(rows[:2], torch.ones(2))
+        acc.fold(rows[2:], torch.ones(3))
+        return flat["a"], packed["w"], acc.accumulator
+
+    before = counts()
+    got = run(use_kernel)
+    after = counts()
+    if use_kernel is False:
+        assert after == before
+    else:
+        assert after[0] == before[0] + 1 and after[1] == before[1] + 2
+        assert after[2] > before[2]
+    for a, b in zip(got, run(False)):
+        if use_kernel is False:
+            assert torch.equal(a, b)
+        else:  # the same ops, the kernels' own summation order
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    rng = np.random.RandomState(0)
+    vec = rng.randn(600, 128).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    store = ArenaStore(128, storage="f32")
+    store.add_batch(vec)
+    from repro_torch.retrieval.engine import RetrievalEngine
+
+    n0 = ktk.topk_cosine.launches
+    s, i = RetrievalEngine(store, use_kernel=use_kernel, device=dev).topk(vec[:4], 16)
+    assert ktk.topk_cosine.launches == n0 + (use_kernel is not False)
+    sp, ip = RetrievalEngine(store, use_kernel=False, device=dev).topk(vec[:4], 16)
+    assert ktk.topk_cosine.launches == n0 + (use_kernel is not False)
+    np.testing.assert_array_equal(i, ip)
+    np.testing.assert_array_equal(s, sp)
+
+
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
 def test_ssm_families_serve_on_the_card(dev, arch):
     """The ssm family launches no flash kernel; the hybrid's shared block

@@ -170,7 +170,7 @@ def test_full_configs_carry_the_reference_fields():
     assert TF.LOSS_CHUNK == 512 == tget_arch("stablelm-1.6b").loss_chunk
     assert {"deepspeech2", "stablelm-1.6b", "qwen3-8b", "deepseek-67b", "qwen1.5-110b",
             "kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-2b", "falcon-mamba-7b",
-            "zamba2-2.7b"} == set(list_archs())
+            "zamba2-2.7b", "whisper-tiny"} == set(list_archs())
 
 
 def test_qkv_bias_config_trains_like_the_reference():
