@@ -53,6 +53,30 @@ Phases, each of which fails the run on error:
              rounds' spans and metrics through ``obs.export.dump_telemetry``
              (every JSONL line parses, the Perfetto trace names every round
              stage).
+   mesh    — the sharded data planes on one card (``launch.mesh.DataMesh``
+             of n shards all on it; ``--phases build,rounds,mesh``), every
+             result bit for bit the unsharded kernel path's, with the row
+             1-3 counters zeroed just before each sharded call and read just
+             after: each barrier round's rows aggregated again through
+             ``ota_aggregate_packed(mesh=)`` at 4 shards (chunks of
+             1,033,728 symbols) and 5 (827,136, 768 padded) with the round's
+             own weights and draws (superpose/fold launches exactly shards x
+             groups; aggregate and fold timed beside the unsharded ones;
+             the unsharded aggregate also the plain versions'); a fading
+             ``StreamingFLServer`` round on a 4-shard mesh (an on-time and
+             a late wave, staleness and gains) and its waves folded again
+             through ``OtaAccumulator(mesh=)`` at 4 and 5, all bit for bit
+             the plain versions' refold; one round of a fresh ``FLServer``
+             with ``mesh_data_shards`` 4 and a 4-shard mesh on the card
+             (bytes as the wire format, params finite, its aggregate the
+             unsharded aggregation of its own rows; the knob alone spans
+             four distinct cards and must raise on one);
+             ``ops.topk_cosine_sharded`` and ``RetrievalEngine(mesh=)`` on
+             4 shards over a 262,144-record arena of the planner's width
+             (f32 and int8, 1,000 records of padding, triplicated records,
+             k 32 and 128; one launch a shard), bit for bit the unsharded
+             kernel and ``topk_plain``, row 3 timed there beside its bound
+             and its plain version; each shard's ``shard_nbytes``.
 
 4. flat    — the one-shot f32 aggregation (``ota.ota_aggregate`` on update
              trees): K = 20 DeepSpeech2-shaped f32 trees (full width, seeded,
@@ -791,6 +815,12 @@ def check_flash(dev, timing: bool):
 # ---------------------------------------------------------------- phase 3
 
 
+# the barrier rounds' config: FedAvgM with the velocity kept in bf16 (the
+# state phase checkpoints it)
+ROUNDS_CFG = dict(n_clients=20, clients_per_round=20, seed=0, server_momentum=0.9,
+                  quantize_server_state=True)
+
+
 def phase_rounds(dev):
     import torch
 
@@ -802,9 +832,7 @@ def phase_rounds(dev):
     from repro_torch.kernels import ota_fused as kota
     from repro_torch.kernels import topk_similarity as ktk
 
-    # FedAvgM with the velocity kept in bf16: the state phase checkpoints it
-    cfg = FLConfig(n_clients=20, clients_per_round=20, seed=0, server_momentum=0.9,
-                   quantize_server_state=True)
+    cfg = FLConfig(**ROUNDS_CFG)
     srv = FLServer(cfg, device=dev)
     M = srv.layout.padded_size
     print(f"rounds: DeepSpeech2 {srv.layout.size} params, M={M}, K={cfg.clients_per_round}, "
@@ -853,7 +881,10 @@ def phase_rounds(dev):
               f"max_abs_err {err} (tolerance: exact)")
         if err != 0.0:
             _fail("round aggregate differs from its plain re-aggregation")
-        round_inputs.append((rows, w))
+        # the round's own rows, final and cohort weights, draws, and the
+        # packed params after it (the mesh phase re-aggregates and compares)
+        round_inputs.append(dict(rows=rows, w=w, weights=srv.last_round["weights"],
+                                 draws=srv.last_round["draws"]))
     counts = {
         "ota_superpose": kota.ota_superpose.launches,
         "ota_fold": kota.ota_fold.launches,
@@ -880,7 +911,7 @@ def time_round_kernels(srv, round_inputs, dev):
     from repro_torch.kernels import ota_fused as kota
     from repro_torch.kernels import topk_similarity as ktk
 
-    rows, w = round_inputs[-1]
+    rows, w = round_inputs[-1]["rows"], round_inputs[-1]["w"]
     kinds, datas, scales, perm = _group_rows(rows)
     wg = w[torch.as_tensor(perm, device=dev)]
     M = srv.layout.padded_size
@@ -1215,6 +1246,330 @@ def phase_state(srv, dev):
         shutil.rmtree(tmp, ignore_errors=True)
     print("  state readings " + json.dumps(rec))
     return {"topk_cosine": topk_launches, "ota_quantize_superpose": qs_launches}, rec
+
+
+# ---------------------------------------------------------------- phase 3c
+
+# the barrier rounds' shard counts: 4 cuts the DeepSpeech2 layout's
+# 4,134,912 symbols into chunks of 1,033,728 (no padding), 5 into 827,136
+# (768 columns of padding)
+MESH_SHARDS = (4, 5)
+# the retrieval arena at a deployment's size: 262,144 records of the
+# planner's width, 1,000 of them padding; the row-sharded top-k on 4 shards
+MESH_ARENA_ROWS = 262_144
+MESH_ARENA_LIVE = MESH_ARENA_ROWS - 1_000
+MESH_TOPK_SHARDS = 4
+MESH_TOPK_Q = 20  # the planner's cohort of queries
+MESH_DUP_FAR = 200_000  # a copy of records 10-109 in the last shard
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal shapes and f32 bit patterns (-0.0 differs from +0.0)."""
+    import torch
+
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(a.view(torch.int32),
+                                                             b.view(torch.int32))
+
+
+def _counted(counts: dict, fn):
+    """``fn()`` with the counters of rows 1-3 zeroed just before it; what it
+    launched is added to ``counts`` and returned beside its result."""
+    from repro_torch.kernels import ota_fused as kota
+    from repro_torch.kernels import topk_similarity as ktk
+
+    wrappers = {"ota_superpose": kota.ota_superpose, "ota_fold": kota.ota_fold,
+                "topk_cosine": ktk.topk_cosine}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    got = {n: w.launches for n, w in wrappers.items()}
+    for n, c in got.items():
+        counts[n] += c
+    return out, got
+
+
+def _mesh_barrier(layout, ocfg, round_inputs, meshes, counts, dev):
+    """Each barrier round's rows aggregated again through
+    ``ota_aggregate_packed(mesh=)`` with the round's own weights and draws,
+    bit for bit the unsharded kernel path (itself bit for bit the plain
+    versions'), shards x groups launches."""
+    import torch
+
+    from repro_torch.core import ota
+    from repro_torch.core.tree import tree_leaves
+
+    M = layout.padded_size
+    for rnd, inp in enumerate(round_inputs):
+        rows, weights, draws = inp["rows"], inp["weights"], inp["draws"]
+        kinds, datas, scales, perm = ota._group_rows(rows)
+        wg = inp["w"][torch.as_tensor(perm, device=dev)]
+        want, winfo = ota.ota_aggregate_packed(draws, rows, None, weights, layout, ocfg)
+        acc_ref = ota.ota_aggregate_packed.last_acc
+        if not _bits_equal(acc_ref, ota.aggregate_plain(rows, inp["w"])):
+            _fail(f"round {rnd}: the unsharded aggregate != the plain versions'")
+
+        def agg(mesh=None):
+            return ota.ota_aggregate_packed(draws, rows, None, weights, layout, ocfg, mesh=mesh)
+
+        def fold(mesh=None):
+            return ota._fold_groups(None, kinds, datas, scales, wg, mesh=mesh)
+
+        rec = {"round": rnd, "M": M, "groups": [f"{k}/{qb} K_g={d.shape[0]}"
+                                               for (k, qb), d in zip(kinds, datas)],
+               "aggregate_ms": cuda_ms(agg, reps=10), "fold_ms": cuda_ms(fold, reps=10),
+               "fold_ms_queued": cuda_ms_queued(fold)}
+        for n in MESH_SHARDS:
+            mesh = meshes[n]
+            (got, info), launched = _counted(counts, lambda: agg(mesh))
+            torch.cuda.synchronize()
+            acc = ota.ota_aggregate_packed.last_acc
+            want_l = {"ota_superpose": n, "ota_fold": n * (len(kinds) - 1), "topk_cosine": 0}
+            if launched != want_l:
+                _fail(f"sharded aggregate launches {launched} != shards x groups {want_l}")
+            if not _bits_equal(acc, acc_ref):
+                _fail(f"round {rnd}: aggregate on {n} shards != the unsharded kernel path")
+            if not all(_bits_equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want))):
+                _fail(f"round {rnd}: update tree on {n} shards != the unsharded one")
+            if info["noise_std"] != winfo["noise_std"]:
+                _fail(f"round {rnd}: noise_std on {n} shards != the unsharded one")
+            mc = ota._shard_chunk(M, n, kinds)
+            rec[f"shards_{n}"] = {
+                "chunk": mc, "padded_columns": n * mc - M, "launches": launched,
+                "max_abs_err": (acc - acc_ref).abs().max().item(),
+                "aggregate_ms": cuda_ms(lambda: agg(mesh), reps=10),
+                "fold_ms": cuda_ms(lambda: fold(mesh), reps=10),
+                "fold_ms_queued": cuda_ms_queued(lambda: fold(mesh))}
+        print("  mesh barrier " + json.dumps(rec))
+
+
+def _mesh_stream(layout, ocfg, meshes, counts, dev):
+    """One fading ``StreamingFLServer`` round on a 4-shard mesh (an on-time
+    and a late wave, staleness and gains), and its waves folded again on no
+    mesh and on 4 and 5 shards: each bit for bit the waves' refold with the
+    plain versions (``ota.aggregate_plain``), shards x groups launches."""
+    import torch
+
+    from repro_torch.configs import QUANT_BLOCK, FLConfig
+    from repro_torch.core import ota, packing
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import LatencyModel, StreamingFLServer
+
+    n0 = MESH_SHARDS[0]
+    M = layout.padded_size
+    cfg = FLConfig(n_clients=20, clients_per_round=20, seed=0, local_steps=1,
+                   channel_model="fading", mesh_data_shards=n0)
+    srv = StreamingFLServer(cfg, device=dev, fill_fraction=0.7, grace_s=STREAM_GRACE_S,
+                            latency=LatencyModel.with_tail(5.0), mesh=meshes[n0])
+    if srv.mesh is None or srv.mesh.shape != {"data": n0}:
+        _fail(f"StreamingFLServer(mesh_data_shards={n0}) has no {n0}-shard mesh")
+    t0 = time.perf_counter()
+    log, launched = _counted(counts, lambda: srv.run_round(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    last = srv.last_round
+    waves = last["waves"]
+    if not log.n_late or len(waves) < 2 or any(wv["gains"] is None for wv in waves):
+        _fail("the mesh stream round lacks a late wave with gains")
+    sup, fold = _expected_launches(waves)
+    if (launched["ota_superpose"], launched["ota_fold"]) != (n0 * sup, n0 * fold):
+        _fail(f"stream round launches {launched} != shards x the waves' groups "
+              f"{(n0 * sup, n0 * fold)}")
+    want_up = sum(packing.row_wire_bytes(r.bits, M, QUANT_BLOCK) for r in last["rows"])
+    if log.uplink_bytes != want_up or log.downlink_bytes != 4 * M:
+        _fail(f"mesh stream bytes {log.uplink_bytes}/{log.downlink_bytes} != wire format")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(srv.params)):
+        _fail("non-finite params after the mesh stream round")
+
+    def refold(mesh=None):
+        acc = ota.OtaAccumulator(layout, ocfg, mesh=mesh)
+        for wv in waves:
+            acc.fold(wv["rows"], wv["weights"], staleness=wv["staleness"], gains=wv["gains"])
+        return acc.accumulator
+
+    ref = None
+    for wv in waves:
+        w = wv["weights"]
+        if wv["staleness"] is not None:
+            w = w * torch.tensor(wv["staleness"], dtype=torch.float32, device=dev)
+        ref = ota.aggregate_plain(wv["rows"], w, wv["gains"], acc=ref)
+    if not _bits_equal(last["acc"], ref):
+        _fail(f"the {n0}-shard stream round's accumulator != the plain versions' refold")
+    if not _bits_equal(refold(), ref):
+        _fail("the unsharded kernel refold != the plain versions' refold")
+    rec = {"waves": [len(wv["rows"]) for wv in waves], "on_time": log.n_on_time,
+           "late": log.n_late, "lost": log.n_lost, "round_seconds": secs,
+           "round_launches": launched, "refold_ms": cuda_ms(refold, reps=10)}
+    for n in MESH_SHARDS:
+        mesh = meshes[n]
+        got, launched_n = _counted(counts, lambda: refold(mesh))
+        torch.cuda.synchronize()
+        if (launched_n["ota_superpose"], launched_n["ota_fold"]) != (n * sup, n * fold):
+            _fail(f"stream refold launches {launched_n} != {(n * sup, n * fold)}")
+        if not _bits_equal(got, ref):
+            _fail(f"stream waves folded on {n} shards != the plain versions' refold")
+        rec[f"shards_{n}"] = {"launches": launched_n, "refold_ms": cuda_ms(lambda: refold(mesh),
+                                                                        reps=10)}
+    print("  mesh stream " + json.dumps(rec))
+    del srv
+
+
+def _mesh_knob(layout, meshes, counts, dev):
+    """One barrier round through a fresh ``FLServer(mesh_data_shards=4)``
+    at full width on a 4-shard mesh of the card: bytes, finite params, its
+    aggregate bit for bit an unsharded aggregation of its own rows. The
+    knob alone spans four distinct cards and raises with fewer."""
+    import torch
+
+    from repro_torch.configs import QUANT_BLOCK, FLConfig
+    from repro_torch.core import ota, packing
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import FLServer
+
+    M = layout.padded_size
+    n0 = MESH_SHARDS[0]
+    cfg = FLConfig(**ROUNDS_CFG, mesh_data_shards=n0)
+    if dev.type == "cuda" and torch.cuda.device_count() < n0:
+        try:
+            FLServer(cfg, device=dev)
+        except ValueError as e:
+            print(f"  mesh knob alone on {torch.cuda.device_count()} card(s) raises: {e}")
+        else:
+            _fail(f"FLServer(mesh_data_shards={n0}) built a mesh on fewer than {n0} cards")
+    srv = FLServer(cfg, device=dev, mesh=meshes[n0])
+    if srv.mesh is None or srv.mesh.shape != {"data": n0}:
+        _fail(f"FLServer(mesh=) has no {n0}-shard mesh")
+    t0 = time.perf_counter()
+    log, launched = _counted(counts, lambda: srv.run_round(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc = ota.ota_aggregate_packed.last_acc
+    last = srv.last_round
+    groups = len(ota._group_rows(last["rows"])[0])
+    if (launched["ota_superpose"], launched["ota_fold"]) != (n0, n0 * (groups - 1)):
+        _fail(f"mesh round launches {launched} != shards x groups")
+    want_up = sum(packing.row_wire_bytes(r.bits, M, QUANT_BLOCK) for r in last["rows"])
+    if log.uplink_bytes != want_up or log.downlink_bytes != 4 * M:
+        _fail(f"mesh round bytes {log.uplink_bytes}/{log.downlink_bytes} != wire format")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(srv.params)):
+        _fail("non-finite params after the mesh round")
+    ota.ota_aggregate_packed(last["draws"], last["rows"], None, last["weights"], layout,
+                             ota.OTAConfig(snr_db=srv.cfg.snr_db))
+    if not _bits_equal(acc, ota.ota_aggregate_packed.last_acc):
+        _fail("the mesh round's aggregate != the unsharded aggregation of its rows")
+    print(f"  mesh knob: FLServer(mesh_data_shards={n0}) round 0 in {secs:.2f} s, launches "
+          f"{launched}, bytes {log.uplink_bytes}/{log.downlink_bytes} as the wire format, "
+          f"params finite, aggregate == unsharded aggregation of its rows: True")
+    del srv
+
+
+def _mesh_retrieval(meshes, counts, dev):
+    """The row-sharded top-k over a 262,144-record arena of the planner's
+    width, f32 and int8, with exact duplicate records, k 32 and 128:
+    ``ops.topk_cosine_sharded`` and ``RetrievalEngine(mesh=)`` bit for bit
+    the unsharded kernel and ``topk_plain`` (indices equal, scores bit for
+    bit, as ``check_topk``), one launch a shard; row 3 timed at this size
+    beside its bound and its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.profiling.ragdb import EMBED_DIM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as ktk
+    from repro_torch.retrieval.arena import ArenaStore
+    from repro_torch.retrieval.engine import RetrievalEngine
+
+    n, Q, ns = MESH_ARENA_LIVE, MESH_TOPK_Q, MESH_TOPK_SHARDS
+    mesh = meshes[ns]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    vec = torch.randn((n, EMBED_DIM), generator=gen, device=dev)
+    vec = vec / vec.norm(dim=1, keepdim=True)
+    vec[60:70] = vec[10:20]  # duplicates in shard 0
+    vec[MESH_DUP_FAR:MESH_DUP_FAR + 100] = vec[10:110]  # and in the last shard
+    qv = torch.randn((Q, EMBED_DIM), generator=gen, device=dev)
+    qv = qv / qv.norm(dim=1, keepdim=True)
+    qv[:5] = vec[10:15]  # queries equal to triplicated records
+    qv = qv.contiguous()
+    q_np, vec_np = qv.cpu().numpy(), vec.cpu().numpy()
+    del vec
+    for storage in ("f32", "int8"):
+        t0 = time.perf_counter()
+        store = ArenaStore(EMBED_DIM, storage=storage, capacity=MESH_ARENA_ROWS)
+        store.add_batch(vec_np)
+        build_s = time.perf_counter() - t0
+        data, scales = store.raw()
+        if data.shape[0] != MESH_ARENA_ROWS:
+            _fail(f"arena capacity {data.shape[0]} != {MESH_ARENA_ROWS}")
+        recs = torch.from_numpy(data).to(dev)
+        sc = None if scales is None else torch.from_numpy(scales).to(dev)
+        eng = RetrievalEngine(store, device=dev, mesh=mesh)
+        for k in (32, 128):
+            s0, i0 = ktk.topk_cosine(qv, recs, sc, n, k=k)
+            sp, ip = ktk.topk_plain(qv, recs, sc, n, k)
+            (s1, i1), l1 = _counted(counts, lambda: ops.topk_cosine_sharded(
+                qv, recs, sc, n, k=k, mesh=mesh, use_kernel=True))
+            (s2, i2), l2 = _counted(counts, lambda: eng.topk(q_np, k))
+            torch.cuda.synchronize()
+            for name, launched in (("topk_cosine_sharded", l1), ("RetrievalEngine", l2)):
+                if launched != {"ota_superpose": 0, "ota_fold": 0, "topk_cosine": ns}:
+                    _fail(f"{name} launches {launched} != one a shard ({ns})")
+            if not (torch.equal(i0, ip) and _bits_equal(s0, sp)):
+                _fail(f"the unsharded top-k kernel != topk_plain ({storage}, k={k})")
+            if not (torch.equal(i1, ip) and _bits_equal(s1, sp)):
+                _fail(f"sharded top-k != topk_plain ({storage}, k={k})")
+            if not (np.array_equal(i2, i0.cpu().numpy())
+                    and s2.tobytes() == s0.cpu().numpy().tobytes()):
+                _fail(f"RetrievalEngine(mesh=) != the unsharded kernel ({storage}, k={k})")
+            if not (i0[0, :3].tolist() == [10, 60, MESH_DUP_FAR]
+                    and s0[0, 0] == s0[0, 1] == s0[0, 2]):
+                _fail(f"tie contract not exercised/held at {MESH_ARENA_ROWS} rows ({storage})")
+            if not (bool((i1 < n).all()) and bool(torch.isfinite(s1).all())):
+                _fail(f"the sharded merge took a record past the live count ({storage}, k={k})")
+            nb = (tensor_bytes(qv) + n * recs.shape[1] * recs.element_size()
+                  + (0 if sc is None else n * sc.shape[1] * 4) + Q * k * 8)
+            flops = 2.0 * Q * n * recs.shape[1]
+            rec = {"storage": storage, "Np": MESH_ARENA_ROWS, "n": n, "Q": Q, "k": k,
+                   "shards": ns, "arena_build_s": build_s,
+                   "max_abs_err": (s1 - sp).abs().max().item(),
+                   "ms": cuda_ms(lambda: ktk.topk_cosine(qv, recs, sc, n, k=k)),
+                   "ms_queued": cuda_ms_queued(lambda: ktk.topk_cosine(qv, recs, sc, n, k=k)),
+                   "sharded_ms": cuda_ms(lambda: ops.topk_cosine_sharded(
+                       qv, recs, sc, n, k=k, mesh=mesh, use_kernel=True)),
+                   "sharded_ms_queued": cuda_ms_queued(lambda: ops.topk_cosine_sharded(
+                       qv, recs, sc, n, k=k, mesh=mesh, use_kernel=True)),
+                   "engine_ms": cuda_ms(lambda: eng.topk(q_np, k), reps=10),
+                   "plain_ms": cuda_ms(lambda: ktk.topk_plain(qv, recs, sc, n, k), reps=3),
+                   "bound_ms": bound_ms(nb, flops), "bound_by": bound_by(nb, flops),
+                   "library_ms": None}
+            print("  mesh topk " + json.dumps(rec))
+        print(f"  mesh arena {storage}: shard_nbytes({ns}) {store.shard_nbytes(ns)} B a shard, "
+              f"shard_rows {store.shard_rows(ns)}, bounds {store.shard_bounds(ns)}, "
+              f"shard_nbytes(1) {store.shard_nbytes(1)} B")
+        del recs, sc, eng, store
+
+
+def phase_mesh(srv, round_inputs, dev):
+    """The sharded data planes on one card: meshes of n shards all on
+    ``dev``, every result bit for bit against the unsharded kernel path.
+    Returns the launches of rows 1-3 on the sharded paths (the unsharded
+    comparisons not counted)."""
+    from repro_torch.core import ota
+    from repro_torch.launch.mesh import make_data_mesh
+
+    counts = {"ota_superpose": 0, "ota_fold": 0, "topk_cosine": 0}
+    meshes = {n: make_data_mesh(n, devices=[dev] * n) for n in (*MESH_SHARDS, MESH_TOPK_SHARDS)}
+    ocfg = ota.OTAConfig(snr_db=srv.cfg.snr_db)
+    t0 = time.perf_counter()
+    print(f"mesh: meshes of {sorted(meshes)} shards on {dev}; DeepSpeech2 M="
+          f"{srv.layout.padded_size}")
+    _mesh_barrier(srv.layout, ocfg, round_inputs, meshes, counts, dev)
+    _mesh_stream(srv.layout, ocfg, meshes, counts, dev)
+    _mesh_knob(srv.layout, meshes, counts, dev)
+    _mesh_retrieval(meshes, counts, dev)
+    print(f"  launches on the sharded paths: {counts} ({time.perf_counter() - t0:.1f} s)")
+    for name, c in counts.items():
+        if c <= 0:
+            _fail(f"{name} did not launch on the sharded paths")
+    return counts
 
 
 # the barrier round's storage groups as the rounds phase reads them at
@@ -3249,8 +3604,8 @@ def _leaf_names(tree, prefix=""):
 
 # a full run's phases; ``--phases`` may also name ``rows`` (phase_rows) and
 # ``trainprof`` (phase_trainprof), which a full run leaves out
-PHASES = ("build", "kernels", "rounds", "state", "flat", "stream", "ops", "host", "serve",
-          "families", "train")
+PHASES = ("build", "kernels", "rounds", "state", "mesh", "flat", "stream", "ops", "host",
+          "serve", "families", "train")
 
 
 def main() -> None:
@@ -3282,14 +3637,17 @@ def main() -> None:
         flash_err, flash_rec = check_flash(dev, timing=True)
         errs.update(flash_err)
     plan_bits = [8] * 20
-    if "state" in phases and "rounds" not in phases:
-        _fail("the state phase runs on the rounds phase's server: name both")
+    for name in ("state", "mesh"):
+        if name in phases and "rounds" not in phases:
+            _fail(f"the {name} phase runs on the rounds phase's server: name both")
     if "rounds" in phases:
         srv, counts, round_inputs = phase_rounds(dev)
         timings = time_round_kernels(srv, round_inputs, dev)
         plan_bits = list(srv.round_logs[-1].bits.values())
         if "state" in phases:
             state_counts, _ = phase_state(srv, dev)
+        if "mesh" in phases:
+            mesh_counts = phase_mesh(srv, round_inputs, dev)
         del srv, round_inputs
     if "flat" in phases:
         qs_launches, qs_err, qs_rec = phase_flat(dev, plan_bits)
@@ -3335,7 +3693,7 @@ def main() -> None:
     # each path's count, read just after the path ran, summed over the paths
     launches = {n: counts[n] + stream_counts[n] for n in counts}
     launches["ota_quantize_superpose"] = qs_launches
-    for n, c in state_counts.items():
+    for n, c in (*state_counts.items(), *mesh_counts.items()):
         launches[n] += c
     launches["flash_attention"] = serve_rec["launches"] + families_rec["launches"]
     for n, c in ops_counts.items():

@@ -201,6 +201,11 @@ class FLConfig:
     pathloss_spread_db: float = 0.0  # log-normal shadowing std (dB)
     downlink_bits: int = 32
     downlink_block: int = QUANT_BLOCK
+    # the sharded data planes (launch/mesh.make_data_mesh): the OTA fold's
+    # symbol axis over this many shards, one a card on a card server (it
+    # raises with fewer cards), on the CPU all on it; 0 and 1 are the
+    # single-device path
+    mesh_data_shards: int = 0
     dropout_prob: float = 0.0
     fedprox_mu: float = 0.0
     server_momentum: float = 0.0

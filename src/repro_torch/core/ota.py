@@ -16,6 +16,11 @@ streaming accumulator.
 - **Streaming** (``OtaAccumulator``): waves of packed rows fold into one
   persistent accumulator through the same group folds; a single wave in
   cohort order is the barrier aggregate bit for bit.
+- **Sharded** (``mesh=`` on ``ota_aggregate_packed`` and
+  ``OtaAccumulator``, a ``launch.mesh.DataMesh``): each group pass splits
+  the symbol axis into column chunks, one a shard on its device, and the
+  chunks concatenate before the epilogue, bit for bit the unsharded fold
+  (``_fold_groups``).
 - **The per-tree oracle** (``ota_aggregate_pertree``): the reference's
   legacy per-client, per-leaf loop, the readable specification of the
   f32 path, kept for equivalence checks.
@@ -262,7 +267,45 @@ def _group_rows(rows: Sequence[packing.PackedRow]):
     return tuple(kinds), tuple(datas), tuple(scales), perm
 
 
-def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None,
+def _fold_group(acc, data, scale, wseg, gseg, kind, qblock, use_kernel):
+    """One storage group's superpose (``acc`` None) or fold onto ``acc``."""
+    kw = dict(gains=gseg, qblock=qblock, packed4=kind == "int4")
+    if use_kernel is False:
+        return kota.superpose_plain(data, scale, wseg, acc=acc, **kw)
+    if acc is None:
+        return kota.ota_superpose(data, scale, wseg, **kw)
+    return kota.ota_fold(acc, data, scale, wseg, **kw)
+
+
+def _shard_chunk(M: int, n_shards: int, kinds) -> int:
+    """Columns of one shard's chunk in the sharded fold: ceil(M / n_shards)
+    rounded up to the lcm of 2 and every blockwise qblock, so each scale
+    block and each int4 byte stays inside one chunk."""
+    align = 2
+    for _, qblock in kinds:
+        if qblock > 0:
+            align = math.lcm(align, int(qblock))
+    mc = -(-M // n_shards)
+    return -(-mc // align) * align
+
+
+def _pad_cols(x: torch.Tensor, width: int, value=0) -> torch.Tensor:
+    """x (R, c) padded on the right to ``width`` columns of ``value``."""
+    pad = width - x.shape[1]
+    if pad <= 0:
+        return x
+    return torch.cat([x, torch.full((x.shape[0], pad), value, dtype=x.dtype, device=x.device)],
+                     dim=1)
+
+
+def _col_chunk(x: torch.Tensor, lo: int, width: int, value, device) -> torch.Tensor:
+    """Columns [lo, lo + width) of x, padded past its end with ``value``,
+    as a contiguous tensor on ``device`` (a copy unless it is all of x)."""
+    part = _pad_cols(x[:, min(lo, x.shape[1]) : lo + width], width, value)
+    return part.contiguous().to(device)
+
+
+def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None, mesh=None,
                  use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Fold grouped rows into the running superposition ``acc``.
 
@@ -270,8 +313,38 @@ def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None,
     is the state, every later group folds in, in group order. ``wg`` and
     ``gains`` are in group order. ``use_kernel=False`` runs the plain
     version (``superpose_plain``) on any device.
+
+    ``mesh`` (a ``launch.mesh.DataMesh``) splits the symbol (column) axis
+    over its shards, the reference's ``_fold_groups_sharded``. Every output
+    column is its own sum over the K rows, so each shard runs the same
+    group passes on its chunk of ``_shard_chunk`` columns and the combine
+    is a concatenation: the result is the unsharded fold's bit for bit.
+    Chunks past the rows' end are zero symbols with unit scales, the
+    layout's own padding. Shard s's chunk moves to ``mesh.devices[s]``; the
+    running state stays a list of per-shard chunks between groups and is
+    gathered onto ``devices[0]`` (in shard order, trimmed to M) only after
+    the last group, so the AWGN epilogue's sum of squares sees the
+    unsharded vector. No mesh is one chunk: the tensors as they are, no
+    copies. One launch a group a shard.
     """
-    with obs.span("fold", groups=len(kinds)):
+    devices = (None,) if mesh is None else mesh.devices
+    n_shards = len(devices)
+    M = 0 if acc is None else acc.shape[0]
+    for (kind, _), data in zip(kinds, datas):
+        M = max(M, data.shape[1] * (2 if kind == "int4" else 1))
+    mc = _shard_chunk(M, n_shards, kinds)
+
+    def cut(x, s, width, value):
+        return x if mesh is None else _col_chunk(x, s * width, width, value, devices[s])
+
+    def to(x, dev):
+        return x if x is None or dev is None else x.to(dev)
+
+    span = (obs.span("shard_fold", shards=n_shards, groups=len(kinds), chunk=mc)
+            if n_shards > 1 else obs.span("fold", groups=len(kinds)))
+    with span:
+        running = ([None] * n_shards if acc is None
+                   else [cut(acc.reshape(1, -1), s, mc, 0.0).reshape(-1) for s in range(n_shards)])
         off = 0
         for (kind, qblock), data, scale in zip(kinds, datas, scales):
             kg = scale.shape[0]
@@ -279,25 +352,30 @@ def _fold_groups(acc, kinds, datas, scales, wg, *, gains=None,
             wseg = wg[off : off + kg]
             gseg = None if gains is None else gains[off : off + kg]
             off += kg
-            kw = dict(gains=gseg, qblock=qblock, packed4=kind == "int4")
-            if use_kernel is False:
-                acc = kota.superpose_plain(data, scale, wseg, acc=acc, **kw)
-            elif acc is None:
-                acc = kota.ota_superpose(data, scale, wseg, **kw)
-            else:
-                acc = kota.ota_fold(acc, data, scale, wseg, **kw)
-    return acc
+            width = mc // 2 if kind == "int4" else mc
+            blockwise = qblock > 0 and scale.shape[1] > 1
+            for s, dev in enumerate(devices):
+                sc_s = cut(scale, s, mc // qblock, 1.0) if blockwise else to(scale, dev)
+                running[s] = _fold_group(running[s], cut(data, s, width, 0), sc_s,
+                                         to(wseg, dev), to(gseg, dev), kind, qblock, use_kernel)
+        if mesh is None:
+            return running[0]
+        out = torch.cat([r.to(devices[0]) for r in running])
+    return out[:M] if out.shape[0] != M else out
 
 
 def _aggregate_rows_flat(
-    draws, datas, scales, perm, weights, *, kinds, cfg, gains=None, n_valid, use_kernel=None
+    draws, datas, scales, perm, weights, *, kinds, cfg, gains=None, n_valid, mesh=None,
+    use_kernel=None
 ):
     """Aggregate grouped rows: channel draw, group folds, AWGN epilogue.
 
     With ``gains`` the physical channel replaces the coin-flip:
     participation is gains > 0 and the weights renormalise over the
-    survivors (``channel.combine_weights``). Returns (y (n_valid,), habs,
-    participate, noise_std, acc) with ``acc`` the pre-noise (M,) aggregate.
+    survivors (``channel.combine_weights``). ``mesh``: the folds shard
+    their symbol axis over it; the epilogue runs on the gathered aggregate.
+    Returns (y (n_valid,), habs, participate, noise_std, acc) with ``acc``
+    the pre-noise (M,) aggregate.
     """
     if gains is None:
         habs, participate, w = round_channel(draws, weights, cfg=cfg)
@@ -309,7 +387,8 @@ def _aggregate_rows_flat(
         w = chan.combine_weights(weights, gains)
         gg = gains[perm]
     idx = torch.as_tensor(perm, dtype=torch.int64, device=w.device)
-    acc = _fold_groups(None, kinds, datas, scales, w[idx], gains=gg, use_kernel=use_kernel)
+    acc = _fold_groups(None, kinds, datas, scales, w[idx], gains=gg, mesh=mesh,
+                       use_kernel=use_kernel)
     with obs.span("finalize"):
         y, noise_std = _awgn_epilogue(draws, acc, cfg=cfg, n_valid=n_valid)
     return y, habs, participate, noise_std, acc
@@ -393,13 +472,17 @@ class OtaAccumulator:
     epilogue and unpacks. One wave in cohort order with ``round_channel``
     weights is ``ota_aggregate_packed`` bit for bit; later waves
     left-associate onto the state. ``use_kernel`` as the module's
-    docstring says.
+    docstring says. ``mesh`` (``launch.mesh.make_data_mesh``): every fold
+    shards its symbol axis over it, bit for bit the unsharded fold; the
+    state is kept gathered on ``mesh.devices[0]`` and split again at the
+    next fold.
     """
 
     def __init__(self, layout: packing.Layout, cfg: OTAConfig = OTAConfig(), *,
-                 use_kernel: Optional[bool] = None):
+                 mesh=None, use_kernel: Optional[bool] = None):
         self.layout = layout
         self.cfg = cfg
+        self.mesh = mesh
         self.use_kernel = use_kernel
         self.reset()
 
@@ -433,7 +516,7 @@ class OtaAccumulator:
         idx = torch.as_tensor(perm, dtype=torch.int64, device=device)
         g = None if gains is None else torch.as_tensor(gains).to(device, torch.float32)[idx]
         self._acc = _fold_groups(self._acc, kinds, datas, scales, w[idx], gains=g,
-                                 use_kernel=self.use_kernel)
+                                 mesh=self.mesh, use_kernel=self.use_kernel)
         self.n_folded += len(rows)
         self.wire_bytes += wire.wire_bytes(rows)
         return self
@@ -475,6 +558,7 @@ def ota_aggregate_packed(
     cfg: OTAConfig = OTAConfig(),
     *,
     gains=None,
+    mesh=None,
     use_kernel: Optional[bool] = None,
 ) -> Tuple[Tree, AggregateInfo]:
     """Aggregate flat client updates; unpack the result per ``layout``.
@@ -484,12 +568,17 @@ def ota_aggregate_packed(
     against ``draws.sr_seed``, ``ota_aggregate_flat``). ``gains``: optional
     (K,) per-row channel gains in cohort order, packed rows only; they
     replace the coin-flip and ride inside the superpose/fold passes.
+    ``mesh``: optional ``launch.mesh.DataMesh``, packed rows only: the
+    folds shard their symbol axis over it, bit for bit the unsharded
+    aggregate (the epilogue runs on the gathered accumulator).
     The pre-noise aggregate of the last call stays in
     ``ota_aggregate_packed.last_acc`` for checks.
     """
     if not packing.is_packed_rows(X):
         if gains is not None:
             raise ValueError("gains= is a packed-uplink feature (PackedRow cohorts only)")
+        if mesh is not None:
+            raise ValueError("mesh= is a packed-uplink feature (PackedRow cohorts only)")
         if bits is None:
             raise ValueError("the f32 matrix needs the per-row bits")
         y, habs, participate, noise_std, acc = ota_aggregate_flat(
@@ -510,7 +599,7 @@ def ota_aggregate_packed(
         g_in = None if gains is None else torch.as_tensor(gains).to(device)
         y, habs, participate, noise_std, acc = _aggregate_rows_flat(
             draws, datas, scales, perm, w_in, kinds=kinds, cfg=cfg, gains=g_in,
-            n_valid=layout.size, use_kernel=use_kernel,
+            n_valid=layout.size, mesh=mesh, use_kernel=use_kernel,
         )
         wire_kw = dict(
             uplink_bytes=wire.wire_bytes(rows),

@@ -20,6 +20,14 @@ training: truncated clients skip the round, the survivors' receive gains
 ride inside the superpose/fold kernels, and each device's realised SNR
 and truncation rate become planner features for the next round.
 
+``FLConfig.mesh_data_shards`` > 1 gives the server a ``launch.mesh``
+data mesh of that many shards (``self.mesh``): both loops fold with the
+OTA fold's symbol axis sharded over it, bit for bit the unsharded
+aggregation. On a card the mesh spans that many distinct cards and the
+server raises where fewer are visible, as the reference does; on the CPU
+the shards share the CPU. ``mesh=`` hands in any other mesh, such as
+several shards on one card.
+
 The round key of the reference becomes a round-draws seam
 (``core.ota.RoundDraws``): ``draws(seed * 131 + rnd, device)`` gives the
 round's dither seeds, channel draws and AWGN normals. The default draws
@@ -60,6 +68,7 @@ from repro_torch.core.tree import tree_map
 from repro_torch.data.voice import Utterance, batchify, make_client_shard, make_eval_set
 from repro_torch.device import resolve_device
 from repro_torch.fl.client import FLClient, LatencyModel
+from repro_torch.launch.mesh import DataMesh, _indexed, make_data_mesh
 from repro_torch.models.deepspeech2 import ctc_loss, ds2_greedy_decode, ds2_logits
 from repro_torch.models.registry import build_model
 from repro_torch.optim.optimizers import state_nbytes
@@ -124,6 +133,9 @@ class FLServer:
     params tree (for example ``convert.params_from_numpy`` of the
     reference's weights); None draws random weights from ``cfg.seed``.
     ``draws``: the round-draws factory (default ``ota.TorchRoundDraws``).
+    ``mesh``: the data mesh of the OTA fold (``launch.mesh.DataMesh``),
+    taking the place of the one ``cfg.mesh_data_shards`` would build; its
+    first device, where the aggregate gathers, is the server's.
     ``last_round`` keeps the last aggregation's inputs for checks.
     """
 
@@ -136,8 +148,21 @@ class FLServer:
         shard_size: int = 24,
         init_params: Optional[Tree] = None,
         draws: Optional[DrawsFactory] = None,
+        mesh: Optional[DataMesh] = None,
     ):
         self.device = resolve_device(device)
+        # the sharded OTA data plane: both round loops fold on this mesh,
+        # bit for bit the unsharded fold. The knob spans distinct cards
+        # (make_data_mesh raises where fewer are visible) or, on a CPU
+        # server, shards of the one CPU
+        n_shards = fl_cfg.mesh_data_shards
+        if mesh is None and n_shards > 1:
+            mesh = make_data_mesh(
+                n_shards, devices=[self.device] * n_shards if self.device.type == "cpu" else None)
+        if mesh is not None and mesh.devices[0] != _indexed(self.device):
+            raise ValueError(f"the mesh gathers on {mesh.devices[0]}, the server runs on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.cfg = fl_cfg
         self.arch = arch or get_arch("deepspeech2")
         self.model = build_model(self.arch)
@@ -367,6 +392,7 @@ class FLServer:
                 self.layout,
                 ota.OTAConfig(snr_db=self.cfg.snr_db),
                 gains=gains,
+                mesh=self.mesh,
             )
             self.last_round = {"rows": deltas, "weights": weights, "gains": gains,
                                "info": info, "draws": draws}
@@ -639,7 +665,7 @@ class StreamingFLServer(FLServer):
         else:  # one wave: the barrier fold
             waves = [dict(rows=[deltas[j] for j in counted], weights=w, staleness=None,
                           gains=g_counted)]
-        acc = ota.OtaAccumulator(self.layout, ocfg)
+        acc = ota.OtaAccumulator(self.layout, ocfg, mesh=self.mesh)
         for wave in waves:
             acc.fold(wave["rows"], wave["weights"], staleness=wave["staleness"],
                      gains=wave["gains"])

@@ -7,7 +7,8 @@ computes outside its kernels (the fake-quant scale, the weight quantizer,
 the int4 pack) and call the kernel wrappers: ``kernels/quantize.py``
 (fake-quant), ``kernels/ota_aggregate.py``, ``kernels/qmatmul.py``,
 ``kernels/ota_fused.py`` (in-pass quantize-superpose, packed superpose and
-fold), ``kernels/topk_similarity.py`` (cosine top-k) and
+fold), ``kernels/topk_similarity.py`` (cosine top-k;
+``topk_cosine_sharded`` splits it over a ``launch.mesh.DataMesh``) and
 ``kernels/flash_attention.py`` (``flash_mha(q, k, v, *, causal=True)``,
 causal or not, Sq != Sk, with the reference's precondition that Sk is a
 multiple of 128 unless causal with Sq <= Sk). The row-major int4 wire pack
@@ -94,6 +95,65 @@ def topk_cosine(
     return topk_similarity.topk_cosine(qm, recs, scales, int(n), k=k)
 
 
+def topk_cosine_sharded(
+    qm: torch.Tensor,
+    recs,
+    scales,
+    n,
+    *,
+    k: int,
+    mesh,
+    use_kernel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded ``topk_cosine`` over the ``data`` axis of ``mesh``
+    (``launch.mesh.DataMesh``; the reference's ``topk_cosine_sharded``).
+
+    ``recs``: the (Np, D) capacity slab, Np a multiple of shards x
+    ``TILE_N``, or the shards' own (Np / shards, D) slabs, shard s on
+    ``mesh.devices[s]`` (the engine keeps them so); ``scales`` alike (None
+    for f32). Shard s scores its rows with its live count clip(n - s *
+    rows, 0, rows) through the top-k kernel (``use_kernel=False``: its
+    plain version) on its device (a shard past n launches with count 0 and
+    returns -inf entries), and its indices are offset by s * rows. The
+    candidates merge on ``devices[0]``: concatenated in shard order and
+    sorted by ``topk_similarity.sort_key`` (score descending, ties by
+    ascending global index). Each score is one record's ordered dot
+    product and the shard bounds fall on tiles, so scores and indices are
+    ``topk_cosine``'s bit for bit; any global top-k member is top-k in its
+    shard, so k candidates a shard suffice. k <= TOPK_LANES.
+    """
+    devices = mesh.devices
+    n_shards = len(devices)
+    if isinstance(recs, torch.Tensor):
+        Np = recs.shape[0]
+        assert Np % (n_shards * topk_similarity.TILE_N) == 0, (Np, n_shards)
+        rows = Np // n_shards
+        rec_s = [recs[s * rows : (s + 1) * rows] for s in range(n_shards)]
+        sc_s = [None if scales is None else scales[s * rows : (s + 1) * rows]
+                for s in range(n_shards)]
+    else:
+        rec_s = list(recs)
+        sc_s = [None] * n_shards if scales is None else list(scales)
+        rows = rec_s[0].shape[0]
+        assert len(rec_s) == len(sc_s) == n_shards, (len(rec_s), n_shards)
+        assert rows % topk_similarity.TILE_N == 0 and all(r.shape[0] == rows for r in rec_s)
+    assert 0 < k <= TOPK_LANES, k
+    n = int(n)
+    cand_s, cand_i = [], []
+    for s, dev in enumerate(devices):
+        n_local = min(max(n - s * rows, 0), rows)
+        sc = None if sc_s[s] is None else sc_s[s].to(dev)
+        if use_kernel:
+            sv, iv = topk_similarity.topk_cosine(qm.to(dev), rec_s[s].to(dev), sc, n_local, k=k)
+        else:
+            sv, iv = topk_similarity.topk_plain(qm.to(dev), rec_s[s].to(dev), sc, n_local, k)
+        cand_s.append(sv.to(devices[0]))
+        cand_i.append((iv + s * rows).to(devices[0]))
+    cs, ci = torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1)
+    order = torch.argsort(topk_similarity.sort_key(cs, ci), dim=1, descending=True)[:, :k]
+    return cs.gather(1, order), ci.gather(1, order)
+
+
 def quantize_weights(w: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric quantization for qmatmul: (q int8 (K, N),
     scale (N,) f32). Round half to even, in w's dtype."""
@@ -140,6 +200,6 @@ def qmatmul_int4(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -
 __all__ = [
     "fake_quant", "fake_quant_scale", "flash_mha", "ota_aggregate", "ota_dequant_superpose",
     "ota_fold_packed", "ota_quantize_superpose", "pack_int4", "pack_int4_rows", "qmatmul",
-    "qmatmul_int4", "quantize_weights", "quantize_weights_int4", "topk_cosine", "unpack_int4",
-    "unpack_int4_rows",
+    "qmatmul_int4", "quantize_weights", "quantize_weights_int4", "topk_cosine",
+    "topk_cosine_sharded", "unpack_int4", "unpack_int4_rows",
 ]

@@ -1,5 +1,5 @@
 """Growable vector arena — the storage layer of the retrieval engine (the
-JAX package's ``retrieval/arena.py`` without its shard views).
+JAX package's ``retrieval/arena.py``).
 
 One contiguous (capacity, D) numpy buffer with amortized-doubling
 appends. Two storage classes: ``f32``, and ``int8`` — int8 symbols plus a
@@ -7,7 +7,9 @@ appends. Two storage classes: ``f32``, and ``int8`` — int8 symbols plus a
 symmetric amax/qmax grid. Capacity stays a multiple of
 ``kernels.topk_similarity.TILE_N`` and padding rows stay exact zeros
 (scales 1.0), so the top-k kernel consumes the raw capacity slab with
-the live count beside it. ``save``/``load`` write and read the
+the live count beside it. ``shard_rows``/``shard_bounds``/``shard_nbytes``
+describe the row-sharded slab of the mesh retrieval path (DESIGN.md §15).
+``save``/``load`` write and read the
 reference's ``arena_store`` checkpoint (``ckpt/checkpoint.py``), so an
 arena crosses between both packages.
 """
@@ -72,6 +74,33 @@ class ArenaStore:
         if self._scales is not None:
             out += self._scales[: self._n].nbytes
         return out
+
+    def shard_rows(self, n_shards: int) -> int:
+        """Rows a shard under row sharding: the capacity over ``n_shards``
+        contiguous blocks, rounded up to a multiple of TILE_N (the mesh
+        path pads the slab to ``n_shards * shard_rows`` with zero rows and
+        unit scales, so shard bounds fall on the kernel's tiles)."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        return -(-self.capacity // (n_shards * TILE_N)) * TILE_N
+
+    def shard_bounds(self, n_shards: int) -> Tuple[Tuple[int, int], ...]:
+        """Each shard's ``[lo, hi)`` rows of the capacity slab: contiguous,
+        TILE_N-aligned, clamped to the capacity (trailing shards may be
+        empty)."""
+        rows = self.shard_rows(n_shards)
+        return tuple(
+            (min(s * rows, self.capacity), min((s + 1) * rows, self.capacity))
+            for s in range(n_shards)
+        )
+
+    def shard_nbytes(self, n_shards: int) -> int:
+        """Bytes of one shard's slab (symbols and scale grid) under row
+        sharding: what each device of the mesh path holds."""
+        per_row = self._data.itemsize * self._data.shape[1]
+        if self._scales is not None:
+            per_row += self._scales.itemsize * self._scales.shape[1]
+        return self.shard_rows(n_shards) * per_row
 
     def _grow(self, need: int) -> None:
         cap = self.capacity

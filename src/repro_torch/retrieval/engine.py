@@ -1,5 +1,5 @@
 """Batched top-k retrieval over an ``ArenaStore`` (the JAX package's
-``retrieval/engine.py``, single-device path).
+``retrieval/engine.py``).
 
 One selection contract everywhere: descending score, equal scores by
 ascending record index. A query with k up to the kernel's ``MAX_K`` goes
@@ -13,6 +13,13 @@ on the device between appends. A larger k takes the reference's host path
 chunks of ``CHUNK_ROWS`` rows, merged exactly) and ``stable_topk``; the
 numpy helpers below are the reference's, so the same numpy on the same
 host gives the same indices and scores bit for bit.
+
+The sharded paths (DESIGN.md §15): with ``mesh`` (``launch.mesh.DataMesh``)
+the capacity slab's rows split over the mesh's shards, each kept on its
+device, and a query with k <= ``kernels.ops.TOPK_LANES`` runs
+``ops.topk_cosine_sharded``, bit for bit the unsharded top-k. ``n_shards`` >
+1 instead shards the host path over ``ArenaStore.shard_bounds`` and merges
+exactly (``_topk_numpy_sharded``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import TOPK_LANES, topk_cosine_sharded
 from repro_torch.kernels.topk_similarity import MAX_K, topk_cosine, topk_plain
 from repro_torch.retrieval.arena import ArenaStore
 
@@ -86,15 +94,31 @@ def normalize_rows(mat: np.ndarray) -> np.ndarray:
 
 
 class RetrievalEngine:
-    """Batched cosine top-k queries against one arena."""
+    """Batched cosine top-k queries against one arena.
 
-    def __init__(self, store: ArenaStore, *, use_kernel: Optional[bool] = None, device=None):
+    The order of dispatch is the reference's: ``mesh`` and k <= TOPK_LANES
+    first (the row-sharded top-k), then k <= MAX_K on the engine's device
+    (the reference's kernel step), then ``n_shards`` > 1 (the host-sharded
+    numpy path), then numpy. The reference reaches the kernel step only
+    with ``use_kernel`` true and otherwise goes to numpy; here
+    ``use_kernel=False`` runs the kernel's plain version on the device at
+    that step (the port's meaning since the keyword came), so the two
+    orders meet wherever the reference takes its kernel, and the host
+    paths serve k > MAX_K only.
+    """
+
+    def __init__(self, store: ArenaStore, *, use_kernel: Optional[bool] = None, device=None,
+                 mesh=None, n_shards: int = 0):
         self.store = store
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_shards = int(n_shards)
         # device copy of the capacity slab, keyed on (buffer identity,
-        # live count): appends and grows invalidate it
+        # live count): appends and grows invalidate it; the mesh path's
+        # per-shard copies likewise
         self._dev_cache = None
+        self._shard_cache = None
 
     def _slab(self):
         data, scales = self.store.raw()
@@ -108,6 +132,34 @@ class RetrievalEngine:
                 None if scales is None else torch.from_numpy(scales).to(self.device),
             )
             self._dev_cache = cache
+        return cache[2], cache[3]
+
+    def _shard_slabs(self):
+        """Each shard's (rows, D) slab and scale rows on its device: the
+        capacity slab padded to shards x ``shard_rows`` with zero rows and
+        unit scales, the arena's own padding."""
+        data, scales = self.store.raw()
+        n = len(self.store)
+        cache = self._shard_cache
+        if cache is None or cache[0] is not data or cache[1] != n:
+            rows = self.store.shard_rows(len(self.mesh.devices))
+
+            def part(a, lo, fill):
+                if a is None:
+                    return None
+                out = a[lo : lo + rows]
+                if out.shape[0] < rows:
+                    out = np.concatenate(
+                        [out, np.full((rows - out.shape[0], a.shape[1]), fill, a.dtype)])
+                return torch.from_numpy(np.ascontiguousarray(out))
+
+            recs, scs = [], []
+            for s, dev in enumerate(self.mesh.devices):
+                recs.append(part(data, s * rows, 0).to(dev))
+                sc = part(scales, s * rows, 1.0)
+                scs.append(None if sc is None else sc.to(dev))
+            cache = (data, n, recs, None if scales is None else scs)
+            self._shard_cache = cache
         return cache[2], cache[3]
 
     def topk(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -124,15 +176,45 @@ class RetrievalEngine:
         with obs.span("retrieval.query", q=q, k=k, rows=n):
             obs.metrics.inc("retrieval.queries", q)
             obs.metrics.inc("retrieval.query_rows", q * n)
-            if k > MAX_K:
-                return self._topk_numpy(queries, k)
-            data, scales = self._slab()
-            qm = torch.from_numpy(queries).to(self.device)
-            if self.use_kernel is False:
-                s, i = topk_plain(qm, data, scales, n, k)
-            else:
-                s, i = topk_cosine(qm, data, scales, n, k=k)
+            if self.mesh is not None and k <= TOPK_LANES:
+                return self._topk_sharded(queries, k)
+            if k <= MAX_K:
+                data, scales = self._slab()
+                qm = torch.from_numpy(queries).to(self.device)
+                if self.use_kernel is False:
+                    s, i = topk_plain(qm, data, scales, n, k)
+                else:
+                    s, i = topk_cosine(qm, data, scales, n, k=k)
+                return s.cpu().numpy(), i.cpu().numpy()
+            if self.n_shards > 1:
+                return self._topk_numpy_sharded(queries, k)
+            return self._topk_numpy(queries, k)
+
+    def _topk_sharded(self, queries, k):
+        """The row-sharded top-k over the mesh (``ops.topk_cosine_sharded``)."""
+        recs, scales = self._shard_slabs()
+        qm = torch.from_numpy(queries).to(self.mesh.devices[0])
+        with obs.span("shard_merge", shards=len(self.mesh.devices), k=k):
+            s, i = topk_cosine_sharded(qm, recs, scales, len(self.store), k=k, mesh=self.mesh,
+                                       use_kernel=self.use_kernel is not False)
             return s.cpu().numpy(), i.cpu().numpy()
+
+    def _topk_numpy_sharded(self, queries, k):
+        """The reference's host-sharded path: one GEMM and top-k over each
+        shard's rows (``ArenaStore.shard_bounds``), then the exact merge.
+        BLAS may pick another microkernel for each GEMM shape, so the
+        scores may differ from the one-GEMM path's in the last place."""
+        store, n = self.store, len(self.store)
+        cand_s, cand_i = [], []
+        with obs.span("shard_merge", shards=self.n_shards, k=k):
+            for lo, hi in store.shard_bounds(self.n_shards):
+                hi = min(hi, n)
+                if hi <= lo:
+                    continue
+                s, i = stable_topk(queries @ store.dequantize_rows(lo, hi).T, k)
+                cand_s.append(s)
+                cand_i.append(i + lo)
+            return merge_candidates(cand_s, cand_i, k)
 
     def _topk_numpy(self, queries, k):
         """The reference's host path: past the kernel's k limit."""

@@ -222,15 +222,17 @@ def test_fl_config_fields_equal_the_reference():
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-ITEM5 = "ROADMAP §1 item 5 (the mesh on torch.distributed)"
+ITEM5B = ("ROADMAP §1 item 5b (the mesh's sharding specs, the dryrun and the MoE "
+          "expert-parallel path)")
+TPU_CONSTANTS = ("a TPU v5e's peak rates for the reference's roofline; the card's constants "
+                 "live in chip_smoke.py")
 JAX_KEY = "a jax.random key split; the port's round-draws seam (RoundDraws) replaces it"
 PALLAS = "a Pallas kernel or its TPU tile constant; the port's CUDA wrapper takes its place"
 
 MODULES_ABSENT = {
-    "launch/mesh.py": ITEM5,
-    "launch/sharding.py": ITEM5,
-    "launch/dryrun.py": ITEM5,
-    "util.py": ITEM5 + ": JAX mesh shims",
+    "launch/sharding.py": ITEM5B,
+    "launch/dryrun.py": ITEM5B,
+    "util.py": ITEM5B + ": JAX mesh shims",
     "kernels/ref.py": "the reference's oracles; each port wrapper's plain version sits beside it",
 }
 
@@ -243,7 +245,6 @@ NAMES_ABSENT = {
     ("obs/export.py", "write_all_bench_reports"):
         "imports benchmarks/bench_*, which run the JAX package; waits for the port's benches",
     ("obs/export.py", "BENCH_REPORTS"): "the bench list of write_all_bench_reports",
-    ("kernels/ops.py", "topk_cosine_sharded"): ITEM5,
     ("kernels/flash_attention.py", "flash_attention"): PALLAS,
     ("kernels/flash_attention.py", "BQ"): PALLAS,
     ("kernels/ota_aggregate.py", "BLOCK_COLS"): PALLAS,
@@ -257,19 +258,21 @@ NAMES_ABSENT = {
     ("kernels/quantize.py", "LANES"): PALLAS,
     ("kernels/topk_similarity.py", "TOPK_LANES"): PALLAS,
     ("kernels/topk_similarity.py", "topk_similarity_2d"): PALLAS,
-    ("models/layers.py", "moe_uses_shard_map"): ITEM5,
-    ("configs", "INPUT_SHAPES"): ITEM5 + " (launch/dryrun)",
-    ("configs", "InputShape"): ITEM5 + " (launch/dryrun)",
+    ("models/layers.py", "moe_uses_shard_map"): ITEM5B,
+    ("configs", "INPUT_SHAPES"): ITEM5B + " (launch/dryrun)",
+    ("configs", "InputShape"): ITEM5B + " (launch/dryrun)",
+    ("launch/mesh.py", "make_mesh"): ITEM5B + ": the model zoo's pod meshes",
+    ("launch/mesh.py", "make_production_mesh"): ITEM5B + ": the model zoo's pod meshes",
+    ("launch/mesh.py", "make_host_mesh"): ITEM5B + ": the model zoo's pod meshes",
+    ("launch/mesh.py", "PEAK_FLOPS_BF16"): TPU_CONSTANTS,
+    ("launch/mesh.py", "HBM_BW"): TPU_CONSTANTS,
+    ("launch/mesh.py", "ICI_BW"): TPU_CONSTANTS,
     ("launch/steps.py", "Pytree"): "a type alias (Any) the port's module does not annotate with",
     ("serve/engine.py", "Pytree"): "a type alias (Any) the port's module does not annotate with",
 }
 
 MEMBERS_ABSENT = {
-    ("configs", "FLConfig", "mesh_data_shards"): ITEM5,
-    ("models/registry.py", "Model", "input_spec"): ITEM5 + " (launch/dryrun)",
-    ("retrieval/arena.py", "ArenaStore", "shard_bounds"): ITEM5,
-    ("retrieval/arena.py", "ArenaStore", "shard_nbytes"): ITEM5,
-    ("retrieval/arena.py", "ArenaStore", "shard_rows"): ITEM5,
+    ("models/registry.py", "Model", "input_spec"): ITEM5B + " (launch/dryrun)",
 }
 
 # the reference's type alias and the port's
@@ -460,6 +463,12 @@ ARGV = "the CLI takes its arguments, so a test drives it in process"
 CHUNK_CONTROLS = ("q_offset has no caller outside the reference's layers.py; block_skip, "
                   "differentiable, max_unroll and unroll_kv are XLA loop controls")
 KEY_DRAWS = {"key": "draws"}
+MESH_DEVICES = ("the shards' devices, which may repeat one device (['cpu'] * n on the CPU, "
+                "[cuda:0] * n on one card): the port's counterpart of the reference's forced "
+                "host device count; None spans n distinct cards and raises where fewer are "
+                "visible, as the reference does")
+SERVER_MESH = ("a data mesh in place of the knob's, such as several shards on one card, "
+               "which the knob's distinct cards cannot give")
 
 PARAM_DIFFS = {
     ("ckpt/checkpoint.py", "load_checkpoint"): ({"shardings": "device"}, (), (), SHARDING),
@@ -468,9 +477,8 @@ PARAM_DIFFS = {
     ("core/channel.py", "ChannelModel.sample"): ({"round_key": "draws"}, (), (), JAX_KEY),
     ("core/ota.py", "ota_aggregate_flat"): (KEY_DRAWS, (), (), JAX_KEY),
     ("core/ota.py", "round_channel"): (KEY_DRAWS, (), (), JAX_KEY),
-    ("core/ota.py", "OtaAccumulator.__init__"): ({}, ("mesh",), (), ITEM5),
     ("core/ota.py", "OtaAccumulator.finalize"): (KEY_DRAWS, (), (), JAX_KEY),
-    ("core/ota.py", "ota_aggregate_packed"): (KEY_DRAWS, ("mesh",), (), JAX_KEY + "; " + ITEM5),
+    ("core/ota.py", "ota_aggregate_packed"): (KEY_DRAWS, (), (), JAX_KEY),
     ("core/ota.py", "ota_aggregate"): (KEY_DRAWS, (), (), JAX_KEY),
     ("core/ota.py", "ota_aggregate_pertree"): (KEY_DRAWS, (), (), JAX_KEY),
     ("core/profiling/planner.py", "RAGPlanner.__init__"): ({}, (), ("device",), DEVICE),
@@ -480,7 +488,8 @@ PARAM_DIFFS = {
     ("core/quant.py", "fake_quant_tree"): ({"key": "generator"}, (), (), GEN),
     ("fl/server.py", "make_planner"): ({}, (), ("device",), DEVICE),
     ("fl/server.py", "FLServer.__init__"):
-        ({}, (), ("device", "init_params", "draws"), DEVICE + "; " + SEAMS),
+        ({}, (), ("device", "init_params", "draws", "mesh"),
+         DEVICE + "; " + SEAMS + "; " + SERVER_MESH),
     ("fl/server.py", "StreamingFLServer.__init__"):
         ({}, ("shard_size",), ("**kw",),
          "shard_size, the device and the seams pass through **kw to FLServer.__init__"),
@@ -488,6 +497,7 @@ PARAM_DIFFS = {
     ("kernels/ota_aggregate.py", "ota_aggregate_2d"): ({}, ("interpret",), (), INTERPRET),
     ("kernels/qmatmul.py", "qmatmul"): ({}, ("interpret",), (), INTERPRET),
     ("kernels/quantize.py", "fake_quant_2d"): ({}, ("interpret",), (), INTERPRET),
+    ("launch/mesh.py", "make_data_mesh"): ({}, (), ("devices",), MESH_DEVICES),
     ("launch/serve.py", "main"): ({}, (), ("argv",), ARGV),
     ("launch/train.py", "main"): ({}, (), ("argv",), ARGV),
     ("launch/steps.py", "init_train_state"): ({"key": "generator"}, (), (), GEN),
@@ -518,8 +528,7 @@ PARAM_DIFFS = {
     ("models/transformer.py", "init_decode_cache"): ({}, (), ("device",), DEVICE),
     ("models/whisper.py", "init_whisper"): ({"key": "gen"}, (), ("device",), GEN + "; " + DEVICE),
     ("models/whisper.py", "init_whisper_cache"): ({}, (), ("device",), DEVICE),
-    ("retrieval/engine.py", "RetrievalEngine.__init__"):
-        ({}, ("mesh", "n_shards"), ("device",), ITEM5 + "; " + DEVICE),
+    ("retrieval/engine.py", "RetrievalEngine.__init__"): ({}, (), ("device",), DEVICE),
     ("retrieval/store.py", "ArenaVectorStore.__init__"): ({}, (), ("device",), DEVICE),
     ("serve/engine.py", "ServeEngine.__init__"):
         ({}, (), ("device", "params"), DEVICE + "; " + SEAMS),

@@ -814,3 +814,151 @@ def test_full_width_scan_equals_its_recurrence(dev, family):
     for a, e in zip(got, want):
         assert a.is_cuda and torch.isfinite(a).all()
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+def _mesh_on(dev, shards):
+    from repro_torch.launch.mesh import make_data_mesh
+
+    return make_data_mesh(shards, devices=[dev] * shards)
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4, 5])
+@pytest.mark.parametrize("block", [0, 256])
+def test_sharded_fold_through_the_kernel_equals_the_unsharded_kernel(dev, block, shards):
+    """A mixed cohort (int4, int8, int16, f32 groups, gains) folded with the
+    symbol axis over ``shards`` chunks on the card, then folded again onto
+    that state: bit for bit the unsharded kernel path, shards x groups
+    launches a fold. Per-row scales at 3 shards give chunks of 34,134
+    columns, rows that are not 16-byte multiples (the kernel's scalar
+    path)."""
+    M = 102_400
+    gen = torch.Generator(device=dev).manual_seed(block + shards)
+    bits = [4, 8, 16, 32, 8, 4, 16]
+    rows = [wire.encode_row(torch.randn(M, generator=gen, device=dev) * 0.01, b, 5, i,
+                            block=block) for i, b in enumerate(bits)]
+    kinds, datas, scales, _ = ota._group_rows(rows)
+    w = torch.rand(len(bits), generator=gen, device=dev)
+    g = torch.rand(len(bits), generator=gen, device=dev)
+    mesh = _mesh_on(dev, shards)
+    want = ota._fold_groups(None, kinds, datas, scales, w, gains=g)
+    before = (kota.ota_superpose.launches, kota.ota_fold.launches)
+    got = ota._fold_groups(None, kinds, datas, scales, w, gains=g, mesh=mesh)
+    assert (kota.ota_superpose.launches - before[0], kota.ota_fold.launches - before[1]) == (
+        shards, shards * (len(kinds) - 1))
+    assert got.is_cuda and torch.equal(got.view(torch.int32), want.view(torch.int32))
+    again = ota._fold_groups(got, kinds, datas, scales, w, gains=g, mesh=mesh)
+    want2 = ota._fold_groups(want, kinds, datas, scales, w, gains=g)
+    assert torch.equal(again.view(torch.int32), want2.view(torch.int32))
+
+
+@pytest.mark.parametrize("shards", [2, 4, 5])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_sharded_topk_through_the_kernel_equals_the_unsharded_kernel(dev, storage, shards):
+    """``RetrievalEngine(mesh=)`` on the card over 7,192 live records of an
+    8,192-record arena with duplicated records (exact ties), k 32 and 128:
+    scores and indices bit for bit the unsharded kernel's, one launch a
+    shard."""
+    from repro_torch.retrieval import RetrievalEngine
+
+    rng = np.random.RandomState(shards)
+    n = 8192 - 1000
+    vec = rng.randn(n, 256).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    vec[4000:4100] = vec[10:110]  # duplicates in another shard
+    store = ArenaStore(256, storage=storage, capacity=8192)
+    store.add_batch(vec)
+    data, scales = store.raw()
+    recs = torch.from_numpy(data).to(dev)
+    sc = None if scales is None else torch.from_numpy(scales).to(dev)
+    q = vec[np.r_[10:20, 500:510]]
+    eng = RetrievalEngine(store, device=dev, mesh=_mesh_on(dev, shards))
+    for k in (32, 128):
+        s0, i0 = ktk.topk_cosine(torch.from_numpy(q).to(dev), recs, sc, n, k=k)
+        before = ktk.topk_cosine.launches
+        s1, i1 = eng.topk(q, k)
+        assert ktk.topk_cosine.launches == before + shards
+        assert np.array_equal(i1, i0.cpu().numpy())
+        assert s1.tobytes() == s0.cpu().numpy().tobytes()
+        assert s1[0, 0] == s1[0, 1] and i1[0, 0] == 10 and i1[0, 1] == 4000
+
+
+@pytest.mark.parametrize("k", [100, 128])
+def test_sharded_topk_launches_empty_shards_with_count_zero(dev, k):
+    """300 live records over 8 shards of 256 rows: shards 2-7 launch the
+    kernel with count 0; k 128 > n leaves a -inf tail. Bit for bit the
+    unsharded kernel, one launch a shard."""
+    rng = np.random.RandomState(k)
+    store = ArenaStore(64, capacity=1024)
+    store.add_batch(rng.randn(300, 64).astype(np.float32))
+    n = 100 if k == 128 else 300
+    data, _ = store.raw()
+    slab = torch.from_numpy(np.concatenate([data, np.zeros((1024, 64), np.float32)])).to(dev)
+    q = torch.from_numpy(rng.randn(3, 64).astype(np.float32)).to(dev)
+    s0, i0 = ktk.topk_cosine(q, slab, None, n, k=k)
+    before = ktk.topk_cosine.launches
+    s1, i1 = ops.topk_cosine_sharded(q, slab, None, n, k=k, mesh=_mesh_on(dev, 8),
+                                     use_kernel=True)
+    assert ktk.topk_cosine.launches == before + 8
+    assert torch.equal(i1, i0) and torch.equal(s1.view(torch.int32), s0.view(torch.int32))
+
+
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return n
+
+
+def test_data_mesh_across_cards(cards):
+    """``make_data_mesh(n)`` over n distinct cards: the sharded fold, the
+    sharded top-k and a ``FLServer(mesh_data_shards=n)`` round, each bit for
+    bit the unsharded kernel path on card 0, one launch a shard."""
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.retrieval import RetrievalEngine
+
+    dev = torch.device("cuda", 0)
+    mesh = make_data_mesh(cards)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(cards))
+    M = 102_400
+    gen = torch.Generator(device=dev).manual_seed(cards)
+    bits = [4, 8, 16, 32, 8, 4, 16]
+    rows = [wire.encode_row(torch.randn(M, generator=gen, device=dev) * 0.01, b, 5, i,
+                            block=256) for i, b in enumerate(bits)]
+    kinds, datas, scales, _ = ota._group_rows(rows)
+    w = torch.rand(len(bits), generator=gen, device=dev)
+    g = torch.rand(len(bits), generator=gen, device=dev)
+    want = ota._fold_groups(None, kinds, datas, scales, w, gains=g)
+    before = (kota.ota_superpose.launches, kota.ota_fold.launches)
+    got = ota._fold_groups(None, kinds, datas, scales, w, gains=g, mesh=mesh)
+    assert (kota.ota_superpose.launches - before[0], kota.ota_fold.launches - before[1]) == (
+        cards, cards * (len(kinds) - 1))
+    assert got.device == dev and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    rng = np.random.RandomState(cards)
+    n = 8192 - 1000
+    vec = rng.randn(n, 256).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    vec[4000:4100] = vec[10:110]
+    store = ArenaStore(256, storage="int8", capacity=8192)
+    store.add_batch(vec)
+    data, sc = store.raw()
+    q = vec[np.r_[10:20, 500:510]]
+    s0, i0 = ktk.topk_cosine(torch.from_numpy(q).to(dev), torch.from_numpy(data).to(dev),
+                             torch.from_numpy(sc).to(dev), n, k=32)
+    before = ktk.topk_cosine.launches
+    s1, i1 = RetrievalEngine(store, device=dev, mesh=mesh).topk(q, 32)
+    assert ktk.topk_cosine.launches == before + cards
+    assert np.array_equal(i1, i0.cpu().numpy()) and s1.tobytes() == s0.cpu().numpy().tobytes()
+
+    arch = get_arch("deepspeech2").with_(n_layers=1, d_model=32)
+    cfg = FLConfig(n_clients=6, clients_per_round=3, local_steps=1, local_batch=2, seed=0,
+                   mesh_data_shards=cards)
+    srv = FLServer(cfg, arch, device=dev, shard_size=6)
+    assert srv.mesh.devices == mesh.devices
+    srv.run_round(0)
+    acc = ota.ota_aggregate_packed.last_acc
+    last = srv.last_round
+    ota.ota_aggregate_packed(last["draws"], last["rows"], None, last["weights"], srv.layout,
+                             ota.OTAConfig(snr_db=cfg.snr_db))
+    assert torch.equal(acc.view(torch.int32), ota.ota_aggregate_packed.last_acc.view(torch.int32))
