@@ -181,6 +181,23 @@ Phases, each of which fails the run on error:
              the all-zero ``enc_out``, as the reference's); prefill ms, decode ms a
              token, engine seconds and peak memory beside the bounds of
              ``family_bounds``.
+   zoo     — the model zoo's mesh (``launch.mesh.make_mesh``,
+             ``util.use_mesh``, ``launch.sharding``): kimi-k2-1t-a32b (the
+             families phase's 1-layer build, the flash prefill) prefills 4
+             x 2,048 tokens under a (2, 2) ("data", "model") mesh of four
+             shards on the card; the MoE takes the expert-parallel branch
+             (one ``moe_shard_map`` span a layer: 4,096 tokens a data shard,
+             192 experts a model shard, capacity 106), the branch is held
+             against ``moe_sharded_plain`` on layer 0's input (ZOO_MOE_ULPS)
+             and the prefill's logits against the same prefill through the
+             plain version (SERVE_LOGIT_TOL); a decode step under the mesh
+             takes the local path (no span) and equals the unmeshed one
+             bit for bit; the sharded, plain and unsharded blocks, the
+             meshed and unmeshed prefills timed, and the dropped share of
+             (token, slot) pairs on each path. Then stablelm-1.6b's params
+             and AdamW moments placed on the mesh by ``tree_param_specs``:
+             each device's bytes equal the specs' reckoning and what the
+             allocator grew, and every leaf gathers back bit for bit.
 9. train   — stablelm-1.6b at full width and depth (24 layers, d_model
              2,048, 32 heads of 64, d_ff 5,632, vocab 100,352, bf16, the
              config's remat=True, random weights from a seed) through
@@ -242,9 +259,13 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the card's rates (an H100 SXM: HBM3; f32 outside the tensor cores; dense
+# bf16 on them); outside the repository this import fails, and so the run
+from repro_torch.launch.mesh import CARD_BF16_FLOPS as BF16_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import CARD_F32_FLOPS as F32_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import CARD_HBM_BYTES_PER_S as HBM_BYTES_PER_S  # noqa: E402
+
 STREAM_GRACE_S = 8.0
 
 
@@ -3193,6 +3214,265 @@ def _families_moe_check(cfg, model, params, dev) -> dict:
     return {"attention": attn, "routing": diffs, "max_dlogsoftmax_rows": dl, "rows_held": rows}
 
 
+# ---------------------------------------------------------------- phase zoo
+
+ZOO_ARCH, ZOO_LAYERS, ZOO_MESH = "kimi-k2-1t-a32b", 1, (2, 2)
+ZOO_PLACE_ARCH = "stablelm-1.6b"  # the train phase's model
+# the sharded MoE block against its plain version: the branch runs each
+# model shard's 192 experts in its own batched products, the plain version
+# all 384 in one, so cuBLAS may sum in another order; each expert's output
+# is bf16, so the bound is 4 bf16 roundings (2^-8 each) of the plain
+# output's largest magnitude
+ZOO_MOE_ULPS = 4
+
+
+class _MoeRecorder:
+    """Within ``with``: the (params, x) of each ``models.layers.moe_block``
+    call, by wrapping it (the transformer calls it through the module);
+    with ``plain`` set, the block runs ``moe_sharded_plain`` on the mesh's
+    (dp, mp) instead."""
+
+    def __init__(self, plain=None):
+        self.calls, self.plain = [], plain
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self._L, self._block = L, L.moe_block
+
+        def block(p, x, cfg, *, capacity_factor=1.25):
+            self.calls.append((p, x))
+            if self.plain is not None:
+                return L.moe_sharded_plain(p, x, cfg, *self.plain,
+                                           capacity_factor=capacity_factor)
+            return self._block(p, x, cfg, capacity_factor=capacity_factor)
+
+        L.moe_block = block
+        return self
+
+    def __exit__(self, *exc):
+        self._L.moe_block = self._block
+        return False
+
+
+def _dropped_share(x, router, cfg, dp: int) -> float:
+    """The share of (token, slot) pairs past their expert's capacity when
+    x's tokens route in ``dp`` data shards, each at its own capacity."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    E, K = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(-1, x.shape[-1])
+    T_loc = xf.shape[0] // dp
+    C = max(1, int(T_loc * K / E * 1.25))
+    kept = sum(int(L._route_local(xf[i * T_loc:(i + 1) * T_loc], router, E, K, C)[3].sum())
+               for i in range(dp))
+    torch.cuda.synchronize()
+    return 1.0 - kept / (xf.shape[0] * K)
+
+
+def phase_zoo(dev):
+    """The model zoo's mesh on the card. (1) kimi-k2-1t-a32b at full width
+    (1 of 61 layers, the families phase's build, the flash prefill) prefills
+    4 x 2,048 tokens under ``use_mesh`` of a (2, 2) ("data", "model") mesh
+    of four shards on the card: the MoE takes the expert-parallel branch
+    (span ``moe_shard_map``, 4,096 tokens a data shard), held against its
+    plain version (``moe_sharded_plain``) within ZOO_MOE_ULPS and the
+    prefill's logits against the same prefill through the plain version
+    within SERVE_LOGIT_TOL; a decode step under the mesh (2 tokens a data
+    shard x 8 < 384 experts) takes the local path and equals the unmeshed
+    step bit for bit. (2) stablelm-1.6b's params and AdamW state placed on
+    the mesh by ``tree_param_specs`` (``launch.sharding.place``), each
+    device's bytes against the specs' reckoning and the allocator's, and
+    gathered back bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.util import tree_bytes, use_mesh
+
+    t_phase = time.perf_counter()
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    dp, mp = ZOO_MESH
+    mesh = make_mesh(ZOO_MESH, ("data", "model"), devices=[dev] * (dp * mp))
+    cfg = get_arch(ZOO_ARCH).with_(n_layers=ZOO_LAYERS, use_flash_kernel=True)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, dev)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, P))
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev)}
+    E, K = cfg.n_experts, cfg.experts_per_token
+    T_loc = B * P // dp
+    C_loc, C_one = max(1, int(T_loc * K / E * 1.25)), max(1, int(B * P * K / E * 1.25))
+    print(f"zoo: {cfg.name} {cfg.n_layers} of {get_arch(ZOO_ARCH).n_layers} layers at full "
+          f"width, {E} experts top {K}, B {B} x {P} tokens on a {dp} x {mp} (data, model) "
+          f"mesh of {dev} x {dp * mp}: {T_loc} tokens a data shard, {E // mp} experts a model "
+          f"shard, capacity {C_loc} a data shard ({C_one} unsharded)")
+
+    def prefill():
+        with use_mesh(mesh), torch.no_grad():
+            return model.prefill(params, batch)
+
+    with torch.no_grad():
+        prefill()  # warm-up
+        kfa.flash_mha.launches = 0
+        with obs.enabled() as tracer, _MoeRecorder() as rec:
+            logits, cache = prefill()
+        torch.cuda.synchronize()
+        spans = [e for e in tracer.events if e.name == "moe_shard_map"]
+        launches = kfa.flash_mha.launches
+        print(f"  prefill under the mesh: {len(spans)} moe_shard_map spans "
+              f"{[e.args for e in spans]}; flash launches {launches}")
+        if len(spans) != cfg.n_layers or any(
+                (e.args["dp"], e.args["mp"], e.args["tokens"], e.args["capacity"], e.args["plain"])
+                != (dp, mp, T_loc, C_loc, False) for e in spans):
+            _fail(f"the MoE took the expert-parallel branch {len(spans)} times, want "
+                  f"{cfg.n_layers} at dp {dp}, mp {mp}, {T_loc} tokens, capacity {C_loc}")
+        if launches != _flash_launches(cfg):
+            _fail(f"the zoo prefill launched flash {launches} times, want {_flash_launches(cfg)}")
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (B, cfg.vocab_size):
+            _fail("the zoo prefill's logits are misshapen or not finite")
+        p_moe, x_moe = rec.calls[0]
+        del rec
+
+        # (a) the MoE block: the branch against its plain version
+        with use_mesh(mesh):
+            out_s, aux_s = L.moe_block(p_moe, x_moe, cfg)
+        out_p, aux_p = L.moe_sharded_plain(p_moe, x_moe, cfg, dp, mp)
+        out_u, aux_u = L.moe_block(p_moe, x_moe, cfg)
+        torch.cuda.synchronize()
+        err = float((out_s.float() - out_p.float()).abs().max())
+        scale = float(out_p.float().abs().max())
+        tol = ZOO_MOE_ULPS * 2.0 ** -8 * scale
+        differ = float((out_s != out_p).float().mean())
+        unsharded_d = float((out_s.float() - out_u.float()).abs().max())
+        drop_s = _dropped_share(x_moe, p_moe["router"], cfg, dp)
+        drop_u = _dropped_share(x_moe, p_moe["router"], cfg, 1)
+        print(f"  MoE block (layer 0's input, {tuple(x_moe.shape)} {x_moe.dtype}): branch vs "
+              f"plain max |d| {err!r} (bound {tol!r}: {ZOO_MOE_ULPS} bf16 roundings of max "
+              f"|out| {scale!r}), share of elements that differ {differ!r}, bit for bit "
+              f"{err == 0.0}; aux {float(aux_s)!r} / {float(aux_p)!r}; against the unsharded "
+              f"block (read only: other capacities) max |d| {unsharded_d!r}, aux "
+              f"{float(aux_u)!r}; dropped pairs {drop_s!r} sharded ({dp} shards at C {C_loc}), "
+              f"{drop_u!r} unsharded (C {C_one})")
+        if not err <= tol or not bool(torch.isfinite(out_s).all()):
+            _fail(f"the expert-parallel MoE differs from its plain version: {err} > {tol}")
+        if float(aux_s) != float(aux_p):
+            _fail(f"the branch's aux {float(aux_s)} != the plain version's {float(aux_p)}")
+
+        def sharded_block():
+            with use_mesh(mesh):
+                return L.moe_block(p_moe, x_moe, cfg)
+
+        ms_s = cuda_ms(sharded_block, reps=10, warmup=2)
+        ms_p = cuda_ms(lambda: L.moe_sharded_plain(p_moe, x_moe, cfg, dp, mp), reps=10, warmup=2)
+        ms_u = cuda_ms(lambda: L.moe_block(p_moe, x_moe, cfg), reps=10, warmup=2)
+        del out_s, out_p, out_u
+
+        # (b) the prefill's logits through the plain version
+        with _MoeRecorder(plain=(dp, mp)):
+            logits_p, _ = prefill()
+        lsm = (torch.log_softmax(logits.float(), -1)
+               - torch.log_softmax(logits_p.float(), -1)).abs().max()
+        dl = float(lsm)
+        print(f"  prefill through the plain MoE: max |d log_softmax| {dl!r} (tolerance "
+              f"{SERVE_LOGIT_TOL}), bit for bit {bool(torch.equal(logits, logits_p))}")
+        if not dl <= SERVE_LOGIT_TOL:
+            _fail(f"the meshed prefill and the plain-MoE prefill disagree: {dl}")
+        ms_prefill = cuda_ms(prefill, reps=5, warmup=1)
+        ms_prefill_u = cuda_ms(lambda: model.prefill(params, batch), reps=5, warmup=1)
+
+        # (c) a decode step under the mesh takes the local path
+        cache = model.grow_cache(cache, P + 1)
+        step = {"tokens": logits.argmax(-1).to(torch.int32)[:, None],
+                "pos": torch.full((B,), P, dtype=torch.int32, device=dev)}
+        want, _ = model.decode(params, {k: v.clone() for k, v in cache.items()}, step)
+        with obs.enabled() as tracer, use_mesh(mesh):
+            got, _ = model.decode(params, {k: v.clone() for k, v in cache.items()}, step)
+        torch.cuda.synchronize()
+        n_spans = len([e for e in tracer.events if e.name == "moe_shard_map"])
+        same = bool(torch.equal(got, want))
+        print(f"  decode step under the mesh ({B // dp} tokens a data shard x {K} < {E}): "
+              f"moe_shard_map spans {n_spans}, equal to the unmeshed step bit for bit {same}")
+        if n_spans or not same:
+            _fail("the meshed decode step left the local path or differs from the unmeshed one")
+    print(f"  ms: MoE block sharded {ms_s:.3f}, its plain version {ms_p:.3f}, unsharded "
+          f"{ms_u:.3f}; prefill under the mesh {ms_prefill:.2f}, unmeshed {ms_prefill_u:.2f}")
+    out = {"moe_max_abs_err": err, "moe_tol": tol, "moe_differ_share": differ,
+           "dlogsoftmax": dl, "dropped_sharded": drop_s, "dropped_unsharded": drop_u,
+           "moe_ms": ms_s, "moe_plain_ms": ms_p, "moe_unsharded_ms": ms_u,
+           "prefill_ms": ms_prefill, "prefill_unmeshed_ms": ms_prefill_u,
+           "flash_launches": launches}
+    del params, model, logits, logits_p, cache, p_moe, x_moe, got, want
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated(dev) > base + 2**30:
+        _fail(f"the zoo's kimi tensors outlived it: {torch.cuda.memory_allocated(dev)} B")
+
+    # (d) placement at full width
+    pcfg = get_arch(ZOO_PLACE_ARCH)
+    pmodel = build_model(pcfg)
+    gen.manual_seed(0)
+    state = init_train_state(pmodel, adamw(1e-3), gen)
+    tree = {"params": state["params"], "opt": state["opt"]}
+    del state
+    specs = {"params": shd.tree_param_specs(tree["params"], mesh, n_kv_heads=pcfg.n_kv_heads),
+             "opt": {k: shd.tree_param_specs(v, mesh, n_kv_heads=pcfg.n_kv_heads)
+                     for k, v in tree["opt"].items()}}
+    want_dev = shd.tree_spec_nbytes(tree, specs, mesh)
+    leaves = tree_leaves(tree)
+    total = tree_bytes(tree)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    placed = shd.place(tree, shd.to_named(specs, mesh))
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated(dev)
+    per_dev = shd.device_nbytes(placed)
+    n_pieces = len(leaves) * dp * mp
+    print(f"  placement: {pcfg.name} params + AdamW state, {len(leaves)} leaves, {total} B; "
+          f"per device {per_dev.tolist()} B (the specs reckon {want_dev} B, {want_dev / total:.4f}"
+          f" of the whole); the allocator grew {mem1 - mem0} B for {n_pieces} pieces; place "
+          f"{place_s * 1e3:.1f} ms")
+    if not (per_dev == want_dev).all():
+        _fail(f"placed bytes {per_dev.tolist()} != the specs' {want_dev} a device")
+    if not per_dev.sum() <= mem1 - mem0 <= per_dev.sum() + 512 * n_pieces:
+        _fail(f"the allocator grew {mem1 - mem0} B for {per_dev.sum()} B of pieces")
+    t0 = time.perf_counter()
+    bad = 0
+    for leaf, p_leaf in zip(leaves, tree_leaves(placed)):
+        back = shd.gather(p_leaf)
+        bad += not (back.dtype == leaf.dtype and back.shape == leaf.shape and torch.equal(
+            back.reshape(-1).view(torch.uint8), leaf.reshape(-1).view(torch.uint8)))
+        del back
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    print(f"  gathered back leaf by leaf in {gather_s * 1e3:.1f} ms: {len(leaves) - bad} of "
+          f"{len(leaves)} leaves bit for bit")
+    if bad:
+        _fail(f"{bad} leaves did not gather back bit for bit")
+    out.update(place_bytes_per_device=int(want_dev), place_total_bytes=total,
+               place_ms=place_s * 1e3, gather_ms=gather_s * 1e3)
+    del placed, tree, leaves
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  zoo phase {out['phase_s']:.1f} s: {json.dumps(out)}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 9
 
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_Q_STEPS = "stablelm-1.6b", 4, 2048, 6, 3
@@ -3605,7 +3885,7 @@ def _leaf_names(tree, prefix=""):
 # a full run's phases; ``--phases`` may also name ``rows`` (phase_rows) and
 # ``trainprof`` (phase_trainprof), which a full run leaves out
 PHASES = ("build", "kernels", "rounds", "state", "mesh", "flat", "stream", "ops", "host",
-          "serve", "families", "train")
+          "serve", "families", "zoo", "train")
 
 
 def main() -> None:
@@ -3620,8 +3900,6 @@ def main() -> None:
         print("no CUDA device is visible: the chip smoke test needs one card",
               file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails outside the repository)
 
     dev = torch.device("cuda", 0)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3663,6 +3941,8 @@ def main() -> None:
         serve_rec = phase_serve(dev)
     if "families" in phases:
         families_rec = phase_families(dev)
+    if "zoo" in phases:
+        zoo_rec = phase_zoo(dev)
     if "train" in phases:
         phase_train(dev)
     if "trainprof" in phases:
@@ -3695,7 +3975,8 @@ def main() -> None:
     launches["ota_quantize_superpose"] = qs_launches
     for n, c in (*state_counts.items(), *mesh_counts.items()):
         launches[n] += c
-    launches["flash_attention"] = serve_rec["launches"] + families_rec["launches"]
+    launches["flash_attention"] = (serve_rec["launches"] + families_rec["launches"]
+                                   + zoo_rec["flash_launches"])
     for n, c in ops_counts.items():
         launches[n] = launches.get(n, 0) + c
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)

@@ -31,16 +31,12 @@ import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_arch
-from repro_torch.core.tree import tree_leaves
 from repro_torch.data.lm import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, linear_warmup_cosine
-
-
-def count_params(params: Any) -> int:
-    return int(sum(t.numel() for t in tree_leaves(params)))
+from repro_torch.util import count_params
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -8,6 +8,7 @@
 - ``prefill(params, batch)``           -> (logits, cache)     [LMs]
 - ``init_cache(B, cache_len, device)`` -> cache               [LMs]
 - ``decode(params, cache, batch, window=0)`` -> (logits, cache) [LMs]
+- ``input_spec(shape)``                -> dict of meta tensors (the dry run)
 
 The LM families dense, moe, vlm and ssm share ``models/transformer.py``;
 hybrid has ``models/hybrid.py`` and audio ``models/whisper.py`` (its
@@ -17,11 +18,11 @@ prefill batch also holds ``frames``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, InputShape
 from repro_torch.models import deepspeech2 as DS2
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
@@ -75,6 +76,35 @@ class Model:
             return torch.cat([cur, fill], dim=axis)
 
         return {k: fit(k, v) for k, v in cache.items()}
+
+    def input_spec(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        """Meta tensors of every model input's shape and dtype (no
+        allocation), as the reference's ShapeDtypeStructs."""
+        cfg = self.cfg
+        B = shape.global_batch
+        S = shape.seq_len
+        tok = torch.int32
+
+        def spec(shp, dtype=tok):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "audio":
+                # stub frontend delivers embedded frames; tokens are targets
+                return {"frames": spec((B, cfg.encoder_seq, cfg.frontend_dim), torch.bfloat16),
+                        "tokens": spec((B, S))}
+            if cfg.family == "ds2" and shape.kind == "train":
+                return {"frames": spec((B, S, cfg.frontend_dim), torch.float32),
+                        "labels": spec((B, S // 8)),
+                        "frame_len": spec((B,)),
+                        "label_len": spec((B,))}
+            if cfg.family == "vlm":
+                # stub vision frontend: 256 patch embeddings prepended
+                return {"tokens": spec((B, S - 256)),
+                        "patches": spec((B, 256, cfg.frontend_dim), torch.bfloat16)}
+            return {"tokens": spec((B, S))}
+        # decode: one new token against a cache of length seq_len
+        return {"tokens": spec((B, 1)), "pos": spec((B,))}
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -222,17 +222,14 @@ def test_fl_config_fields_equal_the_reference():
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-ITEM5B = ("ROADMAP §1 item 5b (the mesh's sharding specs, the dryrun and the MoE "
-          "expert-parallel path)")
 TPU_CONSTANTS = ("a TPU v5e's peak rates for the reference's roofline; the card's constants "
-                 "live in chip_smoke.py")
+                 "are launch/mesh.py's CARD_*")
+XLA_ONLY = ("an XLA artifact of the reference's dry run (the compiled HLO, its cost and "
+            "memory analyses); the port's dry run runs on meta tensors and compiles nothing")
 JAX_KEY = "a jax.random key split; the port's round-draws seam (RoundDraws) replaces it"
 PALLAS = "a Pallas kernel or its TPU tile constant; the port's CUDA wrapper takes its place"
 
 MODULES_ABSENT = {
-    "launch/sharding.py": ITEM5B,
-    "launch/dryrun.py": ITEM5B,
-    "util.py": ITEM5B + ": JAX mesh shims",
     "kernels/ref.py": "the reference's oracles; each port wrapper's plain version sits beside it",
 }
 
@@ -258,12 +255,11 @@ NAMES_ABSENT = {
     ("kernels/quantize.py", "LANES"): PALLAS,
     ("kernels/topk_similarity.py", "TOPK_LANES"): PALLAS,
     ("kernels/topk_similarity.py", "topk_similarity_2d"): PALLAS,
-    ("models/layers.py", "moe_uses_shard_map"): ITEM5B,
-    ("configs", "INPUT_SHAPES"): ITEM5B + " (launch/dryrun)",
-    ("configs", "InputShape"): ITEM5B + " (launch/dryrun)",
-    ("launch/mesh.py", "make_mesh"): ITEM5B + ": the model zoo's pod meshes",
-    ("launch/mesh.py", "make_production_mesh"): ITEM5B + ": the model zoo's pod meshes",
-    ("launch/mesh.py", "make_host_mesh"): ITEM5B + ": the model zoo's pod meshes",
+    ("util.py", "constrain"):
+        "a GSPMD placement hint (with_sharding_constraint); a single controller places "
+        "tensors explicitly (launch.sharding.place), so there is nothing to bind it to",
+    ("util.py", "split_like"): JAX_KEY,
+    ("launch/dryrun.py", "collective_bytes"): XLA_ONLY + ": it parses the HLO's collectives",
     ("launch/mesh.py", "PEAK_FLOPS_BF16"): TPU_CONSTANTS,
     ("launch/mesh.py", "HBM_BW"): TPU_CONSTANTS,
     ("launch/mesh.py", "ICI_BW"): TPU_CONSTANTS,
@@ -271,8 +267,18 @@ NAMES_ABSENT = {
     ("serve/engine.py", "Pytree"): "a type alias (Any) the port's module does not annotate with",
 }
 
-MEMBERS_ABSENT = {
-    ("models/registry.py", "Model", "input_spec"): ITEM5B + " (launch/dryrun)",
+MEMBERS_ABSENT = {}
+
+# the reference's dry run's private XLA-only helpers and record fields,
+# none of which the port's has (held by a test below)
+DRYRUN_XLA_ONLY = {
+    "_compile_costs": XLA_ONLY + ": lowered.compile(), cost_analysis, memory_analysis",
+    "_calib_cfgs": XLA_ONLY + ": unrolled 1- and 2-unit variants, since scans hide a "
+                   "layer's cost from XLA's analysis",
+    "_extrapolate": XLA_ONLY + ": the calibration's depth extrapolation",
+    "_COLLECTIVES": XLA_ONLY + ": the HLO collective op names",
+    "flops": XLA_ONLY, "bytes_accessed": XLA_ONLY, "collectives": XLA_ONLY,
+    "temp_size_in_bytes": XLA_ONLY, "compile_s": XLA_ONLY, "t_collective_s": XLA_ONLY,
 }
 
 # the reference's type alias and the port's
@@ -303,7 +309,13 @@ SLICE = {
                             "state_nbytes"),
     "launch/steps.py": ("init_train_state", "train_state_shapes", "make_train_step"),
     "models/transformer.py": ("lm_logits_and_aux", "lm_loss"),
-    "models/layers.py": ("apply_mrope", "moe_block"),
+    "models/layers.py": ("apply_mrope", "moe_block", "moe_uses_shard_map"),
+    "launch/sharding.py": ("param_spec", "tree_param_specs", "batch_spec", "cache_spec",
+                           "to_named"),
+    "launch/mesh.py": ("make_production_mesh", "make_host_mesh"),
+    "launch/dryrun.py": ("model_flops", "active_params"),
+    "util.py": ("get_abstract_mesh", "use_mesh", "dtype_of", "tree_size", "tree_bytes",
+                "count_params"),
     "data/lm.py": ("MarkovTokens.__init__", "MarkovTokens.sample", "token_batches"),
 }
 RENAMES = {"key": "generator", "shardings": "device"}
@@ -412,6 +424,17 @@ def test_every_reference_class_member_is_ported_or_listed():
         sorted(absent - set(MEMBERS_ABSENT)), sorted(set(MEMBERS_ABSENT) - absent))
 
 
+def test_the_dry_runs_xla_only_names_are_the_references_alone():
+    """Each listed XLA-only helper or record field of the reference's dry
+    run is there, and the port's dry run has none of them."""
+    ref = (REF / "launch" / "dryrun.py").read_text()
+    port = (PORT / "launch" / "dryrun.py").read_text()
+    for name in DRYRUN_XLA_ONLY:
+        quoted = (f'"{name}"', f"'{name}'", f"def {name}(", f"{name} =")
+        assert any(q in ref for q in quoted), name
+        assert not any(q in port for q in quoted), name
+
+
 def test_every_reference_config_is_registered_or_queued():
     registered = set()
     for p in (REF / "configs").glob("*.py"):
@@ -498,6 +521,11 @@ PARAM_DIFFS = {
     ("kernels/qmatmul.py", "qmatmul"): ({}, ("interpret",), (), INTERPRET),
     ("kernels/quantize.py", "fake_quant_2d"): ({}, ("interpret",), (), INTERPRET),
     ("launch/mesh.py", "make_data_mesh"): ({}, (), ("devices",), MESH_DEVICES),
+    ("launch/mesh.py", "make_mesh"): ({}, (), ("devices",), MESH_DEVICES + "; or 'meta' "
+                                      "(shapes only, the dry run's devices)"),
+    ("launch/dryrun.py", "dryrun_one"):
+        ({}, ("calibrate",), (), XLA_ONLY + ": calibrate= runs the unrolled cost lowerings"),
+    ("launch/dryrun.py", "main"): ({}, (), ("argv",), ARGV),
     ("launch/serve.py", "main"): ({}, (), ("argv",), ARGV),
     ("launch/train.py", "main"): ({}, (), ("argv",), ARGV),
     ("launch/steps.py", "init_train_state"): ({"key": "generator"}, (), (), GEN),

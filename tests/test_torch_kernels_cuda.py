@@ -20,9 +20,13 @@ from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_pl
 from repro_torch.kernels.qmatmul import DESIGNS, kernel_design, mismatch, qmatmul_plain
 from repro_torch.kernels.qmatmul import qmatmul as kqmm
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import serve
+from repro_torch.models import layers as L
 from repro_torch.retrieval.arena import ArenaStore
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.util import use_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -962,3 +966,111 @@ def test_data_mesh_across_cards(cards):
     ota.ota_aggregate_packed(last["draws"], last["rows"], None, last["weights"], srv.layout,
                              ota.OTAConfig(snr_db=cfg.snr_db))
     assert torch.equal(acc.view(torch.int32), ota.ota_aggregate_packed.last_acc.view(torch.int32))
+
+
+class TestZoo:
+    """The model zoo's mesh on the card (``-k zoo``): the MoE's
+    expert-parallel branch against its plain version on four shards of one
+    card, the placement by the specs, and the branch over four distinct
+    cards."""
+
+    # the branch runs each model shard's experts in their own batched
+    # products, the plain version all in one: cuBLAS may sum in another
+    # order, so bf16 outputs are held within 4 bf16 roundings (2^-8 each)
+    # of the largest |out|, f32 within 1e-5 of it
+    ULPS = {torch.bfloat16: 4 * 2.0 ** -8, torch.float32: 1e-5}
+
+    @staticmethod
+    def _moe(dev, dtype, d_ff=256, seed=0):
+        """kimi-k2's router and experts (384 of them, top 8, d_model 7,168)
+        at an expert width of ``d_ff``, and 4 x 512 tokens."""
+        cfg = get_arch("kimi-k2-1t-a32b").with_(
+            n_layers=1, moe_d_ff=d_ff, param_dtype=str(dtype).removeprefix("torch."),
+            compute_dtype=str(dtype).removeprefix("torch."))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = L.init_moe(gen, cfg, dtype, dev)
+        x = torch.randn(4, 512, cfg.d_model, generator=gen, device=dev).to(dtype)
+        return cfg, p, x
+
+    def _check(self, out, plain, dtype):
+        err = float((out.float() - plain.float()).abs().max())
+        assert err <= self.ULPS[dtype] * float(plain.float().abs().max()), err
+        assert bool(torch.isfinite(out).all())
+
+    @pytest.mark.parametrize("dims", [(2, 2), (1, 4), (4, 1), (2, 2, 1)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_zoo_moe_sharded_equals_plain_on_one_card(self, dev, dtype, dims):
+        from repro_torch import obs
+
+        cfg, p, x = self._moe(dev, dtype)
+        axes = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+        mesh = make_mesh(dims, axes, devices=[dev] * int(np.prod(dims)))
+        dp, mp = int(np.prod(dims[:-1])), dims[-1]
+        with obs.enabled() as tracer, use_mesh(mesh):
+            out, aux = L.moe_block(p, x, cfg)
+        sharded = [e for e in tracer.events if e.name == "moe_shard_map"]
+        if mp == 1:  # no model axis to parallelise over: the local path
+            assert not sharded
+            want = L.moe_block(p, x, cfg)
+            assert torch.equal(out, want[0]) and torch.equal(aux, want[1])
+            return
+        assert len(sharded) == 1 and sharded[0].args["tokens"] == 2048 // dp
+        plain, plain_aux = L.moe_sharded_plain(p, x, cfg, dp, mp)
+        assert out.device == x.device and out.dtype == dtype
+        self._check(out, plain, dtype)
+        assert float(aux) == float(plain_aux)
+
+    def test_zoo_placement_round_trips_on_one_card(self, dev):
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        cfg = get_arch("stablelm-1.6b").with_(n_layers=2)
+        state = init_train_state(build_model(cfg), adamw(1e-3),
+                                 torch.Generator(device=dev).manual_seed(0))
+        tree = {"params": state["params"], "opt": state["opt"]}
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+        specs = {"params": shd.tree_param_specs(tree["params"], mesh, n_kv_heads=cfg.n_kv_heads),
+                 "opt": {k: shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads)
+                         for k, v in tree["opt"].items()}}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        placed = shd.place(tree, shd.to_named(specs, mesh))
+        grew = torch.cuda.memory_allocated(dev) - before
+        per_dev = shd.device_nbytes(placed)
+        assert (per_dev == shd.tree_spec_nbytes(tree, specs, mesh)).all()
+        n_pieces = 4 * len(tree_leaves(tree))
+        assert per_dev.sum() <= grew <= per_dev.sum() + 512 * n_pieces
+        for a, b in zip(tree_leaves(tree), tree_leaves(shd.gather(placed))):
+            assert b.device == dev and b.dtype == a.dtype
+            assert torch.equal(b.reshape(-1).view(torch.uint8), a.reshape(-1).view(torch.uint8))
+
+    def test_moe_expert_parallel_across_cards(self):
+        """kimi-k2's MoE layer at full width on a (1, 4) mesh of four
+        distinct cards: each card holds one model shard's 96 experts (8.5
+        GB, placed by the specs) and runs them; held against the plain
+        version on card 0."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        dev = torch.device("cuda", 0)
+        cfg = get_arch("kimi-k2-1t-a32b").with_(n_layers=1)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = L.init_moe(gen, cfg, torch.bfloat16, dev)
+        x = torch.randn(4, 2048, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+        mesh = make_mesh((1, 4), ("data", "model"))
+        assert [d.index for d in mesh.devices.flat] == [0, 1, 2, 3]
+        specs = shd.tree_param_specs({"moe": p}, mesh, n_kv_heads=cfg.n_kv_heads)["moe"]
+        placed = shd.place(p, shd.to_named(specs, mesh))
+        for m in range(4):
+            piece = placed["w_gate"].pieces[0, m]
+            assert piece.device == torch.device("cuda", m) and piece.shape[0] == 96
+        assert int(shd.device_nbytes({k: placed[k] for k in ("w_gate", "w_up", "w_down")})
+                   [0, 1]) == 3 * 96 * 7168 * 2048 * 2
+        with use_mesh(mesh):
+            out, aux = L.moe_block(placed, x, cfg)
+        plain, plain_aux = L.moe_sharded_plain(p, x, cfg, 1, 4)
+        assert out.device == dev
+        self._check(out, plain, torch.bfloat16)
+        assert float(aux) == float(plain_aux)
