@@ -214,6 +214,28 @@ Phases, each of which fails the run on error:
              the embedding's and head's, which accumulate by index); a
              reduced run checkpointed at steps 2 and 4 and resumed to 6. No
              kernel's launch count may move.
+   shardtrain — the sharded train step (``launch.steps.
+             make_sharded_train_step``) with the train phase's model, seed,
+             optimizer and batches: 3 unsharded steps (results kept on the
+             host), then 3 sharded steps from the same state on a (2, 2)
+             ("data", "model") mesh of four shards of the card (the AdamW
+             state placed by ``tree_param_specs``, 2 x 2,048 tokens a data
+             shard): each step's loss and grad norm within SHARD_LOSS_RTOL /
+             SHARD_GNORM_RTOL of the unsharded one, each device's bytes the
+             specs' after every step, and after step 3 the params (share of
+             bf16 elements that differ, largest difference) and the f32
+             moments within SHARD_* bounds read beside a planted fault (data
+             shard 1's gradient dropped), which must fail them; step ms both
+             ways, the sharded step split by CUDA events into placement,
+             gathers, forward+backward per shard, gradient mean, clip and
+             optimizer, each with the allocator's books (bytes at its
+             entry, peak and exit, cudaMalloc calls, retries), the peak
+             beside its reckoning
+             (``shard_reckoning``); step 2 on a (1, 1) mesh bit for bit the
+             unsharded step 2 but the embedding's and head's leaves (which
+             accumulate by index); one quantized-moment step on the (2, 2)
+             mesh against the unsharded one. No kernel's launch count may
+             move.
 
 The ``kernels`` phase also holds the quantize-superpose kernel against its
 plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
@@ -244,7 +266,10 @@ barrier round's shapes on seeded data without training (``phase_rows``):
 seconds a tree, to compare two trees in one call. ``--phases
 build,trainprof`` profiles one full-width training step (``phase_trainprof``:
 device busy and idle share, kernel time by class and name, the chunked
-attention's share, the stacked leaves unbound against indexed).
+attention's share, the stacked leaves unbound against indexed);
+``--phases build,shardprof`` the sharded step's data shard passes
+(``phase_shardprof``: per pass device busy ms, kernel ms by class, the
+matmul kernels, cudaMalloc calls, allocator retries, SM clock and power).
 """
 
 from __future__ import annotations
@@ -3738,6 +3763,618 @@ def phase_train(dev):
                 quantized_ratio=ratio, ce_rel=rel, remat_diffs=diffs)
 
 
+# ---------------------------------------------------------------- phase shardtrain
+
+SHARD_MESH = (2, 2)
+# the sharded step against the unsharded one, bf16 at full width: each data
+# shard's bf16 gradient is rounded before the f32 sum, the unsharded
+# step's once for the whole batch, and Adam's update turns the moments'
+# last bits into bf16 roundings of the params. Each bound sits between the
+# honest run's reading and the planted fault's (data shard 1's gradient
+# dropped), in brackets (an NVIDIA H100 80GB HBM3 at 700 W; repeated runs
+# read the same bits):
+SHARD_LOSS_RTOL = 1e-4  # each step's loss [3.0e-6; 5.8e-4 at step 3]
+SHARD_GNORM_RTOL = 1e-2  # each step's grad norm [8.1e-4; 0.29-0.34]
+SHARD_MOMENT_RTOL = 0.1  # moments, worst leaf max |d| / max |b| [4.2e-2; 1.15]
+SHARD_PARAM_SHARE = 0.4  # bf16 params that differ after 3 steps [0.181; 0.841]
+# the largest param difference after 3 steps [3.4e-3; 4.0e-3]: a few
+# elements take a sign-flipped lr step either way, so it does not tell the
+# fault apart; held to two such steps at lr 1e-3 with a bf16 rounding
+SHARD_PARAM_MAX = 8e-3
+# stages of the sharded step (``launch.steps``' functions) timed by CUDA events
+SHARD_STAGES = (("_placed", "placement"), ("_shard_live", "gathers"),
+                ("_forward_backward", "forward_backward"), ("_accumulate", "grad_mean"),
+                ("_cast", "grad_mean"), ("_clip", "clip"), ("_update", "optimizer"))
+
+
+class _GcClock:
+    """Within ``with``: the host's garbage collections, their ms and the
+    full ones (generation 2), through ``gc.callbacks``; ``read()`` gives
+    the totals so far."""
+
+    def __enter__(self):
+        import gc
+
+        self.ms, self.full, self._t0 = 0.0, 0, 0.0
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+                return
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+        return False
+
+    def read(self) -> tuple:
+        return self.ms, self.full
+
+
+class _StepSplit:
+    """Within ``with``: a pair of CUDA events around each call of the
+    sharded step's stages (``SHARD_STAGES``, by wrapping ``launch.steps``'
+    module functions; a recursive call is timed once, at its outermost),
+    and the caching allocator's books around it: the bytes allocated at
+    its entry and exit, the most allocated within it (the allocator's peak
+    is reset at each stage, and ``peak`` keeps the most over all), the
+    cudaMalloc calls it made and its retries (a cudaMalloc that failed,
+    freed the cache and tried again), and the host's garbage collections
+    within it (ms, and how many were full ones: a host stall the device
+    sees as idle once its queue drains). ``take()`` sums each stage's ms
+    per step, lists each forward+backward (ms and books) and each stage's
+    books."""
+
+    def __init__(self, dev):
+        self.dev, self.events, self.peak = dev, [], 0
+
+    def _books(self) -> tuple:
+        import torch
+
+        s = torch.cuda.memory_stats(self.dev)
+        return (torch.cuda.memory_allocated(self.dev),
+                s.get("num_device_alloc", s.get("segment.all.allocated", 0)),
+                s.get("num_alloc_retries", 0)) + self._gc.read()
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.launch import steps
+
+        self._gc = _GcClock().__enter__()
+        self._steps, self._real = steps, {}
+        for fn, stage in SHARD_STAGES:
+            real = self._real[fn] = getattr(steps, fn)
+            depth = [0]
+
+            def wrap(*a, _real=real, _stage=stage, _depth=depth, **kw):
+                if _depth[0]:
+                    return _real(*a, **kw)
+                entry, mallocs, retries, gc_ms, gc_full = self._books()
+                self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+                torch.cuda.reset_peak_memory_stats(self.dev)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                _depth[0] += 1
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    _depth[0] -= 1
+                    ev[1].record()
+                    top = torch.cuda.max_memory_allocated(self.dev)
+                    self.peak = max(self.peak, top)
+                    out, m1, r1, g1, f1 = self._books()
+                    self.events.append((_stage, ev, {
+                        "entry": entry, "peak": top, "exit": out, "mallocs": m1 - mallocs,
+                        "retries": r1 - retries, "gc_ms": g1 - gc_ms, "gc_full": f1 - gc_full}))
+
+            setattr(steps, fn, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, real in self._real.items():
+            setattr(self._steps, fn, real)
+        self._gc.__exit__()
+        return False
+
+    def take(self) -> dict:
+        """The stages' ms and books since the last ``take`` (synchronises)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {stage: 0.0 for _, stage in SHARD_STAGES}
+        shards, books = [], {}
+        for stage, (a, b), m in self.events:
+            ms = a.elapsed_time(b)
+            out[stage] += ms
+            if stage == "forward_backward":
+                shards.append(dict(m, ms=ms))
+            rec = books.setdefault(stage, dict(m, peak=0, mallocs=0, retries=0, gc_ms=0.0,
+                                               gc_full=0))
+            rec["exit"] = m["exit"]
+            rec["peak"] = max(rec["peak"], m["peak"])
+            for k in ("mallocs", "retries", "gc_ms", "gc_full"):
+                rec[k] += m[k]
+        self.events = []
+        return dict(out, forward_backward_per_shard=shards, books=books)
+
+
+class _DropShard:
+    """Planted fault: within ``with``, data shard ``k``'s gradients are
+    zeros (``launch.steps._forward_backward``'s k-th call of each step)."""
+
+    def __init__(self, n_shards: int, k: int = 1):
+        self.n, self.k, self.calls = n_shards, k, 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.launch import steps
+
+        self._steps, self._real = steps, steps._forward_backward
+
+        def fb(*a, **kw):
+            loss, metrics, grads = self._real(*a, **kw)
+            self.calls += 1
+            if (self.calls - 1) % self.n == self.k:
+                grads = [(i, box, torch.zeros_like(g)) for i, box, g in grads]
+            return loss, metrics, grads
+
+        steps._forward_backward = fb
+        return self
+
+    def __exit__(self, *exc):
+        self._steps._forward_backward = self._real
+        return False
+
+
+def _to_host(tree):
+    from repro_torch.core.tree import tree_map
+
+    return tree_map(lambda t: t.to("cpu"), tree)
+
+
+def _state_readings(placed, want, dev) -> tuple:
+    """A placed train state against a plain one (on the host or the card),
+    group by group (params, each optimizer entry): the share of elements
+    that differ, the largest difference and the worst leaf's max |d| /
+    max |b|; and the leaves that are not bit for bit equal."""
+    import torch
+
+    from repro_torch.launch import sharding as shd
+
+    out, unequal = {}, []
+    groups = [("params", placed["params"], want["params"])]
+    groups += [(k, placed["opt"][k], want["opt"][k]) for k in sorted(want["opt"])]
+    for g, ptree, wtree in groups:
+        differ = total = 0
+        max_abs = worst = 0.0
+        for (name, pl), (_, wl) in zip(_leaf_names(ptree), _leaf_names(wtree)):
+            a, b = shd.gather(pl, dev), wl.to(dev)
+            if not (a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                       b.reshape(-1).view(torch.uint8))):
+                unequal.append(f"{g}.{name}")
+            d = (a.to(torch.float32) - b.to(torch.float32)).abs()
+            differ += int((d > 0).sum())
+            total += d.numel()
+            top = float(d.max())
+            max_abs = max(max_abs, top)
+            worst = max(worst, top / max(float(b.to(torch.float32).abs().max()), 1e-30))
+            del a, b, d
+        out[g] = {"differ_share": differ / total, "max_abs": max_abs, "max_rel": worst}
+    return out, unequal
+
+
+def _metric_rel(got: dict, want) -> dict:
+    return {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30)
+            for k in ("loss", "grad_norm")}
+
+
+def _distinct_piece_bytes(shapes, specs, mesh, itemsize: int = 4) -> int:
+    """Bytes of one ``itemsize`` copy of each distinct piece of a tree
+    placed by ``specs`` (the step's f32 gradient sums)."""
+    import numpy as np
+
+    from repro_torch.launch import sharding as shd
+
+    if isinstance(specs, shd.P):
+        shape = tuple(shapes.shape)
+        distinct = {shd._piece_bounds(shape, shd.NamedSharding(mesh, specs), idx)
+                    for idx in np.ndindex(mesh.devices.shape)}
+        n = 1
+        for dim in shd.piece_shape(shape, specs, mesh):
+            n *= dim
+        return len(distinct) * n * itemsize
+    return sum(_distinct_piece_bytes(shapes[k], specs[k], mesh, itemsize) for k in shapes)
+
+
+def shard_reckoning(placed_dev: int, n_dev: int, param_bytes: int, sums_bytes: int,
+                    act_bytes: int) -> dict:
+    """The sharded step's peak device bytes on one card, reckoned before
+    the run: the placed state on every mesh device, one data shard's
+    gathered params and its bf16 gradients, the f32 sums of the distinct
+    pieces, remat's activations, and the new pieces while the old state
+    is still held (the larger of the backward's and the update's)."""
+    placed = placed_dev * n_dev
+    backward = placed + 2 * param_bytes + sums_bytes + act_bytes
+    update = 2 * placed + param_bytes  # new pieces beside the old, the clipped gradients
+    return {"placed": placed, "gathered": param_bytes, "grads_bf16": param_bytes,
+            "f32_sums": sums_bytes, "activations": act_bytes, "backward_peak": backward,
+            "update_peak": update, "peak": max(backward, update)}
+
+
+def _remat_act_bytes(cfg, B: int, S: int) -> int:
+    """Remat's activations of one data shard: each layer's saved input, one
+    layer recomputed (its MLP's three (B, S, d_ff) bf16 tensors, the
+    chunked attention's f32 scores of one query chunk against the keys)
+    and the loss's f32 logits of one chunk with their gradient."""
+    d, F_, H = cfg.d_model, cfg.d_ff, cfg.n_heads
+    c = min(cfg.attn_chunk, S)
+    saved = cfg.n_layers * B * S * d * 2
+    layer = 3 * B * S * F_ * 2 + 2 * B * H * c * S * 4 + 6 * B * S * d * 2
+    loss = 3 * B * min(cfg.loss_chunk, S) * cfg.vocab_size * 4
+    return saved + layer + loss
+
+
+def phase_shardtrain(dev):
+    """The sharded train step (``launch.steps.make_sharded_train_step``) on
+    the card: stablelm-1.6b at full width and depth (the train phase's
+    build, seed, optimizer and batches). (1) 3 unsharded steps (the plain
+    results kept on the host), then 3 sharded steps from the same state on
+    a (2, 2) ("data", "model") mesh of four shards of the card, each step's
+    loss and grad norm and, after step 3, the params and moments held to
+    the unsharded ones; each device's bytes the specs' after every step;
+    step ms both ways, the sharded step split by CUDA events, the peak
+    beside its reckoning. (2) The same 3 steps with data shard 1's gradient
+    dropped (a planted fault) must fail those bounds. (3) Step 2 on a (1,
+    1) mesh, bit for bit the unsharded step 2 on every leaf but the
+    embedding's and the head's (and their moments). (4) One step with
+    quantized moments on the (2, 2) mesh against the unsharded one. No
+    kernel launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.util import tree_bytes, use_mesh
+
+    t_phase = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    dp, mp = SHARD_MESH
+    mesh = make_mesh(SHARD_MESH, ("data", "model"), devices=[dev] * (dp * mp))
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    sched = linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    opt, opt_q = adamw(sched), adamw(sched, quantize=True)
+    data = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [torch.as_tensor(next(data)["tokens"]) for _ in range(3)]
+    gen = torch.Generator(device=dev)
+
+    def fresh(o):
+        gen.manual_seed(0)
+        return steps.init_train_state(model, o, gen)
+
+    def shardings(o, m):
+        shapes = steps.train_state_shapes(model, o)
+        specs = {"params": shd.tree_param_specs(shapes["params"], m, n_kv_heads=cfg.n_kv_heads),
+                 "opt": {k: shd.tree_param_specs(v, m, n_kv_heads=cfg.n_kv_heads)
+                         for k, v in shapes["opt"].items()}, "step": shd.P()}
+        b = shd.batch_spec({"tokens": batches[0]}, m)
+        return shapes, specs, shd.to_named(specs, m), shd.to_named(b, m)
+
+    shapes, specs, s_sh, b_sh = shardings(opt, mesh)
+    want_dev = shd.tree_spec_nbytes(shapes, specs, mesh)
+    param_bytes = tree_bytes(shapes["params"])
+    sums = _distinct_piece_bytes(shapes["params"], specs["params"], mesh)
+    B_loc = TRAIN_BATCH // dp
+    reck = shard_reckoning(want_dev, dp * mp, param_bytes, sums,
+                           _remat_act_bytes(cfg, B_loc, TRAIN_SEQ))
+    print(f"shardtrain: {cfg.name} {cfg.n_layers} layers at full width, {cfg.param_dtype}, remat "
+          f"{cfg.remat}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, {B_loc} x {TRAIN_SEQ} a data "
+          f"shard on a {dp} x {mp} (data, model) mesh of {dev} x {dp * mp}; placed state "
+          f"{want_dev} B a device; peak reckoning (B) {json.dumps(reck)}")
+
+    # (1a) the unsharded steps; their states after steps 1-3 kept on the host
+    torch.cuda.empty_cache()
+    state = fresh(opt)
+    ref = steps.make_train_step(model, opt)
+    u_log, host = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            state, met = ref(state, {"tokens": b.to(dev)})
+        met = {k: float(v) for k, v in met.items()}
+        u_log.append(dict(met, ms=(time.perf_counter() - t0) * 1e3))
+        host.append(_to_host(state))
+    del state, met
+    torch.cuda.empty_cache()
+    print(f"  unsharded steps: {json.dumps(u_log)}")
+
+    def sharded_run(fault: bool):
+        """3 sharded steps from the fresh state; (log, readings after step 3)."""
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        placed = shd.place(fresh(opt), s_sh)
+        torch.cuda.empty_cache()
+        step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+        log = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _StepSplit(dev) as split:
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if fault:
+                    with _DropShard(dp):
+                        placed, met = step(placed, {"tokens": b.to(dev)})
+                else:
+                    placed, met = step(placed, {"tokens": b.to(dev)})
+                met = {k: float(v) for k, v in met.items()}
+                ms = (time.perf_counter() - t0) * 1e3
+                per_dev = shd.device_nbytes(placed)
+                held = torch.cuda.memory_allocated(dev) - base
+                log.append(dict(met, ms=ms, split=split.take(), rel=_metric_rel(met, u_log[i]),
+                                bytes_ok=bool((per_dev == want_dev).all()), held=held))
+        peak = max(split.peak, torch.cuda.max_memory_allocated(dev))
+        readings, _ = _state_readings(placed, host[-1], dev)
+        del placed
+        torch.cuda.empty_cache()
+        return log, readings, peak, base
+
+    # (1b) the sharded steps; (2) the same with a planted fault
+    log, readings, peak, base = sharded_run(fault=False)
+    f_log, f_readings, _, _ = sharded_run(fault=True)
+    n_pieces = dp * mp * len(tree_leaves(shapes))
+    for i, e in enumerate(log):
+        print(f"  sharded step {i + 1}: loss {e['loss']!r} grad_norm {e['grad_norm']!r} (unsharded "
+              f"{u_log[i]['loss']!r} / {u_log[i]['grad_norm']!r}, relative {json.dumps(e['rel'])}) "
+              f"{e['ms']:.2f} ms synchronised; split (CUDA events, ms; the allocator's books, B) "
+              f"{json.dumps(e['split'])}; "
+              f"bytes a device as the specs {e['bytes_ok']}; the card holds {e['held']} B for the "
+              f"placed state ({want_dev * dp * mp} B of pieces)")
+    ms_s = statistics.median(e["ms"] for e in log[1:])
+    ms_u = statistics.median(e["ms"] for e in u_log[1:])
+    f_rel = [e["rel"] for e in f_log]
+    print(f"  after {len(batches)} steps against the unsharded state: {json.dumps(readings)}")
+    print(f"  planted fault (data shard 1's gradient dropped): per step {json.dumps(f_rel)}; "
+          f"after {len(batches)} steps {json.dumps(f_readings)}")
+    print(f"  step ms (median of steps 2-3): sharded {ms_s:.2f}, unsharded {ms_u:.2f}; peak "
+          f"device memory {peak} B (reckoned {reck['peak']} B; {base} B allocated before the "
+          f"placement, by earlier phases)")
+    for i, e in enumerate(log):
+        if not e["bytes_ok"]:
+            _fail(f"the sharded step changed the pieces' bytes at step {i + 1}")
+        if not want_dev * dp * mp <= e["held"] <= want_dev * dp * mp + 512 * n_pieces + 2**20:
+            _fail(f"after step {i + 1} the card holds {e['held']} B for "
+                  f"{want_dev * dp * mp} B of placed state")
+
+    def outside(rels, r) -> list:
+        """The bounds that a run's per-step metrics and final state break."""
+        out = [f"{k} step {i + 1}" for i, rel in enumerate(rels) for k, tol in
+               (("loss", SHARD_LOSS_RTOL), ("grad_norm", SHARD_GNORM_RTOL)) if rel[k] > tol]
+        p = r["params"]
+        out += ["param share"] * (p["differ_share"] > SHARD_PARAM_SHARE)
+        out += ["param max"] * (p["max_abs"] > SHARD_PARAM_MAX)
+        return out + [k for k in ("m", "v") if r[k]["max_rel"] > SHARD_MOMENT_RTOL]
+
+    broken, caught = outside([e["rel"] for e in log], readings), outside(f_rel, f_readings)
+    print(f"  bounds the honest run breaks: {broken}; the planted fault's: {caught}")
+    if broken:
+        _fail(f"the sharded steps differ from the unsharded ones: {broken}")
+    if not {"grad_norm step 1", "param share", "m", "v"} <= set(caught):
+        _fail(f"the bounds do not catch a dropped data shard's gradient: {caught}")
+    del host[-1]
+
+    # (3) step 2 on a (1, 1) mesh from the unsharded step 1's state
+    _, _, s1_sh, b1_sh = shardings(opt, one)
+    torch.cuda.empty_cache()
+    placed = shd.place(host[0], s1_sh)
+    new, met = steps.make_sharded_train_step(model, opt, s1_sh, b1_sh)(
+        placed, {"tokens": batches[1].to(dev)})
+    met = {k: float(v) for k, v in met.items()}
+    r11, unequal = _state_readings(new, host[1], dev)
+    index_leaves = {f"{g}.{n}" for g in ("params", "m", "v") for n in ("embed", "lm_head")}
+    same_metrics = met["loss"] == u_log[1]["loss"] and met["grad_norm"] == u_log[1]["grad_norm"]
+    print(f"  (1, 1) mesh, step 2: loss {met['loss']!r} grad_norm {met['grad_norm']!r}, equal "
+          f"to the unsharded step's bit for bit {same_metrics}; leaves not bit for bit "
+          f"{unequal}; readings {json.dumps(r11)}")
+    del placed, new
+    host.clear()
+    torch.cuda.empty_cache()
+    if not same_metrics or set(unequal) - index_leaves:
+        _fail(f"the (1, 1) step differs from the unsharded step beyond the embedding and head: "
+              f"{unequal}")
+    if not all(r11[k]["max_rel"] <= SHARD_MOMENT_RTOL for k in ("m", "v")):
+        _fail(f"the (1, 1) step's embedding or head moments are outside the bound: {r11}")
+
+    # (4) quantized moments, one step on the (2, 2) mesh
+    _, q_specs, q_sh, qb_sh = shardings(opt_q, mesh)
+    with use_mesh(mesh):
+        want_q, want_m = steps.make_train_step(model, opt_q)(
+            fresh(opt_q), {"tokens": batches[0].to(dev)})
+    placed = shd.place(fresh(opt_q), q_sh)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, met = steps.make_sharded_train_step(model, opt_q, q_sh, qb_sh)(
+        placed, {"tokens": batches[0].to(dev)})
+    met = {k: float(v) for k, v in met.items()}
+    q_ms = (time.perf_counter() - t0) * 1e3
+    q_rel = _metric_rel(met, {k: float(v) for k, v in want_m.items()})
+    rq, _ = _state_readings(new, want_q, dev)
+    print(f"  quantized moments, one (2, 2) step ({q_ms:.2f} ms, the first call): loss "
+          f"{met['loss']!r} grad_norm {met['grad_norm']!r}, relative {json.dumps(q_rel)}; "
+          f"readings {json.dumps(rq)}")
+    del placed, new, want_q
+    torch.cuda.empty_cache()
+    # bf16 m, int8 v_q (symbols over the largest) and v_scale, as the f32 moments
+    if not (q_rel["loss"] <= SHARD_LOSS_RTOL and q_rel["grad_norm"] <= SHARD_GNORM_RTOL
+            and all(rq[k]["max_rel"] <= SHARD_MOMENT_RTOL for k in ("m", "v_q", "v_scale"))):
+        _fail(f"the quantized sharded step differs from the unsharded one: {q_rel}, {rq}")
+
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    print(f"  kernel launches during the phase: {launches}")
+    if any(launches.values()):
+        _fail(f"the sharded train step launched a kernel: {launches}")
+    out = {"sharded_ms": ms_s, "unsharded_ms": ms_u, "peak_bytes": peak, "reckoned": reck,
+           "readings": readings, "fault_readings": f_readings,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"  shardtrain phase {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_shardprof(dev):
+    """Where the sharded step's time goes, data shard pass by pass (not in
+    a full run: ``--phases build,shardprof``; after the full list of
+    phases it runs on their history). The shardtrain phase's step (stablelm-1.6b,
+    AdamW, the (2, 2) mesh of four shards of the card): one step to warm
+    up, then 3 under ``torch.profiler``, each pass
+    (``steps.shard_value_and_grad``: gathers, forward and backward) fenced
+    by synchronisations, while ``nvidia-smi`` samples the SM clock and the
+    power every 50 ms. Per pass: wall ms, the device's busy ms, kernel ms
+    by class, the matmul kernels' names, the cudaMalloc and cudaFree calls
+    and their host ms, the allocator's retries, the host's garbage
+    collections, and the SM clock and power sampled within it."""
+    import datetime
+    import signal
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    dp, mp = SHARD_MESH
+    mesh = make_mesh(SHARD_MESH, ("data", "model"), devices=[dev] * (dp * mp))
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    data = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [{"tokens": torch.as_tensor(next(data)["tokens"], device=dev)} for _ in range(4)]
+    shapes = steps.train_state_shapes(model, opt)
+    specs = {"params": shd.tree_param_specs(shapes["params"], mesh, n_kv_heads=cfg.n_kv_heads),
+             "opt": {k: shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads)
+                     for k, v in shapes["opt"].items()}, "step": shd.P()}
+    s_sh = shd.to_named(specs, mesh)
+    b_sh = shd.to_named(shd.batch_spec(batches[0], mesh), mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.empty_cache()
+    placed = shd.place(steps.init_train_state(model, opt, gen), s_sh)
+    step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+
+    real, passes = steps.shard_value_and_grad, []
+
+    def books():
+        s = torch.cuda.memory_stats(dev)
+        return (s.get("num_device_alloc", s.get("segment.all.allocated", 0)),
+                s.get("num_alloc_retries", 0)) + gc_clock.read()
+
+    def fenced(*a, **kw):
+        torch.cuda.synchronize()
+        b0, t0 = books(), time.time()
+        with record_function(f"shard_pass_{len(passes)}"):
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+        b1 = books()
+        passes.append({"t": (t0, time.time()), "mallocs": b1[0] - b0[0],
+                       "retries": b1[1] - b0[1], "gc_ms": b1[2] - b0[2],
+                       "gc_full": b1[3] - b0[3]})
+        return out
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    steps.shard_value_and_grad = fenced
+    gc_clock = _GcClock().__enter__()
+    try:
+        placed, met = step(placed, batches[0])
+        float(met["loss"])
+        passes.clear()
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for b in batches[1:]:
+                t0 = time.perf_counter()
+                placed, met = step(placed, b)
+                float(met["loss"])
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        steps.shard_value_and_grad = real
+        gc_clock.__exit__()
+        smi.send_signal(signal.SIGINT)  # its loop ends and flushes on an interrupt
+        try:
+            samples_txt = smi.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            smi.kill()
+            samples_txt = smi.communicate()[0]
+    samples = []
+    for line in samples_txt.splitlines():
+        try:
+            ts, clock, power = (x.strip() for x in line.split(","))
+            t = datetime.datetime.strptime(ts, "%Y/%m/%d %H:%M:%S.%f").timestamp()
+            samples.append((t, float(clock), float(power)))
+        except ValueError:
+            continue
+    events = prof.events()
+    marks = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name.startswith("shard_pass_") and e.device_type.name == "CPU")
+    kernels = [e for e in events  # the passes' own marks show on the device too
+               if e.device_type.name == "CUDA" and not e.name.startswith("shard_pass_")]
+    runtime = [e for e in events if e.name in ("cudaMalloc", "cudaFree")]
+    print(f"shardprof: {cfg.name} at full width, {dp} x {mp} mesh of {dev} x {dp * mp}; "
+          f"{len(walls)} profiled steps, wall ms {walls!r}; {len(samples)} nvidia-smi samples")
+    out = []
+    for i, ((s0, s1), rec) in enumerate(zip(marks, passes)):
+        ks = [k for k in kernels if s0 <= k.time_range.start < s1]
+        by_class = {}
+        for k in ks:
+            c = _kernel_class(k.name)
+            by_class[c] = round(by_class.get(c, 0.0)
+                                + (k.time_range.end - k.time_range.start) / 1e3, 3)
+        gemms = sorted({k.name[:80] for k in ks if _kernel_class(k.name) == "matmul"})
+        rt = [e for e in runtime if s0 <= e.time_range.start < s1]
+        near = [(c, w) for t, c, w in samples if rec["t"][0] <= t <= rec["t"][1]]
+        row = {"pass": i, "wall_ms": (s1 - s0) / 1e3,
+               "busy_ms": _busy_us([(k.time_range.start, k.time_range.end) for k in ks]) / 1e3,
+               "kernels": len(ks), "ms_by_class": by_class,
+               "cudaMalloc": sum(e.name == "cudaMalloc" for e in rt),
+               "cudaFree": sum(e.name == "cudaFree" for e in rt),
+               "malloc_free_host_ms": sum(e.time_range.end - e.time_range.start
+                                          for e in rt) / 1e3,
+               "allocator_mallocs": rec["mallocs"], "retries": rec["retries"],
+               "gc_ms": rec["gc_ms"], "gc_full": rec["gc_full"],
+               "sm_mhz": [c for c, _ in near], "power_w": [w for _, w in near],
+               "matmul_kernels": gemms}
+        out.append(row)
+        print(f"  pass {i}: {json.dumps({k: v for k, v in row.items() if k != 'matmul_kernels'})}")
+    names = [set(r["matmul_kernels"]) for r in out]
+    print(f"  matmul kernels the same in every pass: {all(n == names[0] for n in names)}; "
+          f"pass 0's: {sorted(names[0]) if names else []}")
+    del placed
+    torch.cuda.empty_cache()
+    return out
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, None
@@ -3882,10 +4519,11 @@ def _leaf_names(tree, prefix=""):
 # ---------------------------------------------------------------- main
 
 
-# a full run's phases; ``--phases`` may also name ``rows`` (phase_rows) and
-# ``trainprof`` (phase_trainprof), which a full run leaves out
+# a full run's phases; ``--phases`` may also name ``rows`` (phase_rows),
+# ``trainprof`` (phase_trainprof) and ``shardprof`` (phase_shardprof), which a
+# full run leaves out
 PHASES = ("build", "kernels", "rounds", "state", "mesh", "flat", "stream", "ops", "host",
-          "serve", "families", "zoo", "train")
+          "serve", "families", "zoo", "train", "shardtrain")
 
 
 def main() -> None:
@@ -3945,8 +4583,12 @@ def main() -> None:
         zoo_rec = phase_zoo(dev)
     if "train" in phases:
         phase_train(dev)
+    if "shardtrain" in phases:
+        phase_shardtrain(dev)
     if "trainprof" in phases:
         phase_trainprof(dev)
+    if "shardprof" in phases:
+        phase_shardprof(dev)
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}) done in {time.perf_counter() - t_start:.1f} s")
         return

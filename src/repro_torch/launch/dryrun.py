@@ -7,16 +7,20 @@ shapes only, and the roofline terms the specs imply for one card.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multipod # (2, 16, 16)
 
 Where the reference lowers and compiles the jitted step under XLA, the
-port runs ``make_train_step``, ``make_prefill_step`` or
-``make_decode_step`` on ``"meta"`` tensors: the params of
+port runs, on ``"meta"`` tensors, the sharded train step's per-shard
+forward and backward (``steps.shard_value_and_grad``, the code that
+trains), ``make_prefill_step`` or ``make_decode_step``: the params of
 ``train_state_shapes``, one data shard's batch of ``Model.input_spec``
 (each input cut by ``batch_spec``) and, for decode, a cache of that
 batch at ``cache_len_for``. The step runs under one data row of the production
 mesh (the data axes of size 1, the ``model`` axis whole, on meta
-devices), which is what a device of data shard 0 computes: the MoE takes
-its expert-parallel path exactly where the reference's does, with the
-same per-shard token count. That shows every arch builds and runs
-shape-correct at production size with no memory and no card.
+devices), which is what data shard 0 computes: the MoE takes its
+expert-parallel path exactly where the reference's does, with the same
+per-shard token count, its expert stacks read as each model shard's
+block on its device (a train batch that the step runs as one shard,
+``steps.data_shards``, runs whole under the whole mesh). That shows
+every arch builds and runs shape-correct at production size with no
+memory and no card.
 
 Each record holds the status (and the error), ``lower_s`` (the meta
 run's seconds), the param counts and the analytic model FLOPs, and the
@@ -43,8 +47,8 @@ from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, ArchConfig, InputS
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import (CARD_BF16_FLOPS, CARD_HBM_BYTES, CARD_HBM_BYTES_PER_S,
                                      _production_shape, make_mesh)
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step, make_train_step,
-                                      train_state_shapes)
+from repro_torch.launch.steps import (data_shards, make_decode_step, make_prefill_step,
+                                      shard_value_and_grad, train_state_shapes)
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
 from repro_torch.util import tree_size, use_mesh
@@ -113,8 +117,10 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
         out["bytes_opt"] = sum(
             nbytes(v, shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads), mesh)
             for v in state["opt"].values())
-        with use_mesh(row_mesh):
-            make_train_step(model, opt)(state, local)
+        if data_shards(model, batch, batch_specs, mesh) > 1:
+            shard_value_and_grad(model, params, local, row_mesh)
+        else:  # the batch whole under the whole mesh, as the step runs it
+            shard_value_and_grad(model, params, batch, mesh)
     else:
         params = model.init(None, META)
         if shape.kind == "prefill":

@@ -73,6 +73,13 @@ def _dp_axis(mesh: Mesh):
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
+def is_expert_weight(path: Tuple[str, ...], shape: Tuple[int, ...]) -> bool:
+    """``param_spec``'s rule for MoE expert-stacked weights, (L, E, a, b) or
+    (E, a, b): a ``w_gate``, ``w_up`` or ``w_down`` of 3 dims or more with
+    "moe" in its path."""
+    return path[-1] in ("w_gate", "w_up", "w_down") and len(shape) >= 3 and "moe" in path
+
+
 def param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], mesh: Mesh,
                n_kv_heads: int = 0) -> P:
     """PartitionSpec for one parameter leaf addressed by its dict path."""
@@ -105,7 +112,7 @@ def param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], mesh: Mesh,
         # would all-reduce every (B, S, V) logits tensor across the data axis
         return guarded(None, mp)
     # MoE expert-stacked weights: (L, E, a, b) or (E, a, b)
-    if name in ("w_gate", "w_up", "w_down") and nd >= 3 and "moe" in path:
+    if is_expert_weight(path, shape):
         lead = [None] * (nd - 3)
         e, a, b = shape[-3:]
         e_ax = mp if _fits(e, mesh, mp) else None
@@ -279,21 +286,36 @@ class Placed:
         ``device``: a piece that sits there and covers exactly that block
         as it is, else assembled from the pieces (those on ``device``
         first), which is the reference's all-gather over the other axes."""
+        return self.box((rows,) + tuple((0, d) for d in self.shape[1:]), device)
+
+    def box(self, want, device) -> torch.Tensor:
+        """The box ``want`` (``[start, stop)`` a dim) on ``device``, as
+        ``block`` reads its rows."""
         device = torch.device(device)
-        want = (rows,) + tuple((0, d) for d in self.shape[1:])
+        want = tuple(tuple(w) for w in want)
         for idx in np.ndindex(self.pieces.shape):
             if self.pieces[idx].device == device and self.bounds(idx) == want:
                 return self.pieces[idx]
         return _assemble(self, want, device)
 
 
-def _assemble(placed: Placed, want, device) -> torch.Tensor:
-    out = torch.empty(tuple(b - a for a, b in want), dtype=placed.dtype, device=device)
+def _contains(box, want) -> bool:
+    return all(s <= w0 and w1 <= e for (s, e), (w0, w1) in zip(box, want))
+
+
+def _cut(t: torch.Tensor, box, want) -> torch.Tensor:
+    """The view of ``t`` (which holds ``box``) on ``want``."""
+    return t[tuple(slice(w0 - s, w1 - s) for (s, _), (w0, w1) in zip(box, want))]
+
+
+def assemble(sources, want, device, dtype) -> torch.Tensor:
+    """A new tensor on ``device`` holding the box ``want``, copied from
+    ``sources``, (box, tensor) pairs that together cover it (those on
+    ``device`` first; a box that repeats is read once)."""
+    device = torch.device(device)
+    out = torch.empty(tuple(b - a for a, b in want), dtype=dtype, device=device)
     done = set()
-    order = sorted(np.ndindex(placed.pieces.shape),
-                   key=lambda i: placed.pieces[i].device != device)
-    for idx in order:
-        b = placed.bounds(idx)
+    for b, t in sorted(sources, key=lambda s: s[1].device != device):
         if b in done:
             continue
         lo = [max(s, w0) for (s, _), (w0, _) in zip(b, want)]
@@ -301,9 +323,31 @@ def _assemble(placed: Placed, want, device) -> torch.Tensor:
         if any(l >= h for l, h in zip(lo, hi)):
             continue
         done.add(b)
-        src = placed.pieces[idx][tuple(slice(l - s, h - s) for l, h, (s, _) in zip(lo, hi, b))]
+        src = t[tuple(slice(l - s, h - s) for l, h, (s, _) in zip(lo, hi, b))]
         out[tuple(slice(l - w0, h - w0) for l, h, (w0, _) in zip(lo, hi, want))].copy_(src)
     return out
+
+
+def read_box(sources, want, device) -> torch.Tensor:
+    """The box ``want`` on ``device`` out of (box, tensor) ``sources``: a
+    view of a source on ``device`` that holds it, else a copy of the view
+    of one that holds it elsewhere, else assembled from several."""
+    device = torch.device(device)
+    want = tuple(tuple(w) for w in want)
+    holders = [(b, t) for b, t in sources if _contains(b, want)]
+    for b, t in holders:
+        if t.device == device:
+            return _cut(t, b, want)
+    if holders:
+        b, t = holders[0]
+        return _cut(t, b, want).to(device)
+    return assemble(sources, want, device, sources[0][1].dtype)
+
+
+def _assemble(placed: Placed, want, device) -> torch.Tensor:
+    sources = [(placed.bounds(idx), placed.pieces[idx])
+               for idx in np.ndindex(placed.pieces.shape)]
+    return assemble(sources, want, device, placed.dtype)
 
 
 def _place_leaf(t: torch.Tensor, sharding: NamedSharding) -> Placed:

@@ -5,18 +5,29 @@ with PyTorch autograd, and the serving path's prefill and decode steps.
 A train state is ``{"params", "opt", "step"}``, ``step`` a 0-d int32
 tensor on the params' device, as the reference's, so a checkpoint of it
 loads in either package.
+
+``make_sharded_train_step`` is the port's counterpart of the reference's
+``jax.jit(make_train_step(model, opt), in_shardings=...)``: the same step
+on a train state placed on a ``launch.mesh.Mesh`` (``launch.sharding``),
+with data-parallel gradients and each piece's update on its device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.registry import Model
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizers import clip_scale
+from repro_torch.util import use_mesh
 
 
 def init_train_state(model: Model, opt: Optimizer, generator: torch.Generator) -> Dict[str, Any]:
@@ -103,6 +114,401 @@ def make_quantized_train_step(
         if "anchor" in state:
             new_state["anchor"] = state["anchor"]
         return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    return train_step
+
+
+# ------------------------------------------------------- the sharded train step
+
+# optimizer state quantized in blocks of the flattened leaf: a piece that
+# cuts across blocks cannot be requantized alone
+_BLOCKWISE_STATE = ("v_q", "v_scale")
+
+
+def _shard_grid(mesh: Mesh) -> Tuple[np.ndarray, Tuple[str, ...]]:
+    """The mesh's devices as a (dp, mp) array, as the MoE branch reads
+    them (``models/layers._shard_devices``): row i data shard i over
+    ("pod", "data"), major first, column m model shard m, any other axis
+    at index 0; and the data axes."""
+    names = list(mesh.axis_names)
+    dp_axes = tuple(a for a in ("pod", "data") if a in names)
+    order = [names.index(a) for a in dp_axes + (("model",) if "model" in names else ())]
+    rest = [i for i in range(len(names)) if i not in order]
+    devs = np.transpose(mesh.devices, order + rest)[(Ellipsis,) + (0,) * len(rest)]
+    return devs.reshape(math.prod(mesh.shape[a] for a in dp_axes), -1), dp_axes
+
+
+def _row_mesh(mesh: Mesh, dp_axes: Tuple[str, ...], i: int) -> Mesh:
+    """Data shard i's own mesh: its devices, the data axes of size 1."""
+    coords = dict(zip(dp_axes, np.unravel_index(i, [mesh.shape[a] for a in dp_axes])))
+    index = tuple(slice(coords[a], coords[a] + 1) if a in coords else slice(None)
+                  for a in mesh.axis_names)
+    return Mesh(mesh.devices[index], tuple(mesh.axis_names))
+
+
+def _full(shape) -> Tuple[Tuple[int, int], ...]:
+    return tuple((0, d) for d in shape)
+
+
+def _leaf_paths(tree, path=()) -> List[Tuple[str, ...]]:
+    """Each leaf's dict path, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, path + (str(i),))]
+    return [path]
+
+
+def _is_expert_stack(path, shape, mp: int) -> bool:
+    """An MoE expert stack whose experts divide over ``mp`` model shards:
+    a leaf of the spec rule's (``sharding.is_expert_weight``) that sits
+    right under "moe". The rule also takes arctic's dense residual
+    (``moe.dense_mlp``), which the MoE reads as a plain MLP."""
+    return (mp > 1 and shd.is_expert_weight(path, shape) and path[-2] == "moe"
+            and shape[-3] % mp == 0)
+
+
+def _read(leaf, want, device) -> torch.Tensor:
+    """The box ``want`` of a ``Placed`` leaf or a tensor, on ``device``."""
+    if isinstance(leaf, shd.Placed):
+        return leaf.box(want, device)
+    return shd.read_box([(_full(leaf.shape), leaf)], want, device)
+
+
+class _ExpertRows:
+    """One data shard's MoE expert stack as model shard m's block of
+    experts on the shard's m-th device (``blocks[m]``, a leaf that
+    requires grad), which the expert-parallel branch reads through
+    ``block`` (``models/layers._expert_block``): model shard m's rows are
+    ``blocks[m]`` itself where they are asked for on its device (a view a
+    layer after ``unbind``), so its gradient is that block's share. Rows
+    asked for elsewhere or across blocks (the local path reads every
+    expert on the shard's device) come as a copy, through which autograd
+    carries the gradient back."""
+
+    def __init__(self, blocks: List[torch.Tensor], lead: int):
+        self.blocks, self.lead = blocks, lead  # lead: layer axes ahead of the experts'
+
+    def unbind(self, dim: int = 0) -> List["_ExpertRows"]:
+        if dim != 0 or not self.lead:
+            raise ValueError("only the leading layer axis of an expert stack unbinds")
+        return [_ExpertRows(list(layer), self.lead - 1)
+                for layer in zip(*(b.unbind(0) for b in self.blocks))]
+
+    def block(self, rows: Tuple[int, int], device) -> torch.Tensor:
+        if self.lead:
+            raise ValueError("unbind the layer axes of an expert stack first")
+        n = self.blocks[0].shape[0]
+        device = torch.device(device)
+        parts = [b[max(rows[0] - m * n, 0):min(rows[1] - m * n, n)].to(device)
+                 for m, b in enumerate(self.blocks)
+                 if rows[0] < (m + 1) * n and m * n < rows[1]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _shard_live(params, mesh: Mesh):
+    """Data shard 0 of ``mesh``'s live params: each leaf (``Placed`` or a
+    tensor) read whole onto the shard's first device, a leaf that
+    requires grad (no copy where a whole piece already sits there); an
+    MoE expert stack as ``_ExpertRows``. Returns (the tree, [(leaf index,
+    box, live tensor)])."""
+    grid, _ = _shard_grid(mesh)
+    row = list(grid[0])
+    leaves, structure = tree_flatten(params)
+    out, lives = [], []
+    for k, (path, leaf) in enumerate(zip(_leaf_paths(params), leaves)):
+        shape = tuple(leaf.shape)
+        full = _full(shape)
+        if not _is_expert_stack(path, shape, len(row)):
+            live = _read(leaf, full, row[0]).detach().requires_grad_(True)
+            lives.append((k, full, live))
+            out.append(live)
+            continue
+        ax, blocks = len(shape) - 3, []
+        n = shape[ax] // len(row)
+        for m, dev in enumerate(row):
+            box = full[:ax] + ((m * n, (m + 1) * n),) + full[ax + 1:]
+            blocks.append(_read(leaf, box, dev).detach().requires_grad_(True))
+            lives.append((k, box, blocks[-1]))
+        out.append(_ExpertRows(blocks, ax))
+    return tree_unflatten(structure, out), lives
+
+
+def _forward_backward(model: Model, live, lives, batch, mesh: Mesh, weight, dp: int):
+    """``model.loss`` and its backward under ``use_mesh(mesh)``: remat
+    recomputes the forward inside the backward and reads the ambient mesh
+    again, so both run under the shard's own. With ``weight`` the
+    objective is ``weight * ce + (loss - ce) / dp``: the batch's masked
+    token mean and the mean over shards of the rest (the MoE's aux)."""
+    with use_mesh(mesh):
+        loss, metrics = model.loss(live, batch)
+        if weight is not None:
+            ce = metrics["ce"]
+            loss = weight * ce + (loss - ce) / dp
+        grads = torch.autograd.grad(loss, [t for _, _, t in lives], allow_unused=True)
+    grads = [(k, box, torch.zeros_like(t) if g is None else g)
+             for (k, box, t), g in zip(lives, grads)]
+    return loss.detach(), {n: v.detach() for n, v in metrics.items()}, grads
+
+
+def shard_value_and_grad(model: Model, params, batch: Dict[str, torch.Tensor], mesh: Mesh, *,
+                         weight: Optional[torch.Tensor] = None, dp: int = 1):
+    """One data shard's forward and backward, as the sharded step runs it:
+    ``params`` (``Placed`` leaves or tensors) read onto data shard 0 of
+    ``mesh`` (``_shard_live``), ``model.loss`` and its gradient under
+    ``use_mesh(mesh)`` (``_forward_backward``). Returns (loss, metrics,
+    [(leaf index, box, gradient)]); the live params are freed on return."""
+    live, lives = _shard_live(params, mesh)
+    return _forward_backward(model, live, lives, batch, mesh, weight, dp)
+
+
+def _placed(tree, shardings):
+    """Each leaf as a ``Placed`` by its ``NamedSharding``: a ``Placed``
+    with that sharding as it is, a tensor (or a ``Placed`` with another
+    sharding) placed first, as ``jit`` reshards its inputs."""
+    if isinstance(shardings, shd.NamedSharding):
+        if isinstance(tree, shd.Placed):
+            if tree.sharding == shardings:
+                return tree
+            tree = shd.gather(tree)
+        return shd.place(tree, shardings)
+    if isinstance(tree, dict):
+        return {k: _placed(tree[k], shardings[k]) for k in tree}
+    return type(tree)(_placed(a, b) for a, b in zip(tree, shardings))
+
+
+def _mesh_of(shardings) -> Mesh:
+    meshes = {id(s.mesh): s.mesh for s in tree_leaves(shardings)}
+    if len(meshes) != 1:
+        raise ValueError(f"the shardings name {len(meshes)} meshes; the step takes one")
+    return next(iter(meshes.values()))
+
+
+def _shard_batch(batch: Dict[str, shd.Placed], dp_axes, n: int, i: int, device):
+    """Data shard i's rows of each input on ``device`` (the whole input
+    where its batch dim is not sharded)."""
+    out = {}
+    for name, leaf in batch.items():
+        full = _full(leaf.shape)
+        lead = shd._entries(leaf.sharding.spec, len(leaf.shape))
+        if any(lead[1:]) or (lead and lead[0] not in ((), dp_axes)):
+            raise ValueError(f"input {name!r} is placed by {leaf.sharding.spec}: the step "
+                             f"splits inputs over {dp_axes} on their batch dim only")
+        if lead and lead[0]:
+            rows = leaf.shape[0] // n
+            full = ((i * rows, (i + 1) * rows),) + full[1:]
+        out[name] = leaf.box(full, device)
+    return out
+
+
+def data_shards(model: Model, batch: Dict[str, Any], specs: Dict[str, shd.P], mesh: Mesh) -> int:
+    """How many data shards the sharded step runs ``batch`` as (each input
+    placed by its PartitionSpec in ``specs``): the mesh's data shards
+    where an input's batch dim is split over the data axes and the loss
+    splits over them under the whole mesh (``Model.shards_apart``: an
+    MoE off its expert-parallel branch routes the whole batch together);
+    else 1, the batch whole under the whole mesh, as the reference's
+    ``jit`` runs it."""
+    grid, dp_axes = _shard_grid(mesh)
+    if not dp_axes or not any(shd._entries(s, len(batch[k].shape))[:1] == (dp_axes,)
+                              for k, s in specs.items()):
+        return 1
+    with use_mesh(mesh):
+        apart = model.shards_apart(batch)
+    return grid.shape[0] if apart else 1
+
+
+def _loss_weights(counts: List[torch.Tensor], dev0) -> List[torch.Tensor]:
+    """Each shard's share of the batch's count (the weight of its ce)."""
+    total = torch.clamp_min(sum(c.to(dev0) for c in counts), 1.0)
+    return [c / total.to(c.device) for c in counts]
+
+
+def _pieces(leaf: shd.Placed) -> Dict[Tuple, Tuple[int, ...]]:
+    """{bounds: the first mesh index that holds them}: each distinct piece
+    once, in the mesh's order."""
+    out: Dict[Tuple, Tuple[int, ...]] = {}
+    for idx in np.ndindex(leaf.pieces.shape):
+        out.setdefault(leaf.bounds(idx), idx)
+    return out
+
+
+def _accumulate(acc: List[Dict], p_leaves, pieces, grads) -> None:
+    """Add one data shard's gradients to the f32 sums, each distinct
+    piece on its device (the reduce-scatter)."""
+    sources: List[list] = [[] for _ in p_leaves]
+    for k, box, g in grads:
+        sources[k].append((box, g))
+    for k, leaf in enumerate(p_leaves):
+        for b, idx in pieces[k].items():
+            part = shd.read_box(sources[k], b, leaf.pieces[idx].device)
+            if b in acc[k]:
+                acc[k][b].add_(part)
+            else:
+                acc[k][b] = part.to(dtype=torch.float32, copy=True)
+
+
+def _cast(acc: List[Dict], p_leaves) -> List[Dict]:
+    """The f32 sums cast once to each param's dtype (the sums freed)."""
+    return [{b: acc[k].pop(b).to(leaf.dtype) for b in list(acc[k])}
+            for k, leaf in enumerate(p_leaves)]
+
+
+def _clip(grads: List[Dict], clip_norm: float, dev0) -> torch.Tensor:
+    """``clip_by_global_norm`` on the pieces: each leaf's square sum (its
+    distinct pieces in the mesh's order) brought to ``dev0`` and summed
+    in leaf order; every piece scaled by the one factor. Returns the
+    norm."""
+    norm = torch.sqrt(sum(sum(g.to(torch.float32).square().sum().to(dev0)
+                              for g in leaf.values()) for leaf in grads))
+    scale = clip_scale(norm, clip_norm)
+    on: Dict[torch.device, torch.Tensor] = {}
+    for leaf in grads:
+        for b, g in leaf.items():
+            s = on.setdefault(g.device, scale.to(g.device))
+            leaf[b] = (g.to(torch.float32) * s).to(g.dtype)
+    return norm
+
+
+def _update(opt: Optimizer, p_leaves, p_struct, opt_state, step: shd.Placed,
+            grads: List[Dict], dev0):
+    """The optimizer and the update on the pieces. Element-wise state:
+    ``opt.update`` on each mesh index's tree of pieces on its device.
+    Blockwise state (``_BLOCKWISE_STATE``): each leaf whole on ``dev0``,
+    cut again by its sharding. Returns (param leaves, opt state)."""
+    if any(name in _BLOCKWISE_STATE for name in opt_state):
+        subs = {name: tree_flatten(sub) for name, sub in opt_state.items()}
+        new_p, new_o = [], {name: [] for name in subs}
+        s0 = step.box((), dev0)
+        for k, leaf in enumerate(p_leaves):
+            full = _full(leaf.shape)
+            p = leaf.box(full, dev0)
+            o = {name: leaves[k].box(_full(leaves[k].shape), dev0)
+                 for name, (leaves, _) in subs.items()}
+            u, o = opt.update(shd.read_box(list(grads[k].items()), full, dev0), o, p, s0)
+            new_p.append(shd.place(_apply(p, u), leaf.sharding))
+            for name, (leaves, _) in subs.items():
+                new_o[name].append(shd.place(o[name], leaves[k].sharding))
+            del p, u, o
+        return new_p, {name: tree_unflatten(subs[name][1], new_o[name]) for name in subs}
+    o_leaves, o_struct = tree_flatten(opt_state)
+    shape = step.pieces.shape
+    p_out = [np.empty(shape, dtype=object) for _ in p_leaves]
+    o_out = [np.empty(shape, dtype=object) for _ in o_leaves]
+    for idx in np.ndindex(shape):
+        dev = step.pieces[idx].device
+        g = tree_unflatten(p_struct, [grads[k][leaf.bounds(idx)].to(dev)
+                                      for k, leaf in enumerate(p_leaves)])
+        p = tree_unflatten(p_struct, [leaf.pieces[idx] for leaf in p_leaves])
+        o = tree_unflatten(o_struct, [leaf.pieces[idx] for leaf in o_leaves])
+        updates, o = opt.update(g, o, p, step.pieces[idx])
+        for k, t in enumerate(tree_leaves(_apply(p, updates))):
+            p_out[k][idx] = t
+        for k, t in enumerate(tree_leaves(o)):
+            o_out[k][idx] = t
+        del g, updates, o
+    new_o = [shd.Placed(a, leaf.sharding, leaf.shape, a.flat[0].dtype)
+             for a, leaf in zip(o_out, o_leaves)]
+    return ([shd.Placed(a, leaf.sharding, leaf.shape, leaf.dtype)
+             for a, leaf in zip(p_out, p_leaves)], tree_unflatten(o_struct, new_o))
+
+
+def _metrics(outs, weights, dev0) -> Dict[str, torch.Tensor]:
+    """The step's metrics on ``dev0``: one shard's as they are; over
+    shards ``ce`` weighted by each shard's count, the objective summed and
+    every other metric the mean (the reference's pmean of aux)."""
+    if len(outs) == 1:
+        loss, metrics = outs[0]
+        return dict(metrics, loss=loss)
+    out = {}
+    for name in outs[0][1]:
+        vals = [m[name].to(dev0) for _, m in outs]
+        out[name] = (sum(w.to(dev0) * v for w, v in zip(weights, vals)) if name == "ce"
+                     else torch.stack(vals).mean())
+    return dict(out, loss=sum(loss.to(dev0) for loss, _ in outs))
+
+
+def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch_shardings, *,
+                            clip_norm: float = 1.0) -> Callable:
+    """The port's counterpart of ``jax.jit(make_train_step(model, opt),
+    in_shardings=(state_shardings, batch_shardings))``: the same step on a
+    train state placed on a mesh, one process driving every device.
+
+    ``state_shardings`` and ``batch_shardings`` are the ``to_named(...)``
+    trees the reference hands to ``jit``. The step takes ``(state,
+    batch)``, trees of ``Placed`` leaves (a tensor leaf is placed by its
+    sharding first) and returns the new state, each piece of the same
+    shape, dtype and device as before, and the metrics (``loss``,
+    ``grad_norm`` and the model's own) on the mesh's first device.
+
+    - Data shard i (over ("pod", "data"), major first) computes on its
+      row of the mesh, under a mesh of its own devices with the data axes
+      of size 1. That is the reference's math only where the loss splits
+      over the data shards (``data_shards``): an MoE must take its
+      expert-parallel branch under the whole mesh, and then takes it per
+      shard at the reference's per-shard capacity, in the forward and in
+      remat's recompute. Otherwise (an MoE on the local path: no model
+      axis, experts that do not divide, too few tokens), and for a batch
+      whose dim 0 does not divide over the data axes (left replicated by
+      ``batch_spec``), the batch runs as one shard under the whole mesh.
+    - Each leaf is read whole onto the shard's first device; the MoE
+      expert stacks as model shard m's block on the shard's m-th device.
+      The shards run in turn; each one's copy is freed after its backward.
+    - The loss weights each shard's ce by its share of the count the
+      model's loss averages over (``Model.loss_count``: the masked token
+      mean's mask) and takes the mean of the rest, so the gradients are
+      the batch's; they are summed in f32 in shard order per distinct
+      piece on the piece's device (a reduce-scatter), then cast once to
+      the param's dtype.
+    - The clip brings each leaf's square sum to the first device in leaf
+      order and scales every piece by the one factor.
+    - Element-wise optimizer state updates piece by piece on each piece's
+      device; blockwise-quantized moments (``v_q``, ``v_scale``) leaf by
+      leaf whole on the first device, cut again by their sharding.
+
+    On a (1, 1) mesh it equals ``make_train_step`` bit for bit. The
+    forward is not tensor-parallel: each data shard computes its model
+    whole on one device; the model axis holds pieces for storage and the
+    update.
+    """
+    mesh = _mesh_of(state_shardings)
+    if _mesh_of(batch_shardings) is not mesh:
+        raise ValueError("the state and the batch are placed on different meshes")
+    grid, dp_axes = _shard_grid(mesh)
+    dev0 = mesh.devices.flat[0]
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        state = _placed({k: state[k] for k in ("params", "opt", "step")},
+                        {k: state_shardings[k] for k in ("params", "opt", "step")})
+        batch = _placed(batch, batch_shardings)
+        p_leaves, p_struct = tree_flatten(state["params"])
+        pieces = [_pieces(leaf) for leaf in p_leaves]
+        n = data_shards(model, batch, {k: b.sharding.spec for k, b in batch.items()}, mesh)
+        shards = [_shard_batch(batch, dp_axes, n, i, grid[i][0]) for i in range(n)]
+        weights = [None]
+        if n > 1:
+            weights = _loss_weights([model.loss_count(b) for b in shards], dev0)
+        acc: List[Dict] = [{} for _ in p_leaves]
+        outs = []
+        for i in range(n):
+            ctx = _row_mesh(mesh, dp_axes, i) if n > 1 else mesh
+            loss, metrics, grads = shard_value_and_grad(model, state["params"], shards[i], ctx,
+                                                        weight=weights[i], dp=n)
+            _accumulate(acc, p_leaves, pieces, grads)
+            outs.append((loss, metrics))
+            del grads
+        grads = _cast(acc, p_leaves)
+        gnorm = _clip(grads, clip_norm, dev0)
+        new_p, new_o = _update(opt, p_leaves, p_struct, state["opt"], state["step"], grads,
+                               dev0)
+        del grads
+        step = state["step"]
+        after = np.empty(step.pieces.shape, dtype=object)
+        for idx in np.ndindex(after.shape):
+            after[idx] = step.pieces[idx] + 1
+        new_state = {"params": tree_unflatten(p_struct, new_p), "opt": new_o,
+                     "step": shd.Placed(after, step.sharding, step.shape, step.dtype)}
+        return new_state, dict(_metrics(outs, weights, dev0), grad_norm=gnorm)
 
     return train_step
 

@@ -482,7 +482,8 @@ def _moe_math_local(xf: torch.Tensor, p: Params, E: int, K: int, cap_factor: flo
     C = max(1, int(T * K / E * cap_factor))
     gate_vals, safe_expert, safe_rank, keep, aux = _route_local(xf, p["router"], E, K, C)
     buf = _dispatch(xf, safe_expert, safe_rank, keep, E, K, C)
-    y = _experts(buf, p["w_gate"], p["w_up"], p["w_down"])  # (E, C, d)
+    y = _experts(buf, *(_expert_block(p[n], (0, E), xf.device)
+                        for n in ("w_gate", "w_up", "w_down")))  # (E, C, d)
     gathered = y.reshape(E * C, d)[safe_expert * C + safe_rank]  # (TK, d)
     gate = torch.where(keep, gate_vals.reshape(-1), torch.zeros((), device=xf.device))
     weighted = gathered.to(torch.float32) * gate[:, None]

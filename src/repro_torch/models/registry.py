@@ -9,6 +9,12 @@
 - ``init_cache(B, cache_len, device)`` -> cache               [LMs]
 - ``decode(params, cache, batch, window=0)`` -> (logits, cache) [LMs]
 - ``input_spec(shape)``                -> dict of meta tensors (the dry run)
+- ``loss_count(batch)``                -> the count ``loss`` averages over,
+                                          up to a factor common to any
+                                          batch of the same shape
+- ``shards_apart(batch)``              -> whether ``loss`` under the ambient
+                                          mesh splits over the data shards
+                                          (the sharded train step)
 
 The LM families dense, moe, vlm and ssm share ``models/transformer.py``;
 hybrid has ``models/hybrid.py`` and audio ``models/whisper.py`` (its
@@ -32,6 +38,12 @@ from repro_torch.models import whisper as WH
 FULL_CACHE_MAX = 32_768
 
 
+def _rows(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A loss that is a mean over every row's positions: the rows."""
+    t = next(iter(batch.values()))
+    return torch.full((), float(t.shape[0]), dtype=torch.float32, device=t.device)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
@@ -40,6 +52,8 @@ class Model:
     init_cache: Optional[Callable] = None
     decode: Optional[Callable] = None
     prefill: Optional[Callable] = None
+    loss_count: Callable = _rows
+    shards_apart: Callable = lambda batch: True
 
     def cache_len_for(self, seq_len: int) -> int:
         if self.cfg.family == "ssm":  # a fixed-size state, no KV slots
@@ -122,6 +136,8 @@ def build_model(cfg: ArchConfig) -> Model:
             init_cache=lambda B, n, device: TF.init_decode_cache(cfg, B, n, device),
             decode=lambda p, c, b, window=0: TF.decode_step(p, c, b, cfg, window=window),
             prefill=lambda p, b: TF.prefill(p, b, cfg),
+            loss_count=TF.lm_loss_count,
+            shards_apart=lambda b: TF.lm_shards_apart(b, cfg),
         )
     if cfg.family == "hybrid":
         return Model(

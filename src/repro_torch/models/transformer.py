@@ -243,6 +243,33 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     return total, {"ce": loss, "aux": aux}
 
 
+def lm_loss_count(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The count ``lm_loss`` averages its CE over (before its clamp at 1):
+    the targets ``mask`` keeps, else every target."""
+    targets = batch.get("labels", batch["tokens"])[:, 1:]
+    mask = batch.get("mask")
+    if mask is None:
+        return torch.full((), float(targets.numel()), dtype=torch.float32,
+                          device=targets.device)
+    return mask[..., : targets.shape[1]].to(torch.float32).sum()
+
+
+def lm_shards_apart(batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> bool:
+    """Whether ``lm_loss`` over ``batch`` under the ambient mesh is its data
+    shards' losses, each under a mesh of its own data row, weighted by
+    ``lm_loss_count``. Every layer computes row by row but the MoE, which
+    routes each data shard apart only on its expert-parallel branch
+    (``layers.moe_uses_shard_map``); off it, the whole batch's tokens share
+    the ranks, the capacity and the aux loss."""
+    if cfg.family != "moe":
+        return True
+    S = batch["tokens"].shape[1]
+    if cfg.frontend == "vision" and "patches" in batch:
+        S += batch["patches"].shape[1]
+    return L.moe_uses_shard_map(L._mesh_info(), cfg.n_experts, cfg.experts_per_token,
+                                batch["tokens"].shape[0] * S)
+
+
 def _ssm_prefill(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """The ssm family's prefill: the layers in order, each Mamba-1 block's
     final state and conv tail collected. Returns (x, cache)."""

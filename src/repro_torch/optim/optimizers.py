@@ -79,9 +79,14 @@ def _as_schedule(lr) -> Schedule:
 # ------------------------------------------------------- gradient transforms
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` scales every gradient by."""
+    return torch.clamp_max(_f32(max_norm, norm) / torch.clamp_min(norm, 1e-12), 1.0)
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
     norm = torch.sqrt(sum((g.to(torch.float32).square().sum() for g in tree_leaves(grads))))
-    scale = torch.clamp_max(_f32(max_norm, norm) / torch.clamp_min(norm, 1e-12), 1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
 

@@ -1074,3 +1074,137 @@ class TestZoo:
         assert out.device == dev
         self._check(out, plain, torch.bfloat16)
         assert float(aux) == float(plain_aux)
+
+
+class TestShardTrain:
+    """The sharded train step on the card (``-k shardtrain``): a reduced
+    (2, 2) step on four shards of one card against the unsharded step
+    under the same mesh, and qwen3-8b at full width and depth on a (2, 2)
+    mesh of four distinct cards, whose train state does not fit one."""
+
+    # f32, as tests/test_torch_sharded_train.py: metrics rtol 1e-6, f32
+    # moments 1e-5 and params 1e-3 of each leaf's largest value
+    F32 = {"metric": 1e-6, "moment": 1e-5, "param": 1e-3}
+    # bf16 at full width, as chip_smoke.py's SHARD_LOSS_RTOL / SHARD_GNORM_RTOL
+    BF16 = {"loss": 1e-4, "grad_norm": 1e-2}
+
+    @staticmethod
+    def _shardings(cfg, shapes, batch, mesh):
+        from repro_torch.launch import steps
+
+        specs = {"params": shd.tree_param_specs(shapes["params"], mesh,
+                                                n_kv_heads=cfg.n_kv_heads),
+                 "opt": {k: shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads)
+                         for k, v in shapes["opt"].items()}, "step": shd.P()}
+        return (specs, shd.to_named(specs, mesh),
+                shd.to_named(shd.batch_spec(batch, mesh), mesh), steps)
+
+    @pytest.mark.parametrize("arch", ["stablelm-1.6b", "kimi-k2-1t-a32b"])
+    def test_shardtrain_reduced_step_on_one_card(self, dev, arch):
+        from repro_torch import obs
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch.steps import init_train_state, make_train_step
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        cfg = get_arch(arch).reduced().with_(remat=True)
+        model, opt = build_model(cfg), adamw(1e-3)
+        state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+        rng = np.random.RandomState(0)
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 64)),
+                                           dtype=torch.int32, device=dev)}
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+        specs, s_sh, b_sh, steps = self._shardings(cfg, state, batch, mesh)
+        with obs.enabled() as tracer:
+            new, met = steps.make_sharded_train_step(model, opt, s_sh, b_sh)(state, batch)
+        with use_mesh(mesh):
+            want, want_m = make_train_step(model, opt)(state, batch)
+        for k in want_m:
+            rel = abs(float(met[k]) - float(want_m[k])) / max(abs(float(want_m[k])), 1e-30)
+            assert rel <= self.F32["metric"], (k, rel)
+        got = shd.gather(new)
+        for group, tol in (("params", "param"), ("opt", "moment")):
+            for a, b in zip(tree_leaves(got[group]), tree_leaves(want[group])):
+                assert a.device == dev and a.dtype == b.dtype
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                assert err <= self.F32[tol], (group, err)
+        assert (shd.device_nbytes(new) == shd.tree_spec_nbytes(state, specs, mesh)).all()
+        assert all(p.device == dev for leaf in tree_leaves(new) for p in leaf.pieces.flat)
+        spans = [e.args for e in tracer.events if e.name == "moe_shard_map"]
+        if cfg.n_experts:  # forward and remat's recompute, each shard on its own row
+            assert len(spans) == 2 * 2 * cfg.n_layers and all(s["dp"] == 1 for s in spans)
+        else:
+            assert not spans
+
+    @staticmethod
+    def _zeros(shapes, shardings):
+        """Zero pieces of each leaf, made on their devices (a placed moment
+        that never exists whole)."""
+        if isinstance(shardings, shd.NamedSharding):
+            mesh = shardings.mesh
+            pieces = np.empty(mesh.devices.shape, dtype=object)
+            for idx in np.ndindex(pieces.shape):
+                pieces[idx] = torch.zeros(shd.piece_shape(shapes.shape, shardings.spec, mesh),
+                                          dtype=shapes.dtype, device=mesh.devices[idx])
+            return shd.Placed(pieces, shardings, tuple(shapes.shape), shapes.dtype)
+        return {k: TestShardTrain._zeros(shapes[k], shardings[k]) for k in shapes}
+
+    def test_sharded_train_step_across_cards(self):
+        """qwen3-8b at full width and depth on a (2, 2) mesh of four distinct
+        cards: 16.4 GB of bf16 params and 65.5 GB of f32 AdamW moments, more
+        than one card holds. Two steps; the first's loss and grad norm held
+        to the unsharded forward and backward on card 0 (params and
+        gradients fit there, the moments do not); each card's bytes the
+        specs'."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        devices = [torch.device("cuda", k) for k in range(4)]
+        self.across_cards(get_arch("qwen3-8b"), devices, 4, 512)
+
+    def across_cards(self, cfg, devices, B, S):
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch.steps import _value_and_grad, train_state_shapes
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        dev = devices[0]
+        model, opt = build_model(cfg), adamw(1e-3)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        rng = np.random.RandomState(0)
+        batches = [{"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, S)),
+                                              dtype=torch.int32, device=dev)} for _ in range(2)]
+        # the fourth output aliases every param: only the loss and the gradients are kept
+        loss_u, grads = _value_and_grad(model, params, batches[0])[::2]
+        gnorm_u = float(torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads))))
+        loss_u = float(loss_u)
+        del grads
+        mesh = make_mesh((2, 2), ("data", "model"), devices=devices)
+        shapes = train_state_shapes(model, opt)
+        specs, s_sh, b_sh, steps = self._shardings(cfg, shapes, batches[0], mesh)
+        state = {"params": shd.place(params, s_sh["params"]),
+                 "opt": self._zeros(shapes["opt"], s_sh["opt"]),
+                 "step": shd.place(torch.zeros((), dtype=torch.int32, device=dev), s_sh["step"])}
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+        state, met = step(state, batches[0])
+        rel = {k: abs(float(met[k]) - want) / abs(want)
+               for k, want in (("loss", loss_u), ("grad_norm", gnorm_u))}
+        print(f"step 1: loss {float(met['loss'])!r} grad_norm {float(met['grad_norm'])!r}, "
+              f"unsharded {loss_u!r} / {gnorm_u!r}, relative {rel}")
+        assert all(rel[k] <= self.BF16[k] for k in rel), rel
+        state, met = step(state, batches[1])
+        assert np.isfinite(float(met["loss"])) and int(shd.gather(state["step"])) == 2
+        for leaf in tree_leaves(state):
+            for idx in np.ndindex(leaf.pieces.shape):
+                assert leaf.pieces[idx].device == mesh.devices[idx]
+        want_dev = shd.tree_spec_nbytes(shapes, specs, mesh)
+        assert (shd.device_nbytes(state) == want_dev).all()
+        if dev.type == "cuda":  # each card holds at least its pieces
+            held = [torch.cuda.memory_allocated(d) for d in devices]
+            print(f"step 2: loss {float(met['loss'])!r}; {want_dev} B of pieces a card, the "
+                  f"allocator holds {held}")
+            assert all(h >= want_dev for h in held)
+        return met
