@@ -3781,6 +3781,19 @@ SHARD_PARAM_SHARE = 0.4  # bf16 params that differ after 3 steps [0.181; 0.841]
 # elements take a sign-flipped lr step either way, so it does not tell the
 # fault apart; held to two such steps at lr 1e-3 with a bf16 rounding
 SHARD_PARAM_MAX = 8e-3
+# the tensor-parallel route (``tensor_parallel=True``) on these meshes of
+# four shards of the card, 3 steps each from the same state
+TP_MESHES = ((2, 2), (1, 4))
+# its bounds against the unsharded steps, each between the honest runs'
+# readings on both meshes and the planted fault's on (2, 2) (model shard
+# 1's partial dropped from every row-parallel sum, ``models.layers._row_sum``),
+# in brackets (an NVIDIA H100 80GB HBM3 at 700 W). The fault moves step 1
+# less than a dropped data shard does: with random weights the residual
+# stream carries most of each layer's output.
+TP_LOSS_RTOL = 1e-4  # each step's loss [2.7e-5; 6.2e-4-1.9e-3]
+TP_GNORM_RTOL = 4e-3  # each step's grad norm [1.1e-3; 7.9e-3 at step 1, 5.7e-2-9.7e-2]
+TP_MOMENT_RTOL = 0.3  # moments, worst leaf max |d| / max |b| [6.7e-2; 1.98]
+TP_PARAM_SHARE = 0.6  # bf16 params that differ after 3 steps [0.325; 0.870]
 # stages of the sharded step (``launch.steps``' functions) timed by CUDA events
 SHARD_STAGES = (("_placed", "placement"), ("_shard_live", "gathers"),
                 ("_forward_backward", "forward_backward"), ("_accumulate", "grad_mean"),
@@ -3828,12 +3841,15 @@ class _StepSplit:
     cudaMalloc calls it made and its retries (a cudaMalloc that failed,
     freed the cache and tried again), and the host's garbage collections
     within it (ms, and how many were full ones: a host stall the device
-    sees as idle once its queue drains). ``take()`` sums each stage's ms
-    per step, lists each forward+backward (ms and books) and each stage's
-    books."""
+    sees as idle once its queue drains). The tensor-parallel route's
+    row-parallel sums (``models.layers._row_sum``, inside the forward and
+    remat's recompute) are timed apart, by events alone, as the stage
+    "reductions" (within forward_backward). ``take()`` sums each stage's
+    ms per step, lists each forward+backward (ms and books) and each
+    stage's books."""
 
     def __init__(self, dev):
-        self.dev, self.events, self.peak = dev, [], 0
+        self.dev, self.events, self.peak, self.reductions = dev, [], 0, []
 
     def _books(self) -> tuple:
         import torch
@@ -3876,11 +3892,27 @@ class _StepSplit:
                         "retries": r1 - retries, "gc_ms": g1 - gc_ms, "gc_full": f1 - gc_full}))
 
             setattr(steps, fn, wrap)
+
+        from repro_torch.models import layers
+
+        self._layers, self._row_sum = layers, layers._row_sum
+
+        def row_sum(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            try:
+                return self._row_sum(*a, **kw)
+            finally:
+                ev[1].record()
+                self.reductions.append(ev)
+
+        layers._row_sum = row_sum
         return self
 
     def __exit__(self, *exc):
         for fn, real in self._real.items():
             setattr(self._steps, fn, real)
+        self._layers._row_sum = self._row_sum
         self._gc.__exit__()
         return False
 
@@ -3903,6 +3935,8 @@ class _StepSplit:
             for k in ("mallocs", "retries", "gc_ms", "gc_full"):
                 rec[k] += m[k]
         self.events = []
+        out["reductions"] = sum(a.elapsed_time(b) for a, b in self.reductions)
+        out["reduction_calls"], self.reductions = len(self.reductions), []
         return dict(out, forward_backward_per_shard=shards, books=books)
 
 
@@ -3932,6 +3966,30 @@ class _DropShard:
 
     def __exit__(self, *exc):
         self._steps._forward_backward = self._real
+        return False
+
+
+class _DropPartial:
+    """Planted fault: within ``with``, model shard ``k``'s partial left out
+    of every row-parallel sum (``models.layers._row_sum``)."""
+
+    def __init__(self, k: int = 1):
+        self.k, self.calls = k, 0
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._layers, self._real = layers, layers._row_sum
+
+        def row_sum(partials, home, dtype):
+            self.calls += 1
+            return self._real([t for m, t in enumerate(partials) if m != self.k], home, dtype)
+
+        layers._row_sum = row_sum
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._row_sum = self._real
         return False
 
 
@@ -3995,17 +4053,45 @@ def _distinct_piece_bytes(shapes, specs, mesh, itemsize: int = 4) -> int:
     return sum(_distinct_piece_bytes(shapes[k], specs[k], mesh, itemsize) for k in shapes)
 
 
+def _read_copy_bytes(shapes, specs, mesh, cfg, tp: bool, path=()) -> int:
+    """Bytes data shard 0's read of the params copies on one card: each
+    leaf read whole, or on the tensor-parallel route each block
+    (``launch.steps._tp_axis``), whose box is not one piece of its
+    placement (a piece that covers it exactly is read as it is)."""
+    import numpy as np
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+
+    if isinstance(shapes, dict):
+        return sum(_read_copy_bytes(shapes[k], specs[k], mesh, cfg, tp, path + (k,))
+                   for k in shapes)
+    shape = tuple(shapes.shape)
+    mp = mesh.shape["model"]
+    full = tuple((0, d) for d in shape)
+    boxes = [full]
+    axis = steps._tp_axis(path, shape, specs, cfg if tp else None, mp)
+    if axis is not None:
+        ax, n = len(shape) + axis, shape[len(shape) + axis] // mp
+        boxes = [full[:ax] + ((m * n, (m + 1) * n),) + full[ax + 1:] for m in range(mp)]
+    pieces = {shd._piece_bounds(shape, shd.NamedSharding(mesh, specs), idx)
+              for idx in np.ndindex(mesh.devices.shape)}
+    return sum(int(np.prod([b - a for a, b in box])) * shapes.element_size()
+               for box in boxes if box not in pieces)
+
+
 def shard_reckoning(placed_dev: int, n_dev: int, param_bytes: int, sums_bytes: int,
-                    act_bytes: int) -> dict:
+                    act_bytes: int, gathered: int) -> dict:
     """The sharded step's peak device bytes on one card, reckoned before
     the run: the placed state on every mesh device, one data shard's
-    gathered params and its bf16 gradients, the f32 sums of the distinct
-    pieces, remat's activations, and the new pieces while the old state
-    is still held (the larger of the backward's and the update's)."""
+    copied params (``gathered``, ``_read_copy_bytes``) and its bf16
+    gradients, the f32 sums of the distinct pieces, remat's activations,
+    and the new pieces while the old state is still held (the larger of
+    the backward's and the update's)."""
     placed = placed_dev * n_dev
-    backward = placed + 2 * param_bytes + sums_bytes + act_bytes
+    backward = placed + gathered + param_bytes + sums_bytes + act_bytes
     update = 2 * placed + param_bytes  # new pieces beside the old, the clipped gradients
-    return {"placed": placed, "gathered": param_bytes, "grads_bf16": param_bytes,
+    return {"placed": placed, "gathered": gathered, "grads_bf16": param_bytes,
             "f32_sums": sums_bytes, "activations": act_bytes, "backward_peak": backward,
             "update_peak": update, "peak": max(backward, update)}
 
@@ -4036,7 +4122,17 @@ def phase_shardtrain(dev):
     dropped (a planted fault) must fail those bounds. (3) Step 2 on a (1,
     1) mesh, bit for bit the unsharded step 2 on every leaf but the
     embedding's and the head's (and their moments). (4) One step with
-    quantized moments on the (2, 2) mesh against the unsharded one. No
+    quantized moments on the (2, 2) mesh against the unsharded one. (5)
+    The tensor-parallel route (``tensor_parallel=True``: the attention,
+    MLP, embedding and head split over ``model``) on each ``TP_MESHES``
+    mesh ((2, 2) and (1, 4) of four shards of the card): 3 steps from the
+    same state held to the same unsharded steps by the ``TP_*`` bounds,
+    the bytes a device the specs', step ms, the split (the row-parallel
+    sums as their own stage, "reductions"), the peak beside its
+    reckoning; and 3 steps on (2, 2) with model shard 1's partial dropped
+    from every row-parallel sum (a planted fault), which must fail those
+    bounds. (6) One step on a (2, 1) mesh both ways: with no model axis
+    there are no blocks, so the two routes are bit for bit the same. No
     kernel launches."""
     import torch
 
@@ -4077,17 +4173,33 @@ def phase_shardtrain(dev):
         b = shd.batch_spec({"tokens": batches[0]}, m)
         return shapes, specs, shd.to_named(specs, m), shd.to_named(b, m)
 
-    shapes, specs, s_sh, b_sh = shardings(opt, mesh)
-    want_dev = shd.tree_spec_nbytes(shapes, specs, mesh)
-    param_bytes = tree_bytes(shapes["params"])
-    sums = _distinct_piece_bytes(shapes["params"], specs["params"], mesh)
+    def setup(m, tp: bool) -> dict:
+        """A mesh's shardings, its bytes a device and its peak reckoning."""
+        m_shapes, m_specs, m_sh, mb_sh = shardings(opt, m)
+        n_dev, m_dp = m.devices.size, m.shape["data"]
+        want = shd.tree_spec_nbytes(m_shapes, m_specs, m)
+        reck = shard_reckoning(
+            want, n_dev, tree_bytes(m_shapes["params"]),
+            _distinct_piece_bytes(m_shapes["params"], m_specs["params"], m),
+            _remat_act_bytes(cfg, TRAIN_BATCH // m_dp, TRAIN_SEQ),
+            _read_copy_bytes(m_shapes["params"], m_specs["params"], m, cfg, tp))
+        return {"mesh": m, "shapes": m_shapes, "s_sh": m_sh, "b_sh": mb_sh, "want_dev": want,
+                "n_dev": n_dev, "dp": m_dp, "tp": tp, "reck": reck}
+
+    meshes = {("gather", SHARD_MESH): setup(mesh, False)}
+    for dims in TP_MESHES:
+        meshes[("tp", dims)] = setup(make_mesh(dims, ("data", "model"), devices=[dev] * 4), True)
+    shapes, s_sh, b_sh = (meshes[("gather", SHARD_MESH)][k] for k in ("shapes", "s_sh", "b_sh"))
+    want_dev, reck = meshes[("gather", SHARD_MESH)]["want_dev"], meshes[("gather", SHARD_MESH)]["reck"]
     B_loc = TRAIN_BATCH // dp
-    reck = shard_reckoning(want_dev, dp * mp, param_bytes, sums,
-                           _remat_act_bytes(cfg, B_loc, TRAIN_SEQ))
     print(f"shardtrain: {cfg.name} {cfg.n_layers} layers at full width, {cfg.param_dtype}, remat "
           f"{cfg.remat}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, {B_loc} x {TRAIN_SEQ} a data "
           f"shard on a {dp} x {mp} (data, model) mesh of {dev} x {dp * mp}; placed state "
           f"{want_dev} B a device; peak reckoning (B) {json.dumps(reck)}")
+    for (route, dims), st in meshes.items():
+        if route == "tp":
+            print(f"  tensor-parallel route on {dims}: placed state {st['want_dev']} B a device; "
+                  f"peak reckoning (B) {json.dumps(st['reck'])}")
 
     # (1a) the unsharded steps; their states after steps 1-3 kept on the host
     torch.cuda.empty_cache()
@@ -4106,13 +4218,16 @@ def phase_shardtrain(dev):
     torch.cuda.empty_cache()
     print(f"  unsharded steps: {json.dumps(u_log)}")
 
-    def sharded_run(fault: bool):
-        """3 sharded steps from the fresh state; (log, readings after step 3)."""
+    def sharded_run(key, fault: bool):
+        """3 sharded steps from the fresh state on ``meshes[key]``, by its
+        route; (log, readings after step 3, peak, base)."""
+        st = meshes[key]
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
-        placed = shd.place(fresh(opt), s_sh)
+        placed = shd.place(fresh(opt), st["s_sh"])
         torch.cuda.empty_cache()
-        step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+        step = steps.make_sharded_train_step(model, opt, st["s_sh"], st["b_sh"],
+                                             tensor_parallel=st["tp"])
         log = []
         torch.cuda.reset_peak_memory_stats(dev)
         with _StepSplit(dev) as split:
@@ -4120,7 +4235,7 @@ def phase_shardtrain(dev):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if fault:
-                    with _DropShard(dp):
+                    with (_DropPartial() if st["tp"] else _DropShard(st["dp"])):
                         placed, met = step(placed, {"tokens": b.to(dev)})
                 else:
                     placed, met = step(placed, {"tokens": b.to(dev)})
@@ -4129,55 +4244,112 @@ def phase_shardtrain(dev):
                 per_dev = shd.device_nbytes(placed)
                 held = torch.cuda.memory_allocated(dev) - base
                 log.append(dict(met, ms=ms, split=split.take(), rel=_metric_rel(met, u_log[i]),
-                                bytes_ok=bool((per_dev == want_dev).all()), held=held))
+                                bytes_ok=bool((per_dev == st["want_dev"]).all()), held=held))
         peak = max(split.peak, torch.cuda.max_memory_allocated(dev))
         readings, _ = _state_readings(placed, host[-1], dev)
         del placed
         torch.cuda.empty_cache()
         return log, readings, peak, base
 
-    # (1b) the sharded steps; (2) the same with a planted fault
-    log, readings, peak, base = sharded_run(fault=False)
-    f_log, f_readings, _, _ = sharded_run(fault=True)
-    n_pieces = dp * mp * len(tree_leaves(shapes))
-    for i, e in enumerate(log):
-        print(f"  sharded step {i + 1}: loss {e['loss']!r} grad_norm {e['grad_norm']!r} (unsharded "
-              f"{u_log[i]['loss']!r} / {u_log[i]['grad_norm']!r}, relative {json.dumps(e['rel'])}) "
-              f"{e['ms']:.2f} ms synchronised; split (CUDA events, ms; the allocator's books, B) "
-              f"{json.dumps(e['split'])}; "
-              f"bytes a device as the specs {e['bytes_ok']}; the card holds {e['held']} B for the "
-              f"placed state ({want_dev * dp * mp} B of pieces)")
-    ms_s = statistics.median(e["ms"] for e in log[1:])
+    def outside(rels, r, tols) -> list:
+        """The bounds (loss, grad norm, param share, moments) that a run's
+        per-step metrics and final state break."""
+        loss_tol, gnorm_tol, share_tol, moment_tol = tols
+        out = [f"{k} step {i + 1}" for i, rel in enumerate(rels) for k, tol in
+               (("loss", loss_tol), ("grad_norm", gnorm_tol)) if rel[k] > tol]
+        out += ["param share"] * (r["params"]["differ_share"] > share_tol)
+        return out + [k for k in ("m", "v") if r[k]["max_rel"] > moment_tol]
+
+    def report(key, log, readings, peak, base):
+        st = meshes[key]
+        n_pieces = st["n_dev"] * len(tree_leaves(st["shapes"]))
+        for i, e in enumerate(log):
+            print(f"  {key[0]} {key[1]} step {i + 1}: loss {e['loss']!r} grad_norm "
+                  f"{e['grad_norm']!r} (unsharded {u_log[i]['loss']!r} / "
+                  f"{u_log[i]['grad_norm']!r}, relative {json.dumps(e['rel'])}) {e['ms']:.2f} ms "
+                  f"synchronised; split (CUDA events, ms; the allocator's books, B) "
+                  f"{json.dumps(e['split'])}; bytes a device as the specs {e['bytes_ok']}; the "
+                  f"card holds {e['held']} B for the placed state "
+                  f"({st['want_dev'] * st['n_dev']} B of pieces)")
+        print(f"  {key[0]} {key[1]} after {len(batches)} steps against the unsharded state: "
+              f"{json.dumps(readings)}; peak device memory {peak} B (reckoned "
+              f"{st['reck']['peak']} B; {base} B allocated before the placement)")
+        for i, e in enumerate(log):
+            if not e["bytes_ok"]:
+                _fail(f"the {key} step changed the pieces' bytes at step {i + 1}")
+            full = st["want_dev"] * st["n_dev"]
+            if not full <= e["held"] <= full + 512 * n_pieces + 2**20:
+                _fail(f"after {key} step {i + 1} the card holds {e['held']} B for {full} B of "
+                      f"placed state")
+        return statistics.median(e["ms"] for e in log[1:])
+
+    # (1b) the gather route; (2) the same with a planted fault
+    g_key = ("gather", SHARD_MESH)
+    log, readings, peak, base = sharded_run(g_key, fault=False)
+    f_log, f_readings, _, _ = sharded_run(g_key, fault=True)
+    ms_s = report(g_key, log, readings, peak, base)
     ms_u = statistics.median(e["ms"] for e in u_log[1:])
     f_rel = [e["rel"] for e in f_log]
-    print(f"  after {len(batches)} steps against the unsharded state: {json.dumps(readings)}")
     print(f"  planted fault (data shard 1's gradient dropped): per step {json.dumps(f_rel)}; "
           f"after {len(batches)} steps {json.dumps(f_readings)}")
-    print(f"  step ms (median of steps 2-3): sharded {ms_s:.2f}, unsharded {ms_u:.2f}; peak "
-          f"device memory {peak} B (reckoned {reck['peak']} B; {base} B allocated before the "
-          f"placement, by earlier phases)")
-    for i, e in enumerate(log):
-        if not e["bytes_ok"]:
-            _fail(f"the sharded step changed the pieces' bytes at step {i + 1}")
-        if not want_dev * dp * mp <= e["held"] <= want_dev * dp * mp + 512 * n_pieces + 2**20:
-            _fail(f"after step {i + 1} the card holds {e['held']} B for "
-                  f"{want_dev * dp * mp} B of placed state")
-
-    def outside(rels, r) -> list:
-        """The bounds that a run's per-step metrics and final state break."""
-        out = [f"{k} step {i + 1}" for i, rel in enumerate(rels) for k, tol in
-               (("loss", SHARD_LOSS_RTOL), ("grad_norm", SHARD_GNORM_RTOL)) if rel[k] > tol]
-        p = r["params"]
-        out += ["param share"] * (p["differ_share"] > SHARD_PARAM_SHARE)
-        out += ["param max"] * (p["max_abs"] > SHARD_PARAM_MAX)
-        return out + [k for k in ("m", "v") if r[k]["max_rel"] > SHARD_MOMENT_RTOL]
-
-    broken, caught = outside([e["rel"] for e in log], readings), outside(f_rel, f_readings)
+    gather_tols = (SHARD_LOSS_RTOL, SHARD_GNORM_RTOL, SHARD_PARAM_SHARE, SHARD_MOMENT_RTOL)
+    broken = outside([e["rel"] for e in log], readings, gather_tols)
+    broken += ["param max"] * (readings["params"]["max_abs"] > SHARD_PARAM_MAX)
+    caught = outside(f_rel, f_readings, gather_tols)
     print(f"  bounds the honest run breaks: {broken}; the planted fault's: {caught}")
     if broken:
         _fail(f"the sharded steps differ from the unsharded ones: {broken}")
     if not {"grad_norm step 1", "param share", "m", "v"} <= set(caught):
         _fail(f"the bounds do not catch a dropped data shard's gradient: {caught}")
+
+    # (5) the tensor-parallel route on each TP_MESHES mesh; on the first,
+    # the same with a planted fault
+    tp_tols = (TP_LOSS_RTOL, TP_GNORM_RTOL, TP_PARAM_SHARE, TP_MOMENT_RTOL)
+    tp_out = {}
+    for dims in TP_MESHES:
+        key = ("tp", dims)
+        t_log, t_readings, t_peak, t_base = sharded_run(key, fault=False)
+        tp_ms = report(key, t_log, t_readings, t_peak, t_base)
+        t_broken = outside([e["rel"] for e in t_log], t_readings, tp_tols)
+        tp_out[dims] = {"ms": tp_ms, "peak": t_peak, "readings": t_readings,
+                        "split": t_log[-1]["split"], "broken": t_broken}
+        print(f"  tensor-parallel {dims}: step ms (median of steps 2-3) {tp_ms:.2f}; bounds the "
+              f"honest run breaks: {t_broken}")
+        if t_broken:
+            _fail(f"the tensor-parallel steps on {dims} differ from the unsharded ones: "
+                  f"{t_broken}")
+    tf_log, tf_readings, _, _ = sharded_run(("tp", TP_MESHES[0]), fault=True)
+    tf_rel = [e["rel"] for e in tf_log]
+    tp_caught = outside(tf_rel, tf_readings, tp_tols)
+    print(f"  tensor-parallel planted fault (model shard 1's partial dropped from every "
+          f"row-parallel sum) on {TP_MESHES[0]}: per step {json.dumps(tf_rel)}; after "
+          f"{len(batches)} steps {json.dumps(tf_readings)}; bounds it breaks: {tp_caught}")
+    if not {"loss step 1", "grad_norm step 1", "param share", "m", "v"} <= set(tp_caught):
+        _fail(f"the bounds do not catch a dropped model shard's partial: {tp_caught}")
+    print(f"  step ms (median of steps 2-3): unsharded {ms_u:.2f}, gather route {SHARD_MESH} "
+          f"{ms_s:.2f}, tensor-parallel " + ", ".join(f"{d} {v['ms']:.2f}"
+                                                       for d, v in tp_out.items()))
+
+    # (6) a (2, 1) mesh: no model axis, so no blocks: the routes bit for bit
+    m21 = make_mesh((2, 1), ("data", "model"), devices=[dev] * 2)
+    _, _, s21, b21 = shardings(opt, m21)
+    news = []
+    for tp in (False, True):
+        torch.cuda.empty_cache()
+        placed = shd.place(fresh(opt), s21)
+        news.append(steps.make_sharded_train_step(model, opt, s21, b21, tensor_parallel=tp)(
+            placed, {"tokens": batches[0].to(dev)}))
+        del placed
+    same = all(_same_bits(news[0][1][k], news[1][1][k]) for k in news[0][1])
+    unequal = [i for i, (x, y) in enumerate(zip(tree_leaves(news[0][0]), tree_leaves(news[1][0])))
+               if not all(_same_bits(p, q) for p, q in zip(x.pieces.flat, y.pieces.flat))]
+    print(f"  (2, 1) mesh, step 1: the tensor-parallel route's metrics bit for bit the gather "
+          f"route's {same}; leaves not bit for bit {unequal}")
+    del news
+    torch.cuda.empty_cache()
+    if not same or unequal:
+        _fail(f"on a (2, 1) mesh the tensor-parallel step differs from the gather route: "
+              f"{unequal}")
     del host[-1]
 
     # (3) step 2 on a (1, 1) mesh from the unsharded step 1's state
@@ -4232,8 +4404,8 @@ def phase_shardtrain(dev):
     if any(launches.values()):
         _fail(f"the sharded train step launched a kernel: {launches}")
     out = {"sharded_ms": ms_s, "unsharded_ms": ms_u, "peak_bytes": peak, "reckoned": reck,
-           "readings": readings, "fault_readings": f_readings,
-           "phase_s": time.perf_counter() - t_phase}
+           "readings": readings, "fault_readings": f_readings, "tensor_parallel": tp_out,
+           "tp_fault_readings": tf_readings, "phase_s": time.perf_counter() - t_phase}
     print(f"  shardtrain phase {out['phase_s']:.1f} s")
     return out
 
@@ -4242,7 +4414,8 @@ def phase_shardprof(dev):
     """Where the sharded step's time goes, data shard pass by pass (not in
     a full run: ``--phases build,shardprof``; after the full list of
     phases it runs on their history). The shardtrain phase's step (stablelm-1.6b,
-    AdamW, the (2, 2) mesh of four shards of the card): one step to warm
+    AdamW, the (2, 2) mesh of four shards of the card), by each route (the
+    gather route, then the tensor-parallel one): one step to warm
     up, then 3 under ``torch.profiler``, each pass
     (``steps.shard_value_and_grad``: gathers, forward and backward) fenced
     by synchronisations, while ``nvidia-smi`` samples the SM clock and the
@@ -4250,11 +4423,7 @@ def phase_shardprof(dev):
     by class, the matmul kernels' names, the cudaMalloc and cudaFree calls
     and their host ms, the allocator's retries, the host's garbage
     collections, and the SM clock and power sampled within it."""
-    import datetime
-    import signal
-
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import get_arch
     from repro_torch.data.lm import token_batches
@@ -4278,10 +4447,26 @@ def phase_shardprof(dev):
     s_sh = shd.to_named(specs, mesh)
     b_sh = shd.to_named(shd.batch_spec(batches[0], mesh), mesh)
     gen = torch.Generator(device=dev)
+    return {tp: _shardprof_route(dev, cfg, model, opt, batches, s_sh, b_sh, gen, tp)
+            for tp in (False, True)}
+
+
+def _shardprof_route(dev, cfg, model, opt, batches, s_sh, b_sh, gen, tp: bool) -> list:
+    """``phase_shardprof``'s profile of one route."""
+    import datetime
+    import signal
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+
+    dp, mp = SHARD_MESH
     gen.manual_seed(0)
     torch.cuda.empty_cache()
     placed = shd.place(steps.init_train_state(model, opt, gen), s_sh)
-    step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+    step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
 
     real, passes = steps.shard_value_and_grad, []
 
@@ -4341,7 +4526,8 @@ def phase_shardprof(dev):
     kernels = [e for e in events  # the passes' own marks show on the device too
                if e.device_type.name == "CUDA" and not e.name.startswith("shard_pass_")]
     runtime = [e for e in events if e.name in ("cudaMalloc", "cudaFree")]
-    print(f"shardprof: {cfg.name} at full width, {dp} x {mp} mesh of {dev} x {dp * mp}; "
+    print(f"shardprof ({'tensor-parallel' if tp else 'gather'} route): {cfg.name} at full "
+          f"width, {dp} x {mp} mesh of {dev} x {dp * mp}; "
           f"{len(walls)} profiled steps, wall ms {walls!r}; {len(samples)} nvidia-smi samples")
     out = []
     for i, ((s0, s1), rec) in enumerate(zip(marks, passes)):

@@ -18,7 +18,10 @@ devices), which is what data shard 0 computes: the MoE takes its
 expert-parallel path exactly where the reference's does, with the same
 per-shard token count, its expert stacks read as each model shard's
 block on its device (a train batch that the step runs as one shard,
-``steps.data_shards``, runs whole under the whole mesh). That shows
+``steps.data_shards``, runs whole under the whole mesh). The train
+shapes run the step's gather route (``tensor_parallel`` False, every
+other leaf read whole); the tensor-parallel pass is not run here, and
+the bytes a device are the specs' either way. That shows
 every arch builds and runs shape-correct at production size with no
 memory and no card.
 
@@ -113,7 +116,8 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
         opt = adamw(1e-4)
         state = train_state_shapes(model, opt)
         params = state["params"]
-        # optimizer state mirrors the params' sharding (ZeRO for free)
+        # optimizer state mirrors the params' sharding (ZeRO for free); the
+        # pass is the gather route's (the tensor-parallel one is not run here)
         out["bytes_opt"] = sum(
             nbytes(v, shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads), mesh)
             for v in state["opt"].values())

@@ -238,6 +238,15 @@ def _entries(spec: P, ndim: int) -> Tuple:
     return tuple(out)
 
 
+def model_dim(spec: P, ndim: int):
+    """The dim of a leaf of ``ndim`` dims that ``spec`` splits over
+    ``model`` (alone or with other axes), or None."""
+    for i, axes in enumerate(_entries(spec, ndim)):
+        if "model" in axes:
+            return i
+    return None
+
+
 def _piece_bounds(shape, sharding: NamedSharding, idx) -> Tuple[Tuple[int, int], ...]:
     """[start, stop) of each dim of the piece on mesh index ``idx``."""
     mesh = sharding.mesh

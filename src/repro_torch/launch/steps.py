@@ -9,7 +9,9 @@ loads in either package.
 ``make_sharded_train_step`` is the port's counterpart of the reference's
 ``jax.jit(make_train_step(model, opt), in_shardings=...)``: the same step
 on a train state placed on a ``launch.mesh.Mesh`` (``launch.sharding``),
-with data-parallel gradients and each piece's update on its device.
+with data-parallel gradients, each piece's update on its device and,
+with ``tensor_parallel``, the attention, MLP, embedding and head split
+over the mesh's ``model`` axis.
 """
 
 from __future__ import annotations
@@ -175,62 +177,113 @@ def _read(leaf, want, device) -> torch.Tensor:
     return shd.read_box([(_full(leaf.shape), leaf)], want, device)
 
 
-class _ExpertRows:
-    """One data shard's MoE expert stack as model shard m's block of
-    experts on the shard's m-th device (``blocks[m]``, a leaf that
-    requires grad), which the expert-parallel branch reads through
-    ``block`` (``models/layers._expert_block``): model shard m's rows are
-    ``blocks[m]`` itself where they are asked for on its device (a view a
-    layer after ``unbind``), so its gradient is that block's share. Rows
-    asked for elsewhere or across blocks (the local path reads every
-    expert on the shard's device) come as a copy, through which autograd
-    carries the gradient back."""
+# the leaves the tensor-parallel step reads split over the model axis, by
+# (parent, name): the dim each splits, counted from the end (the
+# column-parallel outputs, the row-parallel inputs, the vocab)
+_TP_LEAVES = {("attn", "wq"): -1, ("attn", "wk"): -1, ("attn", "wv"): -1, ("attn", "wo"): -2,
+              ("mlp", "w_gate"): -1, ("mlp", "w_up"): -1, ("mlp", "w_down"): -2,
+              ("dense_mlp", "w_gate"): -1, ("dense_mlp", "w_up"): -1,
+              ("dense_mlp", "w_down"): -2, (None, "embed"): -2, (None, "lm_head"): -1}
+# the families whose blocks are ``attention_block`` with ``mlp_block`` or
+# ``moe_block``, and whose embedding and head ``models/transformer`` reads
+_TP_FAMILIES = ("dense", "moe", "vlm")
 
-    def __init__(self, blocks: List[torch.Tensor], lead: int):
-        self.blocks, self.lead = blocks, lead  # lead: layer axes ahead of the experts'
 
-    def unbind(self, dim: int = 0) -> List["_ExpertRows"]:
+def _tp_axis(path, shape, spec, cfg, mp: int) -> Optional[int]:
+    """The dim (from the end) of a leaf that the tensor-parallel step
+    reads as model-shard blocks, or None (whole): a ``_TP_LEAVES`` leaf of
+    a ``_TP_FAMILIES`` model whose spec splits that dim over ``model``;
+    the attention's only where its heads (and, for ``wk``/``wv``, its kv
+    heads) divide ``mp``, so a head is never split; the embedding only
+    where the head does not tie it."""
+    if cfg is None or mp == 1 or cfg.family not in _TP_FAMILIES:
+        return None
+    parent, name = (path[-2] if len(path) > 1 else None), path[-1]
+    axis = _TP_LEAVES.get((parent, name))
+    if axis is None or shd.model_dim(spec, len(shape)) != len(shape) + axis:
+        return None
+    if parent == "attn" and (cfg.n_heads % mp or (name in ("wk", "wv") and cfg.n_kv_heads % mp)):
+        return None
+    if name == "embed" and cfg.tie_embeddings:
+        return None
+    return axis
+
+
+class _Blocks:
+    """One data shard's leaf split over the model axis: ``blocks[m]`` is
+    model shard m's block, the m-th slice of dim ``axis`` (counted from
+    the end), on the shard's m-th device, a leaf that requires grad.
+    ``lead`` stacked layer axes come first; ``unbind`` takes them off one
+    at a time (the models' layer loop).
+
+    The tensor-parallel branches (``models/layers``' attention and MLP,
+    ``models/transformer``'s embedding and head) read ``blocks``. The MoE
+    reads an expert stack (``axis`` -3) through ``block``
+    (``models/layers._expert_block``): model shard m's rows are
+    ``blocks[m]`` itself where they are asked for on its device, so its
+    gradient is that block's share. Rows asked for elsewhere or across
+    blocks (the local path reads every expert on the shard's device) come
+    as a copy, through which autograd carries the gradient back."""
+
+    def __init__(self, blocks: List[torch.Tensor], axis: int, lead: int):
+        self.blocks, self.axis, self.lead = blocks, axis, lead
+
+    def unbind(self, dim: int = 0) -> List["_Blocks"]:
         if dim != 0 or not self.lead:
-            raise ValueError("only the leading layer axis of an expert stack unbinds")
-        return [_ExpertRows(list(layer), self.lead - 1)
+            raise ValueError("only the leading layer axes of a block leaf unbind")
+        return [_Blocks(list(layer), self.axis, self.lead - 1)
                 for layer in zip(*(b.unbind(0) for b in self.blocks))]
 
     def block(self, rows: Tuple[int, int], device) -> torch.Tensor:
         if self.lead:
-            raise ValueError("unbind the layer axes of an expert stack first")
-        n = self.blocks[0].shape[0]
+            raise ValueError("unbind the layer axes of a block leaf first")
+        n = self.blocks[0].shape[self.axis]
         device = torch.device(device)
-        parts = [b[max(rows[0] - m * n, 0):min(rows[1] - m * n, n)].to(device)
-                 for m, b in enumerate(self.blocks)
-                 if rows[0] < (m + 1) * n and m * n < rows[1]]
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        parts = []
+        for m, b in enumerate(self.blocks):
+            lo, hi = max(rows[0] - m * n, 0), min(rows[1] - m * n, n)
+            if lo < hi:
+                parts.append(b.narrow(self.axis, lo, hi - lo).to(device))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.axis)
 
 
-def _shard_live(params, mesh: Mesh):
+def _shard_live(params, mesh: Mesh, cfg=None):
     """Data shard 0 of ``mesh``'s live params: each leaf (``Placed`` or a
     tensor) read whole onto the shard's first device, a leaf that
     requires grad (no copy where a whole piece already sits there); an
-    MoE expert stack as ``_ExpertRows``. Returns (the tree, [(leaf index,
-    box, live tensor)])."""
+    MoE expert stack, and with ``cfg`` (the tensor-parallel step) each
+    leaf ``_tp_axis`` names, as ``_Blocks``: block m, that dim's m-th
+    slice gathered over the data axes only, on the row's m-th device.
+    A leaf's spec is its placement's (a tensor's: ``param_spec``).
+    Returns (the tree, [(leaf index, box, live tensor)])."""
     grid, _ = _shard_grid(mesh)
     row = list(grid[0])
+    mp = len(row)
     leaves, structure = tree_flatten(params)
     out, lives = [], []
     for k, (path, leaf) in enumerate(zip(_leaf_paths(params), leaves)):
         shape = tuple(leaf.shape)
         full = _full(shape)
-        if not _is_expert_stack(path, shape, len(row)):
+        if _is_expert_stack(path, shape, mp):
+            axis, lead = -3, len(shape) - 3
+        else:
+            spec = None
+            if cfg is not None:
+                spec = (leaf.sharding.spec if isinstance(leaf, shd.Placed) else
+                        shd.param_spec(path, shape, mesh, n_kv_heads=cfg.n_kv_heads))
+            axis, lead = _tp_axis(path, shape, spec, cfg, mp), len(shape) - 2
+        if axis is None:
             live = _read(leaf, full, row[0]).detach().requires_grad_(True)
             lives.append((k, full, live))
             out.append(live)
             continue
-        ax, blocks = len(shape) - 3, []
-        n = shape[ax] // len(row)
+        ax, blocks = len(shape) + axis, []
+        n = shape[ax] // mp
         for m, dev in enumerate(row):
             box = full[:ax] + ((m * n, (m + 1) * n),) + full[ax + 1:]
             blocks.append(_read(leaf, box, dev).detach().requires_grad_(True))
             lives.append((k, box, blocks[-1]))
-        out.append(_ExpertRows(blocks, ax))
+        out.append(_Blocks(blocks, axis, lead))
     return tree_unflatten(structure, out), lives
 
 
@@ -252,13 +305,16 @@ def _forward_backward(model: Model, live, lives, batch, mesh: Mesh, weight, dp: 
 
 
 def shard_value_and_grad(model: Model, params, batch: Dict[str, torch.Tensor], mesh: Mesh, *,
-                         weight: Optional[torch.Tensor] = None, dp: int = 1):
+                         weight: Optional[torch.Tensor] = None, dp: int = 1,
+                         tensor_parallel: bool = False):
     """One data shard's forward and backward, as the sharded step runs it:
     ``params`` (``Placed`` leaves or tensors) read onto data shard 0 of
-    ``mesh`` (``_shard_live``), ``model.loss`` and its gradient under
-    ``use_mesh(mesh)`` (``_forward_backward``). Returns (loss, metrics,
-    [(leaf index, box, gradient)]); the live params are freed on return."""
-    live, lives = _shard_live(params, mesh)
+    ``mesh`` (``_shard_live``; with ``tensor_parallel`` the model-split
+    leaves as blocks over the shard's row), ``model.loss`` and its gradient
+    under ``use_mesh(mesh)`` (``_forward_backward``). Returns (loss,
+    metrics, [(leaf index, box, gradient)]); the live params are freed on
+    return."""
+    live, lives = _shard_live(params, mesh, model.cfg if tensor_parallel else None)
     return _forward_backward(model, live, lives, batch, mesh, weight, dp)
 
 
@@ -429,7 +485,7 @@ def _metrics(outs, weights, dev0) -> Dict[str, torch.Tensor]:
 
 
 def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch_shardings, *,
-                            clip_norm: float = 1.0) -> Callable:
+                            clip_norm: float = 1.0, tensor_parallel: bool = False) -> Callable:
     """The port's counterpart of ``jax.jit(make_train_step(model, opt),
     in_shardings=(state_shardings, batch_shardings))``: the same step on a
     train state placed on a mesh, one process driving every device.
@@ -451,25 +507,38 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
       axis, experts that do not divide, too few tokens), and for a batch
       whose dim 0 does not divide over the data axes (left replicated by
       ``batch_spec``), the batch runs as one shard under the whole mesh.
-    - Each leaf is read whole onto the shard's first device; the MoE
-      expert stacks as model shard m's block on the shard's m-th device.
-      The shards run in turn; each one's copy is freed after its backward.
+    - The forward and backward read the params by one of two routes. The
+      gather route (``tensor_parallel`` False): each leaf whole on the
+      shard's first device, so that device computes the model whole and
+      the model axis holds pieces for storage and the update only. The
+      tensor-parallel route (True), the reference's Megatron split over
+      ``model`` for the dense, moe and vlm families: each attention,
+      dense-MLP, ``embed`` and ``lm_head`` leaf whose spec gives a dim to
+      ``model`` as model shard m's block on the row's m-th device
+      (``_tp_axis``; never a split head), so the attention runs H / M
+      heads a shard and the MLP d_ff / M columns, each row-parallel
+      product an f32 partial summed in f32 in shard order on the first
+      device (``models/layers``), and the embedding and the loss's
+      softmax are vocab-parallel (``models/transformer``); every other
+      leaf whole on the first device. The ssm, hybrid and audio families
+      read every leaf whole on either route. On both, the MoE expert
+      stacks are model shard m's block on the shard's m-th device. The
+      shards run in turn; each one's copy is freed after its backward.
     - The loss weights each shard's ce by its share of the count the
       model's loss averages over (``Model.loss_count``: the masked token
       mean's mask) and takes the mean of the rest, so the gradients are
       the batch's; they are summed in f32 in shard order per distinct
-      piece on the piece's device (a reduce-scatter), then cast once to
-      the param's dtype.
+      piece on the piece's device (a reduce-scatter; a block's gradient
+      covers the pieces in its box), then cast once to the param's dtype.
     - The clip brings each leaf's square sum to the first device in leaf
       order and scales every piece by the one factor.
     - Element-wise optimizer state updates piece by piece on each piece's
       device; blockwise-quantized moments (``v_q``, ``v_scale``) leaf by
       leaf whole on the first device, cut again by their sharding.
 
-    On a (1, 1) mesh it equals ``make_train_step`` bit for bit. The
-    forward is not tensor-parallel: each data shard computes its model
-    whole on one device; the model axis holds pieces for storage and the
-    update.
+    On a (1, 1) mesh it equals ``make_train_step`` bit for bit, and on a
+    mesh without a model axis (or one of size 1) the two routes are the
+    same step bit for bit.
     """
     mesh = _mesh_of(state_shardings)
     if _mesh_of(batch_shardings) is not mesh:
@@ -493,7 +562,8 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
         for i in range(n):
             ctx = _row_mesh(mesh, dp_axes, i) if n > 1 else mesh
             loss, metrics, grads = shard_value_and_grad(model, state["params"], shards[i], ctx,
-                                                        weight=weights[i], dp=n)
+                                                        weight=weights[i], dp=n,
+                                                        tensor_parallel=tensor_parallel)
             _accumulate(acc, p_leaves, pieces, grads)
             outs.append((loss, metrics))
             del grads

@@ -3,7 +3,9 @@ initialisers, norms, RoPE and sectioned M-RoPE, chunked attention, decode
 attention, the attention block, the SwiGLU MLP and the MoE block (top-k
 router, sort-based capacity dispatch into an (E, C, d) buffer, batched
 expert products; under a mesh with a ``model`` axis, the reference's
-expert-parallel path). Pure functions over param dicts.
+expert-parallel path), and the attention and MLP blocks' tensor-parallel
+branches, which block leaves select (``launch.steps``' sharded step).
+Pure functions over param dicts.
 
 Attention keeps the reference's layouts: q (B, S, H, D), k/v (B, S, KV, D),
 GQA by grouping the H query heads over the KV heads. ``chunked_attention``
@@ -14,7 +16,8 @@ is the plain, flash-style path (online softmax over KV chunks); with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Sequence, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -333,7 +336,17 @@ def attention_block(
     window: int = 0,
     differentiable: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention. Returns (out, (k, v)) for cache priming."""
+    """Full-sequence attention. Returns (out, (k, v)) for cache priming.
+
+    Given block leaves (``wq`` and ``wo`` split over the model axis, see
+    ``_attention_split``), the tensor-parallel branch; it returns (out,
+    None)."""
+    split = [n for n in ("wq", "wk", "wv", "wo") if not isinstance(p[n], torch.Tensor)]
+    if split:
+        if "wq" not in split or "wo" not in split:
+            raise ValueError(f"only {split} of the attention are split over the model axis: "
+                             "wq and wo split together")
+        return _attention_split(p, x, cfg, positions, causal, window), None
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _position(q, k, positions, cfg)
     if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
@@ -393,7 +406,211 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, 
 
 
 def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; given block leaves, the tensor-parallel branch
+    (``_mlp_split``)."""
+    if any(not isinstance(p[n], torch.Tensor) for n in ("w_gate", "w_up", "w_down")):
+        return _mlp_split(p, x)
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ----------------------------------------------------------- tensor parallelism
+#
+# The reference's Megatron split over the mesh's ``model`` axis, as the
+# sharded train step reads it (``launch.steps``, ``tensor_parallel=True``):
+# a block leaf holds model shard m's slice of a weight (``blocks[m]``, split
+# on dim ``axis`` counted from the end) on the data row's m-th device. Model
+# shard m runs its column blocks on a copy of the input on its device and
+# multiplies by its row block, giving an f32 partial of the output; the
+# partials are summed in f32 in shard order on the input's device (the
+# row's first) and cast once to the activation dtype. Whole leaves (norms,
+# biases, GQA's unsplit ``wk``/``wv``) sit on that device and are copied
+# to each shard; autograd carries every copy's gradient back.
+
+
+def _blocks(w, axis: int, devices, name: str) -> List[torch.Tensor]:
+    """Model shard m's block of a block leaf split on ``axis``, which must
+    sit on ``devices[m]``; anything else raises (no fallback)."""
+    if (isinstance(w, torch.Tensor) or getattr(w, "axis", None) != axis or w.lead
+            or [b.device for b in w.blocks] != list(devices)):
+        raise ValueError(f"{name} is not a block leaf split on dim {axis} over {list(devices)}")
+    return w.blocks
+
+
+def _split_devices(w, home: torch.device, name: str) -> List[torch.device]:
+    """The devices of a block leaf's model shards; the first must be
+    ``home``, the input's device."""
+    devices = [b.device for b in getattr(w, "blocks", ())]
+    if not devices or devices[0] != home:
+        raise ValueError(f"{name} is not a block leaf whose first block sits on {home}")
+    return devices
+
+
+def _whole(w, home: torch.device, name: str) -> torch.Tensor:
+    if not isinstance(w, torch.Tensor) or w.device != home:
+        raise ValueError(f"{name} must be a whole tensor on {home}")
+    return w
+
+
+@contextlib.contextmanager
+def _tf32_if_exact(t: torch.Tensor):
+    """TF32 products within where ``t`` is a CUDA tensor of a 16-bit float
+    dtype: its values upcast to f32 (and a weight's of the same dtype) fit
+    TF32's 10 mantissa bits exactly, so the f32 product reads them whole
+    at the tensor cores' TF32 rate. (The package turns TF32 off at import,
+    ``device.py``, through the same flag.)"""
+    if not (t.is_cuda and t.dtype in (torch.bfloat16, torch.float16)):
+        yield
+        return
+    flag = torch.backends.cuda.matmul
+    old = flag.allow_tf32
+    flag.allow_tf32 = True
+    try:
+        yield
+    finally:
+        flag.allow_tf32 = old
+
+
+class _F32Product(torch.autograd.Function):
+    """``a @ w`` with an f32 product whatever the inputs' float dtype: a
+    row-parallel partial. The backward is autograd's product in the
+    inputs' dtype: the gradient reaching a partial is the activation
+    dtype's gradient of the sum upcast, which that dtype holds exactly."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        with _tf32_if_exact(a):
+            return a.to(torch.float32) @ w.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ w.transpose(-2, -1) if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1]:
+            gw = a.reshape(-1, a.shape[-1]).transpose(0, 1) @ g.reshape(-1, g.shape[-1])
+        return ga, gw
+
+
+class _RowSum(torch.autograd.Function):
+    """The row-parallel sum as one node on ``home``: each model shard's
+    partial brought to ``home`` and added in shard order, cast once to
+    ``dtype``; the backward sends the gradient, in the partials' dtype,
+    back to each shard's device.
+
+    Under remat across distinct cards the backward's first node of a
+    block must unpack a saved tensor on ``home``: the autograd engine runs
+    each card's nodes in that card's own thread, and torch's non-reentrant
+    checkpoint recomputes a block at the first unpack without a lock, so
+    two shards' nodes unpacking at once would both recompute it. The
+    empty tensor this node saves makes its own backward, which every
+    shard's nodes wait for, that first unpack."""
+
+    @staticmethod
+    def forward(ctx, home, dtype, *partials):
+        ctx.to = [(p.device, p.dtype) for p in partials]
+        ctx.save_for_backward(torch.empty(0, device=home))
+        acc = partials[0].to(home)
+        for part in partials[1:]:
+            acc = acc + part.to(home)
+        return acc.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors  # noqa: B018  (the unpack that runs remat's recompute here)
+        return (None, None) + tuple(g.to(device=d, dtype=t) for d, t in ctx.to)
+
+
+def _row_sum(partials: List[torch.Tensor], home: torch.device, dtype) -> torch.Tensor:
+    """The row-parallel sum: each model shard's f32 partial brought to
+    ``home`` and added in shard order, cast once to ``dtype``
+    (``_RowSum``)."""
+    return _RowSum.apply(home, dtype, *partials)
+
+
+def _kv_heads(k: torch.Tensor, m: int, Hl: int, G: int) -> torch.Tensor:
+    """Of every kv head of k (B, S, KV, D), those model shard m's query
+    heads [m Hl, (m + 1) Hl) read (head h reads h // G): a slice where the
+    shard's heads make whole groups or lie in one group, else one kv head
+    a query head."""
+    heads = [h // G for h in range(m * Hl, (m + 1) * Hl)]
+    if Hl % G == 0 or G % Hl == 0:
+        return k[:, :, heads[0]:heads[-1] + 1]
+    return k[:, :, heads]
+
+
+def _attention_split(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                     causal: bool, window: int) -> torch.Tensor:
+    """The attention block over M model shards (H / M query heads each):
+    shard m projects x through its column blocks of ``wq`` (and of ``wk``
+    and ``wv`` where the kv heads divide M; else through the whole leaves,
+    keeping the kv heads its query heads read), adds its slice of the
+    whole biases, applies the whole q/k norms and RoPE, runs
+    ``chunked_attention`` on its heads and multiplies by its row block of
+    ``wo``; ``_row_sum`` adds the f32 partials. Heads that do not divide M
+    raise: a head is never split (the sharded step reads such a block
+    whole)."""
+    B, S, d = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    home = x.device
+    devices = _split_devices(p["wq"], home, "wq")
+    M = len(devices)
+    if H % M:
+        raise ValueError(f"{H} heads do not divide over {M} model shards")
+    Hl, G = H // M, H // KV
+    wq, wo = _blocks(p["wq"], -1, devices, "wq"), _blocks(p["wo"], -2, devices, "wo")
+    kv_split = not isinstance(p["wk"], torch.Tensor)
+    if kv_split:
+        if KV % M:
+            raise ValueError(f"{KV} kv heads do not divide over {M} model shards")
+        wk, wv = (_blocks(p[n], -1, devices, n) for n in ("wk", "wv"))
+    else:
+        wk, wv = (_whole(p[n], home, n) for n in ("wk", "wv"))
+    whole = {n: _whole(p[n], home, n) for n in ("bq", "bk", "bv", "q_norm", "k_norm") if n in p}
+    KVl = KV // M
+    partials = []
+    with obs.span("tensor_parallel", kind="attn", mp=M, partial_bytes=M * B * S * d * 4):
+        for m, dev in enumerate(devices):
+            xm = x.to(dev)
+            q = xm @ wq[m]
+            k, v = (xm @ wk[m], xm @ wv[m]) if kv_split else (xm @ wk.to(dev), xm @ wv.to(dev))
+            if cfg.qkv_bias:
+                kv_cols = slice(m * KVl * Dh, (m + 1) * KVl * Dh) if kv_split else slice(None)
+                q = q + whole["bq"][m * Hl * Dh:(m + 1) * Hl * Dh].to(dev)
+                k = k + whole["bk"][kv_cols].to(dev)
+                v = v + whole["bv"][kv_cols].to(dev)
+            q = q.reshape(B, S, Hl, Dh)
+            k = k.reshape(B, S, -1, Dh)
+            v = v.reshape(B, S, -1, Dh)
+            if not kv_split:
+                k, v = _kv_heads(k, m, Hl, G), _kv_heads(v, m, Hl, G)
+            if cfg.qk_norm:
+                q = rms_norm(q, whole["q_norm"].to(dev), cfg.norm_eps)
+                k = rms_norm(k, whole["k_norm"].to(dev), cfg.norm_eps)
+            q, k = _position(q, k, positions.to(dev), cfg)
+            o = chunked_attention(q, k, v, causal=causal, window=window,
+                                  q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+            partials.append(_F32Product.apply(o.reshape(B, S, Hl * Dh), wo[m]))
+        return _row_sum(partials, home, x.dtype)
+
+
+def _mlp_split(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over M model shards: shard m's column blocks of ``w_gate``
+    and ``w_up`` (d_ff / M columns), its row block of ``w_down``, the f32
+    partials added by ``_row_sum``."""
+    B, S, d = x.shape
+    home = x.device
+    devices = _split_devices(p["w_gate"], home, "w_gate")
+    M = len(devices)
+    gate, up = (_blocks(p[n], -1, devices, n) for n in ("w_gate", "w_up"))
+    down = _blocks(p["w_down"], -2, devices, "w_down")
+    partials = []
+    with obs.span("tensor_parallel", kind="mlp", mp=M, partial_bytes=M * B * S * d * 4):
+        for m, dev in enumerate(devices):
+            xm = x.to(dev)
+            partials.append(_F32Product.apply(F.silu(xm @ gate[m]) * (xm @ up[m]), down[m]))
+        return _row_sum(partials, home, x.dtype)
 
 
 # ------------------------------------------------------------------------- MoE

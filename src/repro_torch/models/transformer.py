@@ -14,7 +14,9 @@ embeddings (``batch["patches"]``) to the tokens and rotates q and k by
 M-RoPE over (B, 3, S) positions. An ssm layer (falcon-mamba) is one
 Mamba-1 block (``models/ssm.py``) behind an RMS norm: no attention, no
 MLP, and a decode cache of {"h": (nl, B, d_inner, N) f32, "conv": (nl, B,
-K - 1, d_inner)} that does not grow with the sequence.
+K - 1, d_inner)} that does not grow with the sequence. Given block
+leaves (the sharded step's tensor-parallel route), the embedding and the
+loss's softmax are vocab-parallel (``_embed_rows``, ``_logz_gold``).
 
 Entry points:
 - ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
@@ -143,10 +145,31 @@ def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
     return pos
 
 
+def _embed_rows(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding's rows of ``tokens``. A vocab-split embedding (block
+    leaf: model shard m's rows on its device, the sharded step's
+    tensor-parallel route) looks up on each shard the tokens in its range
+    and writes zeros elsewhere; the partials are summed on the tokens'
+    device in shard order. One term a token is non-zero, so the sum is
+    the whole lookup bit for bit."""
+    if isinstance(embed, torch.Tensor):
+        return embed[tokens.long()]
+    home = tokens.device
+    devices = L._split_devices(embed, home, "embed")
+    x = None
+    for m, block in enumerate(L._blocks(embed, -2, devices, "embed")):
+        t = tokens.to(block.device).long() - m * block.shape[0]
+        own = (t >= 0) & (t < block.shape[0])
+        part = torch.where(own[..., None], block[torch.where(own, t, 0)],
+                           torch.zeros((), dtype=block.dtype, device=block.device)).to(home)
+        x = part if x is None else x + part
+    return x
+
+
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """tokens (and, for the vision frontend, the patch embeddings projected
     and prepended) -> (B, S_total, d) in the compute dtype."""
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed_rows(params["embed"], batch["tokens"])
     if cfg.frontend == "vision" and "patches" in batch:
         vis = batch["patches"].to(x.dtype) @ params["vis_proj"]
         x = torch.cat([vis, x], dim=1)
@@ -201,6 +224,46 @@ def lm_logits_and_aux(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchC
     return x, _head(params, cfg), aux
 
 
+def _logz_gold(hh: torch.Tensor, head, tt: torch.Tensor):
+    """One loss chunk's log-partition and gold logit, (B, c) f32 each:
+    the logits the compute-dtype product ``hh @ head`` cast to f32, the
+    gold logit the f32 dot of ``hh`` with the target's head column.
+
+    A vocab-split head (block leaf: model shard m's columns on its device,
+    the sharded step's tensor-parallel route) is the vocab-parallel CE:
+    shard m's logits block stays on its device; the shards' maxima meet
+    on ``hh``'s device (the global max, in shard order), each shard's sum
+    of exp(logits - max) comes back and the sums are added in shard
+    order; the gold logit is taken on the shard that owns the target. No
+    (B, c, V) tensor crosses devices."""
+    if isinstance(head, torch.Tensor):
+        logits = (hh @ head).to(torch.float32)
+        # gold logit = <h, head[:, target]>: gather head columns, not logits
+        cols = head[:, tt.reshape(-1)].reshape(head.shape[0], *tt.shape)  # (d, B, c)
+        gold = torch.einsum("bcd,dbc->bc", hh.to(torch.float32), cols.to(torch.float32))
+        return torch.logsumexp(logits, dim=-1), gold
+    home = hh.device
+    blocks = L._blocks(head, -1, L._split_devices(head, home, "lm_head"), "lm_head")
+    logits, top = [], None
+    for block in blocks:
+        lg = (hh.to(block.device) @ block).to(torch.float32)
+        logits.append(lg)
+        mx = lg.amax(dim=-1).to(home)
+        top = mx if top is None else torch.maximum(top, mx)
+    top = top.detach()  # logz = top + log sum exp(logits - top) for any top
+    total = gold = None
+    for m, (block, lg) in enumerate(zip(blocks, logits)):
+        dev, V_m = block.device, block.shape[-1]
+        s = torch.exp(lg - top.to(dev)[..., None]).sum(dim=-1).to(home)
+        t = tt.to(dev) - m * V_m
+        own = (t >= 0) & (t < V_m)
+        cols = block[:, torch.where(own, t, 0).reshape(-1)].reshape(block.shape[0], *tt.shape)
+        g = torch.einsum("bcd,dbc->bc", hh.to(dev).to(torch.float32), cols.to(torch.float32))
+        g = torch.where(own, g, torch.zeros((), device=dev)).to(home)
+        total, gold = (s, g) if total is None else (total + s, gold + g)
+    return top + torch.log(total), gold
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Next-token CE on the token segment; logits materialised per chunk.
 
@@ -208,7 +271,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     one, weighted by ``mask``; chunks of ``min(cfg.loss_chunk, T)``
     positions, the tail zero-padded and masked out; logits are the
     compute-dtype product cast to f32, and the gold logit is the f32 dot
-    of the hidden state with the gathered head column.
+    of the hidden state with the gathered head column (``_logz_gold``;
+    vocab-parallel for a split head).
     """
     x, head, aux = lm_logits_and_aux(params, batch, cfg)
     tokens = batch["tokens"]
@@ -230,11 +294,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         hh = h[:, c * chunk:(c + 1) * chunk]
         tt = targets[:, c * chunk:(c + 1) * chunk]
         mm = mask[:, c * chunk:(c + 1) * chunk]
-        logits = (hh @ head).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        # gold logit = <h, head[:, target]>: gather head columns, not logits
-        cols = head[:, tt.reshape(-1)].reshape(head.shape[0], *tt.shape)  # (d, B, c)
-        gold = torch.einsum("bcd,dbc->bc", hh.to(torch.float32), cols.to(torch.float32))
+        logz, gold = _logz_gold(hh, head, tt)
         nll = (logz - gold) * mm
         tot = tot + nll.sum()
         cnt = cnt + mm.sum()

@@ -1208,3 +1208,158 @@ class TestShardTrain:
                   f"allocator holds {held}")
             assert all(h >= want_dev for h in held)
         return met
+
+
+class TestTensorParallel:
+    """The sharded step's tensor-parallel route on the card (``-k
+    tensorparallel``): stablelm and kimi-k2 reduced on (1, 4) and (2, 2)
+    meshes of four shards of one card against the unsharded step, and
+    qwen3-8b at full width on a (1, 4) mesh of four distinct cards, both
+    routes."""
+
+    @pytest.mark.parametrize("dims", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+    @pytest.mark.parametrize("arch", ["stablelm-1.6b", "kimi-k2-1t-a32b"])
+    def test_tensorparallel_reduced_step_on_one_card(self, dev, arch, dims):
+        self.reduced_step(arch, dims, [dev] * 4)
+
+    @pytest.mark.parametrize("arch", ["stablelm-1.6b", "kimi-k2-1t-a32b"])
+    def test_tensorparallel_reduced_step_across_cards(self, arch):
+        """The same on a (1, 4) mesh of four distinct cards: each card's
+        blocks run in its own autograd thread in the backward, where remat
+        recomputes each block once (``layers._RowSum``)."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        self.reduced_step(arch, (1, 4), [torch.device("cuda", k) for k in range(4)])
+
+    @staticmethod
+    def reduced_step(arch, dims, devices):
+        """One tensor-parallel step of ``arch`` reduced (f32, remat) on a
+        ``dims`` mesh of ``devices`` against the unsharded step on the
+        first, under a mesh of that shape on the first (the MoE's branch
+        at the same per-shard capacity), within ``TestShardTrain.F32``;
+        the span count."""
+        from repro_torch import obs
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch.steps import init_train_state, make_train_step
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        dev = devices[0]
+        cfg = get_arch(arch).reduced().with_(remat=True)
+        model, opt = build_model(cfg), adamw(1e-3)
+        state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+        rng = np.random.RandomState(0)
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 64)),
+                                           dtype=torch.int32, device=dev)}
+        mesh = make_mesh(dims, ("data", "model"), devices=devices)
+        specs, s_sh, b_sh, steps = TestShardTrain._shardings(cfg, state, batch, mesh)
+        with obs.enabled() as tracer:
+            new, met = steps.make_sharded_train_step(model, opt, s_sh, b_sh,
+                                                     tensor_parallel=True)(state, batch)
+        with use_mesh(make_mesh(dims, ("data", "model"), devices=[dev] * len(devices))):
+            want, want_m = make_train_step(model, opt)(state, batch)
+        tol = TestShardTrain.F32
+        for k in want_m:
+            rel = abs(float(met[k]) - float(want_m[k])) / max(abs(float(want_m[k])), 1e-30)
+            assert rel <= tol["metric"], (k, rel)
+        got = shd.gather(new)
+        for group, t in (("params", "param"), ("opt", "moment")):
+            for a, b in zip(tree_leaves(got[group]), tree_leaves(want[group])):
+                assert a.device == dev and a.dtype == b.dtype
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                assert err <= tol[t], (group, err)
+        assert (shd.device_nbytes(new) == shd.tree_spec_nbytes(state, specs, mesh)).all()
+        spans = [e.args for e in tracer.events if e.name == "tensor_parallel"]
+        kinds = 1 if cfg.n_experts else 2  # an MoE's experts take their own branch
+        assert len(spans) == dims[0] * cfg.n_layers * kinds * 2  # forward + remat's recompute
+        assert all(s["mp"] == dims[1] for s in spans)
+
+    def test_tensor_parallel_step_across_cards(self):
+        """qwen3-8b at full width and depth (36 layers, d 4,096, 32 heads,
+        8 kv heads, d_ff 12,288, vocab 151,936) on a (1, 4) mesh of four
+        distinct cards, two steps each route from the same params: step
+        1's loss and grad norm held to the unsharded forward and backward
+        on card 0; each card's peak (after step 1's forward and backward,
+        and over both steps) and each step's ms printed for both routes
+        (step 1 also warms the cards up)."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        import time
+
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch import steps
+        from repro_torch.launch.steps import _value_and_grad, train_state_shapes
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        devices = [torch.device("cuda", k) for k in range(4)]
+        dev = devices[0]
+        cfg = get_arch("qwen3-8b")
+        model, opt = build_model(cfg), adamw(1e-3)
+
+        def params():
+            return model.init(torch.Generator(device=dev).manual_seed(0), dev)
+
+        rng = np.random.RandomState(0)
+        batches = [{"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 512)),
+                                              dtype=torch.int32, device=dev)} for _ in range(2)]
+        p = params()
+        loss_u, grads = _value_and_grad(model, p, batches[0])[::2]
+        gnorm_u = float(torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads))))
+        loss_u = float(loss_u)
+        del grads, p
+        torch.cuda.empty_cache()
+        mesh = make_mesh((1, 4), ("data", "model"), devices=devices)
+        shapes = train_state_shapes(model, opt)
+        specs, s_sh, b_sh, _ = TestShardTrain._shardings(cfg, shapes, batches[0], mesh)
+        want_dev = shd.tree_spec_nbytes(shapes, specs, mesh)
+        real_fb, out = steps._forward_backward, {}
+        for tp in (False, True):
+            p = params()
+            state = {"params": shd.place(p, s_sh["params"]),
+                     "opt": TestShardTrain._zeros(shapes["opt"], s_sh["opt"]),
+                     "step": shd.place(torch.zeros((), dtype=torch.int32, device=dev),
+                                       s_sh["step"])}
+            del p
+            torch.cuda.empty_cache()
+            for d in devices:
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
+            fb_peaks, ms, mets = [], [], []
+
+            def fb(*a, **kw):
+                res = real_fb(*a, **kw)
+                fb_peaks.append([torch.cuda.max_memory_allocated(d) for d in devices])
+                return res
+
+            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+            steps._forward_backward = fb
+            try:
+                for b in batches:
+                    t0 = time.perf_counter()
+                    state, met = step(state, b)
+                    for d in devices:
+                        torch.cuda.synchronize(d)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    mets.append({k: float(v) for k, v in met.items()})
+            finally:
+                steps._forward_backward = real_fb
+            rel = {k: abs(mets[0][k] - want) / abs(want)
+                   for k, want in (("loss", loss_u), ("grad_norm", gnorm_u))}
+            out[tp] = {"rel": rel, "ms": ms, "fb_peak": fb_peaks[0],
+                       "peak": [torch.cuda.max_memory_allocated(d) for d in devices]}
+            assert (shd.device_nbytes(state) == want_dev).all()
+            assert np.isfinite(mets[1]["loss"]) and int(shd.gather(state["step"])) == 2
+            print(f"tensor_parallel={tp}: step 1 loss {mets[0]['loss']!r} grad_norm "
+                  f"{mets[0]['grad_norm']!r} (unsharded {loss_u!r} / {gnorm_u!r}, relative "
+                  f"{rel}); step 2 loss {mets[1]['loss']!r}; steps {ms} ms; each card's peak "
+                  f"after step 1's forward and backward {fb_peaks[0]} B, over both steps "
+                  f"{out[tp]['peak']} B; {want_dev} B of pieces a card")
+            del state, met
+            torch.cuda.empty_cache()
+        for tp in (False, True):
+            assert all(out[tp]["rel"][k] <= TestShardTrain.BF16[k] for k in out[tp]["rel"]), out
+        # the gather route reads every leaf whole onto card 0; blocks stay on their cards
+        assert out[True]["fb_peak"][0] < out[False]["fb_peak"][0]
