@@ -137,8 +137,21 @@ Phases, each of which fails the run on error:
              2,048 tokens, prefill (the flash counter must rise by exactly 36),
              the cache grown to 2,080, 31 greedy decode steps (logits finite);
              the same prefill through the plain ``chunked_attention``
-             (log-softmax within SERVE_LOGIT_TOL); ``ServeEngine`` on the same
-             params (max_batch 4, cache_len 256) draining 8 requests.
+             (log-softmax within SERVE_LOGIT_TOL); the sharded prefill and
+             decode (``launch.steps.make_sharded_prefill_step`` /
+             ``make_sharded_decode_step``, SERVE_SHARDED) on (2, 2) meshes
+             of four shards of the card by both routes and on (1, 4)
+             tensor-parallel, the params placed by the specs, 31 decode
+             steps fed the unsharded run's greedy tokens: each step's
+             log-softmax within TP_SERVE_LOGIT_TOL of the unsharded one's,
+             the cache ``cache_spec``'s pieces a device written in place,
+             row 7 on each model shard's heads (36 x M launches a
+             prefill), prefill and decode ms, the params' bytes each step
+             gathers; the planted dropped partial must break the bound, and
+             on (2, 1) the routes are bit for bit; qwen2-vl-2b on (1, 4)
+             (2 kv heads over 4 shards: a replicated cache, every replica
+             equal); ``ServeEngine`` on the same params (max_batch 4,
+             cache_len 256) draining 8 requests.
    families — the moe, vlm, ssm, hybrid and audio families at full width through
              the same entry points, one config at a time (the previous one's
              params freed), bf16, random weights from a seed,
@@ -275,6 +288,7 @@ matmul kernels, cudaMalloc calls, allocator retries, SM clock and power).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import shutil
@@ -2591,6 +2605,18 @@ def phase_serve(dev):
     timing.update(_host_share(cfg, params, res, dev))
     del res, plain
 
+    sharded = _serve_sharded(cfg, params, dev, fault=SERVE_SHARDED[1][1], bitwise=(2, 1))
+    for r in sharded["runs"]:
+        print(f"  sharded {r['route']} {tuple(r['mesh'])}: prefill {r['prefill_ms']:.1f} ms, "
+              f"decode {r['decode_ms_per_token']:.2f} ms/token (unsharded this run "
+              f"{timing['prefill_ms']:.1f} / {timing['decode_ms_per_token']:.2f}; recorded "
+              f"{SERVE_UNSHARDED_RECORDED['prefill_ms']} / "
+              f"{SERVE_UNSHARDED_RECORDED['decode_ms_per_token']}); flash launches "
+              f"{r['flash_launches']} (2 prefills); gathers {r['gather_bytes_per_token']} B a "
+              f"token; cache {r['cache_bytes_a_device'][0]} B a device (reckoned "
+              f"{r['cache_bytes_reckoned']}); max |d log_softmax| "
+              f"{max(r['max_dlogsoftmax'])!r} (bound {TP_SERVE_LOGIT_TOL})")
+
     eng = ServeEngine(cfg, max_batch=4, cache_len=256, device=dev, params=params)
     rng = np.random.RandomState(1)
     reqs = [Request(i, rng.randint(0, cfg.vocab_size, size=rng.randint(16, 65)).astype(np.int32),
@@ -2614,8 +2640,293 @@ def phase_serve(dev):
     print(f"  peak device memory {peak} B")
     del eng, params
     torch.cuda.empty_cache()
-    return dict(timing, launches=launches, prompt_tokens=prompt_toks, engine_s=secs,
-                max_dlogsoftmax=dmax, peak_bytes=peak)
+    vlm = _serve_vlm_sharded(dev)
+    new = sharded["flash_launches"] + vlm["flash_launches"]
+    print(f"  sharded serve: {sharded['s']:.1f} s for {cfg.name}, {vlm['s']:.1f} s for "
+          f"{SERVE_VLM[0]}; flash launches of their prefill runs {sharded['flash_launches']} + "
+          f"{vlm['flash_launches']}")
+    return dict(timing, launches=launches + new, serve_launches=launches,
+                sharded_launches=new, flash_max_abs_err=max(sharded["flash_max_abs_err"],
+                                                            vlm["flash_max_abs_err"]), prompt_tokens=prompt_toks, engine_s=secs,
+                max_dlogsoftmax=dmax, peak_bytes=peak, sharded=sharded, vlm=vlm)
+
+
+# the sharded prefill and decode (``launch.steps.make_sharded_prefill_step``
+# and ``make_sharded_decode_step``) in the serve phase: (route, mesh) on
+# meshes of four shards of the card, each a prefill (timed the second time)
+# and SERVE_GEN - 1 decode steps fed the unsharded run's greedy tokens
+SERVE_SHARDED = (("gather", (2, 2)), ("tp", (2, 2)), ("tp", (1, 4)))
+# max |d log_softmax| of each step's logits against the unsharded flash
+# prefill and decode on the same tokens. Readings (an NVIDIA H100 80GB
+# HBM3 at 700 W, run 1 of the slice): honest 0.0625-0.0787 on every mesh
+# and route (qwen2-vl 0.0549-0.0703: one bf16 rounding of a logit near 10
+# is 0.0625), the planted dropped partial 5.71-6.32 from the prefill on.
+# The geometric middle (0.67) is looser than SERVE_LOGIT_TOL, so the bound
+# is that.
+TP_SERVE_LOGIT_TOL = SERVE_LOGIT_TOL
+SERVE_FAULT_STEPS = 4  # decode steps of the planted fault's run
+# qwen2-vl-2b on (1, 4): its 2 kv heads do not divide 4 (a replicated
+# cache), q/k/v biases, M-RoPE and the reference serve flow's zero patches
+SERVE_VLM = ("qwen2-vl-2b", (1, 4), 8)
+# the unsharded Qwen3-8B serve as PERF.md section 5 records it
+SERVE_UNSHARDED_RECORDED = {"prefill_ms": 277.0, "decode_ms_per_token": 47.85}
+
+
+def _serve_unsharded_tf(model, params, batch, gen: int, P: int, dev):
+    """The unsharded flash prefill and ``gen - 1`` greedy decode steps:
+    (each step's log_softmax on the card, the tokens (B, gen - 1) each
+    step was fed)."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    B = batch["tokens"].shape[0]
+    lg, cache = steps.make_prefill_step(model)(params, batch)
+    cache = model.grow_cache(cache, P + gen)
+    decode = steps.make_decode_step(model)
+    want, fed = [torch.log_softmax(lg, -1)], []
+    for s in range(gen - 1):
+        tok = torch.argmax(lg, dim=-1).to(torch.int32).reshape(B, 1)
+        fed.append(tok)
+        lg, cache = decode(params, cache, {"tokens": tok, "pos": torch.full(
+            (B,), P + s, dtype=torch.int32, device=dev)})
+        want.append(torch.log_softmax(lg, -1))
+    del cache
+    return want, torch.cat(fed, dim=1)
+
+
+def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, dev, *,
+                       steps_n=None, fault=False, keep=False, timed=True) -> dict:
+    """One sharded run on a ``dims`` ("data", "model") mesh of four (or
+    two) shards of the card: the params placed by the specs, a traced
+    prefill (its spans, the flash launches; one launch of each distinct
+    shape held against ``flash_attention_plain`` on the same inputs), a
+    timed one (launches counted too; ``timed`` False: the traced one
+    alone), ``grow_placed_cache``, then ``steps_n`` decode steps fed
+    ``fed`` (all of them by default), timed together; each step's max |d
+    log_softmax| against ``want``, after the timed steps; the cache's
+    bytes a device against
+    ``cache_spec``'s reckoning, its pieces written in place, and the bytes
+    each step gathers of the params (the data-split pieces, reckoned from
+    the specs as the train phase's). ``fault`` drops model shard 1's
+    partial from every row-parallel sum; ``keep`` returns the logits and
+    the cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    cfg = model.cfg
+    B = batch["tokens"].shape[0]
+    steps_n = fed.shape[1] if steps_n is None else steps_n
+    mesh = make_mesh(dims, ("data", "model"), devices=[dev] * (dims[0] * dims[1]))
+    p_specs = shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads)
+    p_sh = shd.to_named(p_specs, mesh)
+    placed = shd.place(params, p_sh)
+    torch.cuda.empty_cache()
+    b_sh = shd.to_named(shd.batch_spec(batch, mesh), mesh)
+    prefill = steps.make_sharded_prefill_step(model, p_sh, b_sh, tensor_parallel=tp)
+    out = {"mesh": list(dims), "route": "tensor_parallel" if tp else "gather"}
+    ctx = _DropPartial() if fault else contextlib.nullcontext()
+    seen, real = {}, layers.flash_mha
+
+    def flash(q, k, v, *, causal=True):  # keeps one call of each shape
+        o = real(q, k, v, causal=causal)
+        seen.setdefault((tuple(q.shape), tuple(k.shape), q.dtype, causal), (q, k, v, o))
+        return o
+
+    with ctx:
+        kfa.flash_mha.launches = 0
+        layers.flash_mha = flash
+        try:
+            with obs.enabled() as tracer:
+                lg, cache = prefill(placed, batch)
+        finally:
+            layers.flash_mha = real
+        out["flash_checks"] = []
+        for (qs, ks, dt, causal), (q, k, v, o) in seen.items():
+            mm = kfa.mismatch(o, kfa.flash_attention_plain(q, k, v, causal=causal))
+            out["flash_checks"].append(dict(q=list(qs), kv=list(ks), **mm))
+            if not mm["within"]:
+                _fail(f"row 7 on the sharded prefill's shards ({out['route']} {dims}) != its "
+                      f"plain version at q {qs}, k/v {ks}: {mm} {_flash_tol(dt)}")
+        seen.clear()
+        spans = [e.args for e in tracer.events if e.name == "tensor_parallel"]
+        out["prefill_spans"] = {k: sum(s["kind"] == k for s in spans) for k in ("attn", "mlp")}
+        if timed:
+            del cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = prefill(placed, batch)
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["flash_launches"] = kfa.flash_mha.launches
+        cache = steps.grow_placed_cache(model, cache, P + fed.shape[1] + 1)
+        c_sh = {k: v.sharding for k, v in cache.items()}
+        step0 = {"tokens": fed[:, :1], "pos": torch.full((B,), P, dtype=torch.int32,
+                                                           device=dev)}
+        decode = steps.make_sharded_decode_step(
+            model, p_sh, c_sh, shd.to_named(shd.batch_spec(step0, mesh), mesh),
+            tensor_parallel=tp)
+        ptrs = [p.data_ptr() for leaf in cache.values() for p in leaf.pieces.flat]
+        logits = [lg]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.enabled() as tracer:
+            for s in range(steps_n):
+                lg, _ = decode(placed, cache, {"tokens": fed[:, s:s + 1].contiguous(),
+                                               "pos": torch.full((B,), P + s, dtype=torch.int32,
+                                                                 device=dev)})
+                logits.append(lg)
+        torch.cuda.synchronize()
+        out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / steps_n
+        gaps = [(torch.log_softmax(g, -1) - w).abs().amax() for g, w in zip(logits, want)]
+    events = tracer.events
+    out["decode_spans_per_step"] = {k: sum(e.name == "tensor_parallel" and e.args["kind"] == k
+                                           for e in events) / steps_n
+                                    for k in ("attn_decode", "mlp")}
+    out["cache_copies_per_step"] = sum(e.name == "cache_copy" for e in events) / steps_n
+    out["max_dlogsoftmax"] = [float(g) for g in gaps]
+    out["in_place"] = ptrs == [p.data_ptr() for leaf in cache.values() for p in leaf.pieces.flat]
+    # pieces of one box (a leaf replicated over "model") hold the same bits
+    out["replicas_equal"] = all(
+        _same_bits(leaf.pieces[i], leaf.pieces[j]) for leaf in cache.values()
+        for i in np.ndindex(leaf.pieces.shape) for j in np.ndindex(leaf.pieces.shape)
+        if i < j and leaf.bounds(i) == leaf.bounds(j))
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
+    out["cache_bytes_a_device"] = [int(b) for b in shd.device_nbytes(cache).flat]
+    out["cache_bytes_reckoned"] = shd.tree_spec_nbytes(shapes, shd.cache_spec(shapes, mesh), mesh)
+    out["cache_spec_k"] = repr(cache["k"].sharding.spec)
+    shapes_p = model.init(None, torch.device("meta"))
+    dp = dims[0]
+    out["gather_bytes_per_token"] = dp * _read_copy_bytes(shapes_p, p_specs, mesh, cfg, tp)
+    out["param_bytes_a_device"] = shd.tree_spec_nbytes(shapes_p, p_specs, mesh)
+    if keep:
+        out["logits"], out["cache"] = logits, cache
+    del placed, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_sharded(cfg, params, dev, *, patches: int = 0, runs=SERVE_SHARDED, fault=None,
+                   bitwise=None) -> dict:
+    """The sharded prefill and decode of ``cfg`` (flash on) on ``params``:
+    the unsharded run's greedy tokens fed to each ``runs`` (route, mesh)
+    run, each held within ``TP_SERVE_LOGIT_TOL`` of the unsharded run's
+    log_softmax at every step; with ``fault`` (a mesh) the tensor-parallel
+    run there with a dropped partial, which must break the bound; with
+    ``bitwise`` (a mesh without a model axis) both routes' prefill, two
+    decode steps and cache pieces bit for bit. Returns the readings and
+    the flash launches of every prefill run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.registry import build_model
+
+    t_part = time.perf_counter()
+    model = build_model(cfg)
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32, device=dev)}
+    if patches:
+        batch["patches"] = torch.zeros((SERVE_BATCH, patches, cfg.frontend_dim),
+                                       dtype=torch.float32, device=dev)
+    P = SERVE_PROMPT
+    kfa.flash_mha.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, fed = _serve_unsharded_tf(model, params, batch, SERVE_GEN, P, dev)
+    torch.cuda.synchronize()
+    launches = kfa.flash_mha.launches
+    res = {"unsharded_prefill_and_decode_s": time.perf_counter() - t0, "runs": []}
+    checks = []  # every run's row 7 checks against the plain version
+    for route, dims in runs:
+        r = _serve_sharded_run(model, params, batch, fed, want, P, dims, route == "tp", dev)
+        launches += r["flash_launches"]
+        checks += r["flash_checks"]
+        res["runs"].append(r)
+        print(f"  sharded {cfg.name} {route} {dims}: " + json.dumps(r))
+    broken = [(r["route"], r["mesh"]) for r in res["runs"]
+              if not max(r["max_dlogsoftmax"]) <= TP_SERVE_LOGIT_TOL]
+    if fault is not None:
+        f = _serve_sharded_run(model, params, batch, fed, want, P, fault, True, dev,
+                               steps_n=SERVE_FAULT_STEPS, fault=True, timed=False)
+        launches += f["flash_launches"]
+        checks += f["flash_checks"]
+        res["fault"] = f["max_dlogsoftmax"]
+        print(f"  planted fault (model shard 1's partial dropped from every row-parallel sum) "
+              f"on {fault}: max |d log_softmax| by step {json.dumps(f['max_dlogsoftmax'])}")
+        if not f["max_dlogsoftmax"][0] > TP_SERVE_LOGIT_TOL:
+            _fail(f"the bound {TP_SERVE_LOGIT_TOL} does not catch a dropped partial in the "
+                  f"sharded prefill: {f['max_dlogsoftmax']}")
+    if bitwise is not None:
+        outs = []
+        for tp in (False, True):
+            r = _serve_sharded_run(model, params, batch, fed, want, P, bitwise, tp, dev,
+                                   steps_n=2, keep=True, timed=False)
+            launches += r["flash_launches"]
+            checks += r["flash_checks"]
+            outs.append(r)
+        same = all(_same_bits(a, b) for a, b in zip(outs[0]["logits"], outs[1]["logits"]))
+        pieces = all(_same_bits(p, q) for name in outs[0]["cache"]
+                     for p, q in zip(outs[0]["cache"][name].pieces.flat,
+                                     outs[1]["cache"][name].pieces.flat))
+        res["bitwise"] = same and pieces
+        print(f"  {bitwise} mesh: the tensor-parallel route's prefill, 2 decode steps and cache "
+              f"pieces bit for bit the gather route's: logits {same}, pieces {pieces}")
+        del outs
+        torch.cuda.empty_cache()
+        if not res["bitwise"]:
+            _fail(f"on a {bitwise} mesh the tensor-parallel serve differs from the gather route")
+    for r in res["runs"]:
+        dp, mp = r["mesh"]
+        tp = r["route"] == "tensor_parallel"
+        want_l = 2 * cfg.n_layers * (dp * mp if tp else dp)
+        if r["flash_launches"] != want_l:
+            _fail(f"the sharded prefills on {r['mesh']} ({r['route']}) launched the flash kernel "
+                  f"{r['flash_launches']} times, want {want_l}")
+        if tp and r["prefill_spans"]["attn"] != dp * cfg.n_layers:
+            _fail(f"the tensor-parallel prefill on {r['mesh']} took {r['prefill_spans']} spans")
+        if not r["in_place"] or not r["replicas_equal"] or any(
+                b != r["cache_bytes_reckoned"] for b in r["cache_bytes_a_device"]):
+            _fail(f"the sharded cache on {r['mesh']} ({r['route']}) is not cache_spec's pieces "
+                  f"written in place: {r['cache_bytes_a_device']}, in place {r['in_place']}")
+    if broken:
+        _fail(f"the sharded serve differs from the unsharded one beyond {TP_SERVE_LOGIT_TOL}: "
+              f"{broken}")
+    res["flash_launches"] = launches
+    res["flash_max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    print(f"  row 7 on the shards' heads against its plain version, one launch a shape: "
+          + json.dumps([{k: c[k] for k in ("q", "kv", "max_abs_err", "within")} for c in checks]))
+    res["s"] = time.perf_counter() - t_part
+    return res
+
+
+def _serve_vlm_sharded(dev) -> dict:
+    """qwen2-vl-2b at full depth (flash on) on the tensor-parallel route of
+    ``SERVE_VLM``'s mesh against its unsharded run: 2 kv heads over 4
+    model shards, so every shard's cache piece holds both kv heads, and
+    every replica must be equal after the last step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    arch, dims, patches = SERVE_VLM
+    cfg = get_arch(arch).with_(use_flash_kernel=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = build_model(cfg).init(gen, dev)
+    res = _serve_sharded(cfg, params, dev, patches=patches, runs=(("tp", dims),))
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------- phase 8b
@@ -4808,6 +5119,7 @@ def main() -> None:
     for n, c in ops_counts.items():
         launches[n] = launches.get(n, 0) + c
     errs["ota_quantize_superpose"] = max(errs["ota_quantize_superpose"], qs_err)
+    errs["flash_attention"] = max(errs["flash_attention"], serve_rec["flash_max_abs_err"])
     for n, e in ops_errs.items():
         errs[n] = max(errs.get(n, 0.0), e)
     kernels = []

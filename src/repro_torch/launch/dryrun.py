@@ -7,23 +7,27 @@ shapes only, and the roofline terms the specs imply for one card.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multipod # (2, 16, 16)
 
 Where the reference lowers and compiles the jitted step under XLA, the
-port runs, on ``"meta"`` tensors, the sharded train step's per-shard
-forward and backward (``steps.shard_value_and_grad``, the code that
-trains), ``make_prefill_step`` or ``make_decode_step``: the params of
-``train_state_shapes``, one data shard's batch of ``Model.input_spec``
-(each input cut by ``batch_spec``) and, for decode, a cache of that
-batch at ``cache_len_for``. The step runs under one data row of the production
-mesh (the data axes of size 1, the ``model`` axis whole, on meta
-devices), which is what data shard 0 computes: the MoE takes its
-expert-parallel path exactly where the reference's does, with the same
-per-shard token count, its expert stacks read as each model shard's
-block on its device (a train batch that the step runs as one shard,
-``steps.data_shards``, runs whole under the whole mesh). The train
-shapes run the step's gather route (``tensor_parallel`` False, every
-other leaf read whole); the tensor-parallel pass is not run here, and
-the bytes a device are the specs' either way. That shows
-every arch builds and runs shape-correct at production size with no
-memory and no card.
+port runs, on ``"meta"`` tensors, the sharded steps' per-shard code (the
+code that trains and serves): the train step's forward and backward
+(``steps.shard_value_and_grad``), the sharded prefill's
+(``steps.shard_prefill``) or the sharded decode's (``steps.shard_decode``,
+against the whole batch's cache at ``cache_len_for`` placed by
+``cache_spec`` on the production mesh, each unit reading its box of it):
+the params of ``train_state_shapes``, one data shard's batch of
+``Model.input_spec`` (each input cut by ``batch_spec``). The step runs
+under one data row of the production mesh (the data axes of size 1, the
+``model`` axis whole, on meta devices), which is what data shard 0
+computes: the MoE takes its expert-parallel path exactly where the
+reference's does, with the same per-shard token count, its expert stacks
+read as each model shard's block on its device (a batch that the step
+runs as one shard, ``steps.data_shards``, runs whole under the whole
+mesh). The train shapes run the step's gather route (``tensor_parallel``
+False, every other leaf read whole); the prefill and decode shapes its
+tensor-parallel route (the attention, MLP and head of the dense, moe
+and vlm families split over ``model``, a head never split; the other
+families read whole). The bytes a device are the specs' either way.
+That shows every arch builds and runs shape-correct at production size
+with no memory and no card.
 
 Each record holds the status (and the error), ``lower_s`` (the meta
 run's seconds), the param counts and the analytic model FLOPs, and the
@@ -50,11 +54,11 @@ from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, ArchConfig, InputS
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import (CARD_BF16_FLOPS, CARD_HBM_BYTES, CARD_HBM_BYTES_PER_S,
                                      _production_shape, make_mesh)
-from repro_torch.launch.steps import (data_shards, make_decode_step, make_prefill_step,
+from repro_torch.launch.steps import (data_shards, shard_decode, shard_prefill,
                                       shard_value_and_grad, train_state_shapes)
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
-from repro_torch.util import tree_size, use_mesh
+from repro_torch.util import tree_size
 
 META = torch.device("meta")
 
@@ -127,9 +131,13 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
             shard_value_and_grad(model, params, batch, mesh)
     else:
         params = model.init(None, META)
+        # the tensor-parallel route's data shard 0 (the batch whole under
+        # the whole mesh where the step runs it as one shard)
+        n = data_shards(model, batch, batch_specs, mesh)
+        shard = local if n > 1 else batch
         if shape.kind == "prefill":
-            with use_mesh(row_mesh), torch.no_grad():
-                make_prefill_step(model)(params, local)
+            shard_prefill(model, params, shard, row_mesh if n > 1 else mesh, 0, n,
+                          tensor_parallel=True)
         else:
             cache_len = model.cache_len_for(shape.seq_len)
             window = model.decode_window_for(shape.seq_len)
@@ -137,11 +145,12 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
             cache_specs = shd.cache_spec(cache, mesh)
             out.update(cache_len=cache_len, window=window,
                        bytes_cache=nbytes(cache, cache_specs, mesh))
-            # a data shard's own cache (the specs may put "data" on a
-            # non-batch dim, such as enc_out's width at B 1)
-            local_cache = model.init_cache(local["tokens"].shape[0], cache_len, META)
-            with use_mesh(row_mesh), torch.no_grad():
-                make_decode_step(model, window=window)(params, local_cache, local)
+            # the cache placed by its specs (which may put "data" on a
+            # non-batch dim, such as enc_out's width, or W at B 1): the
+            # shard reads its units' boxes from the pieces
+            placed = shd.place(cache, shd.to_named(cache_specs, mesh))
+            shard_decode(model, params, placed, shard, mesh, 0, n, window=window,
+                         tensor_parallel=True)
     out["bytes_params"] = nbytes(
         params, shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads), mesh)
     out["n_params"] = tree_size(params)

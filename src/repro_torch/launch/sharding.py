@@ -212,6 +212,11 @@ class NamedSharding:
     mesh: Mesh
     spec: P
 
+    def bounds(self, shape, idx) -> Tuple[Tuple[int, int], ...]:
+        """[start, stop) of each dim of a ``shape`` leaf's piece on mesh
+        index ``idx``."""
+        return _piece_bounds(shape, self, idx)
+
 
 def _map_specs(fn: Callable, tree: Pytree) -> Pytree:
     """``fn`` on every leaf of a tree whose leaves are specs (a ``P`` is a
@@ -306,6 +311,42 @@ class Placed:
             if self.pieces[idx].device == device and self.bounds(idx) == want:
                 return self.pieces[idx]
         return _assemble(self, want, device)
+
+    def piece(self, i: int, m: int) -> Tuple[Tuple[Tuple[int, int], ...], torch.Tensor]:
+        """(bounds, piece) of data shard ``i`` and model shard ``m``
+        (``grid_index``): the tensor itself, not a copy."""
+        idx = grid_index(self.sharding.mesh, i, m)
+        return self.bounds(idx), self.pieces[idx]
+
+
+def grid_index(mesh: Mesh, i: int, m: int) -> Tuple[int, ...]:
+    """The mesh index of data shard ``i`` (over ("pod", "data"), major
+    first) and model shard ``m``; any other axis at 0."""
+    names = tuple(mesh.axis_names)
+    dp_axes = [a for a in ("pod", "data") if a in names]
+    coords = dict(zip(dp_axes, np.unravel_index(i, [_axis_size(mesh, a) for a in dp_axes])))
+    if m and "model" not in names:
+        raise ValueError(f"model shard {m} of a mesh without a model axis")
+    coords["model"] = m
+    return tuple(int(coords.get(a, 0)) for a in names)
+
+
+def from_pieces(pieces: np.ndarray, sharding: NamedSharding, shape) -> Placed:
+    """A ``Placed`` of tensors already computed on their devices: ``pieces``
+    holds one a mesh index, each of its bounds' shape on that index's
+    device, none a view of another (each is updated in place on its own)."""
+    mesh = sharding.mesh
+    shape = tuple(shape)
+    if pieces.shape != mesh.devices.shape:
+        raise ValueError(f"{pieces.shape} pieces for a mesh of {mesh.devices.shape}")
+    dtype = pieces.flat[0].dtype
+    for idx in np.ndindex(pieces.shape):
+        t, want = pieces[idx], _piece_bounds(shape, sharding, idx)
+        if (tuple(t.shape) != tuple(e - s for s, e in want) or t.dtype != dtype
+                or t.device != torch.device(mesh.devices[idx])):
+            raise ValueError(f"piece {idx} is {tuple(t.shape)} {t.dtype} on {t.device}, want "
+                             f"the box {want} of {dtype} on {mesh.devices[idx]}")
+    return Placed(pieces, sharding, shape, dtype)
 
 
 def _contains(box, want) -> bool:

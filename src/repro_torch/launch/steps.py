@@ -11,7 +11,10 @@ loads in either package.
 on a train state placed on a ``launch.mesh.Mesh`` (``launch.sharding``),
 with data-parallel gradients, each piece's update on its device and,
 with ``tensor_parallel``, the attention, MLP, embedding and head split
-over the mesh's ``model`` axis.
+over the mesh's ``model`` axis. ``make_sharded_prefill_step`` and
+``make_sharded_decode_step`` are the jitted prefill and (donating) decode
+under the same specs: the same routes without a gradient, the cache a
+tree of pieces cut by ``cache_spec`` and updated in place.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import CACHE_LAYOUT, Model
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.optimizers import clip_scale
 from repro_torch.util import use_mesh
@@ -247,15 +251,20 @@ class _Blocks:
         return parts[0] if len(parts) == 1 else torch.cat(parts, self.axis)
 
 
-def _shard_live(params, mesh: Mesh, cfg=None):
+def _shard_live(params, mesh: Mesh, cfg=None, grad: bool = True):
     """Data shard 0 of ``mesh``'s live params: each leaf (``Placed`` or a
     tensor) read whole onto the shard's first device, a leaf that
     requires grad (no copy where a whole piece already sits there); an
     MoE expert stack, and with ``cfg`` (the tensor-parallel step) each
     leaf ``_tp_axis`` names, as ``_Blocks``: block m, that dim's m-th
     slice gathered over the data axes only, on the row's m-th device.
-    A leaf's spec is its placement's (a tensor's: ``param_spec``).
+    A leaf's spec is its placement's (a tensor's: ``param_spec``). With
+    ``grad`` False (the sharded prefill and decode) no leaf requires grad.
     Returns (the tree, [(leaf index, box, live tensor)])."""
+
+    def live(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().requires_grad_(True) if grad else t.detach()
+
     grid, _ = _shard_grid(mesh)
     row = list(grid[0])
     mp = len(row)
@@ -273,15 +282,15 @@ def _shard_live(params, mesh: Mesh, cfg=None):
                         shd.param_spec(path, shape, mesh, n_kv_heads=cfg.n_kv_heads))
             axis, lead = _tp_axis(path, shape, spec, cfg, mp), len(shape) - 2
         if axis is None:
-            live = _read(leaf, full, row[0]).detach().requires_grad_(True)
-            lives.append((k, full, live))
-            out.append(live)
+            t = live(_read(leaf, full, row[0]))
+            lives.append((k, full, t))
+            out.append(t)
             continue
         ax, blocks = len(shape) + axis, []
         n = shape[ax] // mp
         for m, dev in enumerate(row):
             box = full[:ax] + ((m * n, (m + 1) * n),) + full[ax + 1:]
-            blocks.append(_read(leaf, box, dev).detach().requires_grad_(True))
+            blocks.append(live(_read(leaf, box, dev)))
             lives.append((k, box, blocks[-1]))
         out.append(_Blocks(blocks, axis, lead))
     return tree_unflatten(structure, out), lives
@@ -338,6 +347,14 @@ def _mesh_of(shardings) -> Mesh:
     if len(meshes) != 1:
         raise ValueError(f"the shardings name {len(meshes)} meshes; the step takes one")
     return next(iter(meshes.values()))
+
+
+def _check_step_meshes(*shardings) -> Mesh:
+    """The one mesh that every tree of shardings names."""
+    mesh = _mesh_of(shardings[0])
+    if any(_mesh_of(s) is not mesh for s in shardings[1:]):
+        raise ValueError("the step's inputs are placed on different meshes")
+    return mesh
 
 
 def _shard_batch(batch: Dict[str, shd.Placed], dp_axes, n: int, i: int, device):
@@ -540,9 +557,7 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
     mesh without a model axis (or one of size 1) the two routes are the
     same step bit for bit.
     """
-    mesh = _mesh_of(state_shardings)
-    if _mesh_of(batch_shardings) is not mesh:
-        raise ValueError("the state and the batch are placed on different meshes")
+    mesh = _check_step_meshes(state_shardings, batch_shardings)
     grid, dp_axes = _shard_grid(mesh)
     dev0 = mesh.devices.flat[0]
 
@@ -593,5 +608,336 @@ def make_prefill_step(model: Model) -> Callable:
 def make_decode_step(model: Model, *, window: int = 0) -> Callable:
     def decode_step(params, cache, batch):
         return model.decode(params, cache, batch, window=window)
+
+    return decode_step
+
+
+# ----------------------------------------------------- the sharded prefill and decode
+
+def _tp_attention(live, model: Model, tensor_parallel: bool) -> Tuple[bool, bool]:
+    """Whether a data shard's live params split the attention over the
+    model shards (wq a block leaf), and its kv heads with it."""
+    if not tensor_parallel or model.cfg.family not in _TP_FAMILIES:
+        return False, False
+    attn = live["layers"]["attn"]
+    return isinstance(attn["wq"], _Blocks), isinstance(attn["wk"], _Blocks)
+
+
+class _Units:
+    """The computing units of one data shard of the sharded prefill and
+    decode: model shard m on the row's m-th device where the attention
+    splits (``tp``), else the row's first device alone; and the box of a
+    cache leaf each unit computes, in the whole leaf's coordinates: the
+    shard's rows of the batch dim (every row where the batch runs as one
+    shard), and model shard m's kv heads of k and v where they split."""
+
+    def __init__(self, ctx: Mesh, i: int, n: int, tp: bool, kv_split: bool):
+        row = list(_shard_grid(ctx)[0][0])
+        self.devices = row if tp else row[:1]
+        self.i, self.n, self.kv_split = i, n, kv_split
+
+    def box(self, name: str, shape, m: Optional[int]) -> Tuple[Tuple[int, int], ...]:
+        """Unit m's box of a cache leaf (None: the shard's rows alone)."""
+        box = list(_full(shape))
+        bd = CACHE_LAYOUT[name].batch
+        rows = shape[bd] // self.n
+        box[bd] = (self.i * rows, (self.i + 1) * rows)
+        if m is not None and self.kv_split and name in ("k", "v"):
+            heads = shape[-2] // len(self.devices)
+            box[-2] = (m * heads, (m + 1) * heads)
+        return tuple(box)
+
+    def sources(self, name: str, shape, leaf) -> List[Tuple[int, Tuple, torch.Tensor]]:
+        """[(model shard, box, tensor)] of a cache leaf as the model
+        returned it: a list of one tensor a model shard, or one tensor
+        computed on the row's first device."""
+        if isinstance(leaf, list):
+            return [(m, self.box(name, shape, m), t) for m, t in enumerate(leaf)]
+        return [(0, self.box(name, shape, None), leaf)]
+
+
+def _mesh_coords(mesh: Mesh) -> Dict[Tuple[int, ...], Tuple[int, int]]:
+    """{mesh index: (data shard, model shard)} of the (dp, mp) grid."""
+    grid, _ = _shard_grid(mesh)
+    dp, mp = grid.shape
+    return {shd.grid_index(mesh, i, m): (i, m) for i in range(dp) for m in range(mp)}
+
+
+def _pick(sources, own: int):
+    """The sources that write a piece of model shard ``own``: where every
+    unit holds the same box (a leaf replicated over the model shards) the
+    unit of that model shard (its own replica), else all of them."""
+    boxes = {box for _, box, _ in sources}
+    if len(sources) > 1 and len(boxes) == 1:
+        mine = [s for s in sources if s[0] == own]
+        return mine or sources[:1]
+    return sources
+
+
+def _global_shape(name: str, t: torch.Tensor, B: int, kv_split: bool, KV: int) -> Tuple[int, ...]:
+    """A cache leaf's whole shape from one unit's tensor: the batch's rows
+    on its batch dim, every kv head of a split k or v."""
+    shape = list(t.shape)
+    shape[CACHE_LAYOUT[name].batch] = B
+    if kv_split and name in ("k", "v"):
+        shape[-2] = KV
+    return tuple(shape)
+
+
+def shard_prefill(model: Model, params, batch: Dict[str, torch.Tensor], mesh: Mesh, i: int = 0,
+                  n: int = 1, *, tensor_parallel: bool = False):
+    """Data shard ``i`` of ``n``'s prefill, as the sharded step runs it:
+    ``params`` read onto data shard 0 of ``mesh`` (the shard's own row, or
+    the whole mesh where the batch runs as one shard) without a gradient
+    (``_shard_live``), ``model.prefill`` under ``use_mesh(mesh)``. Returns
+    (logits, the cache as the model returned it, the shard's ``_Units``);
+    the live params are freed on return."""
+    live, _ = _shard_live(params, mesh, model.cfg if tensor_parallel else None, grad=False)
+    units = _Units(mesh, i, n, *_tp_attention(live, model, tensor_parallel))
+    with use_mesh(mesh), torch.no_grad():
+        logits, cache = model.prefill(live, batch)
+    return logits, cache, units
+
+
+def make_sharded_prefill_step(model: Model, param_shardings, batch_shardings, *,
+                              tensor_parallel: bool = False) -> Callable:
+    """The port's counterpart of ``jax.jit(make_prefill_step(model),
+    in_shardings=(param_shardings, batch_shardings))``: the prefill on
+    params placed on a mesh, one process driving every device.
+
+    The step takes ``(params, batch)`` (``Placed`` leaves; a tensor is
+    placed by its sharding first) and returns (logits (B, V) f32 on the
+    mesh's first device, cache): the cache a tree of ``Placed`` leaves cut
+    by ``to_named(cache_spec(cache_shapes, mesh), mesh)``, each piece
+    built on its own device from the units that computed it (never the
+    whole cache put together on one device).
+
+    Data shards and routes are ``make_sharded_train_step``'s, without a
+    gradient (``shard_prefill``): data shard i runs its rows on its row
+    of the mesh under a mesh of its own (the batch whole under the whole
+    mesh where ``data_shards`` says it does not split); the gather route
+    reads each leaf whole on the shard's first device; the
+    tensor-parallel route splits the attention over the model shards for
+    the dense, moe and vlm families, so model shard m computes its heads'
+    k and v (``layers._attention_split``: row 7 on its heads under the
+    flash gate) and its pieces of the cache come from them, and the head
+    is vocab-parallel. On a (1, 1) mesh it equals ``make_prefill_step`` bit
+    for bit, and on a mesh without a model axis the two routes are the
+    same step bit for bit."""
+    mesh = _check_step_meshes(param_shardings, batch_shardings)
+    grid, dp_axes = _shard_grid(mesh)
+    dev0 = mesh.devices.flat[0]
+    KV = model.cfg.n_kv_heads
+
+    def prefill_step(params, batch):
+        params = _placed(params, param_shardings)
+        batch = _placed(batch, batch_shardings)
+        n = data_shards(model, batch, {k: b.sharding.spec for k, b in batch.items()}, mesh)
+        B = next(iter(batch.values())).shape[0]
+        logits, shards = [], []
+        for i in range(n):
+            ctx = _row_mesh(mesh, dp_axes, i) if n > 1 else mesh
+            lg, cache, units = shard_prefill(model, params,
+                                             _shard_batch(batch, dp_axes, n, i, grid[i][0]),
+                                             ctx, i, n, tensor_parallel=tensor_parallel)
+            logits.append(lg.to(dev0))
+            shards.append((units, cache))
+        out = {}
+        for name, leaf in shards[0][1].items():
+            first = leaf[0] if isinstance(leaf, list) else leaf
+            shape = _global_shape(name, first, B, shards[0][0].kv_split, KV)
+            sources = [src for u, c in shards for src in u.sources(name, shape, c[name])]
+            spec = shd.cache_spec({name: torch.empty(shape, dtype=first.dtype, device="meta")},
+                                  mesh)[name]
+            out[name] = _build_pieces(sources, shd.NamedSharding(mesh, spec), shape)
+            for _, c in shards:
+                c[name] = None  # each shard's tensors freed once its pieces are built
+        return torch.cat(logits) if n > 1 else logits[0], out
+
+    return prefill_step
+
+
+def _build_pieces(sources, sharding: shd.NamedSharding, shape) -> shd.Placed:
+    """A ``Placed`` of ``shape`` cut by ``sharding`` out of the units'
+    (model shard, box, tensor) sources: each piece a new tensor on its
+    device, copied from the unit of its own model shard first (a replica
+    from its own shard's computation)."""
+    mesh = sharding.mesh
+    coords = _mesh_coords(mesh)
+    pieces = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(pieces.shape):
+        own = coords.get(idx, (0, 0))[1]
+        srcs = sorted(sources, key=lambda src: src[0] != own)
+        pieces[idx] = shd.assemble([(box, t) for _, box, t in srcs],
+                                   sharding.bounds(shape, idx),
+                                   mesh.devices[idx], srcs[0][2].dtype)
+    return shd.from_pieces(pieces, sharding, shape)
+
+
+def grow_placed_cache(model: Model, cache: Dict[str, shd.Placed], new_len: int):
+    """``model.grow_cache`` of a cache of ``Placed`` leaves (the sharded
+    prefill's): a leaf grows piece by piece on each piece's device where
+    ``cache_spec`` of the grown shapes gives it its spec again and every
+    piece spans its slot dim whole; any other grown leaf is put together,
+    grown and placed by ``cache_spec`` of the grown shapes; a leaf that
+    does not grow comes back as it is."""
+    mesh = _mesh_of({k: v.sharding for k, v in cache.items()})
+    grown = model.grow_cache({k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                              for k, v in cache.items()}, new_len)
+    specs = shd.cache_spec(grown, mesh)
+    out = {}
+    for name, leaf in cache.items():
+        shape = tuple(grown[name].shape)
+        ax = CACHE_LAYOUT[name].slots
+        if shape == tuple(leaf.shape):
+            out[name] = leaf
+        elif leaf.sharding.spec == specs[name] and all(
+                leaf.bounds(idx)[ax] == (0, leaf.shape[ax])
+                for idx in np.ndindex(leaf.pieces.shape)):
+            pieces = np.empty(leaf.pieces.shape, dtype=object)
+            for idx in np.ndindex(pieces.shape):
+                pieces[idx] = model.grow_cache({name: leaf.pieces[idx]}, new_len)[name]
+            out[name] = shd.from_pieces(pieces, leaf.sharding, shape)
+        else:
+            whole = model.grow_cache({name: shd.gather(leaf)}, new_len)[name]
+            out[name] = shd.place(whole, shd.NamedSharding(mesh, specs[name]))
+    return out
+
+
+def shard_decode(model: Model, params, cache: Dict[str, shd.Placed],
+                 batch: Dict[str, torch.Tensor], mesh: Mesh, i: int = 0, n: int = 1, *,
+                 window: int = 0, tensor_parallel: bool = False):
+    """Data shard ``i`` of ``n``'s decode step, as the sharded step runs
+    it: ``params`` read onto its row of ``mesh`` without a gradient, each
+    unit's box of each cache leaf (``_Units``) read from the placed
+    ``cache`` (its own piece ``Placed.piece(i, m)`` in place where it is
+    that box on the unit's device, else a copy, span ``cache_copy``), and
+    ``model.decode`` under the shard's mesh (its row, or the whole mesh
+    where the batch runs as one shard). Returns (logits, {leaf: [(model
+    shard, box, tensor)]}), the tensors the step wrote."""
+    grid, dp_axes = _shard_grid(mesh)
+    ctx = _row_mesh(mesh, dp_axes, i) if n > 1 else mesh
+    live, _ = _shard_live(params, ctx, model.cfg if tensor_parallel else None, grad=False)
+    tp, kv_split = _tp_attention(live, model, tensor_parallel)
+    units = _Units(ctx, i, n, tp, kv_split)
+    local, held = {}, {}
+    for name, leaf in cache.items():
+        held[name] = []
+        for m, dev in enumerate(units.devices):
+            want = units.box(name, leaf.shape, m)
+            bounds, piece = leaf.piece(i, m)
+            if bounds == want and piece.device == torch.device(dev):
+                t = piece
+            else:  # a copy of the box; the pieces stay where they are
+                nbytes = math.prod(b - a for a, b in want) * piece.element_size()
+                with obs.span("cache_copy", leaf=name, unit=m, bytes=nbytes):
+                    t = shd.assemble([(leaf.bounds(j), leaf.pieces[j])
+                                      for j in np.ndindex(leaf.pieces.shape)],
+                                     want, dev, leaf.dtype)
+            held[name].append((m, want, t))
+        local[name] = [t for _, _, t in held[name]] if tp else held[name][0][2]
+    with use_mesh(ctx):
+        logits, _ = model.decode(live, local, batch, window=window)
+    return logits, held
+
+
+def _write_back(cache: Dict[str, shd.Placed], held, pos: torch.Tensor, row0: int,
+                coords) -> None:
+    """After a data shard's decode: every piece that holds part of what a
+    unit wrote into a copy gets it in place, the token's slot of ``k``,
+    ``v`` and ``pos`` (``pos`` the shard's positions from global row
+    ``row0``) or the whole box of the state; each replica from the unit of
+    its own model shard (``_pick``). ``enc_out`` is only read."""
+    for name, leaf in cache.items():
+        if CACHE_LAYOUT[name].kind == "read":
+            continue
+        for idx in np.ndindex(leaf.pieces.shape):
+            dst, db = leaf.pieces[idx], leaf.bounds(idx)
+            for _, box, src in _pick(held[name], coords.get(idx, (0, 0))[1]):
+                if src is dst:
+                    continue
+                if CACHE_LAYOUT[name].kind == "slot":
+                    _write_slots(dst, db, src, box, pos, row0)
+                else:
+                    _copy_box(dst, db, src, box)
+
+
+def _write_slots(dst, db, src, sb, pos_rows, row0: int) -> None:
+    """Slot ``pos % W`` of each row of ``src`` (box ``sb``, every slot of
+    dim 2) that ``dst`` (box ``db``) holds, written into ``dst`` in place:
+    a row whose slot lies in another piece keeps its old value.
+    ``pos_rows`` are the positions of the rows from global row ``row0``."""
+    r0, r1 = max(db[1][0], sb[1][0]), min(db[1][1], sb[1][1])
+    rest = [(max(a[0], b[0]), min(a[1], b[1])) for a, b in zip(db[3:], sb[3:])]
+    l0, l1 = max(db[0][0], sb[0][0]), min(db[0][1], sb[0][1])
+    if r0 >= r1 or l0 >= l1 or any(a >= b for a, b in rest):
+        return
+    slot = pos_rows[r0 - row0:r1 - row0].long() % src.shape[2]
+    local = slot.to(dst.device) - db[2][0]
+    ok = (local >= 0) & (local < dst.shape[2])
+    local = local.clamp(0, dst.shape[2] - 1)
+    d_rest = tuple(slice(a - s, b - s) for (a, b), (s, _) in zip(rest, db[3:]))
+    s_rest = tuple(slice(a - s, b - s) for (a, b), (s, _) in zip(rest, sb[3:]))
+    d_rows = torch.arange(r0 - db[1][0], r1 - db[1][0], device=dst.device)
+    s_rows = torch.arange(r0 - sb[1][0], r1 - sb[1][0], device=src.device)
+    where = (slice(l0 - db[0][0], l1 - db[0][0]), d_rows, local) + d_rest
+    new = src[(slice(l0 - sb[0][0], l1 - sb[0][0]), s_rows, slot.to(src.device)) + s_rest]
+    mask = ok.reshape((1, -1) + (1,) * len(rest))
+    dst[where] = torch.where(mask, new.to(dst.device), dst[where])
+
+
+def _copy_box(dst, db, src, sb) -> None:
+    """The part of ``src`` (box ``sb``) that ``dst`` (box ``db``) holds,
+    copied into ``dst`` in place."""
+    inter = [(max(a[0], b[0]), min(a[1], b[1])) for a, b in zip(db, sb)]
+    if any(a >= b for a, b in inter):
+        return
+    dst[tuple(slice(a - s, b - s) for (a, b), (s, _) in zip(inter, db))].copy_(
+        src[tuple(slice(a - s, b - s) for (a, b), (s, _) in zip(inter, sb))])
+
+
+def make_sharded_decode_step(model: Model, param_shardings, cache_shardings, batch_shardings, *,
+                             window: int = 0, tensor_parallel: bool = False) -> Callable:
+    """The port's counterpart of ``jax.jit(make_decode_step(model,
+    window=window), in_shardings=(param_shardings, cache_shardings,
+    batch_shardings), donate_argnums=(1,))``: one token against a cache
+    placed by ``cache_spec``.
+
+    The step takes ``(params, cache, batch)`` (``Placed`` leaves; a tensor,
+    or a leaf placed otherwise, is placed by its sharding first) and
+    returns (logits (B, V) f32 on the mesh's first device, the same cache
+    tree): the donation is an update in place, each piece written where
+    it is. Data shards and routes are ``make_sharded_prefill_step``'s
+    (``shard_decode``). A unit (model shard m of data shard i on the
+    tensor-parallel route's split attention, else the shard's first
+    device) whose box of a leaf is its own piece decodes into that piece
+    in place; any other box (a batch that runs as one shard over a cache
+    split over data, a ring whose W dim ``cache_spec`` split because B
+    does not divide, the gather route's kv heads split over ``model``) is
+    read into a copy (span ``cache_copy``), and after the shard's step the
+    token's slot (``k``, ``v``, ``pos``), or the whole box (the ssm
+    state), is written back into every piece that holds part of it, each
+    replica from its own model shard (``_write_back``)."""
+    mesh = _check_step_meshes(param_shardings, cache_shardings, batch_shardings)
+    grid, dp_axes = _shard_grid(mesh)
+    dev0 = mesh.devices.flat[0]
+
+    def decode_step(params, given, batch):
+        params = _placed(params, param_shardings)
+        cache = _placed(given, cache_shardings)
+        if all(a is b for a, b in zip(tree_leaves(given), tree_leaves(cache))):
+            cache = given
+        batch = _placed(batch, batch_shardings)
+        n = data_shards(model, batch, {k: b.sharding.spec for k, b in batch.items()}, mesh)
+        coords = _mesh_coords(mesh)
+        logits = []
+        for i in range(n):
+            sb = _shard_batch(batch, dp_axes, n, i, grid[i][0])
+            lg, held = shard_decode(model, params, cache, sb, mesh, i, n, window=window,
+                                    tensor_parallel=tensor_parallel)
+            logits.append(lg.to(dev0))
+            _write_back(cache, held, sb["pos"], i * sb["pos"].shape[0], coords)
+            del held
+        return torch.cat(logits) if n > 1 else logits[0], cache
 
     return decode_step

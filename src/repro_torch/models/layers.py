@@ -4,8 +4,8 @@ attention, the attention block, the SwiGLU MLP and the MoE block (top-k
 router, sort-based capacity dispatch into an (E, C, d) buffer, batched
 expert products; under a mesh with a ``model`` axis, the reference's
 expert-parallel path), and the attention and MLP blocks' tensor-parallel
-branches, which block leaves select (``launch.steps``' sharded step).
-Pure functions over param dicts.
+branches (full-sequence and decode), which block leaves select
+(``launch.steps``' sharded steps). Pure functions over param dicts.
 
 Attention keeps the reference's layouts: q (B, S, H, D), k/v (B, S, KV, D),
 GQA by grouping the H query heads over the KV heads. ``chunked_attention``
@@ -335,30 +335,40 @@ def attention_block(
     causal: bool = True,
     window: int = 0,
     differentiable: bool = True,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+) -> Tuple[torch.Tensor, Tuple[Any, Any]]:
     """Full-sequence attention. Returns (out, (k, v)) for cache priming.
 
     Given block leaves (``wq`` and ``wo`` split over the model axis, see
-    ``_attention_split``), the tensor-parallel branch; it returns (out,
-    None)."""
-    split = [n for n in ("wq", "wk", "wv", "wo") if not isinstance(p[n], torch.Tensor)]
-    if split:
-        if "wq" not in split or "wo" not in split:
-            raise ValueError(f"only {split} of the attention are split over the model axis: "
-                             "wq and wo split together")
-        return _attention_split(p, x, cfg, positions, causal, window), None
+    ``_attention_split``), the tensor-parallel branch; its (k, v) are
+    lists of each model shard's k and v on its device."""
+    if _is_split(p):
+        return _attention_split(p, x, cfg, positions, causal, window, differentiable)
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _position(q, k, positions, cfg)
-    if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
-        # the flash kernel (forward-only: prefill and serving; it has no
-        # backward, so training keeps the chunked path)
-        out = flash_mha(q, k, v, causal=True)
-    else:
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+    out = _attend(q, k, v, cfg, causal, window, differentiable)
     B, S = q.shape[:2]
     out = out.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
+
+
+def _is_split(p: Params) -> bool:
+    """Whether the attention's leaves are block leaves (the tensor-parallel
+    branch); half a split raises."""
+    split = [n for n in ("wq", "wk", "wv", "wo") if not isinstance(p[n], torch.Tensor)]
+    if split and ("wq" not in split or "wo" not in split):
+        raise ValueError(f"only {split} of the attention are split over the model axis: "
+                         "wq and wo split together")
+    return bool(split)
+
+
+def _attend(q, k, v, cfg: ArchConfig, causal: bool, window: int, differentiable: bool):
+    """The flash kernel where it applies (forward-only: prefill and
+    serving, causal, no window; it has no backward, so training keeps the
+    chunked path), else ``chunked_attention``."""
+    if cfg.use_flash_kernel and causal and window == 0 and differentiable is False:
+        return flash_mha(q, k, v, causal=True)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
 
 
 def attention_decode_block(
@@ -366,31 +376,45 @@ def attention_decode_block(
     x: torch.Tensor,  # (B, 1, d)
     cfg: ArchConfig,
     pos: torch.Tensor,  # (B,)
-    cache: Dict[str, torch.Tensor],
+    cache: Dict[str, Any],
     *,
     window: int = 0,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step against a ring-buffer KV cache.
 
     cache = {"k": (B, W, KV, D), "v": (B, W, KV, D), "pos": (B, W) int32}.
     The new entries are written into the cache tensors in place (the
-    reference returns updated copies); the same dict is returned.
-    """
+    reference returns updated copies); the same dict is returned. Given
+    block leaves, the tensor-parallel branch (``_attention_decode_split``),
+    whose cache entries are lists of each model shard's tensors."""
+    if _is_split(p):
+        return _attention_decode_split(p, x, cfg, pos, cache, window), cache
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
-    positions = pos[:, None]  # (B, 1)
-    if cfg.mrope:
-        positions = positions[:, None, :].expand(B, 3, 1)
-    q, k = _position(q, k, positions, cfg)
-    W = cache["k"].shape[1]
-    slot = pos % W
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+    q, k = _position(q, k, _decode_positions(pos, cfg), cfg)
+    _write_slot(cache["k"], cache["v"], cache["pos"], k, v, pos)
     out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos, window=window)
     out = out.reshape(B, 1, -1) @ p["wo"]
     return out, cache
+
+
+def _decode_positions(pos: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(B, 1) positions of the token, (B, 3, 1) for M-RoPE."""
+    positions = pos[:, None]
+    if cfg.mrope:
+        positions = positions[:, None, :].expand(pos.shape[0], 3, 1)
+    return positions
+
+
+def _write_slot(k_cache, v_cache, pos_cache, k, v, pos) -> None:
+    """The token's k and v (B, 1, KV, D) into slot ``pos % W`` of each row,
+    in place."""
+    B = k.shape[0]
+    slot = pos % k_cache.shape[1]
+    bidx = torch.arange(B, device=k.device)
+    k_cache[bidx, slot] = k[:, 0]
+    v_cache[bidx, slot] = v[:, 0]
+    pos_cache[bidx, slot] = pos.to(pos_cache.dtype)
 
 
 # ------------------------------------------------------------------- MLP (SwiGLU)
@@ -416,7 +440,7 @@ def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------- tensor parallelism
 #
 # The reference's Megatron split over the mesh's ``model`` axis, as the
-# sharded train step reads it (``launch.steps``, ``tensor_parallel=True``):
+# sharded steps read it (``launch.steps``, ``tensor_parallel=True``):
 # a block leaf holds model shard m's slice of a weight (``blocks[m]``, split
 # on dim ``axis`` counted from the end) on the data row's m-th device. Model
 # shard m runs its column blocks on a copy of the input on its device and
@@ -424,7 +448,9 @@ def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 # partials are summed in f32 in shard order on the input's device (the
 # row's first) and cast once to the activation dtype. Whole leaves (norms,
 # biases, GQA's unsplit ``wk``/``wv``) sit on that device and are copied
-# to each shard; autograd carries every copy's gradient back.
+# to each shard; autograd carries every copy's gradient back. A decode
+# step's cache is one tensor a model shard, on its device: its kv heads,
+# or every kv head where they do not divide the shards.
 
 
 def _blocks(w, axis: int, devices, name: str) -> List[torch.Tensor]:
@@ -511,10 +537,7 @@ class _RowSum(torch.autograd.Function):
     def forward(ctx, home, dtype, *partials):
         ctx.to = [(p.device, p.dtype) for p in partials]
         ctx.save_for_backward(torch.empty(0, device=home))
-        acc = partials[0].to(home)
-        for part in partials[1:]:
-            acc = acc + part.to(home)
-        return acc.to(dtype)
+        return _sum_on(home, dtype, partials)
 
     @staticmethod
     def backward(ctx, g):
@@ -522,10 +545,19 @@ class _RowSum(torch.autograd.Function):
         return (None, None) + tuple(g.to(device=d, dtype=t) for d, t in ctx.to)
 
 
+def _sum_on(home: torch.device, dtype, partials) -> torch.Tensor:
+    acc = partials[0].to(home)
+    for part in partials[1:]:
+        acc = acc + part.to(home)
+    return acc.to(dtype)
+
+
 def _row_sum(partials: List[torch.Tensor], home: torch.device, dtype) -> torch.Tensor:
     """The row-parallel sum: each model shard's f32 partial brought to
     ``home`` and added in shard order, cast once to ``dtype``
-    (``_RowSum``)."""
+    (``_RowSum``; without a gradient the same sum, no node)."""
+    if not torch.is_grad_enabled():
+        return _sum_on(home, dtype, partials)
     return _RowSum.apply(home, dtype, *partials)
 
 
@@ -541,24 +573,47 @@ def _kv_heads(k: torch.Tensor, m: int, Hl: int, G: int) -> torch.Tensor:
 
 
 def _attention_split(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-                     causal: bool, window: int) -> torch.Tensor:
+                     causal: bool, window: int, differentiable: bool = True):
     """The attention block over M model shards (H / M query heads each):
     shard m projects x through its column blocks of ``wq`` (and of ``wk``
-    and ``wv`` where the kv heads divide M; else through the whole leaves,
-    keeping the kv heads its query heads read), adds its slice of the
-    whole biases, applies the whole q/k norms and RoPE, runs
-    ``chunked_attention`` on its heads and multiplies by its row block of
+    and ``wv`` where the kv heads divide M; else through the whole leaves),
+    adds its slice of the whole biases, applies the whole q/k norms and
+    RoPE, keeps the kv heads its query heads read (``_kv_heads``), attends
+    on its heads (``_attend``: the flash kernel under the whole path's
+    gate, else ``chunked_attention``) and multiplies by its row block of
     ``wo``; ``_row_sum`` adds the f32 partials. Heads that do not divide M
     raise: a head is never split (the sharded step reads such a block
-    whole)."""
+    whole). Returns (out, ([k], [v])): each shard's k and v for the cache,
+    its KV / M kv heads, or every kv head (normed and rotated, before
+    ``_kv_heads``) where the kv heads do not divide M."""
     B, S, d = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     home = x.device
+    devices, Hl, G, wq, wo, wk, wv, kv_split, whole = _split_leaves(p, cfg, home)
+    Dh = cfg.resolved_head_dim()
+    partials, ks, vs = [], [], []
+    with obs.span("tensor_parallel", kind="attn", mp=len(devices),
+                  partial_bytes=len(devices) * B * S * d * 4):
+        for m, dev in enumerate(devices):
+            q, k, v = _project_shard(x.to(dev), m, Hl, wq, wk, wv, kv_split, whole, cfg)
+            q, k = _position(q, k, positions.to(dev), cfg)
+            ks.append(k)
+            vs.append(v)
+            if not kv_split:
+                k, v = (_kv_heads(t, m, Hl, G).contiguous() for t in (k, v))
+            o = _attend(q, k, v, cfg, causal, window, differentiable)
+            partials.append(_F32Product.apply(o.reshape(B, S, Hl * Dh), wo[m]))
+        return _row_sum(partials, home, x.dtype), (ks, vs)
+
+
+def _split_leaves(p: Params, cfg: ArchConfig, home: torch.device):
+    """The attention's block leaves over the model shards: (devices, Hl,
+    G, wq, wo, wk, wv, kv_split, the whole biases and norms); a leaf the
+    branch cannot take raises."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     devices = _split_devices(p["wq"], home, "wq")
     M = len(devices)
     if H % M:
         raise ValueError(f"{H} heads do not divide over {M} model shards")
-    Hl, G = H // M, H // KV
     wq, wo = _blocks(p["wq"], -1, devices, "wq"), _blocks(p["wo"], -2, devices, "wo")
     kv_split = not isinstance(p["wk"], torch.Tensor)
     if kv_split:
@@ -568,30 +623,67 @@ def _attention_split(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: tor
     else:
         wk, wv = (_whole(p[n], home, n) for n in ("wk", "wv"))
     whole = {n: _whole(p[n], home, n) for n in ("bq", "bk", "bv", "q_norm", "k_norm") if n in p}
-    KVl = KV // M
+    return devices, H // M, H // KV, wq, wo, wk, wv, kv_split, whole
+
+
+def _project_shard(xm, m: int, Hl: int, wq, wk, wv, kv_split: bool, whole, cfg: ArchConfig):
+    """Model shard m's q (B, S, Hl, Dh) and k, v (its KV / M kv heads, or
+    every kv head) from xm on its device: its column blocks (or the whole
+    ``wk``/``wv``), its slice of the biases, the q/k norms."""
+    B, S, _ = xm.shape
+    dev, Dh = xm.device, cfg.resolved_head_dim()
+    q = xm @ wq[m]
+    k, v = (xm @ wk[m], xm @ wv[m]) if kv_split else (xm @ wk.to(dev), xm @ wv.to(dev))
+    if cfg.qkv_bias:
+        KVl = cfg.n_kv_heads // len(wq)
+        kv_cols = slice(m * KVl * Dh, (m + 1) * KVl * Dh) if kv_split else slice(None)
+        q = q + whole["bq"][m * Hl * Dh:(m + 1) * Hl * Dh].to(dev)
+        k = k + whole["bk"][kv_cols].to(dev)
+        v = v + whole["bv"][kv_cols].to(dev)
+    q = q.reshape(B, S, Hl, Dh)
+    k = k.reshape(B, S, -1, Dh)
+    v = v.reshape(B, S, -1, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, whole["q_norm"].to(dev), cfg.norm_eps)
+        k = rms_norm(k, whole["k_norm"].to(dev), cfg.norm_eps)
+    return q, k, v
+
+
+def _cache_shards(c, devices, name: str) -> List[torch.Tensor]:
+    """Model shard m's cache tensor of a tensor-parallel decode: a list
+    of one tensor a shard, on its device; anything else raises."""
+    if not isinstance(c, list) or [t.device for t in c] != list(devices):
+        raise ValueError(f"cache {name!r} is not a list of one tensor a model shard on "
+                         f"{list(devices)}")
+    return c
+
+
+def _attention_decode_split(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor,
+                            cache: Dict[str, Any], window: int) -> torch.Tensor:
+    """One decode step over M model shards: shard m projects the token as
+    ``_attention_split`` does, writes its k and v (its kv heads, or every
+    kv head) into its own cache tensors in place, runs ``decode_attention``
+    on its Hl query heads against the kv heads they read (``_kv_heads``)
+    and multiplies by its row block of ``wo``; ``_row_sum`` adds the f32
+    partials."""
+    B, _, d = x.shape
+    home = x.device
+    devices, Hl, G, wq, wo, wk, wv, kv_split, whole = _split_leaves(p, cfg, home)
+    kc, vc, pc = (_cache_shards(cache[n], devices, n) for n in ("k", "v", "pos"))
+    Dh = cfg.resolved_head_dim()
     partials = []
-    with obs.span("tensor_parallel", kind="attn", mp=M, partial_bytes=M * B * S * d * 4):
+    with obs.span("tensor_parallel", kind="attn_decode", mp=len(devices),
+                  partial_bytes=len(devices) * B * d * 4):
         for m, dev in enumerate(devices):
-            xm = x.to(dev)
-            q = xm @ wq[m]
-            k, v = (xm @ wk[m], xm @ wv[m]) if kv_split else (xm @ wk.to(dev), xm @ wv.to(dev))
-            if cfg.qkv_bias:
-                kv_cols = slice(m * KVl * Dh, (m + 1) * KVl * Dh) if kv_split else slice(None)
-                q = q + whole["bq"][m * Hl * Dh:(m + 1) * Hl * Dh].to(dev)
-                k = k + whole["bk"][kv_cols].to(dev)
-                v = v + whole["bv"][kv_cols].to(dev)
-            q = q.reshape(B, S, Hl, Dh)
-            k = k.reshape(B, S, -1, Dh)
-            v = v.reshape(B, S, -1, Dh)
+            pm = pos.to(dev)
+            q, k, v = _project_shard(x.to(dev), m, Hl, wq, wk, wv, kv_split, whole, cfg)
+            q, k = _position(q, k, _decode_positions(pm, cfg), cfg)
+            _write_slot(kc[m], vc[m], pc[m], k, v, pm)
+            keys, values = kc[m], vc[m]
             if not kv_split:
-                k, v = _kv_heads(k, m, Hl, G), _kv_heads(v, m, Hl, G)
-            if cfg.qk_norm:
-                q = rms_norm(q, whole["q_norm"].to(dev), cfg.norm_eps)
-                k = rms_norm(k, whole["k_norm"].to(dev), cfg.norm_eps)
-            q, k = _position(q, k, positions.to(dev), cfg)
-            o = chunked_attention(q, k, v, causal=causal, window=window,
-                                  q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
-            partials.append(_F32Product.apply(o.reshape(B, S, Hl * Dh), wo[m]))
+                keys, values = _kv_heads(keys, m, Hl, G), _kv_heads(values, m, Hl, G)
+            o = decode_attention(q, keys, values, pc[m], pm, window=window)
+            partials.append(_F32Product.apply(o.reshape(B, 1, Hl * Dh), wo[m]))
         return _row_sum(partials, home, x.dtype)
 
 

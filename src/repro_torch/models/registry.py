@@ -38,6 +38,28 @@ from repro_torch.models import whisper as WH
 FULL_CACHE_MAX = 32_768
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheLeaf:
+    """Where a decode cache's leaf keeps its rows and slots, and what a
+    decode step does to it: the one table that growing, resetting and
+    writing back a cache read (every family's leaves are stacked, (L, B,
+    ...) or (n_seg, every, B, ...))."""
+
+    batch: int  # the dim of the batch rows
+    slots: Optional[int] = None  # the dim of the ring's slots (pos % W); None: fixed size
+    kind: str = "state"  # "slot": a step writes one slot a row; "read": never written;
+    #                      "state": rewritten whole
+    empty: int = 0  # an empty slot's value (padding, a slot's reset)
+
+
+CACHE_LAYOUT = {
+    "k": CacheLeaf(1, 2, "slot"), "v": CacheLeaf(1, 2, "slot"), "pos": CacheLeaf(1, 2, "slot", -1),
+    "h": CacheLeaf(1), "conv": CacheLeaf(1),  # mamba (L, B, di, N), (L, B, K - 1, di)
+    "ssm_h": CacheLeaf(2), "ssm_conv": CacheLeaf(2),  # the hybrid's (n_seg, every, B, ...)
+    "enc_out": CacheLeaf(0, kind="read"),  # whisper's (B, T, D)
+}
+
+
 def _rows(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """A loss that is a mean over every row's positions: the rows."""
     t = next(iter(batch.values()))
@@ -71,23 +93,18 @@ class Model:
         """Pad the K/V/pos slots to ``new_len`` (e.g. after prefill, before
         decode): K/V with zeros, positions with -1 (empty). SSM state
         leaves and the encoder's ``enc_out`` are fixed-size and come back
-        unchanged."""
+        unchanged. A placed cache (the sharded prefill's) grows by
+        ``launch.steps.grow_placed_cache``."""
 
         def fit(name, cur):
-            if name in ("k", "v"):
-                axis = cur.dim() - 3
-            elif name == "pos":
-                axis = cur.dim() - 1
-            else:
-                return cur
-            pad_n = new_len - cur.shape[axis]
-            if pad_n <= 0:
+            ax = CACHE_LAYOUT[name].slots
+            if ax is None or new_len <= cur.shape[ax]:
                 return cur
             shape = list(cur.shape)
-            shape[axis] = pad_n
-            fill = torch.full(shape, -1 if name == "pos" else 0, dtype=cur.dtype,
+            shape[ax] = new_len - cur.shape[ax]
+            fill = torch.full(shape, CACHE_LAYOUT[name].empty, dtype=cur.dtype,
                               device=cur.device)
-            return torch.cat([cur, fill], dim=axis)
+            return torch.cat([cur, fill], dim=ax)
 
         return {k: fit(k, v) for k, v in cache.items()}
 

@@ -15,8 +15,11 @@ M-RoPE over (B, 3, S) positions. An ssm layer (falcon-mamba) is one
 Mamba-1 block (``models/ssm.py``) behind an RMS norm: no attention, no
 MLP, and a decode cache of {"h": (nl, B, d_inner, N) f32, "conv": (nl, B,
 K - 1, d_inner)} that does not grow with the sequence. Given block
-leaves (the sharded step's tensor-parallel route), the embedding and the
-loss's softmax are vocab-parallel (``_embed_rows``, ``_logz_gold``).
+leaves (the sharded steps' tensor-parallel route), the embedding, the
+loss's softmax and the serving head are vocab-parallel (``_embed_rows``,
+``_logz_gold``, ``_head_logits``), and the attention's cache is one
+tensor a model shard (``prefill`` returns lists, ``decode_step`` takes
+them).
 
 Entry points:
 - ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
@@ -178,6 +181,18 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfi
 
 def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _head_logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x (B, d) through the head: (B, V) f32. A vocab-split head (block
+    leaf) is vocab-parallel: each model shard's column block multiplied on
+    its device, the f32 blocks joined in shard order on x's device."""
+    head = _head(params, cfg)
+    if isinstance(head, torch.Tensor):
+        return (x @ head).to(torch.float32)
+    home = x.device
+    blocks = L._blocks(head, -1, L._split_devices(head, home, "lm_head"), "lm_head")
+    return torch.cat([(x.to(b.device) @ b).to(torch.float32).to(home) for b in blocks], dim=-1)
 
 
 # --------------------------------------------------------------------- forward
@@ -349,27 +364,42 @@ def _ssm_prefill(params: Params, x: torch.Tensor, cfg: ArchConfig):
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Full forward; returns (last-position logits (B, V) f32, primed
     cache): for attention {"k", "v": (nl, B, S, KV, Dh), "pos": (nl, B, S)
-    int32}, S counting the prepended patches too; for ssm {"h": (nl, B,
-    d_inner, N) f32, "conv": (nl, B, K - 1, d_inner)}."""
+    int32}, S counting the prepended patches too (with a split attention
+    "k" and "v" are lists of each model shard's, on its device); for ssm
+    {"h": (nl, B, d_inner, N) f32, "conv": (nl, B, K - 1, d_inner)}."""
     with torch.no_grad():
         x = _embed_inputs(params, batch, cfg)
         if cfg.family == "ssm":
             x, cache = _ssm_prefill(params, x, cfg)
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-            return (x[:, -1] @ _head(params, cfg)).to(torch.float32), cache
+            return _head_logits(params, x[:, -1], cfg), cache
         B, S = x.shape[:2]
         positions = _positions(cfg, B, S, x.device)
         x, _, kvs = _run_layers(params, x, cfg, positions, window=0, collect_kv=True,
                                 differentiable=False)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x[:, -1] @ _head(params, cfg)).to(torch.float32)
+        logits = _head_logits(params, x[:, -1], cfg)
         cache = {
-            "k": torch.stack([k for k, _ in kvs]),
-            "v": torch.stack([v for _, v in kvs]),
+            "k": _stack_layers([k for k, _ in kvs]),
+            "v": _stack_layers([v for _, v in kvs]),
             "pos": torch.arange(S, dtype=torch.int32, device=x.device).expand(
                 cfg.n_layers, B, S).contiguous(),
         }
     return logits, cache
+
+
+def _stack_layers(per_layer: List[Any]) -> Any:
+    """Each layer's k (or v) stacked on a leading layer axis; the
+    tensor-parallel attention's (a list of one tensor a model shard) as a
+    list of each shard's stack, on its device."""
+    if isinstance(per_layer[0], list):
+        return [torch.stack([layer[m] for layer in per_layer]) for m in range(len(per_layer[0]))]
+    return torch.stack(per_layer)
+
+
+def _cache_layer(c: Any, i: int) -> Any:
+    """Layer i's view of a cache leaf (of each model shard's, for a list)."""
+    return [t[i] for t in c] if isinstance(c, list) else c[i]
 
 
 def init_decode_cache(cfg: ArchConfig, B: int, cache_len: int, device) -> Params:
@@ -392,14 +422,14 @@ def init_decode_cache(cfg: ArchConfig, B: int, cache_len: int, device) -> Params
 def decode_step(params: Params, cache: Params, batch: Dict[str, torch.Tensor],
                 cfg: ArchConfig, *, window: int = 0):
     """One token. batch = {"tokens": (B, 1), "pos": (B,)}. Returns (logits
-    (B, V) f32, cache); the cache tensors are updated in place."""
+    (B, V) f32, cache); the cache tensors are updated in place (with a
+    split attention each leaf is a list of one tensor a model shard)."""
     with torch.no_grad():
-        x = params["embed"][batch["tokens"].long()].to(L.dtype_of(cfg.compute_dtype))
+        x = _embed_rows(params["embed"], batch["tokens"]).to(L.dtype_of(cfg.compute_dtype))
         pos = batch["pos"].long()
-        for i in range(cfg.n_layers):
-            layer_cache = {name: t[i] for name, t in cache.items()}
-            x, _ = _block_decode(_layer(params["layers"], i), x, cfg, pos, layer_cache,
-                                 window)
+        for i, layer_p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            layer_cache = {name: _cache_layer(t, i) for name, t in cache.items()}
+            x, _ = _block_decode(layer_p, x, cfg, pos, layer_cache, window)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x[:, 0] @ _head(params, cfg)).to(torch.float32)
+        logits = _head_logits(params, x[:, 0], cfg)
     return logits, cache

@@ -27,7 +27,7 @@ from repro_torch import obs
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import CACHE_LAYOUT, build_model
 
 
 @dataclasses.dataclass
@@ -93,16 +93,12 @@ class ServeEngine:
 
     def _reset_slot_cache(self, slot: int) -> None:
         """Invalidate one slot's cache entries before admitting a request,
-        in place. The slot's axis per leaf: attention k/v/pos are (L, B,
-        W, ...) and mamba h/conv (L, B, ...), axis 1; the hybrid's
-        ssm_h/ssm_conv are (n_seg, every, B, ...), axis 2."""
+        in place: each written leaf's rows at the slot (its batch dim,
+        ``registry.CACHE_LAYOUT``) set empty."""
         for name, t in self.cache.items():
-            if name == "pos":
-                t[:, slot] = -1
-            elif name in ("k", "v", "h", "conv"):
-                t[:, slot] = 0
-            elif name in ("ssm_h", "ssm_conv"):
-                t[:, :, slot] = 0
+            lay = CACHE_LAYOUT[name]
+            if lay.kind != "read":
+                t[(slice(None),) * lay.batch + (slot,)] = lay.empty
 
     def _admit(self) -> None:
         for slot in range(self.max_batch):

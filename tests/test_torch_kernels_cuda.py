@@ -1363,3 +1363,158 @@ class TestTensorParallel:
             assert all(out[tp]["rel"][k] <= TestShardTrain.BF16[k] for k in out[tp]["rel"]), out
         # the gather route reads every leaf whole onto card 0; blocks stay on their cards
         assert out[True]["fb_peak"][0] < out[False]["fb_peak"][0]
+
+
+class TestTensorParallelServe:
+    """The sharded prefill and decode on the card (``-k tensorparallel``):
+    qwen3 reduced with the flash prefill on (1, 4) and (2, 2) meshes of
+    four shards of one card against the unsharded steps under the same
+    mesh, row 7 on each model shard's heads held against its plain
+    version; and qwen3-8b at full width on a (1, 4) mesh of four distinct
+    cards."""
+
+    # f32, as tests/test_torch_tensor_parallel_serve.py: each step's logits
+    # and the final k/v within 1e-5 of their largest value, pos bit for bit
+    RTOL = 1e-5
+    # bf16 at full width: max |d log_softmax|, chip_smoke.TP_SERVE_LOGIT_TOL
+    LSM_TOL = 0.2
+
+    @staticmethod
+    def _run(model, params, batch, toks, mesh, sharded):
+        """Prefill, grow by the tokens, one decode step a token (fed
+        ``toks``): ([logits], cache), sharded (tensor-parallel) or not
+        (under ``use_mesh(mesh)``)."""
+        from repro_torch.launch import steps
+
+        B, P = batch["tokens"].shape
+        P += batch["patches"].shape[1] if "patches" in batch else 0
+        dev = batch["tokens"].device
+        step = [{"tokens": toks[:, g:g + 1].contiguous(),
+                 "pos": torch.full((B,), P + g, dtype=torch.int32, device=dev)}
+                for g in range(toks.shape[1])]
+        if not sharded:
+            with use_mesh(mesh):
+                lg, cache = steps.make_prefill_step(model)(params, batch)
+                cache = model.grow_cache(cache, P + toks.shape[1])
+                out = [lg]
+                for sb in step:
+                    lg, cache = steps.make_decode_step(model)(params, cache, sb)
+                    out.append(lg)
+            return out, cache
+        cfg = model.cfg
+        p_sh = shd.to_named(shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads), mesh)
+        b_sh = shd.to_named(shd.batch_spec(batch, mesh), mesh)
+        placed = shd.place(params, p_sh)
+        lg, cache = steps.make_sharded_prefill_step(model, p_sh, b_sh, tensor_parallel=True)(
+            placed, batch)
+        cache = steps.grow_placed_cache(model, cache, P + toks.shape[1])
+        c_sh = {k: v.sharding for k, v in cache.items()}
+        s_sh = shd.to_named(shd.batch_spec(step[0], mesh), mesh)
+        decode = steps.make_sharded_decode_step(model, p_sh, c_sh, s_sh, tensor_parallel=True)
+        out = [lg]
+        for sb in step:
+            lg, cache = decode(placed, cache, sb)
+            out.append(lg)
+        return out, cache
+
+    @pytest.mark.parametrize("kv", [4, 2], ids=["kv_split", "kv_replicated"])
+    @pytest.mark.parametrize("dims", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+    def test_tensorparallel_serve_reduced_on_one_card(self, dev, dims, kv):
+        from repro_torch.models.registry import build_model
+
+        cfg = get_arch("qwen3-8b").reduced().with_(use_flash_kernel=True, n_kv_heads=kv)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        rng = np.random.RandomState(0)
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 256)),
+                                           dtype=torch.int32, device=dev)}
+        toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 4)), dtype=torch.int32,
+                               device=dev)
+        mesh = make_mesh(dims, ("data", "model"), devices=[dev] * 4)
+        want, wcache = self._run(model, params, batch, toks, mesh, sharded=False)
+        calls, real = [], L.flash_mha
+
+        def flash(q, k, v, *, causal=True):
+            out = real(q, k, v, causal=causal)
+            calls.append((q, k, v, out))
+            return out
+
+        before = kfa.flash_mha.launches
+        L.flash_mha = flash
+        try:
+            got, cache = self._run(model, params, batch, toks, mesh, sharded=True)
+        finally:
+            L.flash_mha = real
+        assert kfa.flash_mha.launches - before == dims[0] * dims[1] * cfg.n_layers == len(calls)
+        for q, k, v, out in calls:  # each model shard's heads
+            assert q.shape[2] == cfg.n_heads // dims[1] and q.device == dev
+            assert kfa.mismatch(out, kfa.flash_attention_plain(q, k, v))["within"]
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= self.RTOL * float(b.abs().max())
+        for name in ("k", "v"):
+            a, b = shd.gather(cache[name]), wcache[name]
+            assert float((a - b).abs().max()) <= self.RTOL * float(b.abs().max()), name
+        assert torch.equal(shd.gather(cache["pos"]), wcache["pos"])
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
+        assert (shd.device_nbytes(cache) == shd.tree_spec_nbytes(
+            shapes, shd.cache_spec(shapes, mesh), mesh)).all()
+
+    def test_tensor_parallel_serve_across_cards(self):
+        """qwen3-8b at full width and depth (flash on) on a (1, 4) mesh of
+        four distinct cards: a prefill of 4 x 512 tokens and 3 decode steps
+        fed the unsharded run's greedy tokens, each step's max |d
+        log_softmax| against the unsharded run on card 0; each card's cache
+        and param bytes the specs'."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        import time
+
+        from repro_torch.launch import steps
+        from repro_torch.models.registry import build_model
+
+        devices = [torch.device("cuda", k) for k in range(4)]
+        dev = devices[0]
+        cfg = get_arch("qwen3-8b").with_(use_flash_kernel=True)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        rng = np.random.RandomState(0)
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 512)),
+                                           dtype=torch.int32, device=dev)}
+        # the unsharded greedy run on card 0 gives the tokens the sharded run is fed
+        lg, cache = steps.make_prefill_step(model)(params, batch)
+        cache = model.grow_cache(cache, 512 + 3)
+        want, toks = [torch.log_softmax(lg, -1).cpu()], []
+        for g in range(3):
+            toks.append(lg.argmax(-1).to(torch.int32)[:, None])
+            lg, cache = steps.make_decode_step(model)(params, cache, {
+                "tokens": toks[-1], "pos": torch.full((4,), 512 + g, dtype=torch.int32,
+                                                      device=dev)})
+            want.append(torch.log_softmax(lg, -1).cpu())
+        toks = torch.cat(toks, 1)
+        del cache
+        mesh = make_mesh((1, 4), ("data", "model"), devices=devices)
+        p_specs = shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        got, cache = self._run(model, params, batch, toks, mesh, sharded=True)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        ms = (time.perf_counter() - t0) * 1e3
+        gaps = [float((torch.log_softmax(g, -1).cpu() - w).abs().max())
+                for g, w in zip(got, want)]
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
+        c_want = shd.tree_spec_nbytes(shapes, shd.cache_spec(shapes, mesh), mesh)
+        p_want = shd.tree_spec_nbytes(params, p_specs, mesh)
+        print(f"qwen3-8b on (1, 4) of four cards: prefill + 3 decode steps {ms:.1f} ms (the "
+              f"first call); max |d log_softmax| by step {gaps}; cache {c_want} B and params "
+              f"{p_want} B a card by the specs; the allocator holds "
+              f"{[torch.cuda.memory_allocated(d) for d in devices]}")
+        assert max(gaps) <= self.LSM_TOL, gaps
+        assert (shd.device_nbytes(cache) == c_want).all()
+        placed = shd.place(params, shd.to_named(p_specs, mesh))
+        assert (shd.device_nbytes(placed) == p_want).all()
+        for leaf in cache.values():
+            for idx in np.ndindex(leaf.pieces.shape):
+                assert leaf.pieces[idx].device == mesh.devices[idx]

@@ -310,7 +310,7 @@ def test_dryrun_reports_a_failure_in_the_record(monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("no such step")
 
-    monkeypatch.setattr(tdry, "make_decode_step", boom)
+    monkeypatch.setattr(tdry, "shard_decode", boom)
     rec = tdry.dryrun_one("stablelm-1.6b", "decode_32k", multi_pod=True)
     assert rec["status"] == "error" and "no such step" in rec["error"]
     assert rec["mesh"] == "2x16x16"

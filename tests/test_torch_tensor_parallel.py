@@ -335,7 +335,8 @@ def test_heads_that_do_not_divide_read_the_attention_whole():
 def test_a_block_leaf_the_branch_cannot_take_raises():
     """No fallback: heads that do not divide the blocks, a block on
     another device than its shard's, half the attention split, or a
-    block leaf where the decode path reads a tensor, raise."""
+    whole cache tensor where the tensor-parallel decode reads one a model
+    shard, raise."""
     cfg, model, opt, state, mesh = _setup("qwen3-8b", (1, 4), ("data", "model"))
     batch = _batch(cfg)
     live, _ = _live(cfg, state, mesh, batch)
@@ -353,7 +354,7 @@ def test_a_block_leaf_the_branch_cannot_take_raises():
         tL.attention_block(dict(layer["attn"], wo=whole_wo), x, cfg, pos)
     with pytest.raises(ValueError, match="not a block leaf"):
         tL.mlp_block(dict(layer["mlp"], w_down=torch.cat(layer["mlp"]["w_down"].blocks)), x)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="not a list of one tensor a model shard"):
         model.decode(live, model.init_cache(4, 8, "cpu"),
                      {"tokens": torch.zeros(4, 1, dtype=torch.int32),
                       "pos": torch.zeros(4, dtype=torch.int32)})
