@@ -151,7 +151,12 @@ Phases, each of which fails the run on error:
              on (2, 1) the routes are bit for bit; qwen2-vl-2b on (1, 4)
              (2 kv heads over 4 shards: a replicated cache, every replica
              equal); ``ServeEngine`` on the same params (max_batch 4,
-             cache_len 256) draining 8 requests.
+             cache_len 256) draining 8 requests; then falcon-mamba-7b,
+             zamba2-2.7b and whisper-tiny at full width and depth
+             (TP_FAMILIES: 256-token prompts, the Mamba blocks split by
+             channel or head) the same way without the (2, 1) check,
+             within TP_FAM_SERVE_LOGIT_TOL, only the leaves TP_FAM_COPIES
+             names read into copies.
    families — the moe, vlm, ssm, hybrid and audio families at full width through
              the same entry points, one config at a time (the previous one's
              params freed), bf16, random weights from a seed,
@@ -247,8 +252,13 @@ Phases, each of which fails the run on error:
              (``shard_reckoning``); step 2 on a (1, 1) mesh bit for bit the
              unsharded step 2 but the embedding's and head's leaves (which
              accumulate by index); one quantized-moment step on the (2, 2)
-             mesh against the unsharded one. No kernel's launch count may
-             move.
+             mesh against the unsharded one; then falcon-mamba-7b (4 of
+             64 layers), zamba2-2.7b (one segment) and whisper-tiny at full
+             width (TP_FAM_TRAIN, 4 x 512 tokens): 3 unsharded steps, 3 by
+             the gather route on (2, 2) and by the tensor-parallel route on
+             (2, 2) and (1, 4) within TP_FAM_TOLS, and a planted dropped
+             partial of each family's new reductions that must break them.
+             No kernel's launch count may move.
 
 The ``kernels`` phase also holds the quantize-superpose kernel against its
 plain version over every width 2-31 and 32, K in {1, 7, 20}, aligned and
@@ -282,7 +292,10 @@ device busy and idle share, kernel time by class and name, the chunked
 attention's share, the stacked leaves unbound against indexed);
 ``--phases build,shardprof`` the sharded step's data shard passes
 (``phase_shardprof``: per pass device busy ms, kernel ms by class, the
-matmul kernels, cudaMalloc calls, allocator retries, SM clock and power).
+matmul kernels, cudaMalloc calls, allocator retries, SM clock and power);
+``--phases build,tpfamilies`` the ssm, hybrid and audio families' parts
+of shardtrain and serve alone (``phase_tpfamilies``), every check read
+before the run fails.
 """
 
 from __future__ import annotations
@@ -2641,14 +2654,18 @@ def phase_serve(dev):
     del eng, params
     torch.cuda.empty_cache()
     vlm = _serve_vlm_sharded(dev)
-    new = sharded["flash_launches"] + vlm["flash_launches"]
+    fam = _serve_tp_families(dev)
+    new = sharded["flash_launches"] + vlm["flash_launches"] + fam["flash_launches"]
     print(f"  sharded serve: {sharded['s']:.1f} s for {cfg.name}, {vlm['s']:.1f} s for "
-          f"{SERVE_VLM[0]}; flash launches of their prefill runs {sharded['flash_launches']} + "
-          f"{vlm['flash_launches']}")
+          f"{SERVE_VLM[0]}, {fam['s']:.1f} s for {', '.join(TP_FAMILIES)}; flash launches of "
+          f"their prefill runs {sharded['flash_launches']} + {vlm['flash_launches']} + "
+          f"{fam['flash_launches']}")
     return dict(timing, launches=launches + new, serve_launches=launches,
-                sharded_launches=new, flash_max_abs_err=max(sharded["flash_max_abs_err"],
-                                                            vlm["flash_max_abs_err"]), prompt_tokens=prompt_toks, engine_s=secs,
-                max_dlogsoftmax=dmax, peak_bytes=peak, sharded=sharded, vlm=vlm)
+                sharded_launches=new,
+                flash_max_abs_err=max(sharded["flash_max_abs_err"], vlm["flash_max_abs_err"],
+                                      fam["flash_max_abs_err"]),
+                prompt_tokens=prompt_toks, engine_s=secs, max_dlogsoftmax=dmax,
+                peak_bytes=peak, sharded=sharded, vlm=vlm, families=fam)
 
 
 # the sharded prefill and decode (``launch.steps.make_sharded_prefill_step``
@@ -2673,26 +2690,36 @@ SERVE_UNSHARDED_RECORDED = {"prefill_ms": 277.0, "decode_ms_per_token": 47.85}
 
 
 def _serve_unsharded_tf(model, params, batch, gen: int, P: int, dev):
-    """The unsharded flash prefill and ``gen - 1`` greedy decode steps:
-    (each step's log_softmax on the card, the tokens (B, gen - 1) each
-    step was fed)."""
+    """The unsharded flash prefill (a warm-up call, then the timed one) and
+    ``gen - 1`` greedy decode steps, timed together: (each step's
+    log_softmax on the card, the tokens (B, gen - 1) each step was fed,
+    {"prefill_ms", "decode_ms_per_token"})."""
     import torch
 
     from repro_torch.launch import steps
 
     B = batch["tokens"].shape[0]
-    lg, cache = steps.make_prefill_step(model)(params, batch)
+    prefill = steps.make_prefill_step(model)
+    prefill(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    times = {"prefill_ms": (time.perf_counter() - t0) * 1e3}
     cache = model.grow_cache(cache, P + gen)
     decode = steps.make_decode_step(model)
     want, fed = [torch.log_softmax(lg, -1)], []
+    t0 = time.perf_counter()
     for s in range(gen - 1):
         tok = torch.argmax(lg, dim=-1).to(torch.int32).reshape(B, 1)
         fed.append(tok)
         lg, cache = decode(params, cache, {"tokens": tok, "pos": torch.full(
             (B,), P + s, dtype=torch.int32, device=dev)})
         want.append(torch.log_softmax(lg, -1))
+    torch.cuda.synchronize()
+    times["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (gen - 1)
     del cache
-    return want, torch.cat(fed, dim=1)
+    return want, torch.cat(fed, dim=1), times
 
 
 def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, dev, *,
@@ -2744,8 +2771,12 @@ def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, 
         kfa.flash_mha.launches = 0
         layers.flash_mha = flash
         try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             with obs.enabled() as tracer:
                 lg, cache = prefill(placed, batch)
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3  # the traced call's
         finally:
             layers.flash_mha = real
         out["flash_checks"] = []
@@ -2756,8 +2787,8 @@ def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, 
                 _fail(f"row 7 on the sharded prefill's shards ({out['route']} {dims}) != its "
                       f"plain version at q {qs}, k/v {ks}: {mm} {_flash_tol(dt)}")
         seen.clear()
-        spans = [e.args for e in tracer.events if e.name == "tensor_parallel"]
-        out["prefill_spans"] = {k: sum(s["kind"] == k for s in spans) for k in ("attn", "mlp")}
+        spans = [e.args["kind"] for e in tracer.events if e.name == "tensor_parallel"]
+        out["prefill_spans"] = {k: spans.count(k) for k in sorted(set(spans))}
         if timed:
             del cache
             torch.cuda.synchronize()
@@ -2787,10 +2818,12 @@ def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, 
         out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / steps_n
         gaps = [(torch.log_softmax(g, -1) - w).abs().amax() for g, w in zip(logits, want)]
     events = tracer.events
-    out["decode_spans_per_step"] = {k: sum(e.name == "tensor_parallel" and e.args["kind"] == k
-                                           for e in events) / steps_n
-                                    for k in ("attn_decode", "mlp")}
-    out["cache_copies_per_step"] = sum(e.name == "cache_copy" for e in events) / steps_n
+    kinds = [e.args["kind"] for e in events if e.name == "tensor_parallel"]
+    out["decode_spans_per_step"] = {k: kinds.count(k) / steps_n for k in sorted(set(kinds))}
+    copies = [(e.args["leaf"], e.args["bytes"]) for e in events if e.name == "cache_copy"]
+    out["cache_copies_per_step"] = len(copies) / steps_n
+    out["cache_copy_bytes_per_step"] = {
+        leaf: sum(b for n, b in copies if n == leaf) / steps_n for leaf in sorted({n for n, _ in copies})}
     out["max_dlogsoftmax"] = [float(g) for g in gaps]
     out["in_place"] = ptrs == [p.data_ptr() for leaf in cache.values() for p in leaf.pieces.flat]
     # pieces of one box (a leaf replicated over "model") hold the same bits
@@ -2801,7 +2834,7 @@ def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, 
     shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
     out["cache_bytes_a_device"] = [int(b) for b in shd.device_nbytes(cache).flat]
     out["cache_bytes_reckoned"] = shd.tree_spec_nbytes(shapes, shd.cache_spec(shapes, mesh), mesh)
-    out["cache_spec_k"] = repr(cache["k"].sharding.spec)
+    out["cache_specs"] = {k: repr(v.sharding.spec) for k, v in cache.items()}
     shapes_p = model.init(None, torch.device("meta"))
     dp = dims[0]
     out["gather_bytes_per_token"] = dp * _read_copy_bytes(shapes_p, p_specs, mesh, cfg, tp)
@@ -2814,15 +2847,20 @@ def _serve_sharded_run(model, params, batch, fed, want, P: int, dims, tp: bool, 
 
 
 def _serve_sharded(cfg, params, dev, *, patches: int = 0, runs=SERVE_SHARDED, fault=None,
-                   bitwise=None) -> dict:
+                   bitwise=None, prompt: int = SERVE_PROMPT, gather_steps=None,
+                   tol: float = TP_SERVE_LOGIT_TOL, timed: bool = True) -> dict:
     """The sharded prefill and decode of ``cfg`` (flash on) on ``params``:
     the unsharded run's greedy tokens fed to each ``runs`` (route, mesh)
-    run, each held within ``TP_SERVE_LOGIT_TOL`` of the unsharded run's
+    run, each held within ``tol`` of the unsharded run's
     log_softmax at every step; with ``fault`` (a mesh) the tensor-parallel
     run there with a dropped partial, which must break the bound; with
     ``bitwise`` (a mesh without a model axis) both routes' prefill, two
-    decode steps and cache pieces bit for bit. Returns the readings and
-    the flash launches of every prefill run."""
+    decode steps and cache pieces bit for bit. The prompt is ``prompt``
+    tokens (an audio model's batch also holds ``encoder_seq`` random
+    frames); a gather-route run takes ``gather_steps`` decode steps (all
+    by default); with ``timed`` False each run's prefill ms are its traced
+    call's. Returns the readings and the flash launches of every prefill
+    run."""
     import numpy as np
     import torch
 
@@ -2832,28 +2870,34 @@ def _serve_sharded(cfg, params, dev, *, patches: int = 0, runs=SERVE_SHARDED, fa
     t_part = time.perf_counter()
     model = build_model(cfg)
     rng = np.random.RandomState(0)
-    prompts = rng.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    prompts = rng.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt))
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32, device=dev)}
     if patches:
         batch["patches"] = torch.zeros((SERVE_BATCH, patches, cfg.frontend_dim),
                                        dtype=torch.float32, device=dev)
-    P = SERVE_PROMPT
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(
+            rng.randn(SERVE_BATCH, cfg.encoder_seq, cfg.frontend_dim).astype(np.float32),
+            device=dev)
+    P = prompt
     kfa.flash_mha.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want, fed = _serve_unsharded_tf(model, params, batch, SERVE_GEN, P, dev)
+    want, fed, times = _serve_unsharded_tf(model, params, batch, SERVE_GEN, P, dev)
     torch.cuda.synchronize()
     launches = kfa.flash_mha.launches
-    res = {"unsharded_prefill_and_decode_s": time.perf_counter() - t0, "runs": []}
+    res = {"unsharded_prefill_and_decode_s": time.perf_counter() - t0, "unsharded": times,
+           "runs": []}
     checks = []  # every run's row 7 checks against the plain version
     for route, dims in runs:
-        r = _serve_sharded_run(model, params, batch, fed, want, P, dims, route == "tp", dev)
+        r = _serve_sharded_run(model, params, batch, fed, want, P, dims, route == "tp", dev,
+                               steps_n=None if route == "tp" else gather_steps, timed=timed)
         launches += r["flash_launches"]
         checks += r["flash_checks"]
         res["runs"].append(r)
         print(f"  sharded {cfg.name} {route} {dims}: " + json.dumps(r))
     broken = [(r["route"], r["mesh"]) for r in res["runs"]
-              if not max(r["max_dlogsoftmax"]) <= TP_SERVE_LOGIT_TOL]
+              if not max(r["max_dlogsoftmax"]) <= tol]
     if fault is not None:
         f = _serve_sharded_run(model, params, batch, fed, want, P, fault, True, dev,
                                steps_n=SERVE_FAULT_STEPS, fault=True, timed=False)
@@ -2862,8 +2906,8 @@ def _serve_sharded(cfg, params, dev, *, patches: int = 0, runs=SERVE_SHARDED, fa
         res["fault"] = f["max_dlogsoftmax"]
         print(f"  planted fault (model shard 1's partial dropped from every row-parallel sum) "
               f"on {fault}: max |d log_softmax| by step {json.dumps(f['max_dlogsoftmax'])}")
-        if not f["max_dlogsoftmax"][0] > TP_SERVE_LOGIT_TOL:
-            _fail(f"the bound {TP_SERVE_LOGIT_TOL} does not catch a dropped partial in the "
+        if not f["max_dlogsoftmax"][0] > tol:
+            _fail(f"the bound {tol} does not catch a dropped partial in the "
                   f"sharded prefill: {f['max_dlogsoftmax']}")
     if bitwise is not None:
         outs = []
@@ -2884,28 +2928,44 @@ def _serve_sharded(cfg, params, dev, *, patches: int = 0, runs=SERVE_SHARDED, fa
         torch.cuda.empty_cache()
         if not res["bitwise"]:
             _fail(f"on a {bitwise} mesh the tensor-parallel serve differs from the gather route")
+    kind, per_shard = _tp_layer_kind(cfg)
     for r in res["runs"]:
         dp, mp = r["mesh"]
         tp = r["route"] == "tensor_parallel"
-        want_l = 2 * cfg.n_layers * (dp * mp if tp else dp)
+        heads_split = tp and cfg.n_heads % mp == 0
+        prefills = 2 if timed else 1  # the traced call, and the timed one
+        want_l = prefills * _flash_launches(cfg) * dp * (mp if heads_split else 1)
         if r["flash_launches"] != want_l:
             _fail(f"the sharded prefills on {r['mesh']} ({r['route']}) launched the flash kernel "
                   f"{r['flash_launches']} times, want {want_l}")
-        if tp and r["prefill_spans"]["attn"] != dp * cfg.n_layers:
+        if tp and r["prefill_spans"].get(kind) != dp * per_shard:
             _fail(f"the tensor-parallel prefill on {r['mesh']} took {r['prefill_spans']} spans")
         if not r["in_place"] or not r["replicas_equal"] or any(
                 b != r["cache_bytes_reckoned"] for b in r["cache_bytes_a_device"]):
             _fail(f"the sharded cache on {r['mesh']} ({r['route']}) is not cache_spec's pieces "
                   f"written in place: {r['cache_bytes_a_device']}, in place {r['in_place']}")
     if broken:
-        _fail(f"the sharded serve differs from the unsharded one beyond {TP_SERVE_LOGIT_TOL}: "
+        _fail(f"the sharded serve differs from the unsharded one beyond {tol}: "
               f"{broken}")
     res["flash_launches"] = launches
-    res["flash_max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    res["flash_max_abs_err"] = max((c["max_abs_err"] for c in checks), default=0.0)
     print(f"  row 7 on the shards' heads against its plain version, one launch a shape: "
           + json.dumps([{k: c[k] for k in ("q", "kv", "max_abs_err", "within")} for c in checks]))
     res["s"] = time.perf_counter() - t_part
     return res
+
+
+def _tp_layer_kind(cfg):
+    """The tensor-parallel block a prefill runs once a layer a data shard
+    on the tensor-parallel route, and how many times: the attention of the
+    transformer families, the Mamba block of ssm and hybrid, the MLP of
+    audio (its encoder's and decoder's; the attentions read whole where
+    the heads do not divide)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return ("mamba1" if cfg.family == "ssm" else "mamba2"), cfg.n_layers
+    if cfg.family == "audio":
+        return "mlp", cfg.n_layers + cfg.encoder_layers
+    return "attn", cfg.n_layers
 
 
 def _serve_vlm_sharded(dev) -> dict:
@@ -2927,6 +2987,84 @@ def _serve_vlm_sharded(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return res
+
+
+# the ssm, hybrid and audio families on the sharded serve's routes (the
+# serve phase, after qwen3-8b and qwen2-vl-2b): each at full width and
+# depth (flash on), a prefill of SERVE_BATCH x TP_FAM_PROMPT tokens
+# (whisper's over encoder_seq random frames a row), SERVE_GEN - 1 decode
+# steps fed the unsharded run's greedy tokens on each tensor-parallel mesh,
+# the gather route on (2, 2) with TP_FAM_GATHER_STEPS decode steps (its
+# times), and the planted fault on (2, 2), each step held within
+# TP_FAM_SERVE_LOGIT_TOL of the unsharded run
+TP_FAMILIES = ("falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny")
+TP_FAM_PROMPT = 256
+# max |d log_softmax| of each step against the unsharded run, between the
+# honest runs' readings and the planted fault's (every row-parallel sum
+# without model shard 1's partial), in brackets (an NVIDIA H100 80GB HBM3
+# at 700 W): the tensor-parallel route rounds each layer's f32 partial
+# sums to bf16 once where the unsharded block rounds its bf16 products,
+# over 64 layers for falcon-mamba and 54 for zamba2 [falcon-mamba
+# 0.207-0.276, zamba2 0.208-0.317 (its gather route 0.123), whisper
+# 0.031-0.032; faults 5.53-6.17, 5.14-6.24, 3.44-3.58]; 1.0 is near the
+# geometric middle of 0.317 and 3.44
+TP_FAM_SERVE_LOGIT_TOL = 1.0
+TP_FAM_GATHER_STEPS = 8
+# the cache leaves a tensor-parallel decode step may read into a copy, on
+# (2, 2) and on (1, 4): every other unit's box is its own piece, written
+# in place (the hybrid's head-split ssm_h has pieces cut on P; on (2, 2)
+# cache_spec puts "data" on its ssm_conv's layer axis and on enc_out's
+# frames)
+TP_FAM_COPIES = {"falcon-mamba-7b": ((), ()), "zamba2-2.7b": (("ssm_h", "ssm_conv"), ("ssm_h",)),
+                 "whisper-tiny": (("enc_out",), ())}
+
+
+def _serve_tp_families(dev) -> dict:
+    """``TP_FAMILIES`` one after the other through ``_serve_sharded``
+    (params from seed 0): each tensor-parallel run's copied cache leaves
+    held to ``TP_FAM_COPIES``, its bytes a device of params and cache the
+    specs'. Returns each model's readings and the flash launches and
+    worst row 7 error of every prefill run."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    out = {"flash_launches": 0, "flash_max_abs_err": 0.0, "models": {}}
+    t0 = time.perf_counter()
+    for arch in TP_FAMILIES:
+        cfg = get_arch(arch).with_(use_flash_kernel=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = build_model(cfg).init(gen, dev)
+        res = _serve_sharded(cfg, params, dev, fault=(2, 2), prompt=TP_FAM_PROMPT,
+                             gather_steps=TP_FAM_GATHER_STEPS, tol=TP_FAM_SERVE_LOGIT_TOL,
+                             timed=False)
+        del params
+        torch.cuda.empty_cache()
+        allowed = dict(zip(((2, 2), (1, 4)), TP_FAM_COPIES[arch]))
+        for r in res["runs"]:
+            print(f"  {arch} {r['route']} {tuple(r['mesh'])}: prefill {r['prefill_ms']:.1f} ms, "
+                  f"decode {r['decode_ms_per_token']:.2f} ms/token (unsharded "
+                  f"{res['unsharded']['prefill_ms']:.1f} / "
+                  f"{res['unsharded']['decode_ms_per_token']:.2f}); "
+                  f"spans {json.dumps(r['prefill_spans'])} / step "
+                  f"{json.dumps(r['decode_spans_per_step'])}; copied B a step "
+                  f"{json.dumps(r['cache_copy_bytes_per_step'])}; params "
+                  f"{r['param_bytes_a_device']} B and cache {r['cache_bytes_a_device'][0]} B a "
+                  f"device; gathers {r['gather_bytes_per_token']} B a token; max |d "
+                  f"log_softmax| {max(r['max_dlogsoftmax'])!r}")
+            if r["route"] == "tensor_parallel" and not set(
+                    r["cache_copy_bytes_per_step"]) <= set(allowed[tuple(r["mesh"])]):
+                _fail(f"{arch}'s tensor-parallel decode on {r['mesh']} copied "
+                      f"{r['cache_copy_bytes_per_step']}: its own pieces must be written in place")
+        out["flash_launches"] += res["flash_launches"]
+        out["flash_max_abs_err"] = max(out["flash_max_abs_err"], res["flash_max_abs_err"])
+        out["models"][arch] = res
+    out["s"] = time.perf_counter() - t0
+    print(f"  tensor-parallel families serve: {out['s']:.1f} s, flash launches "
+          f"{out['flash_launches']}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 8b
@@ -4282,10 +4420,11 @@ class _DropShard:
 
 class _DropPartial:
     """Planted fault: within ``with``, model shard ``k``'s partial left out
-    of every row-parallel sum (``models.layers._row_sum``)."""
+    of every row-parallel sum (``models.layers._row_sum``), or with
+    ``callers`` of those that the functions of those names make."""
 
-    def __init__(self, k: int = 1):
-        self.k, self.calls = k, 0
+    def __init__(self, k: int = 1, callers=None):
+        self.k, self.calls, self.callers = k, 0, callers
 
     def __enter__(self):
         from repro_torch.models import layers
@@ -4293,6 +4432,8 @@ class _DropPartial:
         self._layers, self._real = layers, layers._row_sum
 
         def row_sum(partials, home, dtype):
+            if self.callers is not None and sys._getframe(1).f_code.co_name not in self.callers:
+                return self._real(partials, home, dtype)
             self.calls += 1
             return self._real([t for m, t in enumerate(partials) if m != self.k], home, dtype)
 
@@ -4420,6 +4561,16 @@ def _remat_act_bytes(cfg, B: int, S: int) -> int:
     return saved + layer + loss
 
 
+def _outside(rels, r, tols) -> list:
+    """The bounds (loss, grad norm, param share, moments) that a sharded
+    run's per-step metrics and final state break."""
+    loss_tol, gnorm_tol, share_tol, moment_tol = tols
+    out = [f"{k} step {i + 1}" for i, rel in enumerate(rels) for k, tol in
+           (("loss", loss_tol), ("grad_norm", gnorm_tol)) if rel[k] > tol]
+    out += ["param share"] * (r["params"]["differ_share"] > share_tol)
+    return out + [k for k in ("m", "v") if r[k]["max_rel"] > moment_tol]
+
+
 def phase_shardtrain(dev):
     """The sharded train step (``launch.steps.make_sharded_train_step``) on
     the card: stablelm-1.6b at full width and depth (the train phase's
@@ -4443,8 +4594,9 @@ def phase_shardtrain(dev):
     reckoning; and 3 steps on (2, 2) with model shard 1's partial dropped
     from every row-parallel sum (a planted fault), which must fail those
     bounds. (6) One step on a (2, 1) mesh both ways: with no model axis
-    there are no blocks, so the two routes are bit for bit the same. No
-    kernel launches."""
+    there are no blocks, so the two routes are bit for bit the same. (7)
+    The ssm, hybrid and audio families on the tensor-parallel route
+    (``_shardtrain_tp_families``). No kernel launches."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -4562,15 +4714,6 @@ def phase_shardtrain(dev):
         torch.cuda.empty_cache()
         return log, readings, peak, base
 
-    def outside(rels, r, tols) -> list:
-        """The bounds (loss, grad norm, param share, moments) that a run's
-        per-step metrics and final state break."""
-        loss_tol, gnorm_tol, share_tol, moment_tol = tols
-        out = [f"{k} step {i + 1}" for i, rel in enumerate(rels) for k, tol in
-               (("loss", loss_tol), ("grad_norm", gnorm_tol)) if rel[k] > tol]
-        out += ["param share"] * (r["params"]["differ_share"] > share_tol)
-        return out + [k for k in ("m", "v") if r[k]["max_rel"] > moment_tol]
-
     def report(key, log, readings, peak, base):
         st = meshes[key]
         n_pieces = st["n_dev"] * len(tree_leaves(st["shapes"]))
@@ -4604,9 +4747,9 @@ def phase_shardtrain(dev):
     print(f"  planted fault (data shard 1's gradient dropped): per step {json.dumps(f_rel)}; "
           f"after {len(batches)} steps {json.dumps(f_readings)}")
     gather_tols = (SHARD_LOSS_RTOL, SHARD_GNORM_RTOL, SHARD_PARAM_SHARE, SHARD_MOMENT_RTOL)
-    broken = outside([e["rel"] for e in log], readings, gather_tols)
+    broken = _outside([e["rel"] for e in log], readings, gather_tols)
     broken += ["param max"] * (readings["params"]["max_abs"] > SHARD_PARAM_MAX)
-    caught = outside(f_rel, f_readings, gather_tols)
+    caught = _outside(f_rel, f_readings, gather_tols)
     print(f"  bounds the honest run breaks: {broken}; the planted fault's: {caught}")
     if broken:
         _fail(f"the sharded steps differ from the unsharded ones: {broken}")
@@ -4621,7 +4764,7 @@ def phase_shardtrain(dev):
         key = ("tp", dims)
         t_log, t_readings, t_peak, t_base = sharded_run(key, fault=False)
         tp_ms = report(key, t_log, t_readings, t_peak, t_base)
-        t_broken = outside([e["rel"] for e in t_log], t_readings, tp_tols)
+        t_broken = _outside([e["rel"] for e in t_log], t_readings, tp_tols)
         tp_out[dims] = {"ms": tp_ms, "peak": t_peak, "readings": t_readings,
                         "split": t_log[-1]["split"], "broken": t_broken}
         print(f"  tensor-parallel {dims}: step ms (median of steps 2-3) {tp_ms:.2f}; bounds the "
@@ -4631,7 +4774,7 @@ def phase_shardtrain(dev):
                   f"{t_broken}")
     tf_log, tf_readings, _, _ = sharded_run(("tp", TP_MESHES[0]), fault=True)
     tf_rel = [e["rel"] for e in tf_log]
-    tp_caught = outside(tf_rel, tf_readings, tp_tols)
+    tp_caught = _outside(tf_rel, tf_readings, tp_tols)
     print(f"  tensor-parallel planted fault (model shard 1's partial dropped from every "
           f"row-parallel sum) on {TP_MESHES[0]}: per step {json.dumps(tf_rel)}; after "
           f"{len(batches)} steps {json.dumps(tf_readings)}; bounds it breaks: {tp_caught}")
@@ -4710,15 +4853,187 @@ def phase_shardtrain(dev):
             and all(rq[k]["max_rel"] <= SHARD_MOMENT_RTOL for k in ("m", "v_q", "v_scale"))):
         _fail(f"the quantized sharded step differs from the unsharded one: {q_rel}, {rq}")
 
+    # (7) the ssm, hybrid and audio families on the tensor-parallel route
+    families = _shardtrain_tp_families(dev)
+
     launches = {n: fn.launches for n, fn in wrappers.items()}
     print(f"  kernel launches during the phase: {launches}")
     if any(launches.values()):
         _fail(f"the sharded train step launched a kernel: {launches}")
     out = {"sharded_ms": ms_s, "unsharded_ms": ms_u, "peak_bytes": peak, "reckoned": reck,
            "readings": readings, "fault_readings": f_readings, "tensor_parallel": tp_out,
-           "tp_fault_readings": tf_readings, "phase_s": time.perf_counter() - t_phase}
+           "tp_fault_readings": tf_readings, "families": families,
+           "phase_s": time.perf_counter() - t_phase}
     print(f"  shardtrain phase {out['phase_s']:.1f} s")
     return out
+
+
+# the ssm, hybrid and audio families on the tensor-parallel train route (the
+# shardtrain phase's last part): (arch, config overrides) at full width,
+# falcon-mamba cut to 4 of its 64 layers and zamba2 to one segment (6
+# Mamba-2 layers and the shared block), whisper-tiny whole; AdamW on the
+# train phase's schedule, TP_FAM_BATCH x TP_FAM_SEQ tokens a step (whisper
+# over encoder_seq random frames a row)
+TP_FAM_TRAIN = (("falcon-mamba-7b", {"n_layers": 4}), ("zamba2-2.7b", {"n_layers": 6}),
+                ("whisper-tiny", {}))
+TP_FAM_BATCH, TP_FAM_SEQ = 4, 512
+# the planted fault of each family: model shard 1's partial dropped from
+# its new reductions (``models/ssm``'s and ``models/whisper``'s functions)
+TP_FAM_FAULTS = {"ssm": ("_x_proj_split", "_out_proj_split"),
+                 "hybrid": ("_gate_norm_split", "_out_proj_split"),
+                 "audio": ("_cross_attend_split",)}
+# bounds against the unsharded steps, (loss, grad norm, param share,
+# moments): stablelm's ``TP_*`` hold, each between the honest runs'
+# readings on (2, 2) and (1, 4) over the three families and the planted
+# faults' on (2, 2), in brackets (an NVIDIA H100 80GB HBM3 at 700 W):
+# loss [3.6e-5 falcon-mamba, 6.5e-5 zamba2, 1.5e-5 whisper; 6.1e-4-2.8e-3
+# at step 1], grad norm [8.4e-4; 8.0e-3-1.4e-2 at step 1], param share
+# [0.346; 0.51-0.82], moments [0.062; 1.3-2.4]
+TP_FAM_TOLS = (TP_LOSS_RTOL, TP_GNORM_RTOL, TP_PARAM_SHARE, TP_MOMENT_RTOL)
+
+
+def _shardtrain_tp_families(dev) -> dict:
+    """``TP_FAM_TRAIN`` one after the other: 3 unsharded steps (the state
+    after step 3 kept on the host), then 3 sharded steps from the same
+    state on the gather route on (2, 2) (its times) and on the
+    tensor-parallel route on (2, 2) and (1, 4), each held to the unsharded
+    steps by ``TP_FAM_TOLS``, the bytes a device the specs' after every
+    step; and 3 tensor-parallel steps on (2, 2) with ``TP_FAM_FAULTS``,
+    which must break them. Step ms: the median of steps 2-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.util import use_mesh
+
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    out = {}
+    for arch, kw in TP_FAM_TRAIN:
+        t_fam = time.perf_counter()
+        cfg = get_arch(arch).with_(**kw)
+        model = build_model(cfg)
+        data = token_batches(cfg.vocab_size, TP_FAM_BATCH, TP_FAM_SEQ, seed=0)
+        rng = np.random.RandomState(0)
+        batches = []
+        for _ in range(3):
+            b = {"tokens": torch.as_tensor(next(data)["tokens"], device=dev)}
+            if cfg.family == "audio":
+                b["frames"] = torch.as_tensor(rng.randn(
+                    TP_FAM_BATCH, cfg.encoder_seq, cfg.frontend_dim).astype(np.float32),
+                    device=dev)
+            batches.append(b)
+        gen = torch.Generator(device=dev)
+
+        def fresh():
+            gen.manual_seed(0)
+            return steps.init_train_state(model, opt, gen)
+
+        def shardings(m):
+            shapes = steps.train_state_shapes(model, opt)
+            specs = {"params": shd.tree_param_specs(shapes["params"], m,
+                                                    n_kv_heads=cfg.n_kv_heads),
+                     "opt": {k: shd.tree_param_specs(v, m, n_kv_heads=cfg.n_kv_heads)
+                             for k, v in shapes["opt"].items()}, "step": shd.P()}
+            return (shd.to_named(specs, m), shd.to_named(shd.batch_spec(batches[0], m), m),
+                    shd.tree_spec_nbytes(shapes, specs, m))
+
+        meshes = {dims: make_mesh(dims, ("data", "model"), devices=[dev] * 4)
+                  for dims in ((2, 2), (1, 4))}
+        torch.cuda.empty_cache()
+        state = fresh()
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        ref = steps.make_train_step(model, opt)
+        u_log = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(meshes[(2, 2)]):
+                state, met = ref(state, b)
+            met = {k: float(v) for k, v in met.items()}
+            u_log.append(dict(met, ms=(time.perf_counter() - t0) * 1e3))
+        want_state = state  # kept on the card (a few GB at these depths)
+        del met
+        torch.cuda.empty_cache()
+
+        def run(dims, tp: bool, fault=None):
+            s_sh, b_sh, want_dev = shardings(meshes[dims])
+            placed = shd.place(fresh(), s_sh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+            log = []
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (_DropPartial(callers=fault) if fault else contextlib.nullcontext()):
+                    placed, met = step(placed, b)
+                met = {k: float(v) for k, v in met.items()}
+                log.append(dict(met, ms=(time.perf_counter() - t0) * 1e3,
+                                rel=_metric_rel(met, u_log[i]),
+                                bytes_ok=bool((shd.device_nbytes(placed) == want_dev).all())))
+            peak = torch.cuda.max_memory_allocated(dev)
+            readings, _ = _state_readings(placed, want_state, dev)
+            del placed
+            torch.cuda.empty_cache()
+            return {"ms": statistics.median(e["ms"] for e in log[1:]), "log": log, "peak": peak,
+                    "readings": readings, "bytes_a_device": want_dev,
+                    "broken": _outside([e["rel"] for e in log], readings, TP_FAM_TOLS)}
+
+        res = {"unsharded_ms": statistics.median(e["ms"] for e in u_log[1:]), "n_params": n_params,
+               "gather": run((2, 2), False), "tp": {d: run(d, True) for d in meshes},
+               "fault": run((2, 2), True, TP_FAM_FAULTS[cfg.family])}
+        del want_state, state
+        res["s"] = time.perf_counter() - t_fam
+        print(f"  {cfg.name} ({cfg.n_layers} layers, {n_params} params) tensor-parallel train, "
+              f"{TP_FAM_BATCH} x {TP_FAM_SEQ} tokens a step: step ms unsharded "
+              f"{res['unsharded_ms']:.2f}, gather (2, 2) {res['gather']['ms']:.2f}, "
+              f"tensor-parallel " + ", ".join(f"{d} {r['ms']:.2f}" for d, r in res["tp"].items())
+              + f"; placed state a device " + ", ".join(
+                  f"{d} {r['bytes_a_device']} B" for d, r in res["tp"].items())
+              + "; peak " + ", ".join(f"{d} {r['peak']} B" for d, r in res["tp"].items())
+              + f" ({res['s']:.1f} s)")
+        for name, r in (("gather (2, 2)", res["gather"]), *((f"tp {d}", r) for d, r in
+                                                            res["tp"].items()),
+                        (f"fault {TP_FAM_FAULTS[cfg.family]}", res["fault"])):
+            print(f"    {name}: per step {json.dumps([e['rel'] for e in r['log']])}; after 3 "
+                  f"steps {json.dumps(r['readings'])}; bounds broken {r['broken']}")
+        for d, r in res["tp"].items():
+            if r["broken"] or not all(e["bytes_ok"] for e in r["log"]):
+                _fail(f"{cfg.name}'s tensor-parallel steps on {d} differ from the unsharded "
+                      f"ones or change the pieces' bytes: {r['broken']}")
+        if not {"grad_norm step 1", "m", "v"} <= set(res["fault"]["broken"]):
+            _fail(f"the bounds do not catch {cfg.name}'s dropped partial: "
+                  f"{res['fault']['broken']}")
+        out[cfg.name] = res
+        del model, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tpfamilies(dev):
+    """The ssm, hybrid and audio families' tensor-parallel parts of the
+    shardtrain and serve phases alone (not in a full run: ``--phases
+    build,tpfamilies``), every check read to the end before the run
+    fails."""
+    global _fail
+    fails = []
+    _fail, exit_on = fails.append, _fail
+    try:
+        _shardtrain_tp_families(dev)
+        _serve_tp_families(dev)
+    finally:
+        _fail = exit_on
+    for msg in fails[:-1]:
+        print(f"FAIL: {msg}", file=sys.stderr)
+    if fails:
+        _fail(fails[-1])
 
 
 def phase_shardprof(dev):
@@ -5086,6 +5401,8 @@ def main() -> None:
         phase_trainprof(dev)
     if "shardprof" in phases:
         phase_shardprof(dev)
+    if "tpfamilies" in phases:
+        phase_tpfamilies(dev)
     if set(phases) != set(PHASES):
         print(f"partial run ({args.phases}) done in {time.perf_counter() - t_start:.1f} s")
         return

@@ -23,9 +23,9 @@ read as each model shard's block on its device (a batch that the step
 runs as one shard, ``steps.data_shards``, runs whole under the whole
 mesh). The train shapes run the step's gather route (``tensor_parallel``
 False, every other leaf read whole); the prefill and decode shapes its
-tensor-parallel route (the attention, MLP and head of the dense, moe
-and vlm families split over ``model``, a head never split; the other
-families read whole). The bytes a device are the specs' either way.
+tensor-parallel route (the attention, MLP, Mamba blocks, embedding and
+head of every LM family split over ``model``, a head never split). The
+bytes a device are the specs' either way.
 That shows every arch builds and runs shape-correct at production size
 with no memory and no card.
 

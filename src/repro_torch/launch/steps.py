@@ -10,8 +10,8 @@ loads in either package.
 ``jax.jit(make_train_step(model, opt), in_shardings=...)``: the same step
 on a train state placed on a ``launch.mesh.Mesh`` (``launch.sharding``),
 with data-parallel gradients, each piece's update on its device and,
-with ``tensor_parallel``, the attention, MLP, embedding and head split
-over the mesh's ``model`` axis. ``make_sharded_prefill_step`` and
+with ``tensor_parallel``, the attention, MLP, Mamba, embedding and head
+split over the mesh's ``model`` axis. ``make_sharded_prefill_step`` and
 ``make_sharded_decode_step`` are the jitted prefill and (donating) decode
 under the same specs: the same routes without a gradient, the cache a
 tree of pieces cut by ``cache_spec`` and updated in place.
@@ -30,6 +30,7 @@ from repro_torch.core import quant
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import ssm as S
 from repro_torch.models.registry import CACHE_LAYOUT, Model
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.optimizers import clip_scale
@@ -181,32 +182,45 @@ def _read(leaf, want, device) -> torch.Tensor:
     return shd.read_box([(_full(leaf.shape), leaf)], want, device)
 
 
+# the attention blocks' parents: the decoder LMs' and the hybrid's shared
+# block's ``attn``, whisper's encoder ``attn``, ``self_attn`` and ``cross_attn``
+_ATTENTIONS = ("attn", "self_attn", "cross_attn")
 # the leaves the tensor-parallel step reads split over the model axis, by
 # (parent, name): the dim each splits, counted from the end (the
 # column-parallel outputs, the row-parallel inputs, the vocab)
-_TP_LEAVES = {("attn", "wq"): -1, ("attn", "wk"): -1, ("attn", "wv"): -1, ("attn", "wo"): -2,
+_TP_LEAVES = {**{(a, n): ax for a in _ATTENTIONS
+                 for n, ax in (("wq", -1), ("wk", -1), ("wv", -1), ("wo", -2))},
               ("mlp", "w_gate"): -1, ("mlp", "w_up"): -1, ("mlp", "w_down"): -2,
               ("dense_mlp", "w_gate"): -1, ("dense_mlp", "w_up"): -1,
               ("dense_mlp", "w_down"): -2, (None, "embed"): -2, (None, "lm_head"): -1}
-# the families whose blocks are ``attention_block`` with ``mlp_block`` or
-# ``moe_block``, and whose embedding and head ``models/transformer`` reads
-_TP_FAMILIES = ("dense", "moe", "vlm")
+# the families whose blocks (``models/layers``' attention, MLP and MoE,
+# ``models/ssm``'s Mamba blocks) and vocab (``models/transformer``'s
+# embedding and head) have tensor-parallel branches
+_TP_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+# the stacked layer axes in front of each leaf under a top-level key
+_STACKED = {"layers": 1, "enc_layers": 1, "dec_layers": 1, "segments": 2}
 
 
 def _tp_axis(path, shape, spec, cfg, mp: int) -> Optional[int]:
     """The dim (from the end) of a leaf that the tensor-parallel step
-    reads as model-shard blocks, or None (whole): a ``_TP_LEAVES`` leaf of
-    a ``_TP_FAMILIES`` model whose spec splits that dim over ``model``;
-    the attention's only where its heads (and, for ``wk``/``wv``, its kv
-    heads) divide ``mp``, so a head is never split; the embedding only
-    where the head does not tie it."""
+    reads as model-shard blocks, or None (whole). A Mamba block's leaf
+    (parent "mamba") splits by its channels or heads wherever the block
+    divides ``mp`` (``models/ssm.split_axis``), each block read from the
+    pieces that hold it whatever the spec. Any other: a ``_TP_LEAVES``
+    leaf whose spec splits that dim over ``model``; an attention's only
+    where its heads (and, for ``wk``/``wv``, its kv heads) divide ``mp``,
+    so a head is never split; the embedding only where the head does not
+    tie it."""
     if cfg is None or mp == 1 or cfg.family not in _TP_FAMILIES:
         return None
     parent, name = (path[-2] if len(path) > 1 else None), path[-1]
+    if parent == "mamba":
+        return S.split_axis(cfg, name, mp)
     axis = _TP_LEAVES.get((parent, name))
     if axis is None or shd.model_dim(spec, len(shape)) != len(shape) + axis:
         return None
-    if parent == "attn" and (cfg.n_heads % mp or (name in ("wk", "wv") and cfg.n_kv_heads % mp)):
+    if parent in _ATTENTIONS and (cfg.n_heads % mp
+                                  or (name in ("wk", "wv") and cfg.n_kv_heads % mp)):
         return None
     if name == "embed" and cfg.tie_embeddings:
         return None
@@ -217,10 +231,12 @@ class _Blocks:
     """One data shard's leaf split over the model axis: ``blocks[m]`` is
     model shard m's block, the m-th slice of dim ``axis`` (counted from
     the end), on the shard's m-th device, a leaf that requires grad.
-    ``lead`` stacked layer axes come first; ``unbind`` takes them off one
-    at a time (the models' layer loop).
+    ``lead`` stacked layer axes come first (the hybrid's two: segment and
+    layer); ``unbind`` takes them off one at a time (the models' layer
+    loops).
 
     The tensor-parallel branches (``models/layers``' attention and MLP,
+    ``models/ssm``'s Mamba blocks, ``models/whisper``'s cross-attention,
     ``models/transformer``'s embedding and head) read ``blocks``. The MoE
     reads an expert stack (``axis`` -3) through ``block``
     (``models/layers._expert_block``): model shard m's rows are
@@ -257,7 +273,10 @@ def _shard_live(params, mesh: Mesh, cfg=None, grad: bool = True):
     requires grad (no copy where a whole piece already sits there); an
     MoE expert stack, and with ``cfg`` (the tensor-parallel step) each
     leaf ``_tp_axis`` names, as ``_Blocks``: block m, that dim's m-th
-    slice gathered over the data axes only, on the row's m-th device.
+    slice on the row's m-th device, read from the pieces that hold it
+    (gathered over the data axes only where the spec splits that dim over
+    ``model``; a Mamba leaf's slice may cross pieces, such as
+    ``x_proj``'s rows of its column pieces).
     A leaf's spec is its placement's (a tensor's: ``param_spec``). With
     ``grad`` False (the sharded prefill and decode) no leaf requires grad.
     Returns (the tree, [(leaf index, box, live tensor)])."""
@@ -280,7 +299,7 @@ def _shard_live(params, mesh: Mesh, cfg=None, grad: bool = True):
             if cfg is not None:
                 spec = (leaf.sharding.spec if isinstance(leaf, shd.Placed) else
                         shd.param_spec(path, shape, mesh, n_kv_heads=cfg.n_kv_heads))
-            axis, lead = _tp_axis(path, shape, spec, cfg, mp), len(shape) - 2
+            axis, lead = _tp_axis(path, shape, spec, cfg, mp), _STACKED.get(path[0], 0)
         if axis is None:
             t = live(_read(leaf, full, row[0]))
             lives.append((k, full, t))
@@ -529,18 +548,22 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
       shard's first device, so that device computes the model whole and
       the model axis holds pieces for storage and the update only. The
       tensor-parallel route (True), the reference's Megatron split over
-      ``model`` for the dense, moe and vlm families: each attention,
-      dense-MLP, ``embed`` and ``lm_head`` leaf whose spec gives a dim to
-      ``model`` as model shard m's block on the row's m-th device
-      (``_tp_axis``; never a split head), so the attention runs H / M
-      heads a shard and the MLP d_ff / M columns, each row-parallel
-      product an f32 partial summed in f32 in shard order on the first
-      device (``models/layers``), and the embedding and the loss's
-      softmax are vocab-parallel (``models/transformer``); every other
-      leaf whole on the first device. The ssm, hybrid and audio families
-      read every leaf whole on either route. On both, the MoE expert
-      stacks are model shard m's block on the shard's m-th device. The
-      shards run in turn; each one's copy is freed after its backward.
+      ``model`` for every LM family (dense, moe, vlm, ssm, hybrid and
+      audio): each attention, dense-MLP, ``embed`` and ``lm_head`` leaf
+      whose spec gives a dim to ``model`` as model shard m's block on the
+      row's m-th device (``_tp_axis``; never a split head), so an
+      attention (whisper's cross-attention too) runs H / M heads a shard
+      and an MLP d_ff / M columns, each row-parallel product an f32
+      partial summed in f32 in shard order on the first device
+      (``models/layers``), and the embedding and the loss's softmax are
+      vocab-parallel (``models/transformer``); each Mamba block's leaves
+      as model shard m's slice of its channels (Mamba-1) or heads
+      (Mamba-2) wherever they divide M, read from the pieces that hold it
+      (``models/ssm``: the activations move between shards, never
+      ``in_proj`` or ``out_proj``); every other leaf whole on the first
+      device. On both, the MoE expert stacks are model shard m's block on
+      the shard's m-th device. The shards run in turn; each one's copy is
+      freed after its backward.
     - The loss weights each shard's ce by its share of the count the
       model's loss averages over (``Model.loss_count``: the masked token
       mean's mask) and takes the mean of the rest, so the gradients are
@@ -614,27 +637,36 @@ def make_decode_step(model: Model, *, window: int = 0) -> Callable:
 
 # ----------------------------------------------------- the sharded prefill and decode
 
-def _tp_attention(live, model: Model, tensor_parallel: bool) -> Tuple[bool, bool]:
-    """Whether a data shard's live params split the attention over the
-    model shards (wq a block leaf), and its kv heads with it."""
-    if not tensor_parallel or model.cfg.family not in _TP_FAMILIES:
-        return False, False
-    attn = live["layers"]["attn"]
-    return isinstance(attn["wq"], _Blocks), isinstance(attn["wk"], _Blocks)
+def _split_cache(live) -> Dict[str, bool]:
+    """The cache leaves that a data shard's live params compute one tensor
+    a model shard, {name: whether each is its model shard's slice of the
+    leaf's ``CACHE_LAYOUT`` split dim}: where an attention's ``wq`` is a
+    block leaf, ``k`` and ``v`` (sliced where ``wk`` is one too, else every
+    kv head on each shard) and ``pos`` (whole on each); where a Mamba
+    block's ``out_proj`` is, its states (sliced by channel or head)."""
+    split = {((None,) + path)[-2:] for path, leaf in zip(_leaf_paths(live), tree_leaves(live))
+             if isinstance(leaf, _Blocks)}
+    out: Dict[str, bool] = {}
+    if any(name == "wq" for _, name in split):
+        kv = any(name == "wk" for _, name in split)
+        out.update(k=kv, v=kv, pos=False)
+    if ("mamba", "out_proj") in split:
+        out.update(h=True, conv=True, ssm_h=True, ssm_conv=True)
+    return out
 
 
 class _Units:
     """The computing units of one data shard of the sharded prefill and
-    decode: model shard m on the row's m-th device where the attention
-    splits (``tp``), else the row's first device alone; and the box of a
-    cache leaf each unit computes, in the whole leaf's coordinates: the
-    shard's rows of the batch dim (every row where the batch runs as one
-    shard), and model shard m's kv heads of k and v where they split."""
+    decode: model shard m on the row's m-th device for the cache leaves
+    ``split`` names (``_split_cache``), the row's first device alone for
+    the others; and the box of a cache leaf each unit computes, in the
+    whole leaf's coordinates: the shard's rows of the batch dim (every row
+    where the batch runs as one shard) and, where ``split`` says the leaf
+    is sliced, model shard m's slice of its ``CACHE_LAYOUT`` split dim."""
 
-    def __init__(self, ctx: Mesh, i: int, n: int, tp: bool, kv_split: bool):
-        row = list(_shard_grid(ctx)[0][0])
-        self.devices = row if tp else row[:1]
-        self.i, self.n, self.kv_split = i, n, kv_split
+    def __init__(self, ctx: Mesh, i: int, n: int, split: Dict[str, bool]):
+        self.devices = list(_shard_grid(ctx)[0][0])
+        self.i, self.n, self.split = i, n, split
 
     def box(self, name: str, shape, m: Optional[int]) -> Tuple[Tuple[int, int], ...]:
         """Unit m's box of a cache leaf (None: the shard's rows alone)."""
@@ -642,10 +674,20 @@ class _Units:
         bd = CACHE_LAYOUT[name].batch
         rows = shape[bd] // self.n
         box[bd] = (self.i * rows, (self.i + 1) * rows)
-        if m is not None and self.kv_split and name in ("k", "v"):
-            heads = shape[-2] // len(self.devices)
-            box[-2] = (m * heads, (m + 1) * heads)
+        if m is not None and self.split.get(name):
+            d = CACHE_LAYOUT[name].split
+            w = shape[d] // len(self.devices)
+            box[d] = (m * w, (m + 1) * w)
         return tuple(box)
+
+    def shape(self, name: str, t: torch.Tensor, B: int) -> Tuple[int, ...]:
+        """A cache leaf's whole shape from one unit's tensor: the batch's
+        rows on its batch dim, every model shard's slice of a sliced leaf."""
+        shape = list(t.shape)
+        shape[CACHE_LAYOUT[name].batch] = B
+        if self.split.get(name):
+            shape[CACHE_LAYOUT[name].split] *= len(self.devices)
+        return tuple(shape)
 
     def sources(self, name: str, shape, leaf) -> List[Tuple[int, Tuple, torch.Tensor]]:
         """[(model shard, box, tensor)] of a cache leaf as the model
@@ -674,16 +716,6 @@ def _pick(sources, own: int):
     return sources
 
 
-def _global_shape(name: str, t: torch.Tensor, B: int, kv_split: bool, KV: int) -> Tuple[int, ...]:
-    """A cache leaf's whole shape from one unit's tensor: the batch's rows
-    on its batch dim, every kv head of a split k or v."""
-    shape = list(t.shape)
-    shape[CACHE_LAYOUT[name].batch] = B
-    if kv_split and name in ("k", "v"):
-        shape[-2] = KV
-    return tuple(shape)
-
-
 def shard_prefill(model: Model, params, batch: Dict[str, torch.Tensor], mesh: Mesh, i: int = 0,
                   n: int = 1, *, tensor_parallel: bool = False):
     """Data shard ``i`` of ``n``'s prefill, as the sharded step runs it:
@@ -693,7 +725,7 @@ def shard_prefill(model: Model, params, batch: Dict[str, torch.Tensor], mesh: Me
     (logits, the cache as the model returned it, the shard's ``_Units``);
     the live params are freed on return."""
     live, _ = _shard_live(params, mesh, model.cfg if tensor_parallel else None, grad=False)
-    units = _Units(mesh, i, n, *_tp_attention(live, model, tensor_parallel))
+    units = _Units(mesh, i, n, _split_cache(live))
     with use_mesh(mesh), torch.no_grad():
         logits, cache = model.prefill(live, batch)
     return logits, cache, units
@@ -717,17 +749,17 @@ def make_sharded_prefill_step(model: Model, param_shardings, batch_shardings, *,
     of the mesh under a mesh of its own (the batch whole under the whole
     mesh where ``data_shards`` says it does not split); the gather route
     reads each leaf whole on the shard's first device; the
-    tensor-parallel route splits the attention over the model shards for
-    the dense, moe and vlm families, so model shard m computes its heads'
-    k and v (``layers._attention_split``: row 7 on its heads under the
-    flash gate) and its pieces of the cache come from them, and the head
+    tensor-parallel route splits the attention, MLP and Mamba blocks over
+    the model shards for every LM family, so model shard m computes its
+    heads' k and v (``layers._attention_split``: row 7 on its heads under
+    the flash gate) or its channels' or heads' SSM states (``models/ssm``)
+    and its pieces of the cache come from them (``_Units``), and the head
     is vocab-parallel. On a (1, 1) mesh it equals ``make_prefill_step`` bit
     for bit, and on a mesh without a model axis the two routes are the
     same step bit for bit."""
     mesh = _check_step_meshes(param_shardings, batch_shardings)
     grid, dp_axes = _shard_grid(mesh)
     dev0 = mesh.devices.flat[0]
-    KV = model.cfg.n_kv_heads
 
     def prefill_step(params, batch):
         params = _placed(params, param_shardings)
@@ -745,7 +777,7 @@ def make_sharded_prefill_step(model: Model, param_shardings, batch_shardings, *,
         out = {}
         for name, leaf in shards[0][1].items():
             first = leaf[0] if isinstance(leaf, list) else leaf
-            shape = _global_shape(name, first, B, shards[0][0].kv_split, KV)
+            shape = shards[0][0].shape(name, first, B)
             sources = [src for u, c in shards for src in u.sources(name, shape, c[name])]
             spec = shd.cache_spec({name: torch.empty(shape, dtype=first.dtype, device="meta")},
                                   mesh)[name]
@@ -818,14 +850,15 @@ def shard_decode(model: Model, params, cache: Dict[str, shd.Placed],
     grid, dp_axes = _shard_grid(mesh)
     ctx = _row_mesh(mesh, dp_axes, i) if n > 1 else mesh
     live, _ = _shard_live(params, ctx, model.cfg if tensor_parallel else None, grad=False)
-    tp, kv_split = _tp_attention(live, model, tensor_parallel)
-    units = _Units(ctx, i, n, tp, kv_split)
+    units = _Units(ctx, i, n, _split_cache(live))
     local, held = {}, {}
     for name, leaf in cache.items():
         held[name] = []
-        for m, dev in enumerate(units.devices):
+        each = name in units.split  # one tensor a model shard
+        for m in range(len(units.devices)) if each else [None]:
+            dev = units.devices[m or 0]
             want = units.box(name, leaf.shape, m)
-            bounds, piece = leaf.piece(i, m)
+            bounds, piece = leaf.piece(i, m or 0)
             if bounds == want and piece.device == torch.device(dev):
                 t = piece
             else:  # a copy of the box; the pieces stay where they are
@@ -834,8 +867,8 @@ def shard_decode(model: Model, params, cache: Dict[str, shd.Placed],
                     t = shd.assemble([(leaf.bounds(j), leaf.pieces[j])
                                       for j in np.ndindex(leaf.pieces.shape)],
                                      want, dev, leaf.dtype)
-            held[name].append((m, want, t))
-        local[name] = [t for _, _, t in held[name]] if tp else held[name][0][2]
+            held[name].append((m or 0, want, t))
+        local[name] = [t for _, _, t in held[name]] if each else held[name][0][2]
     with use_mesh(ctx):
         logits, _ = model.decode(live, local, batch, window=window)
     return logits, held
@@ -908,16 +941,19 @@ def make_sharded_decode_step(model: Model, param_shardings, cache_shardings, bat
     returns (logits (B, V) f32 on the mesh's first device, the same cache
     tree): the donation is an update in place, each piece written where
     it is. Data shards and routes are ``make_sharded_prefill_step``'s
-    (``shard_decode``). A unit (model shard m of data shard i on the
-    tensor-parallel route's split attention, else the shard's first
-    device) whose box of a leaf is its own piece decodes into that piece
-    in place; any other box (a batch that runs as one shard over a cache
-    split over data, a ring whose W dim ``cache_spec`` split because B
-    does not divide, the gather route's kv heads split over ``model``) is
-    read into a copy (span ``cache_copy``), and after the shard's step the
-    token's slot (``k``, ``v``, ``pos``), or the whole box (the ssm
-    state), is written back into every piece that holds part of it, each
-    replica from its own model shard (``_write_back``)."""
+    (``shard_decode``). A unit (model shard m of data shard i for the
+    cache leaves the tensor-parallel route computes a model shard each,
+    ``_split_cache``, else the shard's first device) whose box of a leaf
+    is its own piece decodes into that piece in place (the Mamba-1
+    states, a split attention's k and v); any other box (a batch that
+    runs as one shard over a cache split over data, a ring whose W dim
+    ``cache_spec`` split because B does not divide, the gather route's kv
+    heads or SSM channels split over ``model``, the hybrid's head-split
+    ``ssm_h`` whose pieces ``cache_spec`` cuts on P) is read into a copy
+    (span ``cache_copy``), and after the shard's step the token's slot
+    (``k``, ``v``, ``pos``), or the whole box (the ssm state), is written
+    back into every piece that holds part of it, each replica from its
+    own model shard (``_write_back``)."""
     mesh = _check_step_meshes(param_shardings, cache_shardings, batch_shardings)
     grid, dp_axes = _shard_grid(mesh)
     dev0 = mesh.devices.flat[0]

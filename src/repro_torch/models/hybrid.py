@@ -9,7 +9,12 @@ embeddings the model started from. The Mamba-2 params are stacked
 one to one; a Python loop runs the segments and each segment's layers
 (the reference's ``unroll_layers`` is an XLA loop control and changes no
 result). With ``cfg.use_flash_kernel`` the prefill's shared attention
-goes through the flash kernel, once a segment.
+goes through the flash kernel, once a segment. Given block leaves (the
+sharded steps' tensor-parallel route), the Mamba-2 layers run a model
+shard's heads each (``models/ssm``), the shared block its attention heads
+and MLP columns (``models/layers``), and the embedding and head are
+vocab-parallel (``models/transformer``'s helpers); the caches' leaves are
+then lists of each model shard's.
 
 Simplifications of the reference kept here: a single shared block (Zamba2
 alternates two) and no per-application LoRA.
@@ -23,10 +28,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
-from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.transformer import _unstack
+from repro_torch.models.transformer import (_cache_layer, _embed_rows, _head_logits, _logz_gold,
+                                            _stack_layers, _unstack)
 
 Params = Dict[str, Any]
 
@@ -63,10 +68,8 @@ def init_hybrid(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 def _layers(segments: Params, n_seg: int, every: int):
     """The stacked (n_seg, every, ...) Mamba-2 layers as n_seg lists of
-    ``every`` per-layer trees (each leaf unbound once)."""
-    flat = tree_map(lambda a: a.reshape(n_seg * every, *a.shape[2:]), segments)
-    per = _unstack(flat, n_seg * every)
-    return [per[s * every:(s + 1) * every] for s in range(n_seg)]
+    ``every`` per-layer trees (each leaf unbound on both axes)."""
+    return [_unstack(seg, every) for seg in _unstack(segments, n_seg)]
 
 
 def _shared_attn(shared: Params, x: torch.Tensor, x0: torch.Tensor, cfg: ArchConfig,
@@ -86,7 +89,7 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, collect_stat
              differentiable: bool = True):
     """Final-norm hidden states (B, T, d) and, with ``collect_state``, per
     segment (its layers' Mamba-2 states, the shared block's (k, v))."""
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg.compute_dtype))
+    x = _embed_rows(params["embed"], tokens).to(L.dtype_of(cfg.compute_dtype))
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
     x0 = x
@@ -127,14 +130,14 @@ def hybrid_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConf
     B, T = tokens.shape
     with torch.no_grad():
         x, collected = _forward(params, tokens, cfg, collect_state=True, differentiable=False)
-        logits = (x[:, -1] @ params["lm_head"]).to(torch.float32)
+        logits = _head_logits(params, x[:, -1], cfg)
         cache = {
-            "ssm_h": torch.stack([torch.stack([st["h"] for st in states])
-                                  for states, _ in collected]),
-            "ssm_conv": torch.stack([torch.stack([st["conv"] for st in states])
-                                     for states, _ in collected]),
-            "k": torch.stack([kv[0] for _, kv in collected]),
-            "v": torch.stack([kv[1] for _, kv in collected]),
+            "ssm_h": _stack_layers([_stack_layers([st["h"] for st in states])
+                                    for states, _ in collected]),
+            "ssm_conv": _stack_layers([_stack_layers([st["conv"] for st in states])
+                                       for states, _ in collected]),
+            "k": _stack_layers([kv[0] for _, kv in collected]),
+            "v": _stack_layers([kv[1] for _, kv in collected]),
             "pos": torch.arange(T, dtype=torch.int32, device=x.device).expand(
                 len(collected), B, T).contiguous(),
         }
@@ -142,12 +145,11 @@ def hybrid_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConf
 
 
 def hybrid_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Next-token CE over every position (full logits, as the reference)."""
+    """Next-token CE over every position (full logits, as the reference;
+    vocab-parallel for a split head)."""
     tokens = batch["tokens"]
     x, _ = _forward(params, tokens, cfg, collect_state=False)
-    logits = (x[:, :-1] @ params["lm_head"]).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, tokens[:, 1:, None].long(), dim=-1)[..., 0]
+    logz, gold = _logz_gold(x[:, :-1], params["lm_head"], tokens[:, 1:].long(), from_logits=True)
     loss = (logz - gold).mean()
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -175,29 +177,29 @@ def hybrid_decode_step(params: Params, cache: Params, batch: Dict[str, torch.Ten
     (B, V) f32, cache); the cache tensors are updated in place. The shared
     block reads the token's own embedding beside the hidden state."""
     with torch.no_grad():
-        x = params["embed"][batch["tokens"].long()].to(L.dtype_of(cfg.compute_dtype))
+        x = _embed_rows(params["embed"], batch["tokens"]).to(L.dtype_of(cfg.compute_dtype))
         pos = batch["pos"].long()
         x0 = x
         n_seg, every = _segments(cfg)
         shared = params["shared"]
-        for s in range(n_seg):
-            for i in range(every):
-                layer_p = tree_map(lambda a: a[s, i], params["segments"])
+        for s, seg in enumerate(_layers(params["segments"], n_seg, every)):
+            for i, layer_p in enumerate(seg):
                 xn = L.rms_norm(x, layer_p["norm"], cfg.norm_eps)
-                out, new = S.mamba2_decode(layer_p["mamba"], xn, cfg,
-                                           {"h": cache["ssm_h"][s, i],
-                                            "conv": cache["ssm_conv"][s, i]})
+                state = {"h": _cache_layer(_cache_layer(cache["ssm_h"], s), i),
+                         "conv": _cache_layer(_cache_layer(cache["ssm_conv"], s), i)}
+                out, new = S.mamba2_decode(layer_p["mamba"], xn, cfg, state)
                 x = x + out
-                cache["ssm_h"][s, i].copy_(new["h"])
-                cache["ssm_conv"][s, i].copy_(new["conv"])
+                if new is not state:  # a split block wrote each shard's state in place
+                    state["h"].copy_(new["h"])
+                    state["conv"].copy_(new["conv"])
             inp = torch.cat([x, x0], dim=-1) @ shared["in_proj"]
             h, _ = L.attention_decode_block(
                 shared["attn"], L.rms_norm(inp, shared["attn_norm"], cfg.norm_eps), cfg, pos,
-                {"k": cache["k"][s], "v": cache["v"][s], "pos": cache["pos"][s]},
+                {name: _cache_layer(cache[name], s) for name in ("k", "v", "pos")},
                 window=window,
             )
             x = x + h
             x = x + L.mlp_block(shared["mlp"], L.rms_norm(x, shared["mlp_norm"], cfg.norm_eps))
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
+        logits = _head_logits(params, x[:, 0], cfg)
     return logits, cache

@@ -561,6 +561,20 @@ def _row_sum(partials: List[torch.Tensor], home: torch.device, dtype) -> torch.T
     return _RowSum.apply(home, dtype, *partials)
 
 
+def _cols(parts: List[torch.Tensor], lo: int, hi: int, device) -> torch.Tensor:
+    """Columns [lo, hi) of the last dim of ``parts`` joined in order (each
+    model shard's output of a column-parallel product, on its device), on
+    ``device``: a view of the one part that holds them where it sits there,
+    else the parts' slices copied and joined."""
+    out, start = [], 0
+    for t in parts:
+        a, b = max(lo - start, 0), min(hi - start, t.shape[-1])
+        if a < b:
+            out.append(t[..., a:b].to(device))
+        start += t.shape[-1]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
 def _kv_heads(k: torch.Tensor, m: int, Hl: int, G: int) -> torch.Tensor:
     """Of every kv head of k (B, S, KV, D), those model shard m's query
     heads [m Hl, (m + 1) Hl) read (head h reads h // G): a slice where the

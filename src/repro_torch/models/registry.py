@@ -50,12 +50,20 @@ class CacheLeaf:
     kind: str = "state"  # "slot": a step writes one slot a row; "read": never written;
     #                      "state": rewritten whole
     empty: int = 0  # an empty slot's value (padding, a slot's reset)
+    # the dim a model shard's slice cuts where the tensor-parallel route
+    # computes the leaf one tensor a model shard (its kv heads, channels or
+    # heads; launch/steps._Units); None: never sliced
+    split: Optional[int] = None
 
 
 CACHE_LAYOUT = {
-    "k": CacheLeaf(1, 2, "slot"), "v": CacheLeaf(1, 2, "slot"), "pos": CacheLeaf(1, 2, "slot", -1),
-    "h": CacheLeaf(1), "conv": CacheLeaf(1),  # mamba (L, B, di, N), (L, B, K - 1, di)
-    "ssm_h": CacheLeaf(2), "ssm_conv": CacheLeaf(2),  # the hybrid's (n_seg, every, B, ...)
+    "k": CacheLeaf(1, 2, "slot", split=-2), "v": CacheLeaf(1, 2, "slot", split=-2),
+    "pos": CacheLeaf(1, 2, "slot", -1),
+    # mamba (L, B, di, N), (L, B, K - 1, di): by channel
+    "h": CacheLeaf(1, split=-2), "conv": CacheLeaf(1, split=-1),
+    # the hybrid's (n_seg, every, B, H, P, N) by head, (n_seg, every, B, K - 1,
+    # conv_dim) by conv channel
+    "ssm_h": CacheLeaf(2, split=-3), "ssm_conv": CacheLeaf(2, split=-1),
     "enc_out": CacheLeaf(0, kind="read"),  # whisper's (B, T, D)
 }
 

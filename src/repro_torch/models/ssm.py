@@ -21,16 +21,23 @@ against, kept here as the scans' plain versions.
 Both block kinds have a single-step ``*_decode`` carrying (ssm state, conv
 state); the conv state is the last K - 1 pre-conv inputs, left-padded
 with zeros when fewer have been seen.
+
+Given block leaves (the sharded steps' tensor-parallel route, every leaf
+of the block split on its ``MAMBA1_SPLIT`` / ``MAMBA2_SPLIT`` dim over
+the model shards), each block runs a model shard's share: Mamba-1 its
+d_inner / M channels, Mamba-2 its H / M heads (``_mamba1_shards``,
+``_mamba2_shards``); its states are then one tensor a model shard.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
 
@@ -218,21 +225,167 @@ def _mamba1_inner(p: Params, xz: torch.Tensor, cfg: ArchConfig, h0: torch.Tensor
     return y @ p["out_proj"], h_final, new_conv
 
 
-def mamba1_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    B = x.shape[0]
-    h0 = torch.zeros((B, cfg.resolved_d_inner(), cfg.ssm_state), dtype=torch.float32,
+def mamba1_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The block over a whole sequence from a zero state: (out, h_final,
+    conv tail); with block leaves (``_mamba1_shards``) the states are lists
+    of each model shard's."""
+    if _is_split(p):
+        return _mamba1_shards(p, x, cfg)
+    h0 = torch.zeros((x.shape[0], cfg.resolved_d_inner(), cfg.ssm_state), dtype=torch.float32,
                      device=x.device)
-    out, _, _ = _mamba1_inner(p, x @ p["in_proj"], cfg, h0)
-    return out
+    return _mamba1_inner(p, x @ p["in_proj"], cfg, h0)
 
 
-def mamba1_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Dict[str, torch.Tensor]
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def mamba1_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return mamba1_prefill(p, x, cfg)[0]
+
+
+def mamba1_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x: (B, 1, d); state = {"h": (B, di, N), "conv": (B, K - 1, di)}.
-    Returns (out, the new state)."""
+    Returns (out, the new state). With block leaves the state's leaves are
+    lists of each model shard's tensors, written in place, and ``state``
+    itself comes back."""
+    if _is_split(p):
+        out, hs, convs = _mamba1_shards(p, x, cfg, state)
+        _write_states(state, hs, convs)
+        return out, state
     out, h_final, new_conv = _mamba1_inner(p, x @ p["in_proj"], cfg, state["h"],
                                            conv_state=state["conv"])
     return out, {"h": h_final, "conv": new_conv}
+
+
+# ------------------------------------------------ tensor parallelism (Mamba-1/-2)
+#
+# The sharded steps' tensor-parallel route splits a Mamba block over the
+# model shards by channel (Mamba-1) or by head (Mamba-2). Model shard m
+# multiplies the input by its own column block of ``in_proj`` and takes
+# the columns its channels read from every shard's output (the
+# activations move, not the weight); it convolves its channels, runs the
+# scan on them (independent per channel, or per head given dt, B and C)
+# and multiplies by its row block of ``out_proj``: an f32 partial that
+# ``layers._row_sum`` adds in shard order on the input's device.
+# Mamba-1's ``x_proj`` contracts over the channels: each shard's rows give
+# an f32 partial, summed the same way and sent back to every shard.
+# Mamba-2's conv runs on a uniform split of its x|B|C channels; each shard
+# then takes its heads' x channels and every shard B and C from the conv's
+# outputs; its gated RMS norm over all of d_inner adds each shard's f32
+# sum of squares in shard order.
+
+# the dim (from the end) each leaf splits on: channels, heads or columns
+MAMBA1_SPLIT = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2, "dt_proj": -1,
+                "dt_bias": -1, "A_log": -2, "D": -1, "out_proj": -2}
+MAMBA2_SPLIT = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "A_log": -1, "D": -1, "dt_bias": -1,
+                "gate_norm": -1, "out_proj": -2}
+
+
+def split_axis(cfg: ArchConfig, name: str, M: int) -> Optional[int]:
+    """The dim (from the end) on which the tensor-parallel route reads a
+    Mamba block's leaf ``name`` over ``M`` model shards, or None where the
+    block runs whole: Mamba-1 splits where d_inner divides M; Mamba-2
+    where its heads, its conv channels (x, B and C) and ``in_proj``'s
+    columns do."""
+    di, N = cfg.resolved_d_inner(), cfg.ssm_state
+    if cfg.family == "ssm":
+        return MAMBA1_SPLIT.get(name) if di % M == 0 else None
+    H = cfg.resolved_ssm_heads()
+    whole = (H % M or (di + 2 * N) % M or (2 * di + 2 * N + H) % M)
+    return None if whole else MAMBA2_SPLIT.get(name)
+
+
+def _is_split(p: Params) -> bool:
+    """Whether a Mamba block's leaves are block leaves; a block split in
+    part raises (no fallback)."""
+    split = [n for n, w in p.items() if not isinstance(w, torch.Tensor)]
+    if split and len(split) != len(p):
+        raise ValueError(f"only {sorted(split)} of the Mamba block are split over the model axis")
+    return bool(split)
+
+
+def _split_weights(p: Params, axes: Dict[str, int], home: torch.device):
+    """(devices, {name: each model shard's block}) of a split block."""
+    devices = L._split_devices(p["out_proj"], home, "out_proj")
+    return devices, {n: L._blocks(p[n], ax, devices, n) for n, ax in axes.items()}
+
+
+def _write_states(state: Dict[str, List[torch.Tensor]], hs, convs) -> None:
+    """A split decode's new states into each model shard's own tensors."""
+    for dst, new in zip(state["h"], hs):
+        dst.copy_(new)
+    for dst, new in zip(state["conv"], convs):
+        dst.copy_(new)
+
+
+def _x_proj_split(xs: List[torch.Tensor], blocks: List[torch.Tensor], home: torch.device):
+    """Mamba-1's ``x_proj`` over the channel shards: shard m's channels
+    times its rows, an f32 partial; the partials summed in shard order on
+    ``home`` and the (B, T, R + 2N) result sent back to every shard."""
+    proj = L._row_sum([L._F32Product.apply(x, w) for x, w in zip(xs, blocks)], home, xs[0].dtype)
+    return [proj.to(x.device) for x in xs]
+
+
+def _out_proj_split(ys: List[torch.Tensor], blocks: List[torch.Tensor], home: torch.device,
+                    dtype) -> torch.Tensor:
+    """``out_proj`` row-parallel: each shard's f32 partial, summed in shard
+    order on ``home``."""
+    return L._row_sum([L._F32Product.apply(y, w) for y, w in zip(ys, blocks)], home, dtype)
+
+
+def _gate_norm_split(gs: List[torch.Tensor], weights: List[torch.Tensor], home: torch.device,
+                     width: int, eps: float) -> List[torch.Tensor]:
+    """``layers.rms_norm`` over ``width`` channels cut into the shards'
+    ``gs``: each shard's f32 sum of squares summed in shard order on
+    ``home``, the inverse root sent back and each shard's channels scaled
+    by it and by its slice of the weight."""
+    sq = [g.to(torch.float32).square().sum(dim=-1, keepdim=True) for g in gs]
+    r = torch.rsqrt(L._row_sum(sq, home, torch.float32) / width + eps)
+    return [(g.to(torch.float32) * r.to(g.device) * w.to(torch.float32)).to(g.dtype)
+            for g, w in zip(gs, weights)]
+
+
+def _mamba1_shards(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None):
+    """A Mamba-1 block over M model shards, d_inner / M channels each; x
+    (B, T, d) on the first shard's device. ``state`` None: the prefill
+    from a zero state; else a decode step from ``state``'s lists of each
+    shard's "h" (B, di / M, N) and "conv" (B, K - 1, di / M). Returns (out,
+    [h_final], [conv state]), the states a tensor a shard on its device."""
+    B_, T, d = x.shape
+    home, dt = x.device, x.dtype
+    di, N, R, K = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_dt_rank(), cfg.ssm_conv
+    devices, w = _split_weights(p, MAMBA1_SPLIT, home)
+    M = len(devices)
+    if di % M:
+        raise ValueError(f"{di} channels do not divide over {M} model shards")
+    dl = di // M
+    with obs.span("tensor_parallel", kind="mamba1" if state is None else "mamba1_decode", mp=M,
+                  partial_bytes=M * B_ * T * (d + R + 2 * N) * 4):
+        outs = [x.to(dev) @ b for dev, b in zip(devices, w["in_proj"])]
+        xs, zs, convs = [], [], []
+        for m, dev in enumerate(devices):
+            xm = L._cols(outs, m * dl, (m + 1) * dl, dev)
+            zs.append(L._cols(outs, di + m * dl, di + (m + 1) * dl, dev))
+            if state is None:
+                convs.append(_conv_tail(xm, K))
+                xm = causal_conv1d(xm, w["conv_w"][m], w["conv_b"][m])
+            else:
+                xc, new_conv = conv1d_decode(xm[:, 0], state["conv"][m], w["conv_w"][m],
+                                             w["conv_b"][m])
+                convs.append(new_conv)
+                xm = xc[:, None]
+            xs.append(F.silu(xm))
+        projs = _x_proj_split(xs, w["x_proj"], home)
+        ys, hs = [], []
+        for m, dev in enumerate(devices):
+            proj = projs[m]
+            dtm = _softplus(proj[..., :R] @ w["dt_proj"][m] + w["dt_bias"][m])
+            h0 = (torch.zeros((B_, dl, N), dtype=torch.float32, device=dev) if state is None
+                  else state["h"][m])
+            y, h_final = _mamba1_chunked_scan(dtm, -torch.exp(w["A_log"][m]), proj[..., R:R + N],
+                                              proj[..., R + N:], xs[m], h0)
+            y = y + xs[m].to(torch.float32) * w["D"][m]
+            ys.append(y.to(dt) * F.silu(zs[m]))
+            hs.append(h_final)
+        return _out_proj_split(ys, w["out_proj"], home, dt), hs, convs
 
 
 # ------------------------------------------ Mamba-2 (SSD): scalar decay per head
@@ -351,7 +504,11 @@ def _mamba2_split(p: Params, zxbcdt: torch.Tensor, cfg: ArchConfig):
 
 
 def mamba2_block(p: Params, x_in: torch.Tensor, cfg: ArchConfig, return_state: bool = False):
-    """Returns (out, state | None); state = {"h", "conv"} primes decode."""
+    """Returns (out, state | None); state = {"h", "conv"} primes decode
+    (with block leaves, ``_mamba2_split``, lists of each model shard's)."""
+    if _is_split(p):
+        out, hs, convs = _mamba2_shards(p, x_in, cfg)
+        return out, ({"h": hs, "conv": convs} if return_state else None)
     B_, T, _ = x_in.shape
     di, N, H = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_ssm_heads()
     Pd = di // H
@@ -377,7 +534,13 @@ def mamba2_block(p: Params, x_in: torch.Tensor, cfg: ArchConfig, return_state: b
 def mamba2_decode(p: Params, x_in: torch.Tensor, cfg: ArchConfig,
                   state: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The single-step SSD recurrence. state = {"h": (B, H, P, N), "conv":
-    (B, K - 1, conv_dim)}. Returns (out, the new state)."""
+    (B, K - 1, conv_dim)}. Returns (out, the new state). With block leaves
+    the state's leaves are lists of each model shard's tensors, written in
+    place, and ``state`` itself comes back."""
+    if _is_split(p):
+        out, hs, convs = _mamba2_shards(p, x_in, cfg, state)
+        _write_states(state, hs, convs)
+        return out, state
     B_ = x_in.shape[0]
     di, N, H = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_ssm_heads()
     Pd = di // H
@@ -394,3 +557,61 @@ def mamba2_decode(p: Params, x_in: torch.Tensor, cfg: ArchConfig,
     y = y.reshape(B_, 1, di).to(x_in.dtype)
     y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"], {"h": h_new, "conv": new_conv}
+
+
+def _mamba2_shards(p: Params, x_in: torch.Tensor, cfg: ArchConfig, state=None):
+    """A Mamba-2 block over M model shards, H / M heads each; x_in (B, T,
+    d) on the first shard's device. The conv runs on shard m's uniform
+    slice of the x|B|C channels (its pieces of ``conv_w`` and of the conv
+    state); shard m then reads its heads' x channels and all of B and C
+    from the conv's outputs, and its z and dt columns from ``in_proj``'s.
+    ``state`` None: the prefill from a zero state; else a decode step from
+    ``state``'s lists of each shard's "h" (B, H / M, P, N) and "conv" (B,
+    K - 1, conv_dim / M). Returns (out, [h_final], [conv state])."""
+    B_, T, d = x_in.shape
+    home, dt = x_in.device, x_in.dtype
+    di, N, H, K = cfg.resolved_d_inner(), cfg.ssm_state, cfg.resolved_ssm_heads(), cfg.ssm_conv
+    Pd = di // H
+    devices, w = _split_weights(p, MAMBA2_SPLIT, home)
+    M = len(devices)
+    if split_axis(cfg, "out_proj", M) is None:
+        raise ValueError(f"{H} heads, {di + 2 * N} conv channels or {2 * di + 2 * N + H} "
+                         f"in_proj columns do not divide over {M} model shards")
+    Hl, dl, cc = H // M, di // M, (di + 2 * N) // M
+    with obs.span("tensor_parallel", kind="mamba2" if state is None else "mamba2_decode", mp=M,
+                  partial_bytes=M * B_ * T * (d + 1) * 4):
+        outs = [x_in.to(dev) @ b for dev, b in zip(devices, w["in_proj"])]
+        cs, convs = [], []
+        for m, dev in enumerate(devices):
+            xbc = L._cols(outs, di + m * cc, di + (m + 1) * cc, dev)
+            if state is None:
+                convs.append(_conv_tail(xbc, K))
+                cs.append(F.silu(causal_conv1d(xbc, w["conv_w"][m], w["conv_b"][m])))
+            else:
+                c, new_conv = conv1d_decode(xbc[:, 0], state["conv"][m], w["conv_w"][m],
+                                            w["conv_b"][m])
+                convs.append(new_conv)
+                cs.append(F.silu(c)[:, None])
+        gs, hs = [], []
+        for m, dev in enumerate(devices):
+            z = L._cols(outs, m * dl, (m + 1) * dl, dev)
+            dt_raw = L._cols(outs, 2 * di + 2 * N + m * Hl, 2 * di + 2 * N + (m + 1) * Hl, dev)
+            xm = L._cols(cs, m * dl, (m + 1) * dl, dev)
+            bc = L._cols(cs, di, di + 2 * N, dev)
+            A = -torch.exp(w["A_log"][m])
+            if state is None:
+                x4 = xm.reshape(B_, T, Hl, Pd)
+                h0 = torch.zeros((B_, Hl, Pd, N), dtype=torch.float32, device=dev)
+                y, h_final = _ssd_scan(x4, _softplus(dt_raw + w["dt_bias"][m]), A,
+                                       bc[..., :N], bc[..., N:], h0)
+                y = y + x4.to(torch.float32) * w["D"][m][None, None, :, None]
+            else:
+                x3 = xm[:, 0].reshape(B_, Hl, Pd).to(torch.float32)
+                bt = bc[:, 0].to(torch.float32)
+                y, h_final = _ssd_step(x3, _softplus(dt_raw[:, 0] + w["dt_bias"][m]), A,
+                                       bt[..., :N], bt[..., N:], state["h"][m].to(torch.float32))
+                y = y + x3 * w["D"][m][None, :, None]
+            gs.append(y.reshape(B_, T, dl).to(dt) * F.silu(z))
+            hs.append(h_final)
+        gs = _gate_norm_split(gs, w["gate_norm"], home, di, cfg.norm_eps)
+        return _out_proj_split(gs, w["out_proj"], home, dt), hs, convs

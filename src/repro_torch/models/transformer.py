@@ -17,9 +17,9 @@ MLP, and a decode cache of {"h": (nl, B, d_inner, N) f32, "conv": (nl, B,
 K - 1, d_inner)} that does not grow with the sequence. Given block
 leaves (the sharded steps' tensor-parallel route), the embedding, the
 loss's softmax and the serving head are vocab-parallel (``_embed_rows``,
-``_logz_gold``, ``_head_logits``), and the attention's cache is one
-tensor a model shard (``prefill`` returns lists, ``decode_step`` takes
-them).
+``_logz_gold``, ``_head_logits``; the hybrid and whisper read them too),
+and the attention's cache, or the Mamba block's states, are one tensor a
+model shard (``prefill`` returns lists, ``decode_step`` takes them).
 
 Entry points:
 - ``lm_loss(params, batch, cfg)``        training loss (chunked logits).
@@ -124,8 +124,9 @@ def _block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
     if cfg.family == "ssm":
         h, new_state = S.mamba1_decode(p["mamba"], L.rms_norm(x, p["norm"], cfg.norm_eps),
                                        cfg, cache)
-        for name, t in new_state.items():
-            cache[name].copy_(t)
+        if new_state is not cache:  # a split block wrote each shard's state in place
+            for name, t in new_state.items():
+                cache[name].copy_(t)
         return x + h, cache
     h, new_cache = L.attention_decode_block(
         p["attn"], L.rms_norm(x, p["attn_norm"], cfg.norm_eps), cfg, pos, cache,
@@ -239,10 +240,12 @@ def lm_logits_and_aux(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchC
     return x, _head(params, cfg), aux
 
 
-def _logz_gold(hh: torch.Tensor, head, tt: torch.Tensor):
+def _logz_gold(hh: torch.Tensor, head, tt: torch.Tensor, from_logits: bool = False):
     """One loss chunk's log-partition and gold logit, (B, c) f32 each:
     the logits the compute-dtype product ``hh @ head`` cast to f32, the
-    gold logit the f32 dot of ``hh`` with the target's head column.
+    gold logit the f32 dot of ``hh`` with the target's head column, or
+    with ``from_logits`` the target's logit itself (the hybrid's and
+    whisper's losses).
 
     A vocab-split head (block leaf: model shard m's columns on its device,
     the sharded step's tensor-parallel route) is the vocab-parallel CE:
@@ -253,6 +256,9 @@ def _logz_gold(hh: torch.Tensor, head, tt: torch.Tensor):
     (B, c, V) tensor crosses devices."""
     if isinstance(head, torch.Tensor):
         logits = (hh @ head).to(torch.float32)
+        if from_logits:
+            gold = torch.take_along_dim(logits, tt[..., None], dim=-1)[..., 0]
+            return torch.logsumexp(logits, dim=-1), gold
         # gold logit = <h, head[:, target]>: gather head columns, not logits
         cols = head[:, tt.reshape(-1)].reshape(head.shape[0], *tt.shape)  # (d, B, c)
         gold = torch.einsum("bcd,dbc->bc", hh.to(torch.float32), cols.to(torch.float32))
@@ -272,8 +278,13 @@ def _logz_gold(hh: torch.Tensor, head, tt: torch.Tensor):
         s = torch.exp(lg - top.to(dev)[..., None]).sum(dim=-1).to(home)
         t = tt.to(dev) - m * V_m
         own = (t >= 0) & (t < V_m)
-        cols = block[:, torch.where(own, t, 0).reshape(-1)].reshape(block.shape[0], *tt.shape)
-        g = torch.einsum("bcd,dbc->bc", hh.to(dev).to(torch.float32), cols.to(torch.float32))
+        if from_logits:
+            g = torch.take_along_dim(lg, torch.where(own, t, 0)[..., None], dim=-1)[..., 0]
+        else:
+            cols = block[:, torch.where(own, t, 0).reshape(-1)].reshape(block.shape[0],
+                                                                       *tt.shape)
+            g = torch.einsum("bcd,dbc->bc", hh.to(dev).to(torch.float32),
+                             cols.to(torch.float32))
         g = torch.where(own, g, torch.zeros((), device=dev)).to(home)
         total, gold = (s, g) if total is None else (total + s, gold + g)
     return top + torch.log(total), gold
@@ -347,18 +358,16 @@ def lm_shards_apart(batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> bool:
 
 def _ssm_prefill(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """The ssm family's prefill: the layers in order, each Mamba-1 block's
-    final state and conv tail collected. Returns (x, cache)."""
-    h0 = torch.zeros((x.shape[0], cfg.resolved_d_inner(), cfg.ssm_state),
-                     dtype=torch.float32, device=x.device)
+    final state and conv tail collected (each model shard's, for a split
+    block). Returns (x, cache)."""
     hs, convs = [], []
     for layer_p in _unstack(params["layers"], cfg.n_layers):
         xn = L.rms_norm(x, layer_p["norm"], cfg.norm_eps)
-        out, h_fin, conv_tail = S._mamba1_inner(layer_p["mamba"],
-                                                xn @ layer_p["mamba"]["in_proj"], cfg, h0)
+        out, h_fin, conv_tail = S.mamba1_prefill(layer_p["mamba"], xn, cfg)
         x = x + out
         hs.append(h_fin)
         convs.append(conv_tail)
-    return x, {"h": torch.stack(hs), "conv": torch.stack(convs)}
+    return x, {"h": _stack_layers(hs), "conv": _stack_layers(convs)}
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):

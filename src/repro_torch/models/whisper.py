@@ -16,6 +16,13 @@ Layers are stacked (``enc_layers``, ``dec_layers``: a leading layer axis
 on every leaf), as the reference's, so ``convert.py`` maps the JAX params
 one to one; a Python loop runs the layers (the reference's
 ``unroll_layers`` is an XLA loop control and changes no result).
+
+Given block leaves (the sharded steps' tensor-parallel route), the
+attentions run a model shard's heads each (the cross-attention through
+``_cross_attend_split``), the MLPs its columns, and the embedding and head
+are vocab-parallel (``models/transformer``'s helpers); the self-attention
+cache is then one tensor a model shard and ``enc_out`` stays whole on the
+first device.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer, _unstack
+from repro_torch.models.transformer import (_cache_layer, _embed_rows, _head_logits, _logz_gold,
+                                            _stack_layers, _unstack)
 
 Params = Dict[str, Any]
 
@@ -103,6 +112,8 @@ def _cross_attend(layer_p: Params, x: torch.Tensor, enc_out: torch.Tensor,
     B, S, _ = x.shape
     xn = L.rms_norm(x, layer_p["cross_norm"], cfg.norm_eps)
     p = layer_p["cross_attn"]
+    if L._is_split(p):
+        return x + _cross_attend_split(p, xn, enc_out, cfg)
     Dh = cfg.resolved_head_dim()
     q = (xn @ p["wq"]).reshape(B, S, cfg.n_heads, Dh)
     k = (enc_out @ p["wk"]).reshape(B, -1, cfg.n_kv_heads, Dh)
@@ -112,11 +123,39 @@ def _cross_attend(layer_p: Params, x: torch.Tensor, enc_out: torch.Tensor,
     return x + out.reshape(B, S, -1) @ p["wo"]
 
 
+def _cross_attend_split(p: Params, xn: torch.Tensor, enc_out: torch.Tensor,
+                        cfg: ArchConfig) -> torch.Tensor:
+    """The cross-attention over M model shards (H / M query heads each):
+    shard m's queries through its ``wq`` block, its kv heads from a copy of
+    ``enc_out`` through its ``wk``/``wv`` blocks (or every kv head through
+    the whole leaves, ``layers._kv_heads``), the chunked attention on its
+    heads and its ``wo`` row block: f32 partials that ``layers._row_sum``
+    adds in shard order on xn's device."""
+    B, S, d = xn.shape
+    home = xn.device
+    devices, Hl, G, wq, wo, wk, wv, kv_split, _ = L._split_leaves(p, cfg, home)
+    Dh = cfg.resolved_head_dim()
+    partials = []
+    with obs.span("tensor_parallel", kind="cross_attn", mp=len(devices),
+                  partial_bytes=len(devices) * B * S * d * 4):
+        for m, dev in enumerate(devices):
+            e = enc_out.to(dev)
+            q = (xn.to(dev) @ wq[m]).reshape(B, S, Hl, Dh)
+            k = (e @ (wk[m] if kv_split else wk.to(dev))).reshape(B, e.shape[1], -1, Dh)
+            v = (e @ (wv[m] if kv_split else wv.to(dev))).reshape(B, e.shape[1], -1, Dh)
+            if not kv_split:
+                k, v = (L._kv_heads(t, m, Hl, G).contiguous() for t in (k, v))
+            o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.attn_chunk,
+                                    k_chunk=cfg.attn_chunk)
+            partials.append(L._F32Product.apply(o.reshape(B, S, Hl * Dh), wo[m]))
+        return L._row_sum(partials, home, xn.dtype)
+
+
 def decoder_forward(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                     cfg: ArchConfig, differentiable: bool = True):
     """Final-norm hidden states (B, S, d) and each layer's self-attention
     (k, v)."""
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg.compute_dtype))
+    x = _embed_rows(params["embed"], tokens).to(L.dtype_of(cfg.compute_dtype))
     B, S = tokens.shape
     pos = _positions(B, S, x.device)
     x = x + sinusoid_pos(pos, cfg.d_model).to(x.dtype)
@@ -137,9 +176,7 @@ def whisper_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     enc_out = encode(params, batch["frames"], cfg)
     x, _ = decoder_forward(params, batch["tokens"], enc_out, cfg)
     targets = batch["tokens"][:, 1:].long()
-    logits = (x[:, :-1] @ params["lm_head"]).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    logz, gold = _logz_gold(x[:, :-1], params["lm_head"], targets, from_logits=True)
     loss = (logz - gold).mean()
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -153,10 +190,10 @@ def whisper_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchCon
     with torch.no_grad():
         enc_out = encode(params, batch["frames"], cfg)
         x, kvs = decoder_forward(params, tokens, enc_out, cfg, differentiable=False)
-        logits = (x[:, -1] @ params["lm_head"]).to(torch.float32)
+        logits = _head_logits(params, x[:, -1], cfg)
         cache = {
-            "k": torch.stack([k for k, _ in kvs]),
-            "v": torch.stack([v for _, v in kvs]),
+            "k": _stack_layers([k for k, _ in kvs]),
+            "v": _stack_layers([v for _, v in kvs]),
             "pos": torch.arange(S, dtype=torch.int32, device=x.device).expand(
                 cfg.n_layers, B, S).contiguous(),
             "enc_out": enc_out,
@@ -183,20 +220,19 @@ def whisper_decode_step(params: Params, cache: Params, batch: Dict[str, torch.Te
     (B, V) f32, cache); the K/V/pos tensors are updated in place and
     ``enc_out`` is read as it is."""
     with torch.no_grad():
-        x = params["embed"][batch["tokens"].long()].to(L.dtype_of(cfg.compute_dtype))
+        x = _embed_rows(params["embed"], batch["tokens"]).to(L.dtype_of(cfg.compute_dtype))
         pos = batch["pos"].long()
         x = x + sinusoid_pos(pos[:, None], cfg.d_model).to(x.dtype)
         enc_out = cache["enc_out"]
-        for i in range(cfg.n_layers):
-            lp = _layer(params["dec_layers"], i)
+        for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
             h, _ = L.attention_decode_block(
                 lp["self_attn"], L.rms_norm(x, lp["self_norm"], cfg.norm_eps), cfg, pos,
-                {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]},
+                {name: _cache_layer(cache[name], i) for name in ("k", "v", "pos")},
                 window=window,
             )
             x = x + h
             x = _cross_attend(lp, x, enc_out, cfg)
             x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
+        logits = _head_logits(params, x[:, 0], cfg)
     return logits, cache

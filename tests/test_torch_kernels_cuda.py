@@ -1518,3 +1518,164 @@ class TestTensorParallelServe:
         for leaf in cache.values():
             for idx in np.ndindex(leaf.pieces.shape):
                 assert leaf.pieces[idx].device == mesh.devices[idx]
+
+
+class TestTensorParallelFamilies:
+    """The ssm, hybrid and audio families on the tensor-parallel route on
+    the card (``-k TestTensorParallelFamilies``): falcon-mamba, zamba2 and
+    whisper reduced (f32, flash on) on (1, 4) and (2, 2) meshes of four
+    shards of one card, one train step against the unsharded step
+    (``TestShardTrain.F32``) and the prefill and 4 decode steps against the
+    unsharded steps (``TestTensorParallelServe.RTOL``), row 7 on each model
+    shard's heads held against its plain version; and falcon-mamba-7b at
+    full width and depth on a (1, 4) mesh of four distinct cards."""
+
+    # reduced() overrides: zamba2 as 2 segments of 2 Mamba-2 layers
+    ARCHS = {"falcon-mamba-7b": {}, "zamba2-2.7b": {"n_layers": 4, "attn_every": 2},
+             "whisper-tiny": {}}
+    # bf16 at full width: max |d log_softmax|, chip_smoke.TP_FAM_SERVE_LOGIT_TOL
+    LSM_TOL = 1.0
+
+    @staticmethod
+    def _batch(cfg, rng, dev, S):
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, S)),
+                                           dtype=torch.int32, device=dev)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.as_tensor(
+                rng.randn(4, cfg.encoder_seq, cfg.frontend_dim).astype(np.float32), device=dev)
+        return batch
+
+    @pytest.mark.parametrize("dims", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+    @pytest.mark.parametrize("arch", list(ARCHS))
+    def test_tensorparallel_families_on_one_card(self, dev, arch, dims):
+        from repro_torch import obs
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch.steps import init_train_state, make_train_step
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        cfg = get_arch(arch).reduced().with_(use_flash_kernel=True, **self.ARCHS[arch])
+        model, opt = build_model(cfg), adamw(1e-3)
+        mesh = make_mesh(dims, ("data", "model"), devices=[dev] * 4)
+        rng = np.random.RandomState(0)
+        # one train step
+        state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+        batch = self._batch(cfg, rng, dev, 64)
+        specs, s_sh, b_sh, steps = TestShardTrain._shardings(cfg, state, batch, mesh)
+        with obs.enabled() as tracer:
+            new, met = steps.make_sharded_train_step(model, opt, s_sh, b_sh,
+                                                     tensor_parallel=True)(state, batch)
+        with use_mesh(mesh):
+            want, want_m = make_train_step(model, opt)(state, batch)
+        tol = TestShardTrain.F32
+        for k in want_m:
+            rel = abs(float(met[k]) - float(want_m[k])) / max(abs(float(want_m[k])), 1e-30)
+            assert rel <= tol["metric"], (k, rel)
+        got = shd.gather(new)
+        for group, t in (("params", "param"), ("opt", "moment")):
+            for a, b in zip(tree_leaves(got[group]), tree_leaves(want[group])):
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                assert err <= tol[t], (group, err)
+        assert (shd.device_nbytes(new) == shd.tree_spec_nbytes(state, specs, mesh)).all()
+        kinds = {e.args["kind"] for e in tracer.events if e.name == "tensor_parallel"}
+        assert kinds == {"ssm": {"mamba1"}, "hybrid": {"mamba2", "attn", "mlp"},
+                         "audio": {"attn", "cross_attn", "mlp"}}[cfg.family]
+        del new, got, want, state
+        # the prefill and 4 decode steps, row 7 on each model shard's heads
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        batch = self._batch(cfg, rng, dev, 128)
+        toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 4)), dtype=torch.int32,
+                               device=dev)
+        run = TestTensorParallelServe._run
+        want, wcache = run(model, params, batch, toks, mesh, sharded=False)
+        calls, real = [], L.flash_mha
+
+        def flash(q, k, v, *, causal=True):
+            out = real(q, k, v, causal=causal)
+            calls.append((q, k, v, out))
+            return out
+
+        before = kfa.flash_mha.launches
+        L.flash_mha = flash
+        try:
+            got, cache = run(model, params, batch, toks, mesh, sharded=True)
+        finally:
+            L.flash_mha = real
+        # one causal attention a layer: none for ssm, one a segment for hybrid
+        attn = cfg.n_layers // (cfg.attn_every or 1) if cfg.family != "ssm" else 0
+        assert kfa.flash_mha.launches - before == 4 * attn == len(calls)
+        for q, k, v, out in calls:
+            assert q.shape[2] == cfg.n_heads // dims[1]
+            assert kfa.mismatch(out, kfa.flash_attention_plain(q, k, v))["within"]
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= TestTensorParallelServe.RTOL * float(
+                b.abs().max())
+        for name, leaf in cache.items():
+            a, b = shd.gather(leaf), wcache[name]
+            assert float((a.float() - b.float()).abs().max()) <= (
+                TestTensorParallelServe.RTOL * float(b.float().abs().max())), name
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
+        assert (shd.device_nbytes(cache) == shd.tree_spec_nbytes(
+            shapes, shd.cache_spec(shapes, mesh), mesh)).all()
+
+    def test_tensor_parallel_falcon_mamba_across_cards(self):
+        """falcon-mamba-7b at full width and depth on a (1, 4) mesh of four
+        distinct cards: a prefill of 4 x 512 tokens and 3 decode steps fed
+        the unsharded run's greedy tokens, each step's max |d log_softmax|
+        against the unsharded run on card 0 within ``LSM_TOL``; each card
+        holds a quarter of the Mamba blocks and the vocab (the specs'
+        bytes, under 0.3 of the params), and its cache pieces."""
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 4:
+            pytest.skip("needs four CUDA devices")
+        import time
+
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.launch import steps
+        from repro_torch.models.registry import build_model
+
+        devices = [torch.device("cuda", k) for k in range(4)]
+        dev = devices[0]
+        cfg = get_arch("falcon-mamba-7b")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        total = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        rng = np.random.RandomState(0)
+        batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 512)),
+                                           dtype=torch.int32, device=dev)}
+        lg, cache = steps.make_prefill_step(model)(params, batch)
+        want, toks = [torch.log_softmax(lg, -1).cpu()], []
+        for g in range(3):
+            toks.append(lg.argmax(-1).to(torch.int32)[:, None])
+            lg, cache = steps.make_decode_step(model)(params, cache, {
+                "tokens": toks[-1], "pos": torch.full((4,), 512 + g, dtype=torch.int32,
+                                                      device=dev)})
+            want.append(torch.log_softmax(lg, -1).cpu())
+        toks = torch.cat(toks, 1)
+        del cache
+        mesh = make_mesh((1, 4), ("data", "model"), devices=devices)
+        p_specs = shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        got, cache = TestTensorParallelServe._run(model, params, batch, toks, mesh, sharded=True)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        ms = (time.perf_counter() - t0) * 1e3
+        gaps = [float((torch.log_softmax(g, -1).cpu() - w).abs().max())
+                for g, w in zip(got, want)]
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in cache.items()}
+        c_want = shd.tree_spec_nbytes(shapes, shd.cache_spec(shapes, mesh), mesh)
+        p_want = shd.tree_spec_nbytes(params, p_specs, mesh)
+        print(f"falcon-mamba-7b on (1, 4) of four cards: prefill + 3 decode steps {ms:.1f} ms "
+              f"(the first call); max |d log_softmax| by step {gaps}; params {p_want} B of "
+              f"{total} B and cache {c_want} B a card by the specs; the allocator holds "
+              f"{[torch.cuda.memory_allocated(d) for d in devices]}")
+        assert max(gaps) <= self.LSM_TOL, gaps
+        assert p_want <= 0.3 * total
+        assert (shd.device_nbytes(cache) == c_want).all()
+        placed = shd.place(params, shd.to_named(p_specs, mesh))
+        assert (shd.device_nbytes(placed) == p_want).all()
+        for leaf in cache.values():
+            for idx in np.ndindex(leaf.pieces.shape):
+                assert leaf.pieces[idx].device == mesh.devices[idx]

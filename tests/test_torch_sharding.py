@@ -36,8 +36,10 @@ from repro.launch.steps import train_state_shapes as j_state_shapes
 from repro.models.registry import build_model as jbuild
 from repro.optim import adamw as jadamw
 from repro_torch import configs as tconfigs
-from repro_torch import convert, util
+from repro_torch import convert, obs, util
+from repro_torch.core.tree import tree_leaves
 from repro_torch.launch import dryrun as tdry
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as tshd
 from repro_torch.launch.steps import init_train_state
@@ -278,12 +280,46 @@ def test_placed_block_is_the_piece_or_an_all_gather():
 # ---------------------------------------------------------------- the dry run
 
 
+# the tensor-parallel blocks a decode step runs a layer, where they split
+# over the production mesh's 16 model shards (whisper's 6 heads do not)
+_DRY_TP_KINDS = {"qwen3-8b": {"attn_decode", "mlp"}, "falcon-mamba-7b": {"mamba1_decode"},
+                 "zamba2-2.7b": {"mamba2_decode", "attn_decode", "mlp"}, "whisper-tiny": {"mlp"}}
+
+
 @pytest.mark.parametrize("arch,shape", [("whisper-tiny", "train_4k"),
                                         ("qwen3-8b", "decode_32k"),
-                                        ("falcon-mamba-7b", "long_500k")])
+                                        ("falcon-mamba-7b", "long_500k"),
+                                        ("zamba2-2.7b", "decode_32k"),
+                                        ("whisper-tiny", "decode_32k")])
 def test_dryrun_one_runs_on_meta_tensors(arch, shape):
-    rec = tdry.dryrun_one(arch, shape)
+    """The combo runs on meta tensors; a decode shape on the
+    tensor-parallel route (each block's span on 16 model shards, every
+    block leaf 1 / 16 of its leaf); the bytes a device are the specs'."""
+    with obs.enabled() as tracer:
+        rec = tdry.dryrun_one(arch, shape)
     assert rec["status"] == "ok", rec.get("error")
+    spans = [e.args for e in tracer.events if e.name == "tensor_parallel"]
+    if shape == "train_4k":
+        assert not spans
+    else:
+        assert {s["kind"] for s in spans} == _DRY_TP_KINDS[arch]
+        assert all(s["mp"] == 16 for s in spans)
+        model = tbuild(tconfigs.get_arch(arch))
+        params = model.init(None, "meta")
+        mesh = tmesh.make_mesh((16, 16), ("data", "model"), devices=["meta"] * 256)
+        row = tmesh.make_mesh((1, 16), ("data", "model"), devices=["meta"] * 16)
+        live, _ = tsteps._shard_live(params, row, model.cfg, grad=False)
+        leaves = dict(zip(tsteps._leaf_paths(params), tree_leaves(params)))
+        split = {p: leaf for p, leaf in zip(tsteps._leaf_paths(live), tree_leaves(live))
+                 if isinstance(leaf, tsteps._Blocks)}
+        assert split and all(b.numel() * 16 == leaves[p].numel()
+                             for p, leaf in split.items() for b in leaf.blocks)
+        specs = tshd.tree_param_specs(params, mesh, n_kv_heads=model.cfg.n_kv_heads)
+        assert rec["bytes_params"] == tshd.tree_spec_nbytes(params, specs, mesh)
+        cache = model.init_cache(tconfigs.INPUT_SHAPES[shape].global_batch, rec["cache_len"],
+                                 "meta")
+        assert rec["bytes_cache"] == tshd.tree_spec_nbytes(cache, tshd.cache_spec(cache, mesh),
+                                                           mesh)
     cfg = tconfigs.get_arch(arch)
     n = rec["n_params"]
     assert rec["model_flops"] == tdry.model_flops(cfg, tconfigs.INPUT_SHAPES[shape], n,

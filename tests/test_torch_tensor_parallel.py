@@ -426,9 +426,11 @@ def test_vlm_with_patches(dims):
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny"],
                          ids=["ssm", "hybrid", "audio"])
 def test_other_families_read_every_leaf_whole(arch):
-    """ssm, hybrid and audio: the tensor-parallel route reads every leaf
-    whole, so it is the gather route bit for bit."""
-    cfg, model, opt, state, mesh = _setup(arch, (2, 2), ("data", "model"), attn_chunk=8)
+    """ssm, hybrid and audio on a mesh whose model axis has size 1: the
+    tensor-parallel route reads every leaf whole, so it is the gather
+    route bit for bit (their split over a model axis of 2 or more:
+    ``tests/test_torch_tensor_parallel_ssm.py``)."""
+    cfg, model, opt, state, mesh = _setup(arch, (2, 1), ("data", "model"), attn_chunk=8)
     batch = _batch(cfg, B=4, S=12)
     assert not _split(_live(cfg, state, mesh, batch)[0])
     new, met, spans = _step(model, opt, state, batch, mesh, cfg)

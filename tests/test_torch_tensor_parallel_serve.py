@@ -318,14 +318,15 @@ def test_kimi_takes_the_expert_parallel_branch_in_prefill_and_the_local_path_in_
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny"],
                          ids=["ssm", "hybrid", "audio"])
 def test_other_families_serve_on_the_gather_route(arch):
-    """ssm, hybrid and audio read every leaf whole on either route; their
-    caches (the ssm state's channels over ``model``, ``enc_out`` cut too)
-    are cut by ``cache_spec`` and stay within the bounds."""
+    """ssm, hybrid and audio on the gather route read every leaf whole;
+    their caches (the ssm state's channels over ``model``, ``enc_out`` cut
+    too) are cut by ``cache_spec`` and stay within the bounds (their
+    tensor-parallel route: ``tests/test_torch_tensor_parallel_ssm.py``)."""
     cfg, model, params = _model(arch, attn_chunk=8)
     batch, toks = _inputs(cfg)
     mesh = _mesh((2, 2), ("data", "model"))
     want, wcache = _unsharded(model, params, batch, toks, mesh)
-    got, cache, spans = _sharded(model, params, batch, toks, mesh)
+    got, cache, spans = _sharded(model, params, batch, toks, mesh, tp=False)
     assert not [k for k in spans if k[1] == "tensor_parallel"]
     _assert_cut_by_cache_spec(cache, mesh)
     assert max(_rel(a, b) for a, b in zip(got, want)) <= LOGIT_RTOL
