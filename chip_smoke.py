@@ -219,11 +219,13 @@ Phases, each of which fails the run on error:
 9. train   — stablelm-1.6b at full width and depth (24 layers, d_model
              2,048, 32 heads of 64, d_ff 5,632, vocab 100,352, bf16, the
              config's remat=True, random weights from a seed) through
-             ``launch.train``'s body: 6 AdamW steps (lr 1e-3, warmup 1) of 4 x
-             2,048 Markov tokens with f32 moments, each step's loss, grad
-             norm, synchronised ms, tokens/s and host ms drawing the batch,
-             the peak device memory and the step's bound
-             (``train_bound_ms``); one more step split by CUDA events into
+             ``launch.train``'s body: 6 donating AdamW steps (lr 1e-3,
+             warmup 1) of 4 x 2,048 Markov tokens with f32 moments, each
+             step's loss, grad norm, synchronised ms, tokens/s and host ms
+             drawing the batch, the peak device memory and the step's bound
+             (``train_bound_ms``); the same 6 steps without donation, whose
+             state the donated one must equal bit for bit and whose peak
+             the donated one must stay under; one more step split by CUDA events into
              forward+backward, clip, optimizer and update; 3 steps from the
              same params and batches with quantized moments (state <= 0.5x,
              the first loss equal bit for bit); the chunked ``lm_loss``
@@ -232,9 +234,9 @@ Phases, each of which fails the run on error:
              the embedding's and head's, which accumulate by index); a
              reduced run checkpointed at steps 2 and 4 and resumed to 6. No
              kernel's launch count may move.
-   shardtrain — the sharded train step (``launch.steps.
-             make_sharded_train_step``) with the train phase's model, seed,
-             optimizer and batches: 3 unsharded steps (results kept on the
+   shardtrain — the donating sharded train step (``launch.steps.
+             make_sharded_train_step(..., donate=True)``) with the train
+             phase's model, seed, optimizer and batches: 3 unsharded steps (results kept on the
              host), then 3 sharded steps from the same state on a (2, 2)
              ("data", "model") mesh of four shards of the card (the AdamW
              state placed by ``tree_param_specs``, 2 x 2,048 tokens a data
@@ -247,9 +249,11 @@ Phases, each of which fails the run on error:
              ways, the sharded step split by CUDA events into placement,
              gathers, forward+backward per shard, gradient mean, clip and
              optimizer, each with the allocator's books (bytes at its
-             entry, peak and exit, cudaMalloc calls, retries), the peak
-             beside its reckoning
-             (``shard_reckoning``); step 2 on a (1, 1) mesh bit for bit the
+             entry, peak and exit, cudaMalloc calls, retries; the
+             optimizer's peak at most the forward+backward's), the peak
+             within its reckoning (``shard_reckoning``); on (2, 2), by both
+             routes, the same 3 steps without donation first, every piece
+             bit for bit the donated run's, their peak beside; step 2 on a (1, 1) mesh bit for bit the
              unsharded step 2 but the embedding's and head's leaves (which
              accumulate by index); one quantized-moment step on the (2, 2)
              mesh against the unsharded one; then falcon-mamba-7b (4 of
@@ -4041,12 +4045,31 @@ def _step_split(model, opt, state, batch) -> dict:
     return dict(out, enqueue_ms=enqueue, synced_ms=total)
 
 
+class _NoDonation:
+    """Within ``with``: ``launch.train`` builds its step without donation
+    (today's step before the donating one), for the run it is held to."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        self._train, self._real = train, train.make_train_step
+        train.make_train_step = lambda model, opt, **kw: self._real(model, opt,
+                                                                    **dict(kw, donate=False))
+        return self
+
+    def __exit__(self, *exc):
+        self._train.make_train_step = self._real
+        return False
+
+
 def phase_train(dev):
     """stablelm-1.6b at full width and depth (bf16, remat) through the
-    training entry point: 6 AdamW steps of 4 x 2,048 Markov tokens with f32
-    moments, 3 with quantized moments from the same params and batches;
-    the chunked loss against ``F.cross_entropy``; remat on and off at two
-    layers; a reduced run checkpointed and resumed. No kernel launches."""
+    training entry point: 6 donating AdamW steps of 4 x 2,048 Markov tokens
+    with f32 moments, their peak beside the same run's without donation
+    (``_NoDonation``) and the states after the steps bit for bit; 3 with
+    quantized moments from the same params and batches; the chunked loss
+    against ``F.cross_entropy``; remat on and off at two layers; a reduced
+    run checkpointed and resumed. No kernel launches."""
     import tempfile
 
     import numpy as np
@@ -4081,11 +4104,12 @@ def phase_train(dev):
             "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
             "--seed", "0", "--log-every", "1", "--device", str(dev)]
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state, log = train.run(train.parse_args(argv))
     run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     f32_opt = state_nbytes(state["opt"])
     model = build_model(cfg)
@@ -4094,8 +4118,27 @@ def phase_train(dev):
     split = _step_split(model, adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)),
                         state, batch)
     print(f"  one more step split (CUDA events, ms): {json.dumps(split)}")
-    del state
+    # -- the same run without donation, beside the donated state
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _NoDonation():
+        plain, plain_log = train.run(train.parse_args(argv))
+    plain_peak = torch.cuda.max_memory_allocated(dev) - held
+    unequal = [n for (n, a), (_, b) in zip(_leaf_names(state), _leaf_names(plain))
+               if not _same_bits(a, b)]
+    same_log = ([(e["loss"], e["grad_norm"]) for e in log]
+                == [(e["loss"], e["grad_norm"]) for e in plain_log])
+    print(f"  donated steps: peak device memory {peak} B over the {base} B allocated before the "
+          f"run; without donation {plain_peak} B over the {held} B before it (the donated "
+          f"state held); states after {TRAIN_STEPS} steps bit for bit {not unequal} (leaves "
+          f"not: {unequal}); losses and grad norms bit for bit {same_log}")
+    del state, plain
+    torch.cuda.empty_cache()
+    if unequal or not same_log:
+        _fail(f"the donated train steps differ from the steps without donation: {unequal}")
+    if not peak < plain_peak:
+        _fail(f"the donated steps' peak {peak} B is not below the plain steps' {plain_peak} B")
     steps = _step_ms(log)
     for e, ms in zip(log, steps):
         print(f"  step {e['step']}: loss {e['loss']!r} grad_norm {e['grad_norm']!r} "
@@ -4208,8 +4251,8 @@ def phase_train(dev):
     if any(launches.values()):
         _fail(f"training launched a kernel: {launches}")
     torch.cuda.empty_cache()
-    return dict(steady_ms=steady, peak_bytes=peak, bound=bound, split=split,
-                quantized_ratio=ratio, ce_rel=rel, remat_diffs=diffs)
+    return dict(steady_ms=steady, peak_bytes=peak, plain_peak_bytes=plain_peak, bound=bound,
+                split=split, quantized_ratio=ratio, ce_rel=rel, remat_diffs=diffs)
 
 
 # ---------------------------------------------------------------- phase shardtrain
@@ -4532,20 +4575,45 @@ def _read_copy_bytes(shapes, specs, mesh, cfg, tp: bool, path=()) -> int:
                for box in boxes if box not in pieces)
 
 
+# f32 temporaries alive at once in one box of the donating update (AdamW's
+# ``Optimizer.leaf`` with weight decay: the f32 gradient, m, v, m-hat, the
+# denominator, the update twice, the f32 param and its decay term), and the
+# param's f32 sum beside them
+BOX_F32_TEMPS = 10
+
+
+def box_temp_bytes(shapes, specs, mesh, blockwise: bool = False) -> int:
+    """One box's f32 temporaries in the donating update, for the largest
+    box (``launch.steps._row_boxes``) of any piece of a tree placed by
+    ``specs``."""
+    import math
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+
+    if not isinstance(specs, shd.P):
+        return max(box_temp_bytes(shapes[k], specs[k], mesh, blockwise) for k in shapes)
+    shape = shd.piece_shape(tuple(shapes.shape), specs, mesh)
+    row = math.prod(shape[1:])
+    return max((b[0][1] - b[0][0]) * row if b else 1
+               for b in steps._row_boxes(shape, blockwise)) * 4 * BOX_F32_TEMPS
+
+
 def shard_reckoning(placed_dev: int, n_dev: int, param_bytes: int, sums_bytes: int,
-                    act_bytes: int, gathered: int) -> dict:
-    """The sharded step's peak device bytes on one card, reckoned before
-    the run: the placed state on every mesh device, one data shard's
-    copied params (``gathered``, ``_read_copy_bytes``) and its bf16
-    gradients, the f32 sums of the distinct pieces, remat's activations,
-    and the new pieces while the old state is still held (the larger of
-    the backward's and the update's)."""
+                    act_bytes: int, gathered: int, box_bytes: int) -> dict:
+    """The donating sharded step's peak device bytes on one card, reckoned
+    before the run: the placed state on every mesh device, one data
+    shard's copied params (``gathered``, ``_read_copy_bytes``) and its bf16
+    gradients, the f32 sums of the distinct pieces, remat's activations;
+    and the update in place: the placed state, the clipped bf16 gradients
+    and one box's temporaries (``box_temp_bytes``). The peak is the larger
+    of the backward's and the update's."""
     placed = placed_dev * n_dev
     backward = placed + gathered + param_bytes + sums_bytes + act_bytes
-    update = 2 * placed + param_bytes  # new pieces beside the old, the clipped gradients
+    update = placed + param_bytes + box_bytes
     return {"placed": placed, "gathered": gathered, "grads_bf16": param_bytes,
-            "f32_sums": sums_bytes, "activations": act_bytes, "backward_peak": backward,
-            "update_peak": update, "peak": max(backward, update)}
+            "f32_sums": sums_bytes, "activations": act_bytes, "box_temps": box_bytes,
+            "backward_peak": backward, "update_peak": update, "peak": max(backward, update)}
 
 
 def _remat_act_bytes(cfg, B: int, S: int) -> int:
@@ -4574,13 +4642,18 @@ def _outside(rels, r, tols) -> list:
 def phase_shardtrain(dev):
     """The sharded train step (``launch.steps.make_sharded_train_step``) on
     the card: stablelm-1.6b at full width and depth (the train phase's
-    build, seed, optimizer and batches). (1) 3 unsharded steps (the plain
-    results kept on the host), then 3 sharded steps from the same state on
-    a (2, 2) ("data", "model") mesh of four shards of the card, each step's
-    loss and grad norm and, after step 3, the params and moments held to
-    the unsharded ones; each device's bytes the specs' after every step;
-    step ms both ways, the sharded step split by CUDA events, the peak
-    beside its reckoning. (2) The same 3 steps with data shard 1's gradient
+    build, seed, optimizer and batches). Every sharded step donates its
+    state (``donate=True``: each piece written in place). (1) 3 unsharded
+    steps (the plain results kept on the host), then 3 sharded steps from
+    the same state on a (2, 2) ("data", "model") mesh of four shards of the
+    card, each step's loss and grad norm and, after step 3, the params and
+    moments held to the unsharded ones; each device's bytes the specs'
+    after every step; step ms both ways, the sharded step split by CUDA
+    events, the peak beside its reckoning (``shard_reckoning``, which it
+    must not pass), the update's peak at or under the forward and
+    backward's; the same 3 steps without donation first, whose pieces the
+    donated ones must equal bit for bit, and whose peak is printed beside.
+    (2) The same 3 steps with data shard 1's gradient
     dropped (a planted fault) must fail those bounds. (3) Step 2 on a (1,
     1) mesh, bit for bit the unsharded step 2 on every leaf but the
     embedding's and the head's (and their moments). (4) One step with
@@ -4591,7 +4664,8 @@ def phase_shardtrain(dev):
     same state held to the same unsharded steps by the ``TP_*`` bounds,
     the bytes a device the specs', step ms, the split (the row-parallel
     sums as their own stage, "reductions"), the peak beside its
-    reckoning; and 3 steps on (2, 2) with model shard 1's partial dropped
+    reckoning (on (2, 2) also without donation, bit for bit, as in (1));
+    and 3 steps on (2, 2) with model shard 1's partial dropped
     from every row-parallel sum (a planted fault), which must fail those
     bounds. (6) One step on a (2, 1) mesh both ways: with no model axis
     there are no blocks, so the two routes are bit for bit the same. (7)
@@ -4645,7 +4719,8 @@ def phase_shardtrain(dev):
             want, n_dev, tree_bytes(m_shapes["params"]),
             _distinct_piece_bytes(m_shapes["params"], m_specs["params"], m),
             _remat_act_bytes(cfg, TRAIN_BATCH // m_dp, TRAIN_SEQ),
-            _read_copy_bytes(m_shapes["params"], m_specs["params"], m, cfg, tp))
+            _read_copy_bytes(m_shapes["params"], m_specs["params"], m, cfg, tp),
+            box_temp_bytes(m_shapes["params"], m_specs["params"], m))
         return {"mesh": m, "shapes": m_shapes, "s_sh": m_sh, "b_sh": mb_sh, "want_dev": want,
                 "n_dev": n_dev, "dp": m_dp, "tp": tp, "reck": reck}
 
@@ -4681,16 +4756,20 @@ def phase_shardtrain(dev):
     torch.cuda.empty_cache()
     print(f"  unsharded steps: {json.dumps(u_log)}")
 
-    def sharded_run(key, fault: bool):
+    def sharded_run(key, fault: bool = False, donate: bool = True, against=None,
+                    keep: bool = False) -> dict:
         """3 sharded steps from the fresh state on ``meshes[key]``, by its
-        route; (log, readings after step 3, peak, base)."""
+        route, donating or not: the log, the peak and the bytes allocated
+        before the placement (``base``); with ``against`` (a placed state)
+        the leaves whose pieces are not bit for bit its pieces; with
+        ``keep`` the final placed state, else the readings after step 3."""
         st = meshes[key]
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
         placed = shd.place(fresh(opt), st["s_sh"])
         torch.cuda.empty_cache()
         step = steps.make_sharded_train_step(model, opt, st["s_sh"], st["b_sh"],
-                                             tensor_parallel=st["tp"])
+                                             tensor_parallel=st["tp"], donate=donate)
         log = []
         torch.cuda.reset_peak_memory_stats(dev)
         with _StepSplit(dev) as split:
@@ -4708,14 +4787,43 @@ def phase_shardtrain(dev):
                 held = torch.cuda.memory_allocated(dev) - base
                 log.append(dict(met, ms=ms, split=split.take(), rel=_metric_rel(met, u_log[i]),
                                 bytes_ok=bool((per_dev == st["want_dev"]).all()), held=held))
-        peak = max(split.peak, torch.cuda.max_memory_allocated(dev))
-        readings, _ = _state_readings(placed, host[-1], dev)
+        out = {"log": log, "peak": max(split.peak, torch.cuda.max_memory_allocated(dev)),
+               "base": base}
+        if not keep:  # a run kept for the donated one to equal is read through it
+            out["readings"] = _state_readings(placed, host[-1], dev)[0]
+        if against is not None:
+            out["unequal"] = [
+                n for (n, a), (_, b) in zip(_leaf_names(placed), _leaf_names(against))
+                if not all(_same_bits(p, q) for p, q in zip(a.pieces.flat, b.pieces.flat))]
+        if keep:
+            out["placed"] = placed
         del placed
         torch.cuda.empty_cache()
-        return log, readings, peak, base
+        return out
 
-    def report(key, log, readings, peak, base):
-        st = meshes[key]
+    def donated_run(key) -> dict:
+        """``sharded_run`` donating; on ``SHARD_MESH`` after the same steps
+        without donation (today's step), whose final pieces it must equal
+        bit for bit and whose peak it is printed beside."""
+        if key[1] != SHARD_MESH:
+            return sharded_run(key)
+        plain = sharded_run(key, donate=False, keep=True)
+        r = sharded_run(key, against=plain.pop("placed"))
+        torch.cuda.empty_cache()
+        r["plain_peak"] = plain["peak"] - plain["base"]
+        r["plain_ms"] = statistics.median(e["ms"] for e in plain["log"][1:])
+        print(f"  {key[0]} {key[1]} without donation: peak {r['plain_peak']} B over the "
+              f"{plain['base']} B before its placement, step ms (median of steps 2-3) "
+              f"{r['plain_ms']:.2f}; the donated run's pieces not bit for bit after "
+              f"{len(batches)} steps: {r['unequal']}")
+        if r["unequal"]:
+            _fail(f"the donated {key} steps differ from the steps without donation: "
+                  f"{r['unequal']}")
+        return r
+
+    def report(key, r):
+        st, log = meshes[key], r["log"]
+        peak = r["peak"] - r["base"]
         n_pieces = st["n_dev"] * len(tree_leaves(st["shapes"]))
         for i, e in enumerate(log):
             print(f"  {key[0]} {key[1]} step {i + 1}: loss {e['loss']!r} grad_norm "
@@ -4726,8 +4834,8 @@ def phase_shardtrain(dev):
                   f"card holds {e['held']} B for the placed state "
                   f"({st['want_dev'] * st['n_dev']} B of pieces)")
         print(f"  {key[0]} {key[1]} after {len(batches)} steps against the unsharded state: "
-              f"{json.dumps(readings)}; peak device memory {peak} B (reckoned "
-              f"{st['reck']['peak']} B; {base} B allocated before the placement)")
+              f"{json.dumps(r['readings'])}; peak device memory {peak} B over the {r['base']} B "
+              f"allocated before the placement (reckoned {st['reck']['peak']} B)")
         for i, e in enumerate(log):
             if not e["bytes_ok"]:
                 _fail(f"the {key} step changed the pieces' bytes at step {i + 1}")
@@ -4735,13 +4843,25 @@ def phase_shardtrain(dev):
             if not full <= e["held"] <= full + 512 * n_pieces + 2**20:
                 _fail(f"after {key} step {i + 1} the card holds {e['held']} B for {full} B of "
                       f"placed state")
+            books = e["split"]["books"]
+            fb_peak = max(m["peak"] for m in e["split"]["forward_backward_per_shard"])
+            if not books["optimizer"]["peak"] <= fb_peak:
+                _fail(f"{key} step {i + 1}: the update in place peaks at "
+                      f"{books['optimizer']['peak']} B, over the forward and backward's "
+                      f"{fb_peak} B")
+        if not peak <= st["reck"]["peak"]:
+            _fail(f"the {key} steps peak at {peak} B, over the reckoned {st['reck']['peak']} B")
         return statistics.median(e["ms"] for e in log[1:])
 
-    # (1b) the gather route; (2) the same with a planted fault
+    # (1b) the gather route, donating, held bit for bit to the same steps
+    # without donation; (2) the same with a planted fault
     g_key = ("gather", SHARD_MESH)
-    log, readings, peak, base = sharded_run(g_key, fault=False)
-    f_log, f_readings, _, _ = sharded_run(g_key, fault=True)
-    ms_s = report(g_key, log, readings, peak, base)
+    g_run = donated_run(g_key)
+    f_run = sharded_run(g_key, fault=True)
+    log, readings, f_log, f_readings = g_run["log"], g_run["readings"], f_run["log"], f_run[
+        "readings"]
+    peak = g_run["peak"] - g_run["base"]
+    ms_s = report(g_key, g_run)
     ms_u = statistics.median(e["ms"] for e in u_log[1:])
     f_rel = [e["rel"] for e in f_log]
     print(f"  planted fault (data shard 1's gradient dropped): per step {json.dumps(f_rel)}; "
@@ -4756,24 +4876,26 @@ def phase_shardtrain(dev):
     if not {"grad_norm step 1", "param share", "m", "v"} <= set(caught):
         _fail(f"the bounds do not catch a dropped data shard's gradient: {caught}")
 
-    # (5) the tensor-parallel route on each TP_MESHES mesh; on the first,
-    # the same with a planted fault
+    # (5) the tensor-parallel route on each TP_MESHES mesh (on SHARD_MESH
+    # also without donation); on the first, the same with a planted fault
     tp_tols = (TP_LOSS_RTOL, TP_GNORM_RTOL, TP_PARAM_SHARE, TP_MOMENT_RTOL)
     tp_out = {}
     for dims in TP_MESHES:
         key = ("tp", dims)
-        t_log, t_readings, t_peak, t_base = sharded_run(key, fault=False)
-        tp_ms = report(key, t_log, t_readings, t_peak, t_base)
-        t_broken = _outside([e["rel"] for e in t_log], t_readings, tp_tols)
-        tp_out[dims] = {"ms": tp_ms, "peak": t_peak, "readings": t_readings,
-                        "split": t_log[-1]["split"], "broken": t_broken}
+        t_run = donated_run(key)
+        tp_ms = report(key, t_run)
+        t_broken = _outside([e["rel"] for e in t_run["log"]], t_run["readings"], tp_tols)
+        tp_out[dims] = {"ms": tp_ms, "peak": t_run["peak"] - t_run["base"],
+                        "plain_peak": t_run.get("plain_peak"), "plain_ms": t_run.get("plain_ms"),
+                        "readings": t_run["readings"], "split": t_run["log"][-1]["split"],
+                        "broken": t_broken}
         print(f"  tensor-parallel {dims}: step ms (median of steps 2-3) {tp_ms:.2f}; bounds the "
               f"honest run breaks: {t_broken}")
         if t_broken:
             _fail(f"the tensor-parallel steps on {dims} differ from the unsharded ones: "
                   f"{t_broken}")
-    tf_log, tf_readings, _, _ = sharded_run(("tp", TP_MESHES[0]), fault=True)
-    tf_rel = [e["rel"] for e in tf_log]
+    tf_run = sharded_run(("tp", TP_MESHES[0]), fault=True)
+    tf_rel, tf_readings = [e["rel"] for e in tf_run["log"]], tf_run["readings"]
     tp_caught = _outside(tf_rel, tf_readings, tp_tols)
     print(f"  tensor-parallel planted fault (model shard 1's partial dropped from every "
           f"row-parallel sum) on {TP_MESHES[0]}: per step {json.dumps(tf_rel)}; after "
@@ -4781,8 +4903,11 @@ def phase_shardtrain(dev):
     if not {"loss step 1", "grad_norm step 1", "param share", "m", "v"} <= set(tp_caught):
         _fail(f"the bounds do not catch a dropped model shard's partial: {tp_caught}")
     print(f"  step ms (median of steps 2-3): unsharded {ms_u:.2f}, gather route {SHARD_MESH} "
-          f"{ms_s:.2f}, tensor-parallel " + ", ".join(f"{d} {v['ms']:.2f}"
-                                                       for d, v in tp_out.items()))
+          f"{ms_s:.2f} (without donation {g_run['plain_ms']:.2f}), tensor-parallel "
+          + ", ".join(f"{d} {v['ms']:.2f}" for d, v in tp_out.items())
+          + f"; peaks donating (without): gather {SHARD_MESH} {peak} ({g_run['plain_peak']}), "
+          + ", ".join(f"tensor-parallel {d} {v['peak']} ({v['plain_peak']})"
+                      for d, v in tp_out.items()))
 
     # (6) a (2, 1) mesh: no model axis, so no blocks: the routes bit for bit
     m21 = make_mesh((2, 1), ("data", "model"), devices=[dev] * 2)
@@ -4791,7 +4916,8 @@ def phase_shardtrain(dev):
     for tp in (False, True):
         torch.cuda.empty_cache()
         placed = shd.place(fresh(opt), s21)
-        news.append(steps.make_sharded_train_step(model, opt, s21, b21, tensor_parallel=tp)(
+        news.append(steps.make_sharded_train_step(model, opt, s21, b21, tensor_parallel=tp,
+                                                  donate=True)(
             placed, {"tokens": batches[0].to(dev)}))
         del placed
     same = all(_same_bits(news[0][1][k], news[1][1][k]) for k in news[0][1])
@@ -4810,7 +4936,7 @@ def phase_shardtrain(dev):
     _, _, s1_sh, b1_sh = shardings(opt, one)
     torch.cuda.empty_cache()
     placed = shd.place(host[0], s1_sh)
-    new, met = steps.make_sharded_train_step(model, opt, s1_sh, b1_sh)(
+    new, met = steps.make_sharded_train_step(model, opt, s1_sh, b1_sh, donate=True)(
         placed, {"tokens": batches[1].to(dev)})
     met = {k: float(v) for k, v in met.items()}
     r11, unequal = _state_readings(new, host[1], dev)
@@ -4837,7 +4963,7 @@ def phase_shardtrain(dev):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    new, met = steps.make_sharded_train_step(model, opt_q, q_sh, qb_sh)(
+    new, met = steps.make_sharded_train_step(model, opt_q, q_sh, qb_sh, donate=True)(
         placed, {"tokens": batches[0].to(dev)})
     met = {k: float(v) for k, v in met.items()}
     q_ms = (time.perf_counter() - t0) * 1e3
@@ -4899,7 +5025,8 @@ def _shardtrain_tp_families(dev) -> dict:
     tensor-parallel route on (2, 2) and (1, 4), each held to the unsharded
     steps by ``TP_FAM_TOLS``, the bytes a device the specs' after every
     step; and 3 tensor-parallel steps on (2, 2) with ``TP_FAM_FAULTS``,
-    which must break them. Step ms: the median of steps 2-3."""
+    which must break them. The sharded steps donate. Step ms: the median
+    of steps 2-3."""
     import numpy as np
     import torch
 
@@ -4967,7 +5094,8 @@ def _shardtrain_tp_families(dev) -> dict:
             placed = shd.place(fresh(), s_sh)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp,
+                                                 donate=True)
             log = []
             for i, b in enumerate(batches):
                 torch.cuda.synchronize()
@@ -5092,7 +5220,8 @@ def _shardprof_route(dev, cfg, model, opt, batches, s_sh, b_sh, gen, tp: bool) -
     gen.manual_seed(0)
     torch.cuda.empty_cache()
     placed = shd.place(steps.init_train_state(model, opt, gen), s_sh)
-    step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+    step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp,
+                                         donate=True)
 
     real, passes = steps.shard_value_and_grad, []
 

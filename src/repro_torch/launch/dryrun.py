@@ -32,7 +32,11 @@ with no memory and no card.
 Each record holds the status (and the error), ``lower_s`` (the meta
 run's seconds), the param counts and the analytic model FLOPs, and the
 bytes each device holds of params, optimizer state, batch and cache,
-reckoned from the specs on the full production mesh; then
+reckoned from the specs on the full production mesh;
+``alias_size_in_bytes``, the bytes a device that the step donates and
+writes in place (the reference's XLA alias size, here from the specs:
+the train state for a train shape, the cache for a decode shape, none
+for a prefill); then
 ``t_compute_s`` (model FLOPs a device over the card's bf16 peak),
 ``t_memory_s`` (a device's bytes over its HBM rate) and whether a
 device's state fits one card. Records append to ``--out`` (default
@@ -115,16 +119,20 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
     batch_specs = shd.batch_spec(batch, mesh)
     local = _local(batch, batch_specs, dp_mesh)
     out: Dict[str, Any] = {"bytes_batch": nbytes(batch, batch_specs, mesh), "bytes_opt": 0,
-                           "bytes_cache": 0}
+                           "bytes_cache": 0, "alias_size_in_bytes": 0}
     if shape.kind == "train":
         opt = adamw(1e-4)
         state = train_state_shapes(model, opt)
         params = state["params"]
         # optimizer state mirrors the params' sharding (ZeRO for free); the
         # pass is the gather route's (the tensor-parallel one is not run here)
-        out["bytes_opt"] = sum(
-            nbytes(v, shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads), mesh)
-            for v in state["opt"].values())
+        opt_specs = {k: shd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads)
+                     for k, v in state["opt"].items()}
+        out["bytes_opt"] = sum(nbytes(v, opt_specs[k], mesh) for k, v in state["opt"].items())
+        # the donating step writes the whole train state in place
+        out["alias_size_in_bytes"] = nbytes(state, {
+            "params": shd.tree_param_specs(params, mesh, n_kv_heads=cfg.n_kv_heads),
+            "opt": opt_specs, "step": shd.P()}, mesh)
         if data_shards(model, batch, batch_specs, mesh) > 1:
             shard_value_and_grad(model, params, local, row_mesh)
         else:  # the batch whole under the whole mesh, as the step runs it
@@ -145,6 +153,8 @@ def _run_combo(cfg: ArchConfig, shape: InputShape, mesh, row_mesh, dp_mesh) -> D
             cache_specs = shd.cache_spec(cache, mesh)
             out.update(cache_len=cache_len, window=window,
                        bytes_cache=nbytes(cache, cache_specs, mesh))
+            # the donating decode writes the cache in place
+            out["alias_size_in_bytes"] = out["bytes_cache"]
             # the cache placed by its specs (which may put "data" on a
             # non-batch dim, such as enc_out's width, or W at B 1): the
             # shard reads its units' boxes from the pieces

@@ -33,7 +33,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import ssm as S
 from repro_torch.models.registry import CACHE_LAYOUT, Model
 from repro_torch.optim import Optimizer, clip_by_global_norm
-from repro_torch.optim.optimizers import clip_scale
+from repro_torch.optim.optimizers import clip_leaves, clip_scale
 from repro_torch.util import use_mesh
 
 
@@ -72,21 +72,167 @@ def _apply(params: Any, updates: Any) -> Any:
     return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates)
 
 
-def make_train_step(model: Model, opt: Optimizer, *, clip_norm: float = 1.0) -> Callable:
+def make_train_step(model: Model, opt: Optimizer, *, clip_norm: float = 1.0,
+                    donate: bool = False) -> Callable:
     """One step: loss and gradients, global-norm clip, the optimizer, the
-    update added in f32 and cast back to each param's dtype."""
+    update added in f32 and cast back to each param's dtype.
+
+    With ``donate`` the step consumes its input state, as the reference's
+    ``jax.jit(..., donate_argnums=(0,))``: where jax would delete the
+    donated buffers, the step writes the new params, moments and ``step``
+    into the given tensors (each keeps its storage) and returns the given
+    state, so the caller's old values are gone. The gradients are clipped
+    leaf by leaf and each leaf is updated in boxes of its rows
+    (``_update_leaf``), so the step's peak is the state, the gradients
+    and one box's temporaries; the results are the step's without
+    ``donate`` bit for bit. Tensors of the state that share storage raise
+    ``ValueError`` before anything is written."""
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        if donate:
+            _check_donation(tree_leaves({k: state[k] for k in ("params", "opt", "step")}))
         loss, metrics, grads, params = _value_and_grad(model, state["params"], batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if donate:
+            g_leaves = tree_leaves(grads)
+            del grads, params
+            gnorm = clip_leaves(g_leaves, clip_norm)
+            _donated_update(opt, state, g_leaves)
+            return state, dict(metrics, loss=loss, grad_norm=gnorm)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         updates, opt_state = opt.update(grads, state["opt"], params, state["step"])
         del grads
         new_state = {"params": _apply(params, updates), "opt": opt_state,
                      "step": state["step"] + 1}
-        metrics = {k: v.detach() for k, v in metrics.items()}
         return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
+
+
+# ------------------------------------------------------- the donating update
+
+# the donating update takes a leaf in boxes of dim 0's rows of at most this
+# many values (a stacked leaf one layer or a few at a time), so at most one
+# box's f32 temporaries are alive
+DONATE_BOX_VALUES = 1 << 24
+
+
+def _check_donation(tensors) -> None:
+    """Raise ``ValueError`` where two donated tensors share storage (the
+    same tensor for two leaves, or views of one buffer): written in place,
+    one would overwrite the other, and jax refuses to donate one buffer
+    twice."""
+    seen = set()
+    for t in tensors:
+        store = t.untyped_storage()
+        if store.nbytes() == 0:
+            continue
+        key = (t.device, store.data_ptr())
+        if key in seen:
+            raise ValueError(f"two tensors of the donated state share storage ({t.device}, "
+                             f"{tuple(t.shape)} {t.dtype}): each leaf must own its buffer")
+        seen.add(key)
+
+
+def _row_boxes(shape, blockwise: bool) -> List[Tuple[Tuple[int, int], ...]]:
+    """The boxes the donating update takes a leaf of ``shape`` in, in turn:
+    ranges of dim 0's rows of at most ``DONATE_BOX_VALUES`` values, or one
+    row where a row holds more (a stacked leaf's layer). With
+    ``blockwise`` state each box but the last holds whole
+    ``quant.STATE_BLOCK`` blocks of the flattened leaf, so requantizing a
+    box gives the leaf's own blocks."""
+    full = _full(shape)
+    if not shape:
+        return [full]
+    row = math.prod(shape[1:])
+    n = max(1, DONATE_BOX_VALUES // max(row, 1))
+    if blockwise:
+        q = quant.STATE_BLOCK // math.gcd(row, quant.STATE_BLOCK)
+        n = max(q, n - n % q)
+    if n >= shape[0]:
+        return [full]
+    return [((r, min(r + n, shape[0])),) + full[1:] for r in range(0, shape[0], n)]
+
+
+def _state_box(name: str, box, shape) -> Tuple[Tuple[int, int], ...]:
+    """A moment's box for the param box ``box`` of a leaf of ``shape``: the
+    same box, but ``v_scale``'s (one scale a block of the flattened leaf)
+    is the blocks the box's values fill."""
+    if name != "v_scale":
+        return box
+    row = math.prod(shape[1:])
+    lo, hi = (box[0][0] * row, box[0][1] * row) if box else (0, 1)
+    return ((lo // quant.STATE_BLOCK, -(-hi // quant.STATE_BLOCK)),)
+
+
+class _Boxes:
+    """A leaf as (box, tensor) sources (a donated tensor, a ``Placed``
+    leaf's pieces, a gradient's distinct pieces), read by box on
+    ``device`` (``sharding.read_box``: a view where a source there holds
+    the box, else a copy) and written back into every source that holds
+    part of the box (gradients are only read)."""
+
+    def __init__(self, sources, device):
+        self.sources, self.device = sources, device
+
+    @classmethod
+    def whole(cls, t: torch.Tensor) -> "_Boxes":
+        return cls([(_full(t.shape), t)], t.device)
+
+    @classmethod
+    def placed(cls, leaf: shd.Placed, device) -> "_Boxes":
+        return cls([(leaf.bounds(idx), leaf.pieces[idx])
+                    for idx in np.ndindex(leaf.pieces.shape)], device)
+
+    def read(self, box) -> torch.Tensor:
+        return shd.read_box(self.sources, box, self.device)
+
+    def write(self, box, src: torch.Tensor) -> None:
+        for b, t in self.sources:
+            _copy_box(t, b, src, box)
+
+
+def _update_leaf(opt: Optimizer, step: torch.Tensor, grad, param, moments, shape) -> None:
+    """The donating update of one leaf of ``shape``, its gradient, param
+    and moments each read (and the param and moments written) through
+    ``_Boxes``, box by box (``_row_boxes``): the step's scalars from
+    ``step`` (``opt.prepare``),
+    each box's update and new moments by ``opt.leaf`` from its old values,
+    the param's ``(p + u)`` in f32 cast back as ``_apply``, all computed
+    before the box's first write, so a read that returned the storage
+    itself is not overwritten under it. Run under ``torch.no_grad()``."""
+    sc = opt.prepare(step)
+    blockwise = any(n in _BLOCKWISE_STATE for n in opt.names)
+    for box in _row_boxes(shape, blockwise):
+        m_boxes = [_state_box(n, box, shape) for n in opt.names]
+        p = param.read(box)
+        u, new = opt.leaf(sc, grad.read(box), p,
+                          tuple(m.read(b) for m, b in zip(moments, m_boxes)))
+        new_p = (p.to(torch.float32) + u).to(p.dtype)
+        del u, p
+        for m, b, t in zip(moments, m_boxes, new):
+            m.write(b, t)
+        param.write(box, new_p)
+        del new, new_p
+
+
+def _advance(step: torch.Tensor) -> None:
+    """``step`` + 1 in place, once every leaf is updated: the schedule
+    reads it in each leaf's ``opt.prepare``."""
+    step.add_(1)
+
+
+def _donated_update(opt: Optimizer, state: Dict[str, Any], g_leaves: List) -> None:
+    """The unsharded step's update written into ``state``: leaf by leaf,
+    each gradient freed once its leaf is updated, then the step."""
+    p_leaves = tree_leaves(state["params"])
+    moments = [tree_leaves(state["opt"][n]) for n in opt.names]
+    with torch.no_grad():
+        for k, p in enumerate(p_leaves):
+            _update_leaf(opt, state["step"], _Boxes.whole(g_leaves[k]), _Boxes.whole(p),
+                         [_Boxes.whole(m[k]) for m in moments], tuple(p.shape))
+            g_leaves[k] = None
+        _advance(state["step"])
 
 
 def make_quantized_train_step(
@@ -425,12 +571,15 @@ def _pieces(leaf: shd.Placed) -> Dict[Tuple, Tuple[int, ...]]:
     return out
 
 
-def _accumulate(acc: List[Dict], p_leaves, pieces, grads) -> None:
+def _accumulate(acc: List[Dict], p_leaves, pieces, grads: list) -> None:
     """Add one data shard's gradients to the f32 sums, each distinct
-    piece on its device (the reduce-scatter)."""
+    piece on its device (the reduce-scatter). ``grads`` is emptied and
+    each leaf's gradients are freed once added, so the sums grow as the
+    shard's gradients go."""
     sources: List[list] = [[] for _ in p_leaves]
     for k, box, g in grads:
         sources[k].append((box, g))
+    grads.clear()
     for k, leaf in enumerate(p_leaves):
         for b, idx in pieces[k].items():
             part = shd.read_box(sources[k], b, leaf.pieces[idx].device)
@@ -438,6 +587,8 @@ def _accumulate(acc: List[Dict], p_leaves, pieces, grads) -> None:
                 acc[k][b].add_(part)
             else:
                 acc[k][b] = part.to(dtype=torch.float32, copy=True)
+            del part
+        sources[k] = None
 
 
 def _cast(acc: List[Dict], p_leaves) -> List[Dict]:
@@ -463,11 +614,15 @@ def _clip(grads: List[Dict], clip_norm: float, dev0) -> torch.Tensor:
 
 
 def _update(opt: Optimizer, p_leaves, p_struct, opt_state, step: shd.Placed,
-            grads: List[Dict], dev0):
+            grads: List[Dict], dev0, donate: bool = False):
     """The optimizer and the update on the pieces. Element-wise state:
     ``opt.update`` on each mesh index's tree of pieces on its device.
     Blockwise state (``_BLOCKWISE_STATE``): each leaf whole on ``dev0``,
-    cut again by its sharding. Returns (param leaves, opt state)."""
+    cut again by its sharding. Returns (param leaves, opt state). With
+    ``donate`` the pieces are written in place (``_donated_pieces``) and
+    nothing is returned."""
+    if donate:
+        return _donated_pieces(opt, p_leaves, opt_state, step, grads, dev0)
     if any(name in _BLOCKWISE_STATE for name in opt_state):
         subs = {name: tree_flatten(sub) for name, sub in opt_state.items()}
         new_p, new_o = [], {name: [] for name in subs}
@@ -505,6 +660,38 @@ def _update(opt: Optimizer, p_leaves, p_struct, opt_state, step: shd.Placed,
              for a, leaf in zip(p_out, p_leaves)], tree_unflatten(o_struct, new_o))
 
 
+def _donated_pieces(opt: Optimizer, p_leaves, opt_state, step: shd.Placed, grads: List[Dict],
+                    dev0) -> None:
+    """The donating update of a placed state (``_update_leaf``), leaf by
+    leaf, each leaf's gradient sums freed once it is updated, then every
+    piece of ``step``. Element-wise state: each piece on its own device
+    from its gradient box, read only (on one card a replica's ``.to`` is
+    the sum itself, which another replica reads too). Blockwise state:
+    each box of the leaf on ``dev0`` from the pieces, written back into
+    every piece that holds part of it."""
+    moments = {n: tree_leaves(opt_state[n]) for n in opt.names}
+    blockwise = any(n in _BLOCKWISE_STATE for n in opt.names)
+    s0 = step.box((), dev0)
+    with torch.no_grad():
+        for k, leaf in enumerate(p_leaves):
+            if blockwise:
+                _update_leaf(opt, s0, _Boxes(list(grads[k].items()), dev0),
+                             _Boxes.placed(leaf, dev0),
+                             [_Boxes.placed(moments[n][k], dev0) for n in opt.names],
+                             leaf.shape)
+            else:
+                for idx in np.ndindex(leaf.pieces.shape):
+                    piece = leaf.pieces[idx]
+                    g = grads[k][leaf.bounds(idx)].to(piece.device)
+                    _update_leaf(opt, step.pieces[idx], _Boxes.whole(g), _Boxes.whole(piece),
+                                 [_Boxes.whole(moments[n][k].pieces[idx]) for n in opt.names],
+                                 tuple(piece.shape))
+                    del g
+            grads[k] = {}
+        for t in step.pieces.flat:
+            _advance(t)
+
+
 def _metrics(outs, weights, dev0) -> Dict[str, torch.Tensor]:
     """The step's metrics on ``dev0``: one shard's as they are; over
     shards ``ce`` weighted by each shard's count, the objective summed and
@@ -521,7 +708,8 @@ def _metrics(outs, weights, dev0) -> Dict[str, torch.Tensor]:
 
 
 def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch_shardings, *,
-                            clip_norm: float = 1.0, tensor_parallel: bool = False) -> Callable:
+                            clip_norm: float = 1.0, tensor_parallel: bool = False,
+                            donate: bool = False) -> Callable:
     """The port's counterpart of ``jax.jit(make_train_step(model, opt),
     in_shardings=(state_shardings, batch_shardings))``: the same step on a
     train state placed on a mesh, one process driving every device.
@@ -575,6 +763,20 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
     - Element-wise optimizer state updates piece by piece on each piece's
       device; blockwise-quantized moments (``v_q``, ``v_scale``) leaf by
       leaf whole on the first device, cut again by their sharding.
+    - With ``donate`` the step consumes its input state, as the reference's
+      ``jit(..., donate_argnums=(0,))``: every piece of the placed state
+      (the given ``Placed`` leaves; a leaf given as a tensor or placed
+      otherwise is placed first and only its new pieces are written) gets
+      its new values in place, keeping its storage, where jax would delete
+      the donated buffers, and the step returns that state: the caller's
+      old values are gone. Each leaf updates in boxes of its rows
+      (``_update_leaf``): element-wise state piece by piece on each
+      piece's device, blockwise state box by box on the first device,
+      each written back into the pieces that hold it; ``step`` last. So
+      the update holds the state, the gradients and one box's
+      temporaries, and the results are the step's without ``donate`` bit
+      for bit. Pieces that share storage raise ``ValueError`` before
+      anything is written.
 
     On a (1, 1) mesh it equals ``make_train_step`` bit for bit, and on a
     mesh without a model axis (or one of size 1) the two routes are the
@@ -587,6 +789,8 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         state = _placed({k: state[k] for k in ("params", "opt", "step")},
                         {k: state_shardings[k] for k in ("params", "opt", "step")})
+        if donate:
+            _check_donation([p for leaf in tree_leaves(state) for p in leaf.pieces.flat])
         batch = _placed(batch, batch_shardings)
         p_leaves, p_struct = tree_flatten(state["params"])
         pieces = [_pieces(leaf) for leaf in p_leaves]
@@ -607,6 +811,10 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
             del grads
         grads = _cast(acc, p_leaves)
         gnorm = _clip(grads, clip_norm, dev0)
+        metrics = dict(_metrics(outs, weights, dev0), grad_norm=gnorm)
+        if donate:
+            _update(opt, p_leaves, p_struct, state["opt"], state["step"], grads, dev0, donate)
+            return state, metrics
         new_p, new_o = _update(opt, p_leaves, p_struct, state["opt"], state["step"], grads,
                                dev0)
         del grads
@@ -616,7 +824,7 @@ def make_sharded_train_step(model: Model, opt: Optimizer, state_shardings, batch
             after[idx] = step.pieces[idx] + 1
         new_state = {"params": tree_unflatten(p_struct, new_p), "opt": new_o,
                      "step": shd.Placed(after, step.sharding, step.shape, step.dtype)}
-        return new_state, dict(_metrics(outs, weights, dev0), grad_norm=gnorm)
+        return new_state, metrics
 
     return train_step
 

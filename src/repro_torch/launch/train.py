@@ -7,7 +7,8 @@ CPU usage (reduced config, real steps):
 Without ``--device`` it trains on the CUDA card (and raises without one).
 Markov tokens (``data/lm.py``) feed ``make_train_step`` (``lm_loss``,
 autograd, global-norm clip at 1.0, AdamW on a linear-warmup cosine
-schedule); ``--ckpt-dir`` saves the train state every ``--ckpt-every``
+schedule), donating: each step writes the train state in place, as the
+reference jits its step with ``donate_argnums=(0,)``; ``--ckpt-dir`` saves the train state every ``--ckpt-every``
 steps and resumes from the latest file. As in the reference, a resumed
 run restarts the token stream at its first batch, a vlm model gets 8
 zero patch embeddings ahead of every batch's tokens, and an audio model
@@ -72,7 +73,7 @@ def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], List[Dict[str, float]
     state = init_train_state(model, opt, gen)
     print(f"arch={cfg.name} params={count_params(state['params']):,}")
 
-    step_fn = make_train_step(model, opt)
+    step_fn = make_train_step(model, opt, donate=True)  # the reference's donate_argnums=(0,)
     data = token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None

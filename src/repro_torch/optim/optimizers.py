@@ -19,15 +19,16 @@ divides.
 With ``quantize=True`` the moments are stored compressed: the first in
 bf16, Adam's second blockwise-int8 in the sqrt domain
 (``core/quant.quantize_state``) with a half-step floor on the update's
-denominator (see ``_adam_impl``). Updates are computed leaf by leaf, so
-at most one leaf's f32 temporaries are alive at a time.
+denominator (see ``_adam_impl``). Updates are computed leaf by leaf
+(``Optimizer.leaf``), so at most one leaf's f32 temporaries are alive at
+a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -41,8 +42,37 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    """``update`` is ``leaf`` mapped over the tree: ``prepare(step)`` the
+    step's scalars (the schedule's rate, Adam's bias corrections),
+    ``leaf(scalars, g, p, moments)`` one leaf's f32 update and its new
+    moments, ``moments`` the leaf's entries of the state in ``names``'
+    order. ``leaf`` is element-wise, so a slice of a leaf gets the same
+    bits as the leaf whole (the blockwise ``v_q``/``v_scale`` on whole
+    ``quant.STATE_BLOCK`` blocks): the donating train step updates its
+    state a slice at a time with it (``launch/steps``)."""
+
     init: Callable[[Tree], Tree]
     update: Callable[..., Tuple[Tree, Tree]]  # (grads, state, params, step)
+    prepare: Callable[[Any], Any]
+    leaf: Callable[..., Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]]
+    names: Tuple[str, ...] = ()
+
+
+def _leafwise(init, prepare, leaf, names: Tuple[str, ...] = ()) -> Optimizer:
+    """The ``Optimizer`` whose ``update`` maps ``leaf`` over the leaves,
+    the step's scalars computed once."""
+
+    def update(grads, state, params, step):
+        sc = prepare(step)
+        g_leaves, structure = tree_flatten(grads)
+        prev = (zip(*(tree_leaves(state[n]) for n in names)) if names
+                else [()] * len(g_leaves))
+        outs = [leaf(sc, g, p, pv) for g, p, pv in zip(g_leaves, tree_leaves(params), prev)]
+        updates = tree_unflatten(structure, [u for u, _ in outs])
+        return updates, {n: tree_unflatten(structure, [new[i] for _, new in outs])
+                         for i, n in enumerate(names)}
+
+    return Optimizer(init, update, prepare, leaf, names)
 
 
 # ---------------------------------------------------------------- schedules
@@ -84,10 +114,25 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp_max(_f32(max_norm, norm) / torch.clamp_min(norm, 1e-12), 1.0)
 
 
+def _global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum((g.to(torch.float32).square().sum() for g in leaves)))
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    norm = torch.sqrt(sum((g.to(torch.float32).square().sum() for g in tree_leaves(grads))))
+    norm = _global_norm(tree_leaves(grads))
     scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+
+
+def clip_leaves(leaves: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``clip_by_global_norm`` on a list of gradients, each entry replaced
+    by its scaled copy in turn (one leaf's copy alive beside the list);
+    returns the norm."""
+    norm = _global_norm(leaves)
+    scale = clip_scale(norm, max_norm)
+    for k, g in enumerate(leaves):
+        leaves[k] = (g.to(torch.float32) * scale).to(g.dtype)
+    return norm
 
 
 def state_nbytes(state: Tree) -> int:
@@ -110,11 +155,10 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return {}
 
-    def update(grads, state, params, step):
-        lr_t = sched(step)
-        return tree_map(lambda g: -lr_t * g.to(torch.float32), grads), state
+    def leaf(lr_t, g, p, moments):
+        return -lr_t * g.to(torch.float32), ()
 
-    return Optimizer(init, update)
+    return _leafwise(init, sched, leaf)
 
 
 def momentum(lr, beta: float = 0.9, *, quantize: bool = False) -> Optimizer:
@@ -125,14 +169,11 @@ def momentum(lr, beta: float = 0.9, *, quantize: bool = False) -> Optimizer:
     def init(params):
         return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=store_dtype), params)}
 
-    def update(grads, state, params, step):
-        lr_t = sched(step)
-        m = tree_map(lambda m_, g: beta * m_.to(torch.float32) + g.to(torch.float32),
-                     state["m"], grads)
-        updates = tree_map(lambda m_: -lr_t * m_, m)
-        return updates, {"m": tree_map(lambda m_: m_.to(store_dtype), m)}
+    def leaf(lr_t, g, p, moments):
+        m = beta * moments[0].to(torch.float32) + g.to(torch.float32)
+        return -lr_t * m, (m.to(store_dtype),)
 
-    return Optimizer(init, update)
+    return _leafwise(init, sched, leaf, ("m",))
 
 
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
@@ -168,45 +209,35 @@ def _adam_impl(lr, b1, b2, eps, weight_decay, quantize: bool = False) -> Optimiz
                 "v_q": tree_unflatten(structure, [q for q, _ in pairs]),
                 "v_scale": tree_unflatten(structure, [s for _, s in pairs])}
 
-    def update(grads, state, params, step):
+    def prepare(step):
         t = step.to(torch.float32) + 1.0
         lr_t = sched(step)
         c1 = 1 - b1**t
         c2 = 1 - b2**t
-        bc2 = torch.sqrt(c2)
-        g_leaves, structure = tree_flatten(grads)
-        p_leaves = tree_leaves(params)
-        if quantize:
-            prev = zip(tree_leaves(state["m"]), tree_leaves(state["v_q"]),
-                       tree_leaves(state["v_scale"]))
-        else:
-            prev = zip(tree_leaves(state["m"]), tree_leaves(state["v"]))
-        outs = []
-        for g, p, pv in zip(g_leaves, p_leaves, prev):
-            g = g.to(torch.float32)
-            if quantize:
-                m_prev = pv[0].to(torch.float32)
-                v_prev = quant.dequantize_state(pv[1], pv[2]).square()
-            else:
-                m_prev, v_prev = pv
-            m = b1 * m_prev + (1 - b1) * g
-            v = b2 * v_prev + (1 - b2) * g.square()
-            mh = m / c1
-            if quantize:
-                r = torch.sqrt(v)
-                v_q, v_scale = quant.quantize_state(r)
-                denom = torch.maximum(r, _grid_half_step(v_scale, r)) / bc2 + eps
-                new = (m.to(torch.bfloat16), v_q, v_scale)
-            else:
-                denom = torch.sqrt(v / c2) + eps
-                new = (m, v)
-            u = -lr_t * mh / denom
-            if weight_decay:
-                u = u - lr_t * weight_decay * p.to(torch.float32)
-            outs.append((u, new))
-        updates = tree_unflatten(structure, [u for u, _ in outs])
-        names = ("m", "v_q", "v_scale") if quantize else ("m", "v")
-        return updates, {name: tree_unflatten(structure, [new[i] for _, new in outs])
-                         for i, name in enumerate(names)}
+        return lr_t, c1, c2, torch.sqrt(c2)
 
-    return Optimizer(init, update)
+    def leaf(sc, g, p, pv):
+        lr_t, c1, c2, bc2 = sc
+        g = g.to(torch.float32)
+        if quantize:
+            m_prev = pv[0].to(torch.float32)
+            v_prev = quant.dequantize_state(pv[1], pv[2]).square()
+        else:
+            m_prev, v_prev = pv
+        m = b1 * m_prev + (1 - b1) * g
+        v = b2 * v_prev + (1 - b2) * g.square()
+        mh = m / c1
+        if quantize:
+            r = torch.sqrt(v)
+            v_q, v_scale = quant.quantize_state(r)
+            denom = torch.maximum(r, _grid_half_step(v_scale, r)) / bc2 + eps
+            new = (m.to(torch.bfloat16), v_q, v_scale)
+        else:
+            denom = torch.sqrt(v / c2) + eps
+            new = (m, v)
+        u = -lr_t * mh / denom
+        if weight_decay:
+            u = u - lr_t * weight_decay * p.to(torch.float32)
+        return u, new
+
+    return _leafwise(init, prepare, leaf, ("m", "v_q", "v_scale") if quantize else ("m", "v"))

@@ -1136,6 +1136,56 @@ class TestShardTrain:
         else:
             assert not spans
 
+    @pytest.mark.parametrize("tp", [False, True], ids=["gather", "tensorparallel"])
+    def test_shardtrain_donated_bit_for_bit_on_one_card(self, dev, tp):
+        """The donating step (``donate=True``) on a (2, 2) mesh of four
+        shards of one card, two steps of stablelm reduced (f32, remat)
+        with f32 and quantized AdamW moments: every piece and metric bit
+        for bit the step without donation, every piece where it was; and
+        the unsharded donating step likewise."""
+        from repro_torch.core.tree import tree_leaves, tree_map
+        from repro_torch.launch.steps import init_train_state, make_train_step
+        from repro_torch.models.registry import build_model
+        from repro_torch.optim import adamw
+
+        cfg = get_arch("stablelm-1.6b").reduced().with_(remat=True)
+        model = build_model(cfg)
+        rng = np.random.RandomState(0)
+        batches = [{"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 64)),
+                                              dtype=torch.int32, device=dev)} for _ in range(2)]
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+
+        def same(a, b):
+            return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                      b.reshape(-1).view(torch.uint8))
+
+        for quant in (False, True):
+            opt = adamw(1e-3, quantize=quant)
+            state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+            specs, s_sh, b_sh, steps = self._shardings(cfg, state, batches[0], mesh)
+            plain = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+            donating = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp,
+                                                     donate=True)
+            want, got = shd.place(state, s_sh), shd.place(state, s_sh)
+            ptrs = [p.data_ptr() for leaf in tree_leaves(got) for p in leaf.pieces.flat]
+            for b in batches:
+                want, want_m = plain(want, b)
+                got, got_m = donating(got, b)
+            assert [p.data_ptr() for leaf in tree_leaves(got) for p in leaf.pieces.flat] == ptrs
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                assert all(same(p, q) for p, q in zip(a.pieces.flat, b.pieces.flat))
+            assert all(same(got_m[k], want_m[k]) for k in want_m)
+            if tp:
+                continue
+            want, got = state, tree_map(lambda t: t.clone(), state)
+            ptrs = [t.data_ptr() for t in tree_leaves(got)]
+            for b in batches:
+                want, want_m = make_train_step(model, opt)(want, b)
+                got, got_m = make_train_step(model, opt, donate=True)(got, b)
+            assert [t.data_ptr() for t in tree_leaves(got)] == ptrs
+            assert all(same(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+            assert all(same(got_m[k], want_m[k]) for k in want_m)
+
     @staticmethod
     def _zeros(shapes, shardings):
         """Zero pieces of each leaf, made on their devices (a placed moment
@@ -1152,10 +1202,10 @@ class TestShardTrain:
     def test_sharded_train_step_across_cards(self):
         """qwen3-8b at full width and depth on a (2, 2) mesh of four distinct
         cards: 16.4 GB of bf16 params and 65.5 GB of f32 AdamW moments, more
-        than one card holds. Two steps; the first's loss and grad norm held
-        to the unsharded forward and backward on card 0 (params and
-        gradients fit there, the moments do not); each card's bytes the
-        specs'."""
+        than one card holds. Two donating steps; the first's loss and grad
+        norm held to the unsharded forward and backward on card 0 (params
+        and gradients fit there, the moments do not); each card's bytes the
+        specs' and each card's peak over both steps printed."""
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n < 4:
             pytest.skip("needs four CUDA devices")
@@ -1188,7 +1238,11 @@ class TestShardTrain:
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        step = steps.make_sharded_train_step(model, opt, s_sh, b_sh)
+        step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, donate=True)
+        if dev.type == "cuda":
+            for d in devices:
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
         state, met = step(state, batches[0])
         rel = {k: abs(float(met[k]) - want) / abs(want)
                for k, want in (("loss", loss_u), ("grad_norm", gnorm_u))}
@@ -1204,8 +1258,9 @@ class TestShardTrain:
         assert (shd.device_nbytes(state) == want_dev).all()
         if dev.type == "cuda":  # each card holds at least its pieces
             held = [torch.cuda.memory_allocated(d) for d in devices]
+            peaks = [torch.cuda.max_memory_allocated(d) for d in devices]
             print(f"step 2: loss {float(met['loss'])!r}; {want_dev} B of pieces a card, the "
-                  f"allocator holds {held}")
+                  f"allocator holds {held}; each card's peak over both donating steps {peaks} B")
             assert all(h >= want_dev for h in held)
         return met
 
@@ -1275,14 +1330,22 @@ class TestTensorParallel:
         assert len(spans) == dims[0] * cfg.n_layers * kinds * 2  # forward + remat's recompute
         assert all(s["mp"] == dims[1] for s in spans)
 
+    # each card's peak over two steps of qwen3-8b on (1, 4) that the
+    # donating step must stay under: every card on the tensor-parallel route,
+    # cards 1-3 on the gather route (card 0 computes the whole model there);
+    # the step without donation peaked at 56.41-56.44 GB on every card (four
+    # NVIDIA H100 80GB HBM3 at 700 W)
+    DONATED_PEAK = 32e9
+
     def test_tensor_parallel_step_across_cards(self):
         """qwen3-8b at full width and depth (36 layers, d 4,096, 32 heads,
         8 kv heads, d_ff 12,288, vocab 151,936) on a (1, 4) mesh of four
-        distinct cards, two steps each route from the same params: step
-        1's loss and grad norm held to the unsharded forward and backward
-        on card 0; each card's peak (after step 1's forward and backward,
-        and over both steps) and each step's ms printed for both routes
-        (step 1 also warms the cards up)."""
+        distinct cards, two donating steps each route from the same params:
+        step 1's loss and grad norm held to the unsharded forward and
+        backward on card 0; each card's peak (after step 1's forward and
+        backward, and over both steps) and each step's ms printed for both
+        routes (step 1 also warms the cards up); the peaks over both steps
+        under ``DONATED_PEAK``."""
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n < 4:
             pytest.skip("needs four CUDA devices")
@@ -1334,7 +1397,8 @@ class TestTensorParallel:
                 fb_peaks.append([torch.cuda.max_memory_allocated(d) for d in devices])
                 return res
 
-            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp)
+            step = steps.make_sharded_train_step(model, opt, s_sh, b_sh, tensor_parallel=tp,
+                                                 donate=True)
             steps._forward_backward = fb
             try:
                 for b in batches:
@@ -1363,6 +1427,8 @@ class TestTensorParallel:
             assert all(out[tp]["rel"][k] <= TestShardTrain.BF16[k] for k in out[tp]["rel"]), out
         # the gather route reads every leaf whole onto card 0; blocks stay on their cards
         assert out[True]["fb_peak"][0] < out[False]["fb_peak"][0]
+        assert max(out[True]["peak"]) <= self.DONATED_PEAK, out[True]["peak"]
+        assert max(out[False]["peak"][1:]) <= self.DONATED_PEAK, out[False]["peak"]
 
 
 class TestTensorParallelServe:

@@ -330,8 +330,19 @@ def test_dryrun_one_runs_on_meta_tensors(arch, shape):
     assert rec["fits_card"] == (rec["bytes_per_device"] <= tmesh.CARD_HBM_BYTES)
     if shape == "train_4k":
         assert rec["bytes_opt"] > 0 and rec["bytes_cache"] == 0
+        # the donated train state: params, moments and step, by the specs
+        model = tbuild(cfg)
+        state = tsteps.train_state_shapes(model, tadamw(1e-4))
+        mesh = tmesh.make_mesh((16, 16), ("data", "model"), devices=["meta"] * 256)
+        specs = {"params": tshd.tree_param_specs(state["params"], mesh,
+                                                 n_kv_heads=cfg.n_kv_heads),
+                 "opt": {k: tshd.tree_param_specs(v, mesh, n_kv_heads=cfg.n_kv_heads)
+                         for k, v in state["opt"].items()}, "step": tshd.P()}
+        assert rec["alias_size_in_bytes"] == tshd.tree_spec_nbytes(state, specs, mesh) == (
+            rec["bytes_params"] + rec["bytes_opt"] + 4)
     else:
         assert rec["bytes_cache"] > 0 and "cache_len" in rec
+        assert rec["alias_size_in_bytes"] == rec["bytes_cache"]
 
 
 def test_dryrun_cli_appends_records(tmp_path):

@@ -308,11 +308,12 @@ def test_train_steps_feed_the_reference_frames():
     seen = []
     make = ttrain.make_train_step
 
-    def recording(model, opt):
-        step = make(model, opt)
+    def recording(model, opt, **kw):
+        step = make(model, opt, **kw)
 
         def wrapped(state, batch):
-            seen.append((convert.params_to_numpy(state["params"]),
+            # copies: launch.train's step donates the state it is given
+            seen.append((jax.tree.map(np.copy, convert.params_to_numpy(state["params"])),
                          {k: v.numpy().copy() for k, v in batch.items()}))
             return step(state, batch)
 
