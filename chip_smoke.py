@@ -162,7 +162,7 @@ Phases, each of which fails the run on error:
              params freed), bf16, random weights from a seed,
              ``use_flash_kernel``: kimi-k2-1t-a32b at 1 of 61 layers
              (19,378,623,488 params: 384 experts of 2,048, top 8, 64/8 heads
-             of 112 on the mma.sync flash route), arctic-480b at 2 of 35
+             of 112 on the Hopper flash route), arctic-480b at 2 of 35
              (27,681,131,520: 128 experts of 4,864, top 2, a dense residual
              MLP, 56/8 heads of 128), and at full depth qwen2-vl-2b
              (1,779,447,296: M-RoPE, 8 zero patch embeddings ahead of the
@@ -170,7 +170,7 @@ Phases, each of which fails the run on error:
              64 Mamba-1 layers, d_inner 8,192, state 16, no attention) and
              zamba2-2.7b (2,435,777,440: 54 Mamba-2 layers of 80 SSD heads
              of 64, state 64, and one shared attention + MLP block, 32/32
-             heads of 80 on the mma.sync route, after every 6 of them) and
+             heads of 80 on the Hopper route, after every 6 of them) and
              whisper-tiny (61,221,888: 4 encoder layers over 1,500 frames
              of 384 a request, drawn after the prompts, and 4 decoder
              layers, 6/6 heads of 64 on the Hopper flash route, sinusoidal
@@ -272,7 +272,9 @@ bf16), a ragged S = 2,000, StableLM-1.6B's widths (MHA, D 64), two f32
 cases, and the other configs' widths and masks (zamba2-2.7b D 80,
 kimi-k2-1t-a32b 64/8 heads of 112, Qwen3-8B non-causal, whisper-tiny's
 encoder keys cut to a tile-aligned 1,536, causal Sq > Sk, f32 D 32, a
-zero-padded D 40), the families phase's prefills at B 4, S 2,048
+zero-padded D 40; the part-filled column blocks at D 32 and 96, at
+zero-padded D 24 and 90, and kimi-k2's and zamba2's widths ragged,
+non-causal and at Sq > Sk), the families phase's prefills at B 4, S 2,048
 (kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128,
 zamba2 32/32 of 80, whisper-tiny's decoder 6/6 of 64),
 element by element and by the share of elements that
@@ -288,7 +290,9 @@ the card's name and power limit (``nvidia-smi``), and last the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or outside the repository, it exits non-zero and prints
 no result. ``--phases build,kernels`` (or ``build,ops``) runs only the named
-phases (no result lines). ``--phases build,rows`` reads rows 1-3 at the
+phases (no result lines); ``--phases build,flash`` (left out of a full
+run, which runs the same check in ``kernels``) the flash cases alone,
+timed, the way to compare trees in turns. ``--phases build,rows`` reads rows 1-3 at the
 barrier round's shapes on seeded data without training (``phase_rows``):
 seconds a tree, to compare two trees in one call. ``--phases
 build,trainprof`` profiles one full-width training step (``phase_trainprof``:
@@ -482,8 +486,12 @@ def _kernel_label(mangled: str) -> str:
 def phase_build():
     """Build every source; print nvcc's seconds and ptxas's report, each
     flash_attention kernel by name. A flash_fwd_hopper instantiation with a
-    stack frame or spills fails the run."""
+    stack frame or spills fails the run, and so does a width the route table
+    sends to flash_fwd_hopper that ptxas did not report."""
+    import torch
+
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
 
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
@@ -505,16 +513,21 @@ def phase_build():
             continue
         if name == "flash_attention":
             funcs = ptxas_report(log)
+            labels = set()
             for fn, r in funcs.items():
                 label = _kernel_label(fn)
+                labels.add(label)
                 print(f"    {label}: {r.get('registers')} registers, {r.get('stack')} bytes "
                       f"stack frame, spill stores/loads {r.get('spill_stores')}/"
                       f"{r.get('spill_loads')}")
                 if "flash_fwd_hopper" in fn and (r.get("stack") != 0 or r.get("spill_stores")
                                                  or r.get("spill_loads")):
                     _fail(f"{label} has a stack frame or spills: {r}")
-            if not any("flash_fwd_hopper" in fn for fn in funcs):
-                _fail("ptxas reported no flash_fwd_hopper instantiation")
+            want = {f"flash_fwd_hopper<{D}>" for D in kfa.HEAD_DIMS
+                    if kfa.kernel_design(torch.bfloat16, D) == "flash_fwd_hopper"}
+            if not want or want - labels:
+                _fail(f"ptxas reported no {sorted(want - labels) or 'flash_fwd_hopper'} "
+                      "instantiation")
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -774,6 +787,16 @@ FLASH_CASES = (
     ("Sq > Sk", 2, 4096, 2048, 32, 8, 128, True, "bfloat16"),
     ("f32 d32", 1, 256, 256, 4, 2, 32, True, "float32"),
     ("d40 zero-padded to 64", 1, 256, 384, 4, 2, 40, False, "bfloat16"),
+    # the widths whose last column block is part-filled (TMA's zeros past
+    # D): D 32 and 96, and one zero-padded width each, then kimi-k2's D 112
+    # and zamba2's D 80 ragged, non-causal and at Sq > Sk
+    ("d32", 2, 2048, 2048, 16, 4, 32, True, "bfloat16"),
+    ("d96", 2, 2048, 2048, 16, 4, 96, True, "bfloat16"),
+    ("d24 zero-padded to 32", 1, 512, 512, 8, 2, 24, True, "bfloat16"),
+    ("d90 zero-padded to 96", 1, 512, 512, 8, 2, 90, True, "bfloat16"),
+    ("kimi-k2-1t-a32b ragged", 1, 2000, 2000, 64, 8, 112, True, "bfloat16"),
+    ("zamba2-2.7b non-causal", 2, 512, 1536, 32, 32, 80, False, "bfloat16"),
+    ("kimi-k2-1t-a32b Sq > Sk", 1, 2048, 1024, 64, 8, 112, True, "bfloat16"),
 )
 OPS_FLASH_CASES = FLASH_CASES[5:]
 FAMILY_FLASH_CASES = (
@@ -5461,8 +5484,8 @@ def _leaf_names(tree, prefix=""):
 
 
 # a full run's phases; ``--phases`` may also name ``rows`` (phase_rows),
-# ``trainprof`` (phase_trainprof) and ``shardprof`` (phase_shardprof), which a
-# full run leaves out
+# ``flash`` (check_flash alone), ``trainprof`` (phase_trainprof) and
+# ``shardprof`` (phase_shardprof), which a full run leaves out
 PHASES = ("build", "kernels", "rounds", "state", "mesh", "flat", "stream", "ops", "host",
           "serve", "families", "zoo", "train", "shardtrain")
 
@@ -5486,6 +5509,8 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build()
     errs = {}
+    if "flash" in phases:
+        check_flash(dev, timing=True)
     if "kernels" in phases:
         M = _ds2_layout_size(dev)
         errs.update(check_ota(M, dev, timing=True))

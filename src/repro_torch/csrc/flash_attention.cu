@@ -1,7 +1,6 @@
 // Flash attention forward, causal (top-left) or not, Sq != Sk allowed, in
-// three kernels: bf16 at the serving widths D 64 and 128 on Hopper's
-// wgmma (flash_fwd_hopper), bf16 at the other widths on mma.sync
-// (flash_fwd_bf16), f32 on scalar FMAs (flash_fwd_f32).
+// two kernels: bf16 on Hopper's wgmma (flash_fwd_hopper, every width), f32
+// on scalar FMAs (flash_fwd_f32).
 //
 // Replaces the TPU kernel flash_attention (src/repro/kernels/
 // flash_attention.py:87, reached through ops.flash_mha). That kernel walks a
@@ -39,35 +38,37 @@
 // (design(), mirrored by kernels/flash_attention.kernel_design): a route,
 // never a fallback.
 //
-// flash_fwd_hopper (bf16, D 64 / 128): 384 threads, 128 query rows per
-// CTA. Warpgroup 0 is the producer (setmaxnreg down to 24): one thread
-// issues TMA loads, Q once and K / V tiles into a two-stage ring with a
-// full and an empty mbarrier per stage. Warpgroups 1 and 2 are consumers
-// (setmaxnreg up to 240) of 64 rows each (wgmma's M); they run independently,
-// so one's softmax overlaps the other's products. The tensor maps are rank
-// 4, (D, heads, S, B) over the (B, S, heads, D) strides, encoded per launch
-// through libcuda's entry point (the build links only the runtime): rows
-// past S are zero-filled per batch, never read from the next batch. Tiles
-// land in the 128-byte swizzled layout (D / 64 column blocks of rows x 128
-// bytes, 16-byte chunk c of row r at c ^ (r & 7); bases 1,024-byte aligned;
-// 160 KB at D 128). S = Q K^T is wgmma.m64n128k16 with both operands
-// K-major from shared memory (SW128 descriptors; the start address moves
-// 32 bytes a k16 step inside an atom, a whole column block after four); its
-// accumulator is the m16n8 C layout per warp, so the softmax works on it in
-// place. p is rounded to bf16 into the m16n8k16 A layout in registers and
-// O += P V is wgmma.m64n{D}k16 with A from registers and V from shared
-// memory, MN-major (keys x D with D contiguous: transposed B, leading byte
-// offset = one column block, stride byte offset = 8 rows). Per consumer
-// thread: 64 f32 scores, 32 packed p, D / 2 f32 output accumulators.
-// Register fences keep the compiler from touching accumulators between an
-// async wgmma and its wait. The softmax runs in base 2: scores scaled by
-// scale * log2 e, p = exp2f(x - m), corr = exp2f(m - m') (the other two
-// kernels use expf); the element and share limits hold unchanged.
-//
-// flash_fwd_bf16 (bf16, D 32 / 80 / 96 / 112): 4 warps, 64 query rows per
-// CTA. Q, one K tile and one V tile in shared memory (row pitch D + 8:
-// conflict-free ldmatrix), cp.async; S = Q K^T and O += P V are
-// mma.sync.m16n8k16 through ldmatrix.
+// flash_fwd_hopper (bf16, every D): 384 threads, 128 query rows per CTA.
+// Warpgroup 0 is the producer (setmaxnreg down to 24): one thread issues
+// TMA loads, Q once and K / V tiles into a two-stage ring with a full and
+// an empty mbarrier per stage. Warpgroups 1 and 2 are consumers (setmaxnreg
+// up to 240) of 64 rows each (wgmma's M); they run independently, so one's
+// softmax overlaps the other's products. The tensor maps are rank 4, (D,
+// heads, S, B) over the (B, S, heads, D) strides at the true D, encoded
+// per launch through libcuda's entry point (the build links only the
+// runtime): rows past S are zero-filled per batch, never read from the next
+// batch. Tiles land in the 128-byte swizzled layout: ceil(D / 64) column
+// blocks of rows x 128 bytes, 16-byte chunk c of row r at c ^ (r & 7),
+// bases 1,024-byte aligned. Where D is not a multiple of 64 (32, 80, 96,
+// 112) the last block is part-filled: its boxes are still 64 columns wide,
+// TMA writes zeros past D, and the barriers expect the whole boxes' bytes,
+// as they do for rows past S; no padding copy is made. Shared memory is 160
+// KB at D 80 to 128, 80 KB at D 32 and 64. S = Q K^T is D / 16 k16 steps of
+// wgmma.m64n128k16 with both operands K-major from shared memory (SW128
+// descriptors; the start address moves 32 bytes a step inside a block, a
+// whole block after four), so only real columns enter it; its accumulator
+// is the m16n8 C layout per warp, so the softmax works on it in place. p is
+// rounded to bf16 into the m16n8k16 A layout in registers and O += P V is
+// wgmma.m64n{D}k16 at the true width with A from registers and V from
+// shared memory, MN-major (keys x D with D contiguous: transposed B,
+// leading byte offset = one column block, stride byte offset = 8 rows); at
+// D 80 and 112 it reads the part-filled block's first 16 or 48 columns.
+// Per consumer thread: 64 f32 scores, 32 packed p, D / 2 f32 output
+// accumulators. Register fences keep the compiler from touching
+// accumulators between an async wgmma and its wait. The softmax runs in
+// base 2: scores scaled by scale * log2 e, p = exp2f(x - m), corr =
+// exp2f(m - m') (the f32 kernel uses expf); the element and share limits
+// hold unchanged.
 //
 // flash_fwd_f32: 128 threads, 32 query rows per CTA, 4 threads per row; each
 // thread scores 32 of the tile's 128 keys with scalar fmaf (no TF32), the
@@ -95,243 +96,9 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 128;  // keys per tile
 
-// ------------------------------------------- bf16, mma.sync (D 32 / 80 / 96 / 112)
-
-constexpr int BQ16 = 64;
-constexpr int THREADS16 = 128;
-
-template <int D>
-struct Tile16 {
-  static constexpr int PITCH = D + 8;  // bf16 per shared row
-  static constexpr size_t BYTES = (size_t)(BQ16 + 2 * BK) * PITCH * sizeof(__nv_bfloat16);
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                          const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a)
-               : "memory");
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// R rows of D bf16 from rows r0.. of a (row stride `stride`) into shared
-// memory; rows >= S are zero-filled.
-template <int D, int R>
-__device__ __forceinline__ void load_tile16(__nv_bfloat16* sm, const __nv_bfloat16* g,
-                                            long long stride, int r0, int S) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int PITCH = Tile16<D>::PITCH;
-#pragma unroll
-  for (int c = threadIdx.x; c < R * CPR; c += THREADS16) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int row = r0 + r;
-    const bool ok = row < S;
-    const __nv_bfloat16* src = ok ? g + (long long)row * stride + col : g;
-    cp_async16(sm + r * PITCH + col, src, ok ? 16 : 0);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS16)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-                   int Sk, int H, int KV, int causal, float scale) {
-  constexpr int PITCH = Tile16<D>::PITCH;
-  constexpr int NS = BK / 8;  // score n-tiles per warp row block
-  constexpr int NO = D / 8;   // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ16 * PITCH;
-  __nv_bfloat16* Vs = Ks + BK * PITCH;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ16;  // longest rows first
-  const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-  const __nv_bfloat16* qg = q + ((long long)b * Sq * H + h) * D;
-  const __nv_bfloat16* kg = k + ((long long)b * Sk * KV + kvh) * D;
-  const __nv_bfloat16* vg = v + ((long long)b * Sk * KV + kvh) * D;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int last_row = min(q0 + BQ16, Sq) - 1;
-  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
-
-  load_tile16<D, BQ16>(Qs, qg, qstride, q0, Sq);
-  load_tile16<D, BK>(Ks, kg, kstride, 0, Sk);
-  cp_async_commit();
-  load_tile16<D, BK>(Vs, vg, kstride, 0, Sk);
-  cp_async_commit();
-
-  // ldmatrix row addresses (lane -> row of one of the four 8x8 matrices)
-  const __nv_bfloat16* q_ld =
-      Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 8;
-  const __nv_bfloat16* k_ld = Ks + ((lane & 7) + (lane >> 4) * 8) * PITCH + ((lane >> 3) & 1) * 8;
-  const __nv_bfloat16* v_ld = Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 8;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  }
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<1>();  // Q and this K tile have landed
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldsm_x4(a0, a1, a2, a3, q_ld + kk * 16);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3, k_ld + np * 16 * PITCH + kk * 16);
-        mma16816(s[2 * np], a0, a1, a2, a3, b0, b1);
-        mma16816(s[2 * np + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-    __syncthreads();  // every warp is done with this K tile
-    const bool more = kt + 1 < n_kt;
-    if (more) {
-      load_tile16<D, BK>(Ks, kg, kstride, (kt + 1) * BK, Sk);
-      cp_async_commit();
-    }
-
-    // scale, mask, online softmax
-    const int key0 = kt * BK;
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = key0 + n * 8 + 2 * t + (c & 1);
-        const int row = row0 + (c >> 1) * 8;
-        const float x = s[n][c] * scale;
-        s[n][c] = (key < Sk && (!causal || key <= row)) ? x : NEG_INF;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
-      }
-    }
-    float rs[2] = {0.f, 0.f}, corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = expf(m_run[r] - mx[r]);
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[n][c] = expf(s[n][c] - mx[c >> 1]);
-        rs[c >> 1] += s[n][c];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * corr[r] + rs[r];
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] *= corr[c >> 1];
-    }
-
-    if (more) {
-      cp_async_wait<1>();  // this V tile has landed (the next K may be in flight)
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3, v_ld + kk * 16 * PITCH + dp * 16);
-        mma16816(acc[2 * dp], a0, a1, a2, a3, b0, b1);
-        mma16816(acc[2 * dp + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-    __syncthreads();  // every warp is done with this V tile
-    if (more) {
-      load_tile16<D, BK>(Vs, vg, kstride, (kt + 1) * BK, Sk);
-      cp_async_commit();
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row < Sq) {
-      const float den = fmaxf(l_run[r], 1e-30f);
-      __nv_bfloat16* og = o + (((long long)b * Sq + row) * H + h) * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        *reinterpret_cast<uint32_t*>(og + n * 8) =
-            pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------------------- f32
@@ -475,7 +242,7 @@ __global__ void __launch_bounds__(THREADS32)
   }
 }
 
-// ------------------------------------------------- bf16 on Hopper, D 64 / 128
+// ------------------------------------------------------------ bf16 on Hopper
 
 constexpr int BQH = 128;  // query rows per CTA: two consumer warpgroups of 64 (wgmma's M)
 
@@ -499,15 +266,18 @@ __device__ __forceinline__ void wgmma_wait0() {
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
+// the accumulator operands of a wgmma: WG_F<n>(i) binds d[i] .. d[i + n - 1],
+// WG_D<n> names the first n operands %0 .. %(n - 1)
 #define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WG_F16(i) WG_F4(i), WG_F4(i + 4), WG_F4(i + 8), WG_F4(i + 12)
-#define WG_D32                                                                              \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_D64                                                                              \
-  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "   \
-         "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
-         "%63"
+#define WG_F8(i) WG_F4(i), WG_F4(i + 4)
+#define WG_F16(i) WG_F8(i), WG_F8(i + 8)
+#define WG_D16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_D32 \
+  WG_D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_D40 WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_D48 WG_D40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_D56 WG_D48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_D64 WG_D56 ", %56, %57, %58, %59, %60, %61, %62, %63"
 
 // d (64 x 128, f32) = (scale_d ? d : 0) + A (64 x 16) . B (128 x 16)^T; A and
 // B bf16 from shared memory, both K-major
@@ -522,43 +292,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 }
 
 // d (64 x N, f32) += A (64 x 16, bf16 pairs in registers, the mma.sync A
-// layout) . B (16 x N, bf16 in shared memory, N contiguous: MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64 "}, {%64, %65, %66, "
-      "%67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F16(0), WG_F16(16), WG_F16(32), WG_F16(48)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D32 "}, {%32, %33, %34, "
-      "%35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F16(0), WG_F16(16)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint64_t db) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(d, a0, a1, a2, a3, db);
-  } else {
-    wgmma_rs_n64(d, a0, a1, a2, a3, db);
+// layout) . B (16 x N, bf16 in shared memory, N contiguous: MN-major), one
+// overload per head width N, chosen by the accumulator's length N / 2: the
+// accumulators are the operands WG_D<N / 2> (bound by the WG_F lists given
+// last), then A's four registers and B's descriptor (AB), then scale-d (SC)
+#define WGMMA_RS(N, DL, AB, SC, ...)                                                       \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2], uint32_t a0, uint32_t a1,     \
+                                           uint32_t a2, uint32_t a3, uint64_t db) {        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"                            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" DL "}, " AB     \
+                 ", p, 1, 1, 1;\n}\n"                                                      \
+                 : __VA_ARGS__                                                             \
+                 : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));                   \
   }
-}
+WGMMA_RS(32, WG_D16, "{%16, %17, %18, %19}, %20", "%21", WG_F16(0))
+WGMMA_RS(64, WG_D32, "{%32, %33, %34, %35}, %36", "%37", WG_F16(0), WG_F16(16))
+WGMMA_RS(80, WG_D40, "{%40, %41, %42, %43}, %44", "%45", WG_F16(0), WG_F16(16), WG_F8(32))
+WGMMA_RS(96, WG_D48, "{%48, %49, %50, %51}, %52", "%53", WG_F16(0), WG_F16(16), WG_F16(32))
+WGMMA_RS(112, WG_D56, "{%56, %57, %58, %59}, %60", "%61", WG_F16(0), WG_F16(16), WG_F16(32),
+         WG_F8(48))
+WGMMA_RS(128, WG_D64, "{%64, %65, %66, %67}, %68", "%69", WG_F16(0), WG_F16(16), WG_F16(32),
+         WG_F16(48))
 
 constexpr int THREADS_H = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
 
+// Shared tiles in 128-byte swizzled column blocks of 64 bf16 values, the
+// last part-filled where D is not a multiple of 64 (TMA writes zeros past
+// D there). The byte counts are whole boxes, fills included: what TMA's
+// complete_tx reports.
 template <int D>
 struct TileH {
-  static constexpr uint32_t Q_BYTES = BQH * D * 2;
-  static constexpr uint32_t KV_BYTES = BK * D * 2;
+  static constexpr int NB = (D + 63) / 64;  // column blocks
+  static constexpr uint32_t Q_BYTES = BQH * NB * 128;
+  static constexpr uint32_t KV_BYTES = BK * NB * 128;
   static constexpr uint32_t K_OFF = Q_BYTES;
   static constexpr uint32_t V_OFF = K_OFF + 2 * KV_BYTES;
   static constexpr uint32_t BAR_OFF = V_OFF + 2 * KV_BYTES;  // 9 mbarriers
@@ -604,7 +370,7 @@ __global__ void __launch_bounds__(THREADS_H, 1)
                      const __grid_constant__ CUtensorMap tmk,
                      const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
                      int Sq, int Sk, int H, int KV, int causal, float scale) {
-  static_assert(D == 64 || D == 128, "whole 128-byte swizzle atoms");
+  static_assert(D % 16 == 0 && D >= 32 && D <= 128, "k16 steps, wgmma N of D");
   using T = TileH<D>;
   constexpr int NS = BK / 8;
   constexpr int NO = D / 8;
@@ -644,7 +410,7 @@ __global__ void __launch_bounds__(THREADS_H, 1)
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-      for (int db = 0; db < D / 64; ++db)
+      for (int db = 0; db < T::NB; ++db)
         tma_load4(Qs + db * (BQH * 128), &tmq, db * 64, h, q0, b, q_full);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt & 1;
@@ -652,13 +418,13 @@ __global__ void __launch_bounds__(THREADS_H, 1)
         if (kt >= 2) mbar_wait(k_empty + 8 * s, ph ^ 1);
         mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
 #pragma unroll
-        for (int db = 0; db < D / 64; ++db)
+        for (int db = 0; db < T::NB; ++db)
           tma_load4(Ks + s * T::KV_BYTES + db * (BK * 128), &tmk, db * 64, kvh, kt * BK, b,
                     k_full + 8 * s);
         if (kt >= 2) mbar_wait(v_empty + 8 * s, ph ^ 1);
         mbar_expect_tx(v_full + 8 * s, T::KV_BYTES);
 #pragma unroll
-        for (int db = 0; db < D / 64; ++db)
+        for (int db = 0; db < T::NB; ++db)
           tma_load4(Vs + s * T::KV_BYTES + db * (BK * 128), &tmv, db * 64, kvh, kt * BK, b,
                     v_full + 8 * s);
       }
@@ -753,7 +519,7 @@ __global__ void __launch_bounds__(THREADS_H, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = sw128_desc(vb + kk * (16 * 128), BK * 128, 1024);
-        wgmma_rs<D>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], db);
+        wgmma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], db);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -808,7 +574,8 @@ EncodeTiled encode_tiled() {
 }
 
 // rank-4 map of a (B, S, heads, D) bf16 tensor as (D, heads, S, B), boxes of
-// (64, 1, 128, 1), 128-byte swizzle, zeros past every edge
+// (64, 1, 128, 1), 128-byte swizzle, zeros past every edge: rows past S and,
+// where D is not a multiple of 64, the last box's columns past D
 int make_map(CUtensorMap* map, const void* t, int D, int heads, int S, int B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
@@ -843,21 +610,6 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, i
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                int H, int KV, int causal, float scale, cudaStream_t st) {
-  const size_t smem = Tile16<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Sq + BQ16 - 1) / BQ16);
-  flash_fwd_bf16<D><<<grid, THREADS16, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
-      causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                int H, int KV, int causal, float scale, cudaStream_t st) {
   const size_t smem = Tile32<D>::BYTES;
@@ -871,25 +623,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   return (int)cudaGetLastError();
 }
 
-// The kernel a (dtype, D) runs, fixed by the two alone: 2 flash_fwd_hopper
-// (bf16, D 64 or 128), 1 flash_fwd_bf16 (bf16, other D), 0 flash_fwd_f32;
-// -1 for a D with no instantiation. kernels/flash_attention.kernel_design
-// is the same table.
+// The kernel a (dtype, D) runs, fixed by the two alone: 1 flash_fwd_hopper
+// (bf16), 0 flash_fwd_f32; -1 for a D with no instantiation.
+// kernels/flash_attention.kernel_design is the same table.
 int design(int D, int is_bf16) {
   if (D != 32 && D != 64 && D != 80 && D != 96 && D != 112 && D != 128) return -1;
-  if (!is_bf16) return 0;
-  return (D == 64 || D == 128) ? 2 : 1;
+  return is_bf16 ? 1 : 0;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
            int KV, int is_bf16, int causal, float scale, cudaStream_t st) {
   if (!is_bf16) return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
-  if constexpr (D == 64 || D == 128) {
-    return launch_hopper<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
-  } else {
-    return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
-  }
+  return launch_hopper<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale, st);
 }
 
 }  // namespace

@@ -35,13 +35,13 @@ change no score; the scale stays D**-0.5 of the true D) and slices the
 output back. D > 128 and other dtypes raise on the card; the plain version
 takes any D and dtype.
 
-Three CUDA kernels share the source, one per route, fixed by the dtype and
+Two CUDA kernels share the source, one per route, fixed by the dtype and
 the instantiated width alone (``kernel_design``; the C launcher's
-``design()`` is the same table): bf16 at D 64 and 128, the serving widths,
-runs ``flash_fwd_hopper`` (128-row CTAs, 128-byte swizzled tiles for the
-Hopper tensor cores); bf16 at D 32, 80, 96, 112 runs ``flash_fwd_bf16``
-(mma.sync); float32 runs ``flash_fwd_f32``. A route is not a fallback: a
-kernel that fails to build or launch raises.
+``design()`` is the same table): bf16 at every width runs
+``flash_fwd_hopper`` (128-row CTAs, TMA into 128-byte swizzled column
+blocks of 64, the last part-filled with TMA's zeros where D is not a
+multiple of 64, both products on wgmma); float32 runs ``flash_fwd_f32``. A
+route is not a fallback: a kernel that fails to build or launch raises.
 
 Dispatch: CPU tensors run the plain version; CUDA tensors launch the
 kernel or raise. The kernel has no backward: training keeps
@@ -59,8 +59,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)  # the kernel's instantiated widths
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 0}
 # the kernels by the code csrc/flash_attention.cu's design() gives them
-DESIGNS = ("flash_fwd_f32", "flash_fwd_bf16", "flash_fwd_hopper")
-HOPPER_DIMS = (64, 128)  # bf16 widths on flash_fwd_hopper
+DESIGNS = ("flash_fwd_f32", "flash_fwd_hopper")
 
 
 def flash_attention_plain(
@@ -200,12 +199,11 @@ def kernel_head_dim(D: int) -> int:
 
 def kernel_design(dtype: torch.dtype, D: int) -> str:
     """The kernel a card call of this dtype and head width launches (D
-    zero-padded to ``kernel_head_dim`` first)."""
+    zero-padded to ``kernel_head_dim`` first): every bf16 width runs
+    ``flash_fwd_hopper``, every float32 width ``flash_fwd_f32``."""
     if dtype not in _DTYPE_CODE or not 1 <= D <= HEAD_DIMS[-1]:
         raise ValueError(f"no flash kernel for {dtype} at head dim {D}")
-    if dtype == torch.float32:
-        return DESIGNS[0]
-    return DESIGNS[2] if kernel_head_dim(D) in HOPPER_DIMS else DESIGNS[1]
+    return DESIGNS[0] if dtype == torch.float32 else DESIGNS[1]
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:

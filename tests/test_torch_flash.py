@@ -108,20 +108,19 @@ def test_kernel_head_dim_is_the_next_instantiated_width(D, want):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", kfa.HEAD_DIMS)
 def test_kernel_design_routes_every_instantiated_width(dtype, D):
-    """bf16 at the serving widths 64 and 128 runs the Hopper kernel; the
-    other bf16 widths the mma.sync kernel; float32 the scalar kernel."""
-    if dtype == torch.float32:
-        want = "flash_fwd_f32"
-    else:
-        want = "flash_fwd_hopper" if D in (64, 128) else "flash_fwd_bf16"
+    """bf16 at every width runs the Hopper kernel (D 32, 80, 96 and 112 in
+    part-filled column blocks); float32 the scalar kernel."""
+    want = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_hopper"
     assert kfa.kernel_design(dtype, D) == want
     assert want in kfa.DESIGNS
 
 
-@pytest.mark.parametrize("D,want", [(1, "flash_fwd_bf16"), (40, "flash_fwd_hopper"),
-                                    (65, "flash_fwd_bf16"), (100, "flash_fwd_bf16"),
+@pytest.mark.parametrize("D,want", [(1, "flash_fwd_hopper"), (40, "flash_fwd_hopper"),
+                                    (65, "flash_fwd_hopper"), (100, "flash_fwd_hopper"),
                                     (120, "flash_fwd_hopper")])
 def test_kernel_design_follows_the_padded_width(D, want):
+    """Padded widths (1 -> 32, 40 -> 64, 65 -> 80, 100 -> 112, 120 -> 128)
+    run the Hopper kernel too."""
     assert kfa.kernel_design(torch.bfloat16, D) == want
 
 

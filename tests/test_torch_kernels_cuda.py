@@ -450,8 +450,10 @@ HOPPER_CASES = [
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HOPPER_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 112, 128])
 def test_flash_hopper_kernel_equals_plain(dev, D, B, Sq, Sk, H, KV, causal):
+    """Every bf16 width, whole column blocks (64, 128) and part-filled ones
+    (32, 80, 96, 112: TMA's zeros past D)."""
     gen = torch.Generator(device=dev).manual_seed(B * 7 + Sq + Sk + D + H // KV)
     q = torch.randn((B, Sq, H, D), generator=gen, device=dev).bfloat16()
     k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).bfloat16()
@@ -465,20 +467,35 @@ def test_flash_hopper_kernel_equals_plain(dev, D, B, Sq, Sk, H, KV, causal):
     assert mm["within"], mm
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, D) for D in (32, 80, 96, 112)]
-                         + [(torch.float32, D) for D in kfa.HEAD_DIMS])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, D) for D in kfa.HEAD_DIMS])
 def test_flash_other_routes_keep_their_kernel(dev, dtype, D):
-    """bf16 at D 32/80/96/112 and every float32 width stay on the kernels of
-    before the Hopper route (flash_fwd_bf16, flash_fwd_f32), within the rule."""
+    """Every float32 width stays on the scalar kernel (flash_fwd_f32), within
+    the rule."""
     gen = torch.Generator(device=dev).manual_seed(D)
     q = torch.randn((2, 200, 8, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
     out = kfa.flash_mha(q, k, v, causal=True)
-    want = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_bf16"
-    assert kfa.kernel_design(dtype, D) == want
+    assert kfa.kernel_design(dtype, D) == "flash_fwd_f32"
     mm = kfa.mismatch(out, kfa.flash_attention_plain(q, k, v, causal=True))
     assert mm["within"], mm
+
+
+@pytest.mark.parametrize("D", [80, 96, 112])
+def test_flash_a_fault_in_the_part_filled_block_is_caught(dev, D):
+    """V's columns 64..D-1 (the part-filled column block) zeroed for the
+    kernel only: the check sees the fault there, and only there."""
+    gen = torch.Generator(device=dev).manual_seed(D + 1)
+    q = torch.randn((2, 384, 8, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((2, 384, 2, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((2, 384, 2, D), generator=gen, device=dev).bfloat16()
+    plain = kfa.flash_attention_plain(q, k, v)
+    assert kfa.mismatch(kfa.flash_mha(q, k, v), plain)["within"]
+    bad = v.clone()
+    bad[..., 64:] = 0
+    out = kfa.flash_mha(q, k, bad)
+    assert not kfa.mismatch(out, plain)["within"]
+    assert kfa.mismatch(out[..., :64].contiguous(), plain[..., :64].contiguous())["within"]
 
 
 def test_flash_launcher_route_table_is_kernel_design(dev):

@@ -25,9 +25,16 @@ mask):
   (the reference's kimi loss), faults 1.8e-2 (loss) and 0.10-0.28
   (grad_norm);
 - f32 moments 1e-5: readings up to 3.0e-6, faults 0.75 and more;
-- params 1e-3: readings up to 3.4e-4. Adam's first step divides each
-  moment by its root, so an element whose gradient is near zero moves by
-  up to its lr on a rounding of that gradient. Faults 2.2e-2;
+- params 1e-3 over the informative elements. Adam's first step divides
+  each moment by its root, so an element whose gradient is rounding noise
+  of the shard sums moves by up to its lr either way, the sign set by the
+  noise: read over every element, the tensor-parallel route's readings
+  reached 1.72e-3 on some CPUs. So under Adam the reading sets aside the
+  elements whose reference ``|m|`` is not 0 and under ``NOISE_M`` = 1e-3
+  of the leaf's RMS ``|m|``, at most ``NOISE_SHARE`` = 1% of the elements,
+  and holds each of those to the most one step moves it, 2 lr (1 + wd
+  |p|). Readings: informative up to 2.1e-5, set aside up to 0.40% of the
+  elements and 0.11 of a step's move; faults 2.2e-2 to 2.3e-2;
 - bf16 moments (quantized AdamW, bf16 momentum) 2^-7, one bf16 rounding:
   readings up to 4.0e-3, fault 1.02; int8 ``v_q`` at most one symbol
   apart on at most 1% of the symbols (readings 1 and 0.004%), as
@@ -60,6 +67,12 @@ MOMENT_RTOL = 1e-5
 PARAM_RTOL = 1e-3
 BF16_MOMENT_RTOL = 2.0 ** -7
 VQ_SHARE = 0.01
+# Adam's params reading sets aside the elements whose reference |m| is under
+# NOISE_M of the leaf's RMS |m| (at most NOISE_SHARE of the elements) and
+# holds each to the most one step of adamw(ADAM_LR) moves it
+NOISE_M = 1e-3
+NOISE_SHARE = 0.01
+ADAM_LR, ADAM_WD = 1e-3, 0.01
 
 MESHES = [((2, 4), ("data", "model")), ((4, 2), ("data", "model")),
           ((1, 4), ("data", "model")), ((2, 2, 2), ("pod", "data", "model"))]
@@ -194,16 +207,51 @@ def _groups(state):
     return out + [("step", [state["step"]])]
 
 
+def _noise(m, p):
+    """The elements of a param leaf whose reference first moment ``m`` is
+    not 0 and under NOISE_M of the leaf's RMS |m|: their gradient is
+    rounding noise of the shard sums. An exact 0 (an embedding row no token
+    reads) is no noise, and none where ``m`` is not the leaf's shape."""
+    if m.shape != p.shape:
+        return torch.zeros(p.shape, dtype=torch.bool)
+    m = m.double().abs()
+    return (m > 0) & (m < NOISE_M * float(m.square().mean().sqrt()))
+
+
+def _param_readings(a_leaves, b_leaves, m_leaves):
+    """The params' reading over the informative elements (worst max|a - b|
+    / max|b| of a leaf), and over the noise elements (their share, and the
+    largest |a - b| in units of the most one Adam step moves an element,
+    2 lr (1 + wd |p|))."""
+    worst, held, n_noise, n_all = 0.0, 0.0, 0, 0
+    for a, b, m in zip(a_leaves, b_leaves, m_leaves):
+        assert a.shape == b.shape and a.dtype == b.dtype, ("params", a.shape, b.shape)
+        a, b = a.double(), b.double()
+        d, noise = (a - b).abs(), _noise(m, b)
+        worst = max(worst, float(torch.where(noise, 0.0, d).max()) / max(float(b.abs().max()), 1e-30))
+        step = 2 * ADAM_LR * (1 + ADAM_WD * b.abs())
+        held = max(held, float(torch.where(noise, d / step, 0.0).max()))
+        n_noise, n_all = n_noise + int(noise.sum()), n_all + noise.numel()
+    return worst, (n_noise / n_all, held)
+
+
 def _readings(got, want):
     """{group: worst max|a - b| / max|b|}; for ``v_q`` (largest symbol
-    difference, share of symbols that differ)."""
+    difference, share of symbols that differ). Under Adam, ``params`` reads
+    only the informative elements and ``params_noise`` the others (share,
+    largest |a - b| over one step's move; ``_param_readings``)."""
     out = {}
+    adam = "m" in want["opt"] and ("v" in want["opt"] or "v_q" in want["opt"])
     for (name, a_leaves), (_, b_leaves) in zip(_groups(got), _groups(want)):
         assert len(a_leaves) == len(b_leaves)
         if name == "v_q":
             diffs = [(a.to(torch.int32) - b.to(torch.int32)).abs() for a, b in zip(a_leaves, b_leaves)]
             out[name] = (max(int(d.max()) for d in diffs),
                          sum(int((d > 0).sum()) for d in diffs) / sum(d.numel() for d in diffs))
+            continue
+        if name == "params" and adam:
+            out[name], out["params_noise"] = _param_readings(a_leaves, b_leaves,
+                                                             tree_leaves(want["opt"]["m"]))
             continue
         worst = 0.0
         for a, b in zip(a_leaves, b_leaves):
@@ -221,9 +269,11 @@ def _within(got, want, got_m, want_m, bf16_m=False):
           for k in want_m}
     tol = {"params": PARAM_RTOL, "m": BF16_MOMENT_RTOL if bf16_m else MOMENT_RTOL,
            "v": MOMENT_RTOL, "v_scale": MOMENT_RTOL, "step": 0.0}
-    ok = all(v <= tol[k] for k, v in r.items() if k != "v_q")
+    ok = all(v <= tol[k] for k, v in r.items() if k not in ("v_q", "params_noise"))
     if "v_q" in r:
         ok &= r["v_q"][0] <= 1 and r["v_q"][1] <= VQ_SHARE
+    if "params_noise" in r:
+        ok &= r["params_noise"][0] <= NOISE_SHARE and r["params_noise"][1] <= 1.0
     ok &= all(v <= METRIC_RTOL for v in rm.values())
     return ok, r, rm
 

@@ -16,14 +16,18 @@ What it must equal:
 
 Tolerances are ``tests/test_torch_sharded_train.py``'s (f32; each worst
 leaf's ``max |a - b| / max |b|``): metrics rtol 1e-6, f32 moments 1e-5,
-params 1e-3. Readings of the tensor-parallel route over every case here:
-metrics up to 2.3e-7, moments up to 3.3e-6, params up to 6.1e-4 (the
-row-parallel sums and the vocab-parallel softmax add in another order;
-Adam's first step carries that into params whose gradient is near zero).
-The planted fault (model shard 1's partial dropped from every
-row-parallel sum, ``layers._row_sum``) reads grad norms 4.6e-2 to 0.15
-apart, losses 7.0e-3 to 1.7e-2, params 2.2e-2 to 2.3e-2 and moments 1.2
-and more. The reference's own test allows 1e-2 (loss, absolute) and 5e-2
+params 1e-3 over the elements whose gradient is informative (the elements
+whose reference ``|m|`` is rounding noise, at most 1%, held to one Adam
+step's move). Readings of the tensor-parallel route over every case here:
+metrics up to 2.3e-7, moments up to 3.3e-6, informative params up to
+5.0e-6, set aside up to 0.19% of the elements and 0.11 of a step's move
+(the row-parallel sums and the vocab-parallel softmax add in another
+order; Adam's first step carries that into params whose gradient is
+noise: read over every element, 1.03e-3 to 1.72e-3 on some CPUs). The
+planted fault (model shard 1's partial dropped from every row-parallel
+sum, ``layers._row_sum``) reads grad norms 4.6e-2 to 0.15 apart, losses
+7.0e-3 to 1.7e-2, informative params 2.2e-2 to 2.3e-2 and moments 1.2 and
+more. The reference's own test allows 1e-2 (loss, absolute) and 5e-2
 (params, absolute): the port's route reads 4.8e-7 and 5.5e-5 against the
 reference's jitted step, 2e4 and 900 times inside.
 
