@@ -7,8 +7,9 @@ Phases, each of which fails the run on error:
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
              parallel) and print the build seconds and ptxas report (a
-             ``flash_fwd_hopper`` or ``qmm_hopper`` with a stack frame or
-             spills fails the run).
+             ``flash_fwd_hopper``, ``qmm_hopper``, ``qmm_decode`` or
+             ``split_planes`` with a stack frame or spills, or one that
+             ptxas did not report, fails the run).
 2. kernels — every kernel against its plain PyTorch version on the card at
              the main path's shapes: the packed OTA superpose/fold over every
              storage class, per-row and blockwise scales, gains absent and
@@ -106,12 +107,14 @@ Phases, each of which fails the run on error:
              w_gate (4,096 x 12,288 bf16) at 8 bits; ``ota_aggregate`` of K =
              20 DeepSpeech2 rows (FedAvg weights, seeded noise, std 0.1);
              ``qmatmul`` on the int8 (``quantize_weights``) w_gate and w_down
-             with bf16 x at M = 4, 8,192 and 1,000 (the last two on the
-             Hopper route) and f32 x at M = 4 and 1,000, each printed with
+             with bf16 x at M = 4, 8,192 and 1,000 and f32 x at M = 4 and
+             1,000 (M = 4 on the decode route, the others on the Hopper
+             route, f32 through its three bf16 planes), each printed with
              its ``design``, launched twice (the same bits) and timed one
              call (``ms``) and ten queued (``ms_queued``) beside
              ``torch.matmul`` both ways, with TFLOP/s and the share of the
-             bound; the C launcher's route table against ``kernel_design``;
+             bound (f32: bytes or three bf16 products, ``bound_basis``);
+             the C launcher's route table against ``kernel_design``;
              ``qmatmul_int4`` at w_gate, M = 4; ``pack_int4_rows`` /
              ``unpack_int4_rows``, ``ota_dequant_superpose`` and
              ``ota_fold_packed`` on K = 20 int4 DeepSpeech2 rows (blockwise
@@ -483,11 +486,34 @@ def _kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
 
+# the qmatmul kernels of the TMA routes (no stack frame, no spill) and every
+# instantiation of them that the route table launches
+QMM_TMA_KERNELS = ("qmm_hopper", "qmm_decode", "split_planes")
+QMM_TMA_INSTANCES = ("qmm_hopper<1>", "qmm_hopper<3>", "qmm_decode<8,1>", "qmm_decode<16,1>",
+                     "qmm_decode<8,3>", "qmm_decode<16,3>", "split_planes")
+
+
+def _qmm_label(mangled: str) -> str:
+    """``qmm_decode<8,3>`` from a mangled qmatmul kernel name."""
+    import re
+
+    for name in ("qmm_decode", "qmm_hopper", "qmm_bf16", "qmm_f32", "splitk_reduce",
+                 "split_planes"):
+        i = mangled.find(name)
+        if i >= 0:
+            m = re.match(r"I((?:Li\d+E)+)E", mangled[i + len(name):])
+            args = re.findall(r"Li(\d+)E", m.group(1)) if m else []
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
 def phase_build():
     """Build every source; print nvcc's seconds and ptxas's report, each
-    flash_attention kernel by name. A flash_fwd_hopper instantiation with a
-    stack frame or spills fails the run, and so does a width the route table
-    sends to flash_fwd_hopper that ptxas did not report."""
+    flash_attention and qmatmul kernel by name. A flash_fwd_hopper
+    instantiation with a stack frame or spills fails the run, and so does a
+    width the route table sends to flash_fwd_hopper that ptxas did not
+    report; the same holds for qmatmul's TMA-route kernels
+    (``QMM_TMA_INSTANCES``)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -501,15 +527,21 @@ def phase_build():
         print(f"  {name}.cu nvcc {rec['seconds']:.2f} s")
         log = str(rec["log"])
         if name == "qmatmul":
-            funcs = ptxas_report(log)
-            for fn, r in funcs.items():
-                print(f"    {fn}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+            funcs = {_qmm_label(fn): r for fn, r in ptxas_report(log).items()}
+            for label, r in sorted(funcs.items()):
+                print(f"    {label}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
                       f"frame, spill stores/loads {r.get('spill_stores')}/{r.get('spill_loads')}")
-                if "qmm_hopper" in fn and (r.get("stack") != 0 or r.get("spill_stores")
-                                           or r.get("spill_loads")):
-                    _fail(f"{fn} has a stack frame or spills: {r}")
-            if not any("qmm_hopper" in fn for fn in funcs):
-                _fail("ptxas reported no qmm_hopper kernel")
+                if label.split("<")[0] in QMM_TMA_KERNELS and (
+                        r.get("stack") != 0 or r.get("spill_stores") or r.get("spill_loads")):
+                    _fail(f"{label} has a stack frame or spills: {r}")
+            missing = sorted(set(QMM_TMA_INSTANCES) - set(funcs))
+            if missing:
+                _fail(f"ptxas reported no {missing}")
+            lib = _build.library("qmatmul")
+            held = {f"{'bf16' if bf16 else 'f32'} NP {np_}": lib.qmatmul_decode_clusters(bf16, np_, 8)
+                    for bf16 in (1, 0) for np_ in (8, 16)}
+            print(f"    qmm_decode clusters of 8 CTAs held at once "
+                  f"(cudaOccupancyMaxActiveClusters): {json.dumps(held)}")
             continue
         if name == "flash_attention":
             funcs = ptxas_report(log)
@@ -2269,8 +2301,10 @@ def host_us_per_call(dev) -> dict:
 
 def check_qmatmul_route_table(dev):
     """The C launcher's route (``qmatmul_design``) against ``kernel_design``
-    over dtype, M at 16/17, K and N at and off TMA's multiples, and bases
-    off 16-byte alignment."""
+    over dtype, M at 4/16/17, K and N at and off TMA's multiples, and bases
+    off 16-byte alignment; every design must be reached."""
+    import collections
+
     import torch
 
     from repro_torch.kernels import _build
@@ -2279,7 +2313,7 @@ def check_qmatmul_route_table(dev):
     lib = _build.library("qmatmul")
     buf = torch.zeros(1 << 16, dtype=torch.float32, device=dev)
     w8 = torch.zeros(1 << 16, dtype=torch.int8, device=dev)
-    n, hopper = 0, 0
+    seen = collections.Counter()
     for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
         xb = buf.to(dtype)
         for M in (4, 16, 17, 8192):
@@ -2293,8 +2327,11 @@ def check_qmatmul_route_table(dev):
                         if got != want:
                             _fail(f"the C launcher routes {dtype} M={M} K={K} N={N} (offsets "
                                   f"{xo}, {wo}) to {got}; kernel_design says {want}")
-                        n, hopper = n + 1, hopper + (got == "hopper")
-    print(f"  qmatmul route table: C design() == kernel_design at {n} cases ({hopper} hopper)")
+                        seen[got] += 1
+    print(f"  qmatmul route table: C design() == kernel_design at {sum(seen.values())} cases "
+          f"{json.dumps(dict(seen))}")
+    if set(seen) != set(DESIGNS):
+        _fail(f"the route table cases reach only {sorted(seen)} of {DESIGNS}")
 
 
 def phase_ops(dev):
@@ -2486,14 +2523,20 @@ def phase_ops(dev):
         K, N = q.shape
         flops = 2.0 * M * N * K
         nbytes = tensor_bytes(x, q, s) + 4.0 * M * N
-        peak = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
+        # f32 x at f32 accuracy on the tensor cores is three exact bf16
+        # products (kernels/qmatmul.split3_plain): its least time is theirs
+        bound_flops = flops if dt == "bfloat16" else 3.0 * flops
         w_deq = (q.float() * s).to(x.dtype)  # dequantized beforehand, not timed
         rec = dict(
             shape=f"{wn} x {dt} M={M} K={K} N={N}", design=kernel_design(x.dtype, M, N, K, x, q),
             ms=cuda_ms(lambda: qmm(x, q, s)),
             ms_queued=cuda_ms_queued(lambda: qmm(x, q, s)),
             plain_ms=cuda_ms(lambda: qmatmul_plain(x, q, s), reps=3),
-            bound_ms=bound_ms(nbytes, flops, peak), bound_by=bound_by(nbytes, flops, peak),
+            bound_ms=bound_ms(nbytes, bound_flops, BF16_FLOPS),
+            bound_by=bound_by(nbytes, bound_flops, BF16_FLOPS),
+            bound_basis=("bytes over HBM rate, or 2MNK" if dt == "bfloat16" else
+                         "bytes over HBM rate, or 3 x 2MNK (x as three exact bf16 planes)")
+            + " over the bf16 tensor-core rate",
             library_ms=cuda_ms(lambda: torch.matmul(x, w_deq)),
             library_ms_queued=cuda_ms_queued(lambda: torch.matmul(x, w_deq)),
             library=f"torch.matmul on weights dequantized to {dt} beforehand (not timed)")

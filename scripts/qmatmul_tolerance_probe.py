@@ -13,11 +13,22 @@ kernel, the same readings for planted faults, each the kernel run on one
 corrupted input and held against the true plain version: one k tile of 32
 weight rows dropped (``drop_k_tile``), the last weight row dropped
 (``drop_k_row``), the output rounded to bf16 (``out_bf16``) and, for f32
-x, x rounded to TF32's 10 mantissa bits (``x_tf32``). Two faults of the
-Hopper route's design, on its cases only: one k16 step of one 128-deep k
-tile skipped (``skip_k16``: 16 weight rows dropped), and the bf16 weight
-tile read without its 128-byte swizzle (``b_unswizzled``: in every row k,
-the 16-byte chunk c of each 64-column block read from chunk c ^ (k % 8)).
+x, x rounded to TF32's 10 mantissa bits (``x_tf32``) and x without its lo
+plane (``drop_lo``: x = hi + mid, which the kernel splits into hi, mid and
+a zero lo). Faults of each route's design, on its cases only: the Hopper
+routes one k16 step of one 128-deep k tile skipped (``skip_k16``: 16
+weight rows dropped) and the bf16 weight tile read without its 128-byte
+swizzle (``b_unswizzled``: in every row k, the 16-byte chunk c of each
+64-column block read from chunk c ^ (k % 8)); f32 on the Hopper route one
+plane's k16 step skipped (``skip_plane_k16``: the hi plane of 16 k, x =
+mid + lo there); the decode route one cluster rank's partial dropped
+(``drop_rank``: the k range of rank S / 2 of ``cluster_split`` zeroed in w)
+and the int8 tile its A fragments are converted from read without TMA's
+swizzle (``a_unswizzled``: 16-column chunks of 128-column blocks). For f32 x, a one-hot
+x of the same shape (one nonzero a row, a full 24-bit mantissa) reads the
+kernel's and the ``drop_lo`` kernel's largest distance from the plain
+version in ulps (``max_ulps``): the check that sees a dropped lo plane,
+which the tolerance cannot.
 
 Prints one line per reading and writes all of them as JSON to ``--out``.
 """
@@ -32,8 +43,13 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FAULTS = ("drop_k_tile", "drop_k_row", "out_bf16", "x_tf32", "skip_k16", "b_unswizzled")
-HOPPER_FAULTS = ("skip_k16", "b_unswizzled")
+FAULTS = ("drop_k_tile", "drop_k_row", "out_bf16", "x_tf32", "drop_lo", "skip_k16",
+          "b_unswizzled", "skip_plane_k16", "drop_rank", "a_unswizzled")
+# the faults that only some routes' designs have, by the routes that have them
+DESIGN_FAULTS = {"skip_k16": ("hopper", "hopper_f32"), "b_unswizzled": ("hopper", "hopper_f32"),
+                 "skip_plane_k16": ("hopper_f32",), "drop_rank": ("decode",),
+                 "a_unswizzled": ("decode",)}
+F32_FAULTS = ("x_tf32", "drop_lo")
 
 
 def _tf32(x):
@@ -44,8 +60,26 @@ def _tf32(x):
     return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _unswizzled(q, cols):
+    """q as a kernel reads it when it reads a tile stored with the 128-byte
+    swizzle (16-byte chunk c of row k of a block of 8 chunks at c ^ (k % 8))
+    without the swizzle: ``cols`` columns a chunk, 8 for qmm_hopper's bf16
+    weight tile, 16 for the int8 tile the decode route reads."""
+    import torch
+
+    K, N = q.shape
+    n = torch.arange(N, device=q.device)
+    k = torch.arange(K, device=q.device)[:, None]
+    chunk = (n % (8 * cols)) // cols
+    src = n - cols * chunk + cols * (chunk ^ (k % 8))  # column read for column n at row k
+    src = torch.where(src < N, src, n)  # a chunk past N reads zeros as its own
+    return torch.gather(q, 1, src.expand(K, N))
+
+
 def faulty_inputs(x, q, s, fault):
-    K = q.shape[0]
+    from repro_torch.kernels.qmatmul import cluster_split, split3_plain
+
+    K, N = q.shape
     if fault == "drop_k_tile":
         q = q.clone()
         q[K // 2 : K // 2 + 32] = 0
@@ -54,21 +88,52 @@ def faulty_inputs(x, q, s, fault):
         q[K - 1] = 0
     elif fault == "x_tf32":
         x = _tf32(x)
+    elif fault == "drop_lo":
+        hi, mid, _ = split3_plain(x)
+        x = hi.float() + mid.float()
     elif fault == "skip_k16":
         q = q.clone()
         k0 = (K // 2) // 128 * 128 + 48  # the fourth k16 step of a middle k tile
         q[k0 : k0 + 16] = 0
-    elif fault == "b_unswizzled":
+    elif fault == "skip_plane_k16":
+        hi, _, _ = split3_plain(x)
+        k0 = (K // 2) // 64 * 64 + 48
+        x = x.clone()
+        x[:, k0 : k0 + 16] -= hi[:, k0 : k0 + 16].float()  # mid + lo, exactly
+    elif fault == "drop_rank":
         import torch
 
-        K, N = q.shape
-        n = torch.arange(N, device=q.device)
-        k = torch.arange(K, device=q.device)[:, None]
-        chunk = (n % 64) // 8
-        src = n - 8 * chunk + 8 * (chunk ^ (k % 8))  # column read for column n at row k
-        src = torch.where(src < N, src, n)  # a chunk past N reads zeros as its own
-        q = torch.gather(q, 1, src.expand(K, N))
+        S, k_chunk = cluster_split(N, K, torch.cuda.get_device_properties(q.device)
+                                   .multi_processor_count)
+        q = q.clone()
+        q[(S // 2) * k_chunk : (S // 2 + 1) * k_chunk] = 0
+    elif fault == "b_unswizzled":
+        q = _unswizzled(q, 8)
+    elif fault == "a_unswizzled":
+        q = _unswizzled(q, 16)
     return x, q, s
+
+
+def one_hot_ulps(x, q, s) -> dict:
+    """The kernel on a one-hot x of x's shape (one nonzero a row, 24
+    mantissa bits, the last set), and on that x without its lo plane: each
+    one's largest distance in ulps from the plain version."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmatmul import qmatmul_plain, split3_plain, ulps
+
+    M, K = x.shape
+    bits = (x[:, :1].abs().view(torch.int32) & 0x7FFFFF) | 1  # the mantissas of x's column 0
+    bits |= torch.where(x[:, :1] < 0, -(1 << 31), 0).to(torch.int32) | (127 << 23)
+    oh = torch.zeros_like(x)
+    oh[torch.arange(M, device=x.device), torch.arange(M, device=x.device) * 7919 % K] = (
+        bits.view(torch.float32)[:, 0])
+    plain = qmatmul_plain(oh, q, s)
+    hi, mid, _ = split3_plain(oh)
+    return {"max_ulps": int(ulps(ops.qmatmul(oh, q, s), plain).max()),
+            "drop_lo_max_ulps": int(ulps(ops.qmatmul(hi.float() + mid.float(), q, s),
+                                         plain).max())}
 
 
 def readings(dev) -> list:
@@ -92,9 +157,9 @@ def readings(dev) -> list:
             plain = qmatmul_plain(x, q, s)
             design = kernel_design(x.dtype, M, shape[1], shape[0], x, q)
             for variant in ("kernel",) + FAULTS:
-                if variant == "x_tf32" and dt != "float32":
+                if variant in F32_FAULTS and dt != "float32":
                     continue
-                if variant in HOPPER_FAULTS and design != "hopper":
+                if variant in DESIGN_FAULTS and design not in DESIGN_FAULTS[variant]:
                     continue
                 xv, qv, sv = (x, q, s) if variant == "kernel" else faulty_inputs(x, q, s, variant)
                 out = ops.qmatmul(xv, qv, sv)
@@ -107,6 +172,11 @@ def readings(dev) -> list:
                        "design": design, "variant": variant, "max_units": float(r.max()),
                        "p50": float(pct[0]), "p99": float(pct[1]), "p9999": float(pct[2]),
                        "over_tol": int((r > TOL_C).sum()), "n": r.numel()}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+            if dt == "float32":
+                row = {"weight": wn, "dtype": dt, "M": M, "K": shape[0], "N": shape[1],
+                       "design": design, "variant": "one_hot", **one_hot_ulps(x, q, s)}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
             del x, plain

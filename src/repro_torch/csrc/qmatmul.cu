@@ -11,69 +11,114 @@
 // grid runs its blocks in parallel, so here one block owns one (m, n) tile
 // and loops over its k range itself, with the accumulator in registers.
 //
-// Three kernels, one per route, fixed by dtype, shape and alignment alone
-// (design(), mirrored by kernels/qmatmul.kernel_design): never a fallback.
+// Routes, fixed by dtype, M and alignment alone (design(), mirrored by
+// kernels/qmatmul.kernel_design): never a fallback. "w TMA-loadable" means
+// N % 16 == 0 and a 16-byte-aligned w (TMA's row stride and base rules).
 //
-// qmm_hopper (bf16 x, M > 16, K % 8 == 0, N % 16 == 0, x and w 16-byte
-// aligned: what TMA takes), the prefill route. 384 threads; a CTA owns 256
-// rows x 128 columns of out and steps k by 64. Warpgroup 0 is the producer:
-// one thread issues TMA loads (rank-2 maps over (K, M) bf16 and (N, K)
-// int8, encoded per launch through libcuda's entry point; both 128-byte
-// swizzled, zeros past every edge) into a four-stage x ring (256 rows x 128
-// B) and a four-stage int8 ring (64 k rows x 128 B), and the whole
-// warpgroup converts each int8 tile into a three-stage bf16 B ring: two
-// 64-n blocks of 64 k rows x 128 B, 16-byte chunk c of row k at c ^ (k & 7)
-// (the pattern TMA writes, so wgmma reads it as the V tile of
-// flash_attention.cu). The conversion is exact (|q| <= 128 has at most 8
-// significant bits): q + 128 as the low byte of the f32 2**23, minus
-// 2**23 + 128, truncated to its top half. The B tile is written by
-// st.shared, the generic proxy, and read by wgmma, the async proxy, so each
-// producer thread runs fence.proxy.async.shared::cta between its writes and
-// its arrival on the stage's full barrier; without it wgmma may read stale
-// bytes now and then. Warpgroups 1 and 2 are the consumers: each owns 128
-// rows as two m64 tiles and runs wgmma.m64n128k16 with A (x) K-major and B
-// MN-major (the transpose flag) from shared memory, 64 f32 accumulators a
-// thread per m64 tile; they wait on the x and B full barriers and release
-// both stages on the B empty barrier. No CTA-wide barrier in the k loop, no
-// atomics, no split k: one launch gives the same bits as the next. The tile
-// order walks 8 m tiles at a time across the n tiles, so the CTAs in flight
-// share a few x row blocks and w column blocks in L2.
+//   qmm_decode   M <= 16, w TMA-loadable, bf16 or f32 x (any alignment)
+//   qmm_hopper   M > 16, w TMA-loadable: bf16 x that TMA loads too (K % 8
+//                == 0, 16-byte-aligned base), and f32 x through its three
+//                bf16 planes (split_planes, one launch before it)
+//   qmm_bf16     other bf16 x (w not TMA-loadable, or M > 16 with an x
+//                TMA cannot load)
+//   qmm_f32      other f32 x (w not TMA-loadable)
 //
-// qmm_bf16 (other bf16 x): mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-// Each int8 weight is converted to bf16 on its way into shared memory; that
-// is exact, and a bf16 x bf16 product is exact in f32, so only the summation
-// order differs from the reference's f32 dot. Block tile BM x 128 x 32, 4
-// warps side by side along n (32 columns each), BM = 64 (4 m16 tiles a
-// warp) or 16 for M <= 16 (one m16 tile: a decode step).
+// f32 x on the tensor cores, exactly. An int8 weight (|q| <= 128) is exact
+// in bf16, and an f32 x is the sum of three bf16 parts, x = hi + mid + lo:
+// hi is x's top 16 bits (truncation: exact, never overflows), r = x - hi is
+// exact, mid is r's top 16 bits and lo = r - mid, which has at most 8
+// significant bits and is exact in bf16. Each part times q is exact in f32,
+// so the three products summed in f32 (lo, mid, hi: small first) differ
+// from the reference's f32 dot only in summation order, as the bf16 routes'
+// products do. A non-finite x takes hi = x (a NaN kept a NaN) and mid = lo
+// = 0, so an inf does not turn into inf - inf. Below about 2**-110 the lo
+// plane goes subnormal in bf16 and x's bits under 2**-133 are dropped; at
+// 2**-100 nothing is lost. No TF32 anywhere: that would cut x to 10
+// mantissa bits, which the reference's f32 dot does not.
 //
-// qmm_f32 (f32 x): scalar fmaf on tiles of BM x 64 x 16, 256 threads each
-// holding (BM / 16) x 4 outputs, BM = 64 or 16. No TF32: that would cut x
-// to 10 mantissa bits, which the reference's f32 dot does not.
+// qmm_decode (a decode step: the weight read, K N int8 bytes, is the whole
+// cost). It computes out^T (N x M) = w^T . x^T, so N fills wgmma's 64-row
+// side and M (padded to NP = 8 or 16) is the narrow one. 384 threads, two
+// CTAs an SM; a CTA owns 128 columns of out and one k range, in a
+// four-stage ring. Warp 0 keeps TMA loads of (N, K) int8 boxes (128 n x 64
+// k, 128-byte swizzle) in flight, each as soon as its stage is free; warps
+// 1-3 load x's 64-k slices with plain loads two tiles ahead (so x needs no
+// alignment), split f32 into its three planes, and store them swizzled as
+// K-major B operands of NP rows (rows past M zeroed once, never written).
+// Warpgroups 1 and 2 take two k16 steps each of every tile: each thread
+// reads its int8 bytes with 32-bit loads, byte-transposes and converts
+// them in registers (qmm_hopper's conversion) into wgmma's A fragments, and
+// runs wgmma.m64nNPk16 with A from registers, per step and 64-n block one
+// product per plane into one accumulator. So that one load of a w row
+// serves a thread's four rows, a thread's rows are four adjacent n (rows g
+// and g + 8 of both 64-n blocks), and inside each k16 step the A
+// fragment's k columns 2t, 2t + 1, 2t + 8, 2t + 9 are taken to be w's k
+// rows 4t .. 4t + 3; x is stored in the same k order. No bf16 tile, no
+// conversion warpgroup: the first form of this kernel (a bf16 tile in
+// shared memory read as an MN-major A, kept in
+// scripts/qmatmul_decode_forms.cu) read 7-9% slower at bf16. k is split
+// across the CTAs of a thread-block cluster (S = 1, 2, 4 or 8, one k_chunk
+// each): after a cluster barrier each CTA sums its slice of the 128 x M
+// tile from every rank's shared memory (distributed shared memory) in rank
+// order, applies the scale and stores. One launch, no scratch, no atomics:
+// two launches give the same bits. The wrapper picks S as the fewest
+// splits that give every SM a CTA.
 //
-// qmm_bf16 and qmm_f32: the next k tile is loaded from device memory into
-// registers while the current one is multiplied out of shared memory (two
-// shared buffers, one barrier a tile). Rows past M, columns past N and k
-// past K are zero-filled on load and never stored, so ragged shapes need no
-// padding and no copy: 16-byte loads where the row is aligned and whole,
-// element loads at the edges.
+// qmm_hopper<P> (the prefill route; P = 1 for bf16 x, 3 for f32 x's
+// planes). 384 threads; a CTA owns BM rows x 128 columns of out and steps
+// k by 64. Warpgroup 0 is the producer: one thread issues TMA loads
+// (rank-2 maps over (rows, K) bf16 and (N, K) int8, encoded per launch
+// through libcuda's entry point; both 128-byte swizzled, zeros past every
+// edge) into an x ring (P boxes of BM rows x 128 B a stage) and an int8
+// ring (64 k rows x 128 B), and the whole warpgroup converts each int8
+// tile into a bf16 B ring: two 64-n blocks of 64 k rows x 128 B, 16-byte
+// chunk c of row k at c ^ (k & 7) (the pattern TMA writes, so wgmma reads
+// it as the V tile of flash_attention.cu). The conversion is exact (|q| <=
+// 128 has at most 8 significant bits): q + 128 as the low byte of the f32
+// 2**23, minus 2**23 + 128, truncated to its top half. The B tile is
+// written by st.shared, the generic proxy, and read by wgmma, the async
+// proxy, so each producer thread runs fence.proxy.async.shared::cta
+// between its writes and its arrival on the stage's full barrier; without
+// it wgmma may read stale bytes now and then. Warpgroups 1 and 2 are the
+// consumers: each owns BM / 2 rows as m64 tiles and runs wgmma.m64n128k16
+// with A (x) K-major and B MN-major (the transpose flag) from shared
+// memory; they wait on the x and B full barriers and release both stages
+// on the B empty barrier. P = 1: BM 256, four x stages, three B stages.
+// P = 3: one converted B tile feeds three products, one per plane, into
+// one accumulator; the three planes make a stage three times as large, so
+// BM is 128 with three x stages and two B stages (200 KB of shared
+// memory). The planes are one (3 M, K) bf16 tensor of 16-byte row pitch
+// (split_planes writes it from x, 16 MB read and 24 MB written at M =
+// 1,000 and K = 4,096); plane p's box starts at row p M + m0, and where it
+// runs past M into the next plane those rows feed only rows of out that
+// are not stored. No CTA-wide barrier in the k
+// loop, no atomics, no split k. The tile order walks 8 m tiles at a time
+// across the n tiles, so the CTAs in flight share a few x row blocks and w
+// column blocks in L2.
 //
-// Split k (qmm_bf16 and qmm_f32). At a decode step's M (a few rows) the
-// (m, n) tiles are too few to fill 132 SMs with the loads in flight that
-// the weight read needs (the 12,288-deep w_down has 32 tiles of 128
-// columns). The wrapper then splits k into `splits` ranges of k_chunk (a
-// multiple of 32): block z of the grid writes its unscaled partial sums to
-// ws[z] and a second launch adds the partials in z order and applies the
-// scale. No atomics: the result is the same from one launch to the next.
+// qmm_bf16 (mma.sync.m16n8k16, bf16 in, f32 accumulate; block tile BM x
+// 128 x 32, 4 warps side by side along n, BM = 64 or 16 at M <= 16) and
+// qmm_f32 (scalar fmaf on BM x 64 x 16 tiles, 256 threads, BM = 64 or 16):
+// the routes of shapes TMA cannot load. The next k tile is loaded from
+// device memory into registers while the current one is multiplied out of
+// shared memory (two shared buffers, one barrier a tile). Rows past M,
+// columns past N and k past K are zero-filled on load and never stored:
+// 16-byte loads where the row is aligned and whole, element loads at the
+// edges. At M <= 16 the wrapper splits k into `splits` ranges of k_chunk
+// (a multiple of 32): block z writes its unscaled partial sums to ws[z] and
+// splitk_reduce adds them in z order and applies the scale.
 //
 // Bound: at a decode step (M = 4, Qwen3-8B's 4,096 x 12,288 w_gate) the
 // 50.3 MB int8 weight read (0.015 ms at 3.35 TB/s); at prefill (M = 8,192)
 // the 8.25e11 flops (2 x 8,192 x 4,096 x 12,288; 0.834 ms at 989 TFLOP/s
-// on the tensor cores), which qmm_hopper is built for. Per 256 x 128 x 64
-// step it moves 160 KB through shared memory (the TMA writes, the
+// on the tensor cores), which qmm_hopper is built for; f32 x at f32
+// accuracy is three such bf16 products. Per 256 x 128 x 64 step (P = 1)
+// qmm_hopper moves 160 KB through shared memory (the TMA writes, the
 // conversion's reads and writes, and wgmma's operand reads, B once per m64
 // tile) for 2.1 M multiply-adds: at 128 bytes a clock, shared memory alone
 // would hold it to about 80% of the tensor cores' rate by that count.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -407,20 +452,29 @@ __global__ void __launch_bounds__(256)
 // ------------------------------------------------- bf16 on Hopper (prefill)
 
 constexpr int HT = 128;        // n columns of a CTA tile; rows of a consumer warpgroup
-constexpr int BMH = 256;       // m rows of a CTA tile: two consumers of two m64 tiles each
 constexpr int BKH = 64;        // k step: one 128-byte swizzle atom of bf16 x
-constexpr int XST = 4;         // stages of the x and int8 w rings
-constexpr int BST = 3;         // stages of the bf16 B ring
 constexpr int GROUP_M = 8;     // m tiles walked together in the tile order (L2 reuse)
 constexpr int THREADS_H = 384;  // warpgroup 0 loads and converts, warpgroups 1 and 2 multiply
-constexpr uint32_t X_BYTES = BMH * BKH * 2;   // 32 KB: 256 rows x 128 B
 constexpr uint32_t W8_BYTES = BKH * HT;       // 8 KB: 64 k rows x 128 B
 constexpr uint32_t B_BYTES = BKH * HT * 2;    // 16 KB: two 64-n blocks of 64 k rows x 128 B
 constexpr uint32_t B_BLOCK = BKH * 128;       // one 64-n block of the B tile
-constexpr uint32_t STG_OFF = XST * X_BYTES;
-constexpr uint32_t BS_OFF = STG_OFF + XST * W8_BYTES;
-constexpr uint32_t BAR_OFF = BS_OFF + BST * B_BYTES;  // 2 (XST + BST) mbarriers
-constexpr size_t SMEM_H = BAR_OFF + 16 * (XST + BST) + 1024;
+
+// qmm_hopper's tiles and rings by x's planes: P = 1 (bf16 x) 256 rows, four
+// x stages of 32 KB and three B stages; P = 3 (f32 x's planes) 128 rows,
+// three x stages of 48 KB and two B stages
+template <int P>
+struct HopperTile {
+  static constexpr int BM = P == 1 ? 256 : 128;   // m rows of a CTA tile
+  static constexpr int MT = BM / 128;             // m64 tiles of a consumer warpgroup
+  static constexpr int XST = P == 1 ? 4 : 3;      // stages of the x and int8 w rings
+  static constexpr int BST = P == 1 ? 3 : 2;      // stages of the bf16 B ring
+  static constexpr uint32_t PLANE = BM * BKH * 2;  // one plane's box: BM rows x 128 B
+  static constexpr uint32_t X_BYTES = P * PLANE;
+  static constexpr uint32_t STG_OFF = XST * X_BYTES;
+  static constexpr uint32_t BS_OFF = STG_OFF + XST * W8_BYTES;
+  static constexpr uint32_t BAR_OFF = BS_OFF + BST * B_BYTES;  // 2 (XST + BST) mbarriers
+  static constexpr size_t SMEM = BAR_OFF + 16 * (XST + BST) + 1024;
+};
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets in 16-byte units, layout type 1 (SW128)
@@ -438,6 +492,8 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
+
 // pins a register's reads and writes to this side of an async wgmma
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
@@ -553,18 +609,22 @@ __device__ __forceinline__ void convert_w(uint32_t stg, uint32_t bs, int tid) {
   }
 }
 
-// x tile kt (one box of 64 k x 256 rows) into its stage of the x ring
+// x tile kt (P boxes of 64 k x BM rows, plane p's at row p M + m0) into
+// its stage of the x ring
+template <int P>
 __device__ __forceinline__ void load_x(uint32_t xs, uint32_t x_full, const CUtensorMap* tmx,
-                                       int kt, int m0) {
-  const int s = kt % XST;
-  mbar_expect_tx(x_full + 8 * s, X_BYTES);
-  tma_load2(xs + s * X_BYTES, tmx, kt * BKH, m0, x_full + 8 * s);
+                                       int kt, int m0, int M) {
+  using T = HopperTile<P>;
+  const int s = kt % T::XST;
+  mbar_expect_tx(x_full + 8 * s, T::X_BYTES);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    tma_load2(xs + s * T::X_BYTES + p * T::PLANE, tmx, kt * BKH, p * M + m0, x_full + 8 * s);
 }
 
-// int8 w tile kt (one box of 128 n x 64 k) into its stage of the int8 ring
+// int8 w tile kt (one box of 128 n x 64 k) into stage s of the int8 ring
 __device__ __forceinline__ void load_w(uint32_t stg, uint32_t w_full, const CUtensorMap* tmw,
-                                       int kt, int n0) {
-  const int s = kt % XST;
+                                       int kt, int s, int n0) {
   mbar_expect_tx(w_full + 8 * s, W8_BYTES);
   tma_load2(stg + s * W8_BYTES, tmw, n0, kt * BKH, w_full + 8 * s);
 }
@@ -590,24 +650,27 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], const float* 
   }
 }
 
+template <int P>
 __global__ void __launch_bounds__(THREADS_H, 1)
     qmm_hopper(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
                const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K) {
+  using T = HopperTile<P>;
+  constexpr int XST = T::XST, BST = T::BST, MT = T::MT;
   constexpr int LX = XST - BST;  // x loads run LX tiles ahead of the conversion
   constexpr int LW = XST - 1;    // int8 w loads LW tiles ahead
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
-  const uint32_t XS = base, STG = base + STG_OFF, BS = base + BS_OFF;
+  const uint32_t XS = base, STG = base + T::STG_OFF, BS = base + T::BS_OFF;
   // mbarriers: x full x XST, int8 w full x XST, B full x BST, B empty x BST
-  const uint32_t x_full = base + BAR_OFF, w_full = x_full + 8 * XST;
+  const uint32_t x_full = base + T::BAR_OFF, w_full = x_full + 8 * XST;
   const uint32_t b_full = w_full + 8 * XST, b_empty = b_full + 8 * BST;
   // this CTA's tile: GROUP_M m tiles at a time, n tiles across each group,
   // so the CTAs in flight share a few x row blocks and w column blocks in L2
-  const int tm = (M + BMH - 1) / BMH, tn = (N + HT - 1) / HT;
+  const int tm = (M + T::BM - 1) / T::BM, tn = (N + HT - 1) / HT;
   const int first = ((int)blockIdx.x / (GROUP_M * tn)) * GROUP_M;
   const int r = (int)blockIdx.x % (GROUP_M * tn), gm = min(tm - first, GROUP_M);
-  const int m0 = (first + r % gm) * BMH, n0 = (r / gm) * HT;
+  const int m0 = (first + r % gm) * T::BM, n0 = (r / gm) * HT;
   const int n_kt = (K + BKH - 1) / BKH;
   const int wg = threadIdx.x >> 7;
 
@@ -631,8 +694,8 @@ __global__ void __launch_bounds__(THREADS_H, 1)
     // tiles ahead of the conversion); the warpgroup converts each w tile
     const int tid = threadIdx.x;
     if (tid == 0) {
-      for (int t = 0; t < LX && t < n_kt; ++t) load_x(XS, x_full, &tmx, t, m0);
-      for (int t = 0; t < LW && t < n_kt; ++t) load_w(STG, w_full, &tmw, t, n0);
+      for (int t = 0; t < LX && t < n_kt; ++t) load_x<P>(XS, x_full, &tmx, t, m0, M);
+      for (int t = 0; t < LW && t < n_kt; ++t) load_w(STG, w_full, &tmw, t, t % XST, n0);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int bs = kt % BST;
@@ -640,9 +703,9 @@ __global__ void __launch_bounds__(THREADS_H, 1)
       // so is the x stage of tile kt + LX (that of tile kt + LX - XST)
       if (kt >= BST) mbar_wait(b_empty + 8 * bs, ((kt / BST) & 1) ^ 1);
       if (tid == 0) {
-        if (kt + LX < n_kt) load_x(XS, x_full, &tmx, kt + LX, m0);
+        if (kt + LX < n_kt) load_x<P>(XS, x_full, &tmx, kt + LX, m0, M);
         // its int8 stage held tile kt - 1, converted in the last iteration
-        if (kt + LW < n_kt) load_w(STG, w_full, &tmw, kt + LW, n0);
+        if (kt + LW < n_kt) load_w(STG, w_full, &tmw, kt + LW, (kt + LW) % XST, n0);
       }
       mbar_wait(w_full + 8 * (kt % XST), (kt / XST) & 1);
       convert_w(STG + (kt % XST) * W8_BYTES, BS + bs * B_BYTES, tid);
@@ -655,49 +718,399 @@ __global__ void __launch_bounds__(THREADS_H, 1)
       asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the int8 stage is read out
     }
   } else {
-    // consumers: warpgroup cw owns rows cw 128 .. + 127 of the tile, as two
-    // m64 tiles, each a 64 x 128 f32 accumulator
+    // consumers: warpgroup cw owns rows cw BM / 2 .. + BM / 2 - 1 of the
+    // tile, as MT m64 tiles, each a 64 x 128 f32 accumulator
     const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    float acc[2][64];
+    float acc[MT][64];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
     for (int kt = 0; kt < n_kt; ++kt) {
-      const uint32_t xs = XS + (kt % XST) * X_BYTES, bs = BS + (kt % BST) * B_BYTES;
+      const uint32_t xs = XS + (kt % XST) * T::X_BYTES, bs = BS + (kt % BST) * B_BYTES;
       mbar_wait(x_full + 8 * (kt % XST), (kt / XST) & 1);
       mbar_wait(b_full + 8 * (kt % BST), (kt / BST) & 1);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i = 0; i < 64; ++i) reg_fence(acc[mt][i]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKH / 16; ++kk) {
         // B: k rows kk 16 .. + 15, MN-major (leading byte offset: the next 64
-        // n; stride: 8 k rows); A: K-major, 32 bytes a k16 step in the atom
+        // n; stride: 8 k rows); A: K-major, 32 bytes a k16 step in the atom;
+        // with three planes lo, mid, hi in turn (small first)
         const uint64_t db = sw128_desc(bs + kk * (16 * 128), B_BLOCK, 1024);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const uint64_t da =
-              sw128_desc(xs + (cw * 2 + mt) * (64 * 128) + kk * 32, 16, 1024);
-          wgmma_ss_n128_tb(acc[mt], da, db);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int p = P - 1; p >= 0; --p) {
+            const uint64_t da = sw128_desc(
+                xs + p * T::PLANE + (cw * MT + mt) * (64 * 128) + kk * 32, 16, 1024);
+            wgmma_ss_n128_tb(acc[mt], da, db);
+          }
       }
       wgmma_commit();
       wgmma_wait0();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i = 0; i < 64; ++i) reg_fence(acc[mt][i]);
       __syncwarp();
       if (lane == 0) mbar_arrive(b_empty + 8 * (kt % BST));
     }
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      store_tile(acc[mt], scale, out, M, N, m0 + (cw * 2 + mt) * 64 + warp * 16 + (lane >> 2),
+    for (int mt = 0; mt < MT; ++mt)
+      store_tile(acc[mt], scale, out, M, N, m0 + (cw * MT + mt) * 64 + warp * 16 + (lane >> 2),
                  n0 + 2 * (lane & 3));
   }
+}
+
+// ------------------------------------------ f32 x as three bf16 planes
+
+// v = hi + mid + lo exactly (each a bf16, as its bits): hi and mid are
+// truncations to 16 bits, lo the rest (at most 8 significant bits); a
+// non-finite v is hi alone (a NaN kept a NaN by its quiet bit)
+__device__ __forceinline__ void split3(float v, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const uint32_t b = __float_as_uint(v);
+  if ((b & 0x7F800000u) == 0x7F800000u) {
+    hi = (b >> 16) | ((b & 0x007FFFFFu) ? 0x0040u : 0u);
+    mid = lo = 0u;
+    return;
+  }
+  const float r = __fsub_rn(v, __uint_as_float(b & 0xFFFF0000u));
+  const uint32_t rb = __float_as_uint(r);
+  hi = b >> 16;
+  mid = rb >> 16;
+  lo = __float_as_uint(__fsub_rn(r, __uint_as_float(rb & 0xFFFF0000u))) >> 16;
+}
+
+// four f32 -> two words of each plane (element 0 in the low half)
+__device__ __forceinline__ void split3x4(float4 v, uint32_t (&o)[3][2]) {
+  uint32_t h[4], m[4], l[4];
+  split3(v.x, h[0], m[0], l[0]);
+  split3(v.y, h[1], m[1], l[1]);
+  split3(v.z, h[2], m[2], l[2]);
+  split3(v.w, h[3], m[3], l[3]);
+  o[0][0] = h[0] | (h[1] << 16);
+  o[0][1] = h[2] | (h[3] << 16);
+  o[1][0] = m[0] | (m[1] << 16);
+  o[1][1] = m[2] | (m[3] << 16);
+  o[2][0] = l[0] | (l[1] << 16);
+  o[2][1] = l[2] | (l[3] << 16);
+}
+
+// x (M, K) f32 -> planes (3 M, Kp) bf16, plane p's row m at row p M + m
+// (Kp = K rounded up to 8, so a row is a whole 16-byte multiple; the
+// padding holds zeros); a thread takes 8 k of one row
+__global__ void __launch_bounds__(256)
+    split_planes(const float* __restrict__ x, uint16_t* __restrict__ planes, int M, int K,
+                 int Kp, int vec_x) {
+  const int cpr = Kp / 8;
+  const long long total = (long long)M * cpr;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int m = (int)(i / cpr), c = (int)(i % cpr) * 8;
+    uint32_t a[3][2], b[3][2];
+    split3x4(load_x4(x, M, K, m, c, K, vec_x), a);
+    split3x4(load_x4(x, M, K, m, c + 4, K, vec_x), b);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint4*>(planes + ((long long)p * M + m) * Kp + c) =
+          make_uint4(a[p][0], a[p][1], b[p][0], b[p][1]);
+  }
+}
+
+// --------------------------------------------- decode (M <= 16) on Hopper
+
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+
+// a decode CTA's shared memory: DST stages, each an int8 w tile and P x
+// planes of NP rows x 128 B; the 128 x NP partial
+template <int NP, int P>
+struct DecodeTile {
+  static constexpr int DST = 4;              // stages of the ring
+  static constexpr uint32_t XT = NP * 128;   // one plane's x tile
+  static constexpr uint32_t X_OFF = DST * W8_BYTES;
+  static constexpr uint32_t RED_OFF = X_OFF + DST * P * XT;
+  static constexpr uint32_t BAR_OFF = RED_OFF + NP * HT * 4;  // 3 DST mbarriers
+  static constexpr size_t SMEM = BAR_OFF + 8 * 3 * DST + 1024;
+};
+
+// d (64 x NP, f32) += A (64 x 16, bf16 from registers: the m16n8k16 A
+// layout in each warp's 16 rows) . B (16 x NP, bf16 from shared memory,
+// K-major)
+template <int NP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NP / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "%8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t ld_shared4(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// The decode route's k order inside a k16 step. Thread t of a quad holds
+// the A fragment's k columns 2t, 2t + 1, 2t + 8, 2t + 9; they are taken to
+// be w's k rows 4t .. 4t + 3 of the step, so that one 32-bit load of a w
+// row serves them. B (x) follows: of the step's eight physical bf16 pairs
+// (2i, 2i + 1), chunk 0 (logical k 0..7) holds pairs 0, 2, 4, 6 and chunk
+// 1 (logical 8..15) pairs 1, 3, 5, 7.
+__device__ __forceinline__ void st_shared4(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+// 4 bf16 of x's row `row`, columns [c, c + 4); zero past K
+__device__ __forceinline__ uint2 load_x4h(const __nv_bfloat16* x, int K, int row, int c,
+                                          bool vec) {
+  uint2 r = make_uint2(0u, 0u);
+  const __nv_bfloat16* p = x + (long long)row * K + c;
+  if (vec && c + 4 <= K) return *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < K) e[j] = p[j];
+  return r;
+}
+
+// four rows of w (k 4t .. 4t + 3), each a word of four int8 n values
+// (n0, n0 + 1, n0 + 2, n0 + 3) -> the A fragments of the two 64-n blocks:
+// row g of block j is n0 + 2 j, row g + 8 is n0 + 2 j + 1
+__device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                        uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+  // byte-transpose: r_c holds n0 + c at k 4t .. 4t + 3
+  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), lo23 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t hi01 = __byte_perm(w0, w1, 0x7362), hi23 = __byte_perm(w2, w3, 0x7362);
+  const uint32_t r0 = __byte_perm(lo01, lo23, 0x5410), r1 = __byte_perm(lo01, lo23, 0x7632);
+  const uint32_t r2 = __byte_perm(hi01, hi23, 0x5410), r3 = __byte_perm(hi01, hi23, 0x7632);
+  // fragment registers: (row g, k 2t..), (row g + 8, k 2t..), (row g, k
+  // 2t + 8..), (row g + 8, k 2t + 8..), each two bf16
+  i8x4_to_bf16(r0, a0[0], a0[2]);
+  i8x4_to_bf16(r1, a0[1], a0[3]);
+  i8x4_to_bf16(r2, a1[0], a1[2]);
+  i8x4_to_bf16(r3, a1[1], a1[3]);
+}
+
+// 384 threads: warpgroup 0 loads (warp 0 TMA for w, warps 1-3 plain loads
+// for x), warpgroups 1 and 2 convert w in registers and multiply, c taking
+// k16 steps 2 c and 2 c + 1 of each tile
+template <int NP, int P>
+__global__ void __launch_bounds__(384, 2)
+    qmm_decode(const __grid_constant__ CUtensorMap tmw, const void* __restrict__ xv,
+               const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K,
+               int k_chunk, int vec_x) {
+  namespace cg = cooperative_groups;
+  using T = DecodeTile<NP, P>;
+  constexpr int DST = T::DST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t WS = base, XS = base + T::X_OFF;
+  float* red = reinterpret_cast<float*>(smem_raw + (base - raw) + T::RED_OFF);
+  // mbarriers: w full (TMA), x full (the loaders), empty (the consumers)
+  const uint32_t w_full = base + T::BAR_OFF, x_full = w_full + 8 * DST;
+  const uint32_t empty = x_full + 8 * DST;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n0 = (int)(blockIdx.x / S) * HT;
+  const int kt0 = rank * (k_chunk / BKH);
+  const int n_kt = max(0, min(k_chunk / BKH, (K + BKH - 1) / BKH - kt0));
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < DST; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(x_full + 8 * s, 96);  // every x thread, after its proxy fence
+      mbar_init(empty + 8 * s, 8);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 32) {
+    // warp 0: the int8 tiles' TMA loads, each as soon as its stage is free
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % DST;
+      // the consumers have released tile i - DST: this stage is free
+      if (i >= DST) mbar_wait(empty + 8 * s, ((i / DST) & 1) ^ 1);
+      if (tid == 0) load_w(WS, w_full, &tmw, kt0 + i, s, n0);
+    }
+  } else if (tid < 128) {
+    // warps 1-3: x. A slot e = 16 m + 4 q + u is 4 k of row m at 16 q + 4 u:
+    // physical pairs 2 u and 2 u + 1 of k16 step q, which go to word u of
+    // the step's chunks 0 and 1 (the decode k order above). Each
+    // thread's slots are loaded two tiles ahead into registers (an L2
+    // round trip), split into planes for f32, and stored; the planes' rows
+    // past M stay zero (written once here, never again)
+    const int xt = tid - 32;
+    for (uint32_t o = xt * 16; o < DST * P * T::XT; o += 96 * 16) st_shared16(XS + o, 0u, 0u, 0u, 0u);
+    constexpr int SLOTS = 3;  // 16 rows x 16 slots over 96 threads
+    struct XRegs {
+      uint4 v[SLOTS];
+    };
+    auto load_xr = [&](int i, XRegs& r) {
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int e = xt + 96 * j, m = e >> 4, k = (kt0 + i) * BKH + 4 * (e & 15);
+        r.v[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (i >= n_kt || m >= M) continue;
+        if (P == 1) {
+          const uint2 b = load_x4h(static_cast<const __nv_bfloat16*>(xv), K, m, k, vec_x);
+          r.v[j].x = b.x;
+          r.v[j].y = b.y;
+        } else {
+          const float4 f = load_x4(static_cast<const float*>(xv), M, K, m, k, K, vec_x);
+          r.v[j] = make_uint4(__float_as_uint(f.x), __float_as_uint(f.y), __float_as_uint(f.z),
+                              __float_as_uint(f.w));
+        }
+      }
+    };
+    auto step = [&](int i, XRegs& r) {
+      const int s = i % DST;
+      if (i >= DST) mbar_wait(empty + 8 * s, ((i / DST) & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int e = xt + 96 * j, m = e >> 4, q = (e >> 2) & 3, u = e & 3, sw = m & 7;
+        if (m >= M) continue;
+        const uint32_t at0 = XS + s * P * T::XT + m * 128 + (((2 * q) ^ sw) << 4) + 4 * u;
+        const uint32_t at1 = XS + s * P * T::XT + m * 128 + (((2 * q + 1) ^ sw) << 4) + 4 * u;
+        if (P == 1) {
+          st_shared4(at0, r.v[j].x);
+          st_shared4(at1, r.v[j].y);
+        } else {
+          uint32_t o[3][2];
+          split3x4(make_float4(__uint_as_float(r.v[j].x), __uint_as_float(r.v[j].y),
+                               __uint_as_float(r.v[j].z), __uint_as_float(r.v[j].w)),
+                   o);
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            st_shared4(at0 + p * T::XT, o[p][0]);
+            st_shared4(at1 + p * T::XT, o[p][1]);
+          }
+        }
+      }
+      // generic-proxy writes read by wgmma (the async proxy): fence first
+      fence_proxy_async();
+      mbar_arrive(x_full + 8 * s);
+      load_xr(i + 2, r);
+    };
+    XRegs xa, xb;
+    load_xr(0, xa);
+    load_xr(1, xb);
+    for (int i = 0; i < n_kt; i += 2) {
+      step(i, xa);
+      if (i + 1 < n_kt) step(i + 1, xb);
+    }
+  } else {
+    // consumers: warpgroup c (1 or 2) converts and multiplies k16 steps
+    // 2 c - 2 and 2 c - 1 of every tile. A thread's rows are n0 + 4 (8 w +
+    // g) + {0, 1, 2, 3}: rows g and g + 8 of both 64-row blocks j, so one
+    // 32-bit load of a w row gives all four
+    const int c = (tid >> 7) - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t nb = 32 * warp + 4 * g;  // the thread's byte in a 128-n row
+    float acc[2][2][NP / 2];  // k16 step h, block j
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < NP / 2; ++e) acc[h][j][e] = 0.f;
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % DST;
+      const uint32_t ws = WS + s * W8_BYTES, xs = XS + s * P * T::XT;
+      mbar_wait(w_full + 8 * s, (i / DST) & 1);
+      uint32_t a[2][2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t wr[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int k = (2 * c + h) * 16 + 4 * t + r;
+          wr[r] = ld_shared4(ws + k * 128 + ((((nb >> 4) ^ (k & 7))) << 4) + (nb & 15));
+        }
+        a_frags(wr[0], wr[1], wr[2], wr[3], a[h][0], a[h][1]);
+      }
+      mbar_wait(x_full + 8 * s, (i / DST) & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < NP / 2; ++e) reg_fence(acc[h][j][e]);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int p = P - 1; p >= 0; --p)  // the planes lo, mid, hi (small first)
+            wgmma_rs<NP>(acc[h][j], a[h][j],
+                         sw128_desc(xs + p * T::XT + (2 * c + h) * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait0();  // the A registers are rewritten next tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < NP / 2; ++e) reg_fence(acc[h][j][e]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    // the partial into red[m HT + n], k16 steps summed in order: warpgroup
+    // 1 writes steps 0 + 1, then warpgroup 2 adds steps 2 + 3 (the m64nNP C
+    // layout per warp: element 4 b + 2 r + e at row 16 warp + g + 8 r, i.e.
+    // n = 4 (8 warp + g) + 2 j + r, column m = 8 b + 2 t + e)
+    if (c == 1) asm volatile("bar.sync 2, 256;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int b = 0; b < NP / 8; ++b)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = 4 * b + 2 * r + e;
+            float* o = red + (8 * b + 2 * t + e) * HT + nb + 2 * j + r;
+            const float v = __fadd_rn(acc[0][j][q], acc[1][j][q]);
+            *o = c == 0 ? v : __fadd_rn(*o, v);
+          }
+    if (c == 0) asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  }
+  // every rank's partial is in place: rank `rank` sums columns rank HT / S
+  // .. + HT / S - 1 over the ranks in rank order, scales and stores them
+  cluster.sync();
+  const int cols = HT / S, c0 = rank * cols;
+  for (int e = tid; e < M * cols; e += 384) {
+    const int m = e / cols, n = c0 + e % cols;
+    if (n0 + n >= N) continue;
+    float s = *cluster.map_shared_rank(red + m * HT + n, 0);
+    for (int q = 1; q < S; ++q) s = __fadd_rn(s, *cluster.map_shared_rank(red + m * HT + n, q));
+    out[(long long)m * N + n0 + n] = __fmul_rn(s, scale[n0 + n]);
+  }
+  cluster.sync();  // every partial stays in place until its readers are done
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -744,52 +1157,152 @@ int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* t, uint64_t i
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-int launch_hopper(const void* x, const int8_t* w, const float* scale, float* out, int M, int N,
-                  int K, cudaStream_t st) {
-  const long long tiles = (long long)((M + BMH - 1) / BMH) * ((N + HT - 1) / HT);
+// x_rows x K bf16 at x_pitch bytes a row: bf16 x (M rows), or f32 x's
+// three planes (3 M rows)
+template <int P>
+int launch_hopper(const void* x, int x_rows, uint64_t x_pitch, const int8_t* w,
+                  const float* scale, float* out, int M, int N, int K, cudaStream_t st) {
+  using T = HopperTile<P>;
+  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + HT - 1) / HT);
   if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   CUtensorMap tmx, tmw;
-  int rc = make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, BKH, BMH);
+  int rc = make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, x_rows, x_pitch, BKH, T::BM);
   if (rc == 0) rc = make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, (uint64_t)N, HT, BKH);
   if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(qmm_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_H);
+  cudaError_t e = cudaFuncSetAttribute(qmm_hopper<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  qmm_hopper<<<(unsigned)tiles, THREADS_H, SMEM_H, st>>>(tmx, tmw, scale, out, M, N, K);
+  qmm_hopper<P><<<(unsigned)tiles, THREADS_H, T::SMEM, st>>>(tmx, tmw, scale, out, M, N, K);
   return (int)cudaGetLastError();
 }
 
-constexpr int SMALL_M = 16;  // M at or below this: a decode step (16-row tiles, split k)
+// one launch: grid (N / 128 tiles x S), one cluster of S CTAs a tile, rank
+// r taking k_chunk / 64 k tiles from r k_chunk
+template <int NP, int P>
+int launch_decode(const void* x, const int8_t* w, const float* scale, float* out, int M, int N,
+                  int K, int splits, int k_chunk, int vec_x, cudaStream_t st) {
+  using T = DecodeTile<NP, P>;
+  CUtensorMap tmw;
+  const int rc = make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, (uint64_t)N, HT, BKH);
+  if (rc != 0) return rc;
+  // past 48 KB the kernel needs a larger dynamic shared memory limit, set
+  // once for each device
+  static bool set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !set[dev]) {
+    e = cudaFuncSetAttribute(qmm_decode<NP, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) set[dev] = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((N + HT - 1) / HT) * splits));
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, qmm_decode<NP, P>, tmw, x, scale, out, M, N, K, k_chunk, vec_x);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int NP, int P>
+int decode_clusters(int splits) {
+  using T = DecodeTile<NP, P>;
+  if (cudaFuncSetAttribute(qmm_decode<NP, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)T::SMEM) != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)splits * 132);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  return cudaOccupancyMaxActiveClusters(&n, qmm_decode<NP, P>, &cfg) == cudaSuccess ? n : -1;
+}
+
+constexpr int SMALL_M = 16;  // M at or below this: a decode step
 
 // The kernel a call runs, fixed by dtype, shape and alignment alone:
-// 2 qmm_hopper (bf16 x, M > 16, rows of x and w whole 16-byte multiples, both
-// bases 16-byte aligned: what TMA takes), 1 qmm_bf16 (other bf16), 0 qmm_f32.
+// 3 qmm_decode (M <= 16, w TMA-loadable: N % 16 == 0, 16-byte-aligned
+// base), 2 qmm_hopper (bf16 x, M > 16, w and x TMA-loadable: K % 8 == 0,
+// 16-byte-aligned base), 4 qmm_hopper on f32 x's planes (f32 x, M > 16, w
+// TMA-loadable), 1 qmm_bf16 (other bf16), 0 qmm_f32 (other f32).
 // kernels/qmatmul.kernel_design is the same table.
 int design(int is_bf16, int M, int N, int K, const void* x, const void* w) {
-  if (!is_bf16) return 0;
-  return (M > SMALL_M && K % 8 == 0 && N % 16 == 0 && aligned16(x) && aligned16(w)) ? 2 : 1;
+  const bool w_tma = N % 16 == 0 && aligned16(w);
+  if (!w_tma) return is_bf16 ? 1 : 0;
+  if (M <= SMALL_M) return 3;
+  if (!is_bf16) return 4;
+  return (K % 8 == 0 && aligned16(x)) ? 2 : 1;
 }
 
 }  // namespace
 
 // x: (M, K) row-major, bfloat16 (is_bf16 = 1) or float32; w: (K, N) int8
 // row-major; scale: (N,) f32; out: (M, N) f32. k is cut into `splits`
-// ranges of k_chunk (a multiple of 32; splits == ceil(K / k_chunk)); with
-// splits > 1, ws holds splits * M * N f32 of scratch and a second launch
-// reduces it. The Hopper route (design() == 2) takes splits == 1 only.
+// ranges of k_chunk (splits == ceil(K / k_chunk)). By design():
+//   qmm_decode: splits is the cluster size (1, 2, 4 or 8), k_chunk a
+//     multiple of 64; no scratch.
+//   qmm_hopper: splits == 1; on f32 x, ws holds 3 M Kp bf16 (Kp = K
+//     rounded up to 8) for the planes, written by a launch before it.
+//   qmm_bf16 / qmm_f32: k_chunk a multiple of 32; with splits > 1, ws holds
+//     splits M N f32 of partials and a second launch reduces them.
 // Launches on ``stream``; returns cudaGetLastError().
 extern "C" int qmatmul_launch(const void* x, int is_bf16, const int8_t* w, const float* scale,
-                              float* out, float* ws, int M, int N, int K, int splits,
+                              float* out, void* ws, int M, int N, int K, int splits,
                               int k_chunk, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || splits < 1 || k_chunk < 1 || k_chunk % 32 != 0 ||
-      (long long)(splits - 1) * k_chunk >= K || (long long)splits * k_chunk < K ||
-      (splits > 1 && ws == nullptr))
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || k_chunk < 1 ||
+      (long long)(splits - 1) * k_chunk >= K || (long long)splits * k_chunk < K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (design(is_bf16, M, N, K, x, w) == 2) {
+  const int d = design(is_bf16, M, N, K, x, w);
+  if (d == 2 || d == 4) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
-    return launch_hopper(x, w, scale, out, M, N, K, st);
+    if (d == 2)
+      return launch_hopper<1>(x, M, (uint64_t)K * 2, w, scale, out, M, N, K, st);
+    if (ws == nullptr || !aligned16(ws) || 3LL * M > 0x7FFFFFFFLL)
+      return (int)cudaErrorInvalidValue;
+    const int Kp = (K + 7) / 8 * 8;
+    const long long chunks = (long long)M * (Kp / 8);
+    long long blocks = (chunks + 255) / 256;
+    if (blocks > 8192) blocks = 8192;
+    split_planes<<<(unsigned)blocks, 256, 0, st>>>(static_cast<const float*>(x),
+                                                   static_cast<uint16_t*>(ws), M, K, Kp,
+                                                   aligned16(x) && K % 4 == 0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return launch_hopper<3>(ws, 3 * M, (uint64_t)Kp * 2, w, scale, out, M, N, K, st);
   }
+  if (d == 3) {
+    if (splits > MAX_CLUSTER || (splits & (splits - 1)) != 0 || k_chunk % BKH != 0)
+      return (int)cudaErrorInvalidValue;
+    const int np = M <= 8 ? 8 : 16;
+    if (is_bf16) {
+      const int vec_x = aligned16(x) && K % 8 == 0;
+      return np == 8 ? launch_decode<8, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+                     : launch_decode<16, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
+    }
+    const int vec_x = aligned16(x) && K % 4 == 0;
+    return np == 8 ? launch_decode<8, 3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+                   : launch_decode<16, 3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
+  }
+  if (k_chunk % 32 != 0 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  float* wsf = static_cast<float*>(ws);
   const bool small = M <= SMALL_M;
   const int bm = small ? 16 : 64;
   const long long m_tiles = (M + bm - 1) / bm;
@@ -800,18 +1313,18 @@ extern "C" int qmatmul_launch(const void* x, int is_bf16, const int8_t* w, const
     const int vec_x = aligned16(x) && K % 8 == 0;
     const dim3 grid((N + BN16 - 1) / BN16, (unsigned)m_tiles, splits);
     if (small) {
-      qmm_bf16<1><<<grid, T16, 0, st>>>(xb, w, scale, out, ws, M, N, K, k_chunk, vec_x, vec_w);
+      qmm_bf16<1><<<grid, T16, 0, st>>>(xb, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
     } else {
-      qmm_bf16<4><<<grid, T16, 0, st>>>(xb, w, scale, out, ws, M, N, K, k_chunk, vec_x, vec_w);
+      qmm_bf16<4><<<grid, T16, 0, st>>>(xb, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
     }
   } else {
     const float* xf = static_cast<const float*>(x);
     const int vec_x = aligned16(x) && K % 4 == 0;
     const dim3 grid((N + BN32 - 1) / BN32, (unsigned)m_tiles, splits);
     if (small) {
-      qmm_f32<1><<<grid, T32, 0, st>>>(xf, w, scale, out, ws, M, N, K, k_chunk, vec_x, vec_w);
+      qmm_f32<1><<<grid, T32, 0, st>>>(xf, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
     } else {
-      qmm_f32<4><<<grid, T32, 0, st>>>(xf, w, scale, out, ws, M, N, K, k_chunk, vec_x, vec_w);
+      qmm_f32<4><<<grid, T32, 0, st>>>(xf, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
     }
   }
   cudaError_t err = cudaGetLastError();
@@ -819,7 +1332,7 @@ extern "C" int qmatmul_launch(const void* x, int is_bf16, const int8_t* w, const
   const long long mn = (long long)M * N;
   long long blocks = (mn + 255) / 256;
   if (blocks > 8192) blocks = 8192;
-  splitk_reduce<<<(unsigned)blocks, 256, 0, st>>>(ws, splits, mn, N, scale, out);
+  splitk_reduce<<<(unsigned)blocks, 256, 0, st>>>(wsf, splits, mn, N, scale, out);
   return (int)cudaGetLastError();
 }
 
@@ -828,3 +1341,9 @@ extern "C" int qmatmul_design(int is_bf16, int M, int N, int K, const void* x, c
   return design(is_bf16, M, N, K, x, w);
 }
 
+// clusters of `splits` decode CTAs (NP = 8 or 16 rows, bf16 or f32 x) the
+// device holds at once (cudaOccupancyMaxActiveClusters), or -1 on an error
+extern "C" int qmatmul_decode_clusters(int is_bf16, int np, int splits) {
+  if (is_bf16) return np == 8 ? decode_clusters<8, 1>(splits) : decode_clusters<16, 1>(splits);
+  return np == 8 ? decode_clusters<8, 3>(splits) : decode_clusters<16, 3>(splits);
+}

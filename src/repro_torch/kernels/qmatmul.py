@@ -13,15 +13,31 @@ the two differ by summation order and by where the scale is rounded in, so
 they agree within the tolerance below, element by element. M, K and N may
 be any size; the kernel masks the ragged edges itself.
 
-Three CUDA kernels share the source, one per route, fixed by dtype, shape
-and alignment alone (``kernel_design``; the C launcher's ``design()`` is
-the same table): bf16 x with M > SMALL_M whose rows of x and w are whole
-16-byte multiples (K % 8 == 0, N % 16 == 0) from 16-byte-aligned bases,
-what TMA takes, runs ``qmm_hopper`` (wgmma on 256 x 128 tiles, each int8
-weight tile converted to bf16 in shared memory); other bf16 x runs
-``qmm_bf16`` (mma.sync; split k at M <= SMALL_M); float32 x runs
-``qmm_f32``. A route is not a fallback: a kernel that fails to build,
-encode its tensor maps or launch raises.
+Routes, fixed by dtype, M and alignment alone (``kernel_design``; the C
+launcher's ``design()`` is the same table); "w TMA-loadable" is N % 16 ==
+0 and a 16-byte-aligned base:
+
+- ``decode`` (``qmm_decode``): M <= SMALL_M, w TMA-loadable, bf16 or f32
+  x of any alignment. One launch computes out^T = w^T x^T on wgmma (N on
+  the 64-row side), k split across the CTAs of a thread-block cluster and
+  summed through distributed shared memory in rank order
+  (``cluster_split`` picks the cluster size); no scratch.
+- ``hopper`` (``qmm_hopper``): bf16 x, M > SMALL_M, x and w TMA-loadable
+  (K % 8 == 0, 16-byte-aligned bases): wgmma on 256 x 128 tiles, each int8
+  weight tile converted to bf16 in shared memory.
+- ``hopper_f32``: f32 x, M > SMALL_M, w TMA-loadable: one pass writes x
+  as three bf16 planes (``split3_plain`` is its plain version) into
+  scratch, and ``qmm_hopper`` multiplies each converted weight tile by the
+  three planes into one f32 accumulator (128 x 128 tiles).
+- ``bf16`` (``qmm_bf16``, mma.sync; split k at M <= SMALL_M) and ``f32``
+  (``qmm_f32``, scalar fmaf): the shapes TMA cannot load.
+
+f32 x reaches the tensor cores without losing f32 accuracy: x = hi + mid
++ lo exactly, each a bf16 (hi and mid truncations to 16 bits, lo the rest,
+at most 8 significant bits), and each part times an int8 weight (exact in
+bf16) is exact in f32, so the sum differs from the reference's f32 dot
+only in summation order. No TF32. A route is not a fallback: a kernel that
+fails to build, encode its tensor maps or launch raises.
 
 Dispatch: a tensor on the CPU runs the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -39,11 +55,14 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BK = 32  # k_chunk granularity: a multiple of both kernels' k tile
-SMALL_M = 16  # M at or below this takes the 16-row tiles (a decode step)
+SMALL_M = 16  # M at or below this is a decode step (the decode route, or 16-row tiles)
 MAX_SPLITS = 32
 BLOCKS_PER_SM = 4  # split k until about this many blocks per SM are in flight
 # the kernels by the code csrc/qmatmul.cu's design() gives them
-DESIGNS = ("f32", "bf16", "hopper")
+DESIGNS = ("f32", "bf16", "hopper", "decode", "hopper_f32")
+DECODE_BK = 64  # the decode route's k tile: its k_chunk is a multiple of it
+DECODE_BN = 128  # columns of a decode CTA
+MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 
 def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -51,6 +70,61 @@ def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> to
     -> (M, N) f32, as the reference's oracle computes it."""
     w = w_q.to(torch.float32) * scale.to(device=w_q.device, dtype=torch.float32)[None, :]
     return x.to(torch.float32) @ w
+
+
+def split3_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, mid, lo) bf16 with hi + mid + lo == x exactly, as the
+    CUDA routes split it: hi is x's top 16 bits, mid the top 16 bits of r =
+    x - hi (exact), lo = r - mid (at most 8 significant bits, exact in
+    bf16). A non-finite x gives hi = x (a NaN stays a NaN) and mid = lo =
+    0. Where lo falls below bf16's normal range (x under about 2**-110),
+    bits of x under 2**-133 are dropped."""
+    x = x.to(torch.float32)
+    top = torch.tensor(-65536, dtype=torch.int32)  # 0xFFFF0000: a bf16's bits
+    hi = x.view(torch.int32) & top
+    r = torch.where(torch.isfinite(x), x - hi.view(torch.float32), torch.zeros_like(x))
+    mid = r.view(torch.int32) & top
+    lo = (r - mid.view(torch.float32)).view(torch.int32) & top
+    hi = torch.where(torch.isnan(x), hi | 0x00400000, hi)  # the quiet bit keeps a NaN
+    # each is a whole bf16 value: the casts round nothing
+    return tuple(t.view(torch.float32).to(torch.bfloat16) for t in (hi, mid, lo))
+
+
+def qmatmul_planes_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                         planes: Tuple[bool, bool, bool] = (True, True, True)) -> torch.Tensor:
+    """The three-plane product in plain PyTorch: ((lo @ q + mid @ q) + hi @
+    q) * scale in f32, the planes of ``split3_plain(x)`` (small first, as the
+    kernels add them); ``planes`` leaves out the parts marked False."""
+    q = w_q.to(torch.float32)
+    acc = None
+    for keep, part in reversed(list(zip(planes, split3_plain(x)))):
+        if keep:
+            y = part.to(torch.float32) @ q
+            acc = y if acc is None else acc + y
+    if acc is None:
+        acc = torch.zeros((x.shape[0], q.shape[1]), dtype=torch.float32, device=x.device)
+    return acc * scale.to(device=w_q.device, dtype=torch.float32)[None, :]
+
+
+def one_hot_reference(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(x @ q) * scale rounded as the reference kernel rounds it, for an x
+    with one nonzero a row: the dot (one product, exact in f64) rounded once
+    to f32, then times the scale (exact in f64) rounded once. The plain
+    version rounds q * scale first instead, so on such an x the two can
+    differ by up to 3 ulps (each within 1.5 of the exact value)."""
+    p = (x.to(torch.float64) @ w_q.to(torch.float64)).to(torch.float32)
+    s = scale.to(device=w_q.device, dtype=torch.float64)[None, :]
+    return (p.to(torch.float64) * s).to(torch.float32)
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in f32 units in the last place, element by element: the
+    distance of the two values' places in the ordered f32 numbers (+0 and
+    -0 the same place)."""
+    def place(t):
+        i = t.to(torch.float32).view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (place(a) - place(b)).abs()
 
 
 # Tolerance of the kernel (and of the port on the CPU against the JAX
@@ -63,15 +137,22 @@ def qmatmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> to
 # sum of K terms grow like sqrt(K) units of 2**-24 times the sum of the
 # terms' magnitudes. On an H100 at Qwen3-8B's MLP widths
 # (``scripts/qmatmul_tolerance_probe.py``) the sound kernel read at most
-# 0.17 of these units (0.17 on the Hopper route too, whose wgmma sums each
-# k16 step in its own order; ``chip_smoke.py`` read it at 0.20 at M =
-# 1,000), and on the CPU the port against the JAX kernel at most 0.46 (K =
-# 129). Planted faults in the same readings (two probe runs): x rounded to
+# 0.17 of these units on the bf16 routes (the decode route 0.008, the
+# Hopper route 0.17, whose wgmma sums each k16 step in its own order;
+# ``chip_smoke.py`` read it at 0.20 at M = 1,000) and 0.54 on f32's Hopper
+# route, whose three products a k16 step each round into the accumulator
+# (the f32 decode route 0.04); on the CPU the port against the JAX kernel
+# at most 0.46 (K = 129). Planted faults in the same readings: x rounded to
 # TF32 (f32 x) 1.5-7.5 at most, 1.1-3.4 at the 99th percentile; the output
-# rounded to bf16 19-113; one weight row of K dropped 42-860; on the Hopper
-# route one k16 step skipped 447-2,729 and the bf16 weight tile read
-# unswizzled 14,136-45,912. The limit sits between 0.46 and 1.5, near the
-# geometric middle of 0.46 and 1.9 (the first run's nearest fault).
+# rounded to bf16 18-113; one weight row of K dropped 37-860; on the Hopper
+# routes one k16 step skipped 444-2,729 (on f32's, of the hi plane alone,
+# 443-2,563) and the bf16 weight tile read unswizzled 14,136-45,912; on
+# the decode route one cluster rank's partial dropped 2,895-20,150 and the
+# int8 tile read unswizzled 10,450-36,150. The limit sits between 0.54 and
+# 1.5, near the geometric middle of 0.46 and 1.9 (the first run's nearest
+# fault). x without its lo plane reads 0.08-0.54, under the limit: a
+# one-hot x (``one_hot_reference``, ``ulps``) catches it instead, at
+# 213-494 ulps against the sound kernel's 1-2.
 TOL_C = 1.0
 
 
@@ -113,18 +194,42 @@ def split_k(M: int, N: int, K: int, bf16: bool, sms: int) -> Tuple[int, int]:
     return -(-K // k_chunk), k_chunk
 
 
+@functools.lru_cache(maxsize=256)
+def cluster_split(N: int, K: int, sms: int) -> Tuple[int, int]:
+    """(S, k_chunk) of the decode route: a cluster of S CTAs (1, 2, 4 or 8)
+    a 128-column tile, rank r taking k_chunk (a multiple of DECODE_BK) from
+    r k_chunk, no range empty. S is the fewest splits that give every SM a
+    CTA: more, shorter CTAs only add each one's start and the cluster's
+    reduction (Qwen3-8B's w_gate reads fastest at 2, its w_down at 8)."""
+    tiles = -(-N // DECODE_BN)
+    k_tiles = -(-K // DECODE_BK)
+
+    def chunk(S):
+        return -(-k_tiles // S) * DECODE_BK
+
+    S = 1
+    while S < MAX_CLUSTER and tiles * S < sms and (2 * S - 1) * chunk(2 * S) < K:
+        S *= 2
+    return S, chunk(S)
+
+
 def kernel_design(dtype: torch.dtype, M: int, N: int, K: int, x: torch.Tensor,
                   w_q: torch.Tensor) -> str:
     """The kernel a card call launches for x (M, K) of ``dtype`` and w_q
-    (K, N): ``"hopper"`` where TMA can load both (bf16, M > SMALL_M, K % 8
-    == 0, N % 16 == 0, both bases 16-byte aligned), else ``"bf16"`` or
-    ``"f32"`` by dtype."""
+    (K, N): where TMA can load w (N % 16 == 0, a 16-byte-aligned base)
+    ``"decode"`` at M <= SMALL_M, else ``"hopper_f32"`` for float32 and
+    ``"hopper"`` for bfloat16 where TMA can load x too (K % 8 == 0, a
+    16-byte-aligned base); elsewhere ``"bf16"`` or ``"f32"`` by dtype."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"no qmatmul kernel for x of {dtype}")
-    if dtype == torch.float32:
-        return DESIGNS[0]
-    tma = K % 8 == 0 and N % 16 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0
-    return DESIGNS[2] if M > SMALL_M and tma else DESIGNS[1]
+    bf16 = dtype == torch.bfloat16
+    if not (N % 16 == 0 and w_q.data_ptr() % 16 == 0):
+        return DESIGNS[_DTYPE_CODE[dtype]]
+    if M <= SMALL_M:
+        return "decode"
+    if not bf16:
+        return "hopper_f32"
+    return "hopper" if K % 8 == 0 and x.data_ptr() % 16 == 0 else "bf16"
 
 
 _SMS: Dict[int, int] = {}
@@ -160,12 +265,19 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError("x and w_q must be contiguous")
     if scale.dtype is not torch.float32 or not scale.is_contiguous():
         scale = scale.to(torch.float32).contiguous()
-    if kernel_design(x.dtype, M, N, K, x, w_q) == "hopper":  # one pass over k, no split
+    design = kernel_design(x.dtype, M, N, K, x, w_q)
+    ws = None
+    if design == "decode":
+        splits, k_chunk = cluster_split(N, K, _sm_count(idx))
+    elif design in ("hopper", "hopper_f32"):  # one pass over k, no split
         splits, k_chunk = 1, -(-K // BK) * BK
+        if design == "hopper_f32":  # x's three bf16 planes, rows of 16-byte pitch
+            ws = torch.empty(3 * M * (-(-K // 8) * 8), dtype=torch.bfloat16, device=x.device)
     else:
         splits, k_chunk = split_k(M, N, K, code == 1, _sm_count(idx))
+        if splits > 1:
+            ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device) if splits > 1 else None
     _build.launch(_build.library("qmatmul").qmatmul_launch, idx,
                   x.data_ptr(), code, w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
                   None if ws is None else ws.data_ptr(), M, N, K, splits, k_chunk)

@@ -17,7 +17,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ota_fused as kota
 from repro_torch.kernels import topk_similarity as ktk
 from repro_torch.kernels.ota_aggregate import ota_aggregate_2d, ota_aggregate_plain
-from repro_torch.kernels.qmatmul import DESIGNS, kernel_design, mismatch, qmatmul_plain
+from repro_torch.kernels.qmatmul import (DESIGNS, cluster_split, kernel_design, mismatch,
+                                         one_hot_reference, qmatmul_plain, split3_plain, ulps)
 from repro_torch.kernels.qmatmul import qmatmul as kqmm
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 from repro_torch.launch import sharding as shd
@@ -740,9 +741,11 @@ def test_ota_aggregate_kernel_equals_plain(dev, K, M, offset):
                                    (1000, 4096, 12288), (8192, 4096, 12288),
                                    (8192, 12288, 4096), (1000, 4104, 1008), (17, 64, 16)])
 def test_qmatmul_kernel_within_tolerance_of_plain(dev, dtype, M, K, N):
-    """Decode (split k) and prefill tiles, ragged M, K and N (element loads
-    at the edges; TMA's zero fill on the Hopper route), Qwen3-8B's MLP widths
-    at prefill; two launches give the same bits."""
+    """The decode route (M <= 16, a cluster's ranks summed in rank order) and
+    the Hopper route (bf16, and f32 through its three planes), ragged M, K
+    and N (TMA's zero fill, plain loads of x at the decode step; element
+    loads on the old routes), Qwen3-8B's MLP widths; two launches give the
+    same bits."""
     gen = torch.Generator(device=dev).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
@@ -783,6 +786,107 @@ def test_qmatmul_misaligned_view_takes_the_old_kernel(dev):
     mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
     assert mm["within"], mm
     assert torch.equal(out, ops.qmatmul(x, q, s)) and kqmm.launches == before + 2
+
+
+def _one_hot(gen, dev, M, K):
+    """One nonzero a row, its mantissa's 24 bits all random and the last
+    set, exponents 2**-20 to 2**20, both signs."""
+    bits = torch.randint(0, 1 << 23, (M,), generator=gen, device=dev) | 1
+    bits |= (torch.randint(-20, 21, (M,), generator=gen, device=dev) + 127) << 23
+    bits |= torch.randint(0, 2, (M,), generator=gen, device=dev) << 31
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)  # as int32
+    x = torch.zeros((M, K), device=dev)
+    cols = torch.randint(0, K, (M,), generator=gen, device=dev)
+    x[torch.arange(M, device=dev), cols] = bits.to(torch.int32).view(torch.float32)
+    return x
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 12288), (4, 12288, 4096), (13, 1000, 1008),
+                                   (1000, 4096, 12288), (300, 12288, 4096)])
+def test_qmatmul_one_hot_f32_within_two_ulps(dev, M, K, N):
+    """One nonzero a row: both f32 routes (decode, hopper_f32) are within 2
+    ulps of the reference kernel's rounding (the dot rounded once, then the
+    scale: ``one_hot_reference``), and within 3 of the plain version, which
+    rounds q * scale first (each is within 1.5 ulps of the exact value); x
+    without its lo plane (hi + mid, which splits into hi, mid and a zero lo:
+    the kernel with its lo plane dropped) is not."""
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    x = _one_hot(gen, dev, M, K)
+    q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
+    assert kernel_design(x.dtype, M, N, K, x, q) == ("decode" if M <= 16 else "hopper_f32")
+    ref, plain = one_hot_reference(x, q, s), qmatmul_plain(x, q, s)
+    out = ops.qmatmul(x, q, s)
+    assert int(ulps(out, ref).max()) <= 2 and int(ulps(out, plain).max()) <= 3
+    hi, mid, _ = split3_plain(x)
+    no_lo = ops.qmatmul(hi.float() + mid.float(), q, s)
+    assert int(ulps(no_lo, ref).max()) > 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qmatmul_decode_is_one_launch_without_scratch(dev, dtype):
+    """A decode step launches one kernel (qmm_decode) and allocates only its
+    output: no split-k partials, no second launch."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((4, 4096), generator=gen, device=dev).to(dtype)
+    q, s = ops.quantize_weights(torch.randn((4096, 12288), generator=gen, device=dev) * 0.02)
+    ops.qmatmul(x, q, s)  # built and warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = ops.qmatmul(x, q, s)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "qmm_decode" in kernels[0], kernels
+    assert out.shape == (4, 12288)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (300, 4096, 1024)])
+def test_qmatmul_f32_non_finite_x(dev, M, K, N):
+    """inf, -inf and NaN in x: hi carries them (mid = lo = 0), so each row
+    holds the plain version's inf, -inf or NaN; the finite rows stay within
+    the rule."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    x[0, 5] = float("inf")
+    x[1, 7] = float("-inf")
+    x[2, 9] = float("nan")
+    x[2, 11] = torch.tensor(0x7F800001, dtype=torch.int32).view(torch.float32)  # a NaN
+    q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
+    out, plain = ops.qmatmul(x, q, s), qmatmul_plain(x, q, s)
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert torch.equal(torch.isinf(out), torch.isinf(plain))
+    fin = torch.isfinite(plain)
+    assert torch.equal(out[torch.isinf(plain)], plain[torch.isinf(plain)])
+    assert not torch.isfinite(out[:3]).any() and torch.isfinite(out[3:]).all()
+    mm = mismatch(out[3:], plain[3:], x[3:], q, s)
+    assert fin[3:].all() and mm["within"], mm
+
+
+@pytest.mark.parametrize("M", [4, 300])
+def test_qmatmul_f32_tiny_exponents_within_tolerance(dev, M):
+    """x near 2**-100 on both f32 routes: lo's bits near 2**-123, still
+    normal in bf16, so nothing is dropped."""
+    gen = torch.Generator(device=dev).manual_seed(M + 100)
+    x = torch.randn((M, 4096), generator=gen, device=dev) * 2.0**-100
+    q, s = ops.quantize_weights(torch.randn((4096, 1024), generator=gen, device=dev))
+    mm = mismatch(ops.qmatmul(x, q, s), qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+
+
+def test_qmatmul_decode_takes_x_off_alignment(dev):
+    """A bf16 x 2 bytes off alignment at M = 16 runs the decode route (x is
+    read with plain loads), within the rule and bit-stable."""
+    M, K, N = 16, 4104, 1024
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(M * K + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(M, K)
+    q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
+    assert x.data_ptr() % 16 == 2 and kernel_design(x.dtype, M, N, K, x, q) == "decode"
+    assert cluster_split(N, K, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+    assert torch.equal(out, ops.qmatmul(x, q, s))
 
 
 def test_qmatmul_int4_kernel_within_tolerance_of_plain(dev):

@@ -37,7 +37,9 @@ import repro_torch.kernels as tkernels
 from repro_torch.core import wire
 from repro_torch.kernels import _build, ota_fused, topk_similarity
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.qmatmul import TOL_C, kernel_design, mismatch, split_k
+from repro_torch.kernels.qmatmul import (TOL_C, cluster_split, kernel_design, mismatch,
+                                         one_hot_reference, qmatmul_planes_plain, split3_plain,
+                                         split_k, ulps)
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -235,14 +237,23 @@ def test_qmatmul_mismatch_rule_bounds_each_element():
     (torch.bfloat16, 17, 64, 16, 0, 0, "hopper"),  # the smallest Hopper call
     (torch.bfloat16, 8192, 4096, 12288, 0, 0, "hopper"),  # Qwen3-8B w_gate at prefill
     (torch.bfloat16, 1000, 4104, 1008, 0, 0, "hopper"),  # ragged inside the route
-    (torch.bfloat16, 16, 64, 16, 0, 0, "bf16"),  # a decode step: split k on mma.sync
+    (torch.bfloat16, 16, 64, 16, 0, 0, "decode"),  # a decode step: one cluster launch
+    (torch.bfloat16, 4, 4096, 12288, 0, 0, "decode"),  # Qwen3-8B w_gate at batch 4
+    (torch.bfloat16, 16, 64, 16, 1, 0, "decode"),  # x off alignment: plain loads of x
+    (torch.bfloat16, 16, 100, 16, 0, 0, "decode"),  # K % 8: the decode route takes it
     (torch.bfloat16, 17, 100, 16, 0, 0, "bf16"),  # K % 8: x's rows not 16-byte multiples
     (torch.bfloat16, 17, 64, 24, 0, 0, "bf16"),  # N % 16: w's rows not 16-byte multiples
     (torch.bfloat16, 17, 64, 16, 1, 0, "bf16"),  # x a view 2 bytes off alignment
     (torch.bfloat16, 17, 64, 16, 0, 1, "bf16"),  # w a view 1 byte off alignment
+    (torch.bfloat16, 4, 64, 16, 0, 1, "bf16"),  # w off alignment at a decode step
     (torch.bfloat16, 17, 64, 16, 8, 16, "hopper"),  # views 16 bytes in: aligned again
-    (torch.float32, 8192, 4096, 12288, 0, 0, "f32"),
-    (torch.float32, 4, 64, 16, 0, 0, "f32"),
+    (torch.float32, 8192, 4096, 12288, 0, 0, "hopper_f32"),  # through the three planes
+    (torch.float32, 1000, 4104, 1008, 0, 0, "hopper_f32"),
+    (torch.float32, 17, 100, 16, 1, 0, "hopper_f32"),  # the planes pass takes any x
+    (torch.float32, 4, 64, 16, 0, 0, "decode"),
+    (torch.float32, 4, 12288, 4096, 0, 0, "decode"),  # Qwen3-8B w_down at batch 4
+    (torch.float32, 4, 64, 24, 0, 0, "f32"),  # N % 16
+    (torch.float32, 1000, 64, 16, 0, 1, "f32"),  # w off alignment
 ])
 def test_kernel_design_takes_hopper_only_where_tma_can_load(dtype, M, K, N, x_off, w_off,
                                                              want):
@@ -264,6 +275,115 @@ def test_split_k_cuts_k_into_nonempty_ranges(M, N, K, bf16):
     splits, k_chunk = split_k(M, N, K, bf16, 132)
     assert k_chunk % 32 == 0 and 1 <= splits <= 32
     assert (splits - 1) * k_chunk < K <= splits * k_chunk
+
+
+@pytest.mark.parametrize("N,K,sms", [(12288, 4096, 132), (4096, 12288, 132), (16, 64, 132),
+                                     (1008, 4104, 132), (48, 576, 132), (12288, 4096, 114)])
+def test_cluster_split_cuts_k_into_nonempty_ranges(N, K, sms):
+    S, k_chunk = cluster_split(N, K, sms)
+    assert S in (1, 2, 4, 8) and k_chunk % 64 == 0
+    assert (S - 1) * k_chunk < K <= S * k_chunk
+
+
+def test_cluster_split_gives_every_sm_a_cta_with_the_fewest_splits():
+    """96 tiles of w_gate need 2 splits for 132 SMs, w_down's 32 need 8; a
+    shape with a tile an SM already is not split, and one too shallow for
+    more ranges stops where every range still holds k."""
+    assert cluster_split(12288, 4096, 132) == (2, 2048)
+    assert cluster_split(4096, 12288, 132) == (8, 1536)
+    assert cluster_split(32768, 4096, 132) == (1, 4096)
+    assert cluster_split(16, 192, 132) == (2, 128)
+
+
+def _f32_with_exponents(rng, shape, lo, hi):
+    """f32 values with random 23-bit fractions, both signs, exponents in
+    [lo, hi]."""
+    frac = rng.randint(0, 1 << 23, size=shape).astype(np.int64)
+    exp = rng.randint(lo, hi + 1, size=shape)
+    sign = rng.randint(0, 2, size=shape)
+    bits = (sign << 31) | ((exp + 127) << 23) | frac
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def test_split3_plain_sums_back_to_x_exactly():
+    """hi + mid + lo == x in f32, bit for bit, over exponents 2**-100 to
+    2**127, both signs and +-0 (-0 sums back to +0); each part a bf16 that
+    holds the value it was given."""
+    rng = np.random.RandomState(35)
+    x = _f32_with_exponents(rng, (4096,), -100, 127)
+    x[:4] = [0.0, -0.0, np.float32(2.0**-100), np.float32(-(2.0 - 2.0**-23) * 2.0**127)]
+    xt = torch.from_numpy(x)
+    hi, mid, lo = split3_plain(xt)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    back = (hi.float() + mid.float()) + lo.float()
+    nz = x != 0  # -0 sums back to +0, the same value
+    np.testing.assert_array_equal(back.numpy().view(np.uint32)[nz], x.view(np.uint32)[nz])
+    assert (back.numpy()[~nz] == 0).all() and hi[1].float().item() == 0.0
+    # the sum order does not matter: every partial sum is exact
+    np.testing.assert_array_equal(((lo.float() + mid.float()) + hi.float()).numpy(), x)
+    assert (lo.float().abs() <= mid.float().abs()).all() and (mid.float().abs() <= hi.float().abs()).all()
+
+
+def test_split3_plain_keeps_non_finite_x_in_hi():
+    x = torch.tensor([math.inf, -math.inf, math.nan, 1.5], dtype=torch.float32)
+    x = torch.cat([x, torch.tensor([0x7F800001, -8388607], dtype=torch.int32).view(torch.float32)])
+    hi, mid, lo = split3_plain(x)
+    assert hi[0].item() == math.inf and hi[1].item() == -math.inf
+    assert math.isnan(hi[2].item()) and math.isnan(hi[4].item()) and math.isnan(hi[5].item())
+    assert (mid[:3] == 0).all() and (lo[:3] == 0).all() and (mid[4:] == 0).all()
+    assert (lo[4:] == 0).all() and hi[3].item() == 1.5
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (37, 300, 129), (130, 129, 200)])
+def test_qmatmul_planes_plain_within_tolerance_of_reference(m, k, n):
+    """The three-plane product (the CUDA routes' f32 arithmetic) against the
+    JAX kernel at the f32 shapes above."""
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    qj, sj = jops.quantize_weights(jnp.asarray(w), 8)
+    want = np.asarray(jops.qmatmul(jnp.asarray(x), qj, sj))
+    xt, qt, st = torch.from_numpy(x), _t(np.asarray(qj)), _t(np.asarray(sj))
+    mm = mismatch(qmatmul_planes_plain(xt, qt, st), _t(want), xt, qt, st)
+    assert mm["within"], mm
+
+
+def test_one_hot_planes_within_two_ulps_and_a_dropped_lo_plane_flagged():
+    """One nonzero a row with a full 24-bit mantissa: the three-plane
+    product is within 2 ulps of ``qmatmul_plain`` and bit for bit the
+    reference kernel's rounding of that product (lo q + mid q is exact, so
+    adding hi q rounds the dot once); without its lo plane it is neither (a
+    dropped lo plane reads well under TOL_C, so the tolerance alone cannot
+    see it)."""
+    rng = np.random.RandomState(7)
+    M, K, N = 64, 512, 96
+    x = np.zeros((M, K), np.float32)
+    vals = _f32_with_exponents(rng, (M,), -20, 20)
+    vals = (vals.view(np.uint32) | 1).view(np.float32)  # the 24th bit set
+    x[np.arange(M), rng.randint(0, K, M)] = vals
+    xt = torch.from_numpy(x)
+    qt, st = tops.quantize_weights(torch.from_numpy(rng.randn(K, N).astype(np.float32)))
+    plain = tops.qmatmul(xt, qt, st)
+    planes = qmatmul_planes_plain(xt, qt, st)
+    assert int(ulps(planes, plain).max()) <= 2
+    assert torch.equal(planes, one_hot_reference(xt, qt, st))
+    no_lo = qmatmul_planes_plain(xt, qt, st, planes=(True, True, False))
+    assert int(ulps(no_lo, plain).max()) > 2
+    assert int(ulps(no_lo, one_hot_reference(xt, qt, st)).max()) > 2
+    # on a dense x at Qwen3-8B's K the same fault stays inside the rule
+    x = torch.from_numpy(rng.randn(16, 4096).astype(np.float32))
+    q, s = tops.quantize_weights(torch.from_numpy(rng.randn(4096, 64).astype(np.float32)))
+    no_lo = qmatmul_planes_plain(x, q, s, planes=(True, True, False))
+    assert mismatch(no_lo, tops.qmatmul(x, q, s), x, q, s)["within"]
+
+
+def test_qmatmul_planes_plain_within_tolerance_at_tiny_exponents():
+    """x near 2**-100 (lo's bits near 2**-123, still normal in bf16)."""
+    rng = np.random.RandomState(11)
+    x = _f32_with_exponents(rng, (8, 256), -101, -99)
+    qt, st = tops.quantize_weights(torch.from_numpy(rng.randn(256, 32).astype(np.float32)))
+    xt = torch.from_numpy(x)
+    assert mismatch(qmatmul_planes_plain(xt, qt, st), tops.qmatmul(xt, qt, st), xt, qt, st)["within"]
 
 
 # ------------------------------------------------- packed superpose and fold
