@@ -7,8 +7,9 @@ Phases, each of which fails the run on error:
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
              parallel) and print the build seconds and ptxas report (a
-             ``flash_fwd_hopper``, ``qmm_hopper``, ``qmm_decode`` or
-             ``split_planes`` with a stack frame or spills, or one that
+             ``flash_fwd_hopper``, ``flash_fwd_f32_hopper``,
+             ``qmm_hopper``, ``qmm_decode`` or ``split_planes`` with a
+             stack frame or spills, or one that
              ptxas did not report, fails the run).
 2. kernels — every kernel against its plain PyTorch version on the card at
              the main path's shapes: the packed OTA superpose/fold over every
@@ -279,13 +280,17 @@ zero-padded D 40; the part-filled column blocks at D 32 and 96, at
 zero-padded D 24 and 90, and kimi-k2's and zamba2's widths ragged,
 non-causal and at Sq > Sk), the families phase's prefills at B 4, S 2,048
 (kimi-k2 64/8 heads of 112, arctic 56/8 and qwen2-vl 12/2 of 128,
-zamba2 32/32 of 80, whisper-tiny's decoder 6/6 of 64),
-element by element and by the share of elements that
-differ (``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py``
-takes the readings behind its limits). It times the kernel at each case
-beside its bound and ``scaled_dot_product_attention`` (``library_ms``,
-timed only; causal top-left, GQA), and the plain version at the serve
-shapes.
+zamba2 32/32 of 80, whisper-tiny's decoder 6/6 of 64), and last
+F32_FLASH_CASES, the f32 route at serving shapes (Qwen3-8B's layer and
+StableLM-1.6B's in f32), element by element and by the share (or, on
+small outputs, the count) of elements that differ
+(``flash_attention.mismatch``; ``scripts/flash_tolerance_probe.py`` takes
+the readings behind its limits). It times the kernel at each case beside
+its bound (``bound_basis``: f32's is six exact bf16 plane products on the
+tensor cores, as row 6's, with the f32 CUDA cores' figure beside it,
+``bound_f32_cores_ms``) and ``scaled_dot_product_attention``
+(``library_ms``, timed only; causal top-left, GQA), and the plain version
+at the serve shapes.
 
 Then one JSON line ``{"kernels": [...]}`` (launches summed over the paths
 that run each kernel, each path with the counters zeroed just before it),
@@ -295,9 +300,11 @@ Without a CUDA card, or outside the repository, it exits non-zero and prints
 no result. ``--phases build,kernels`` (or ``build,ops``) runs only the named
 phases (no result lines); ``--phases build,flash`` (left out of a full
 run, which runs the same check in ``kernels``) the flash cases alone,
-timed, the way to compare trees in turns. ``--phases build,rows`` reads rows 1-3 at the
-barrier round's shapes on seeded data without training (``phase_rows``):
-seconds a tree, to compare two trees in one call. ``--phases
+timed, the way to compare trees in turns. ``--phases build,rows``
+reads rows 1-3 at the barrier round's shapes on seeded data without
+training, and row 6's routes for shapes TMA cannot load (``ROWS_QMM``)
+beside ``torch.matmul`` (``phase_rows``): seconds a tree, to compare two
+trees in one call. ``--phases
 build,trainprof`` profiles one full-width training step (``phase_trainprof``:
 device busy and idle share, kernel time by class and name, the chunked
 attention's share, the stacked leaves unbound against indexed);
@@ -486,6 +493,10 @@ def _kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
 
+# the flash kernels fed by TMA (no stack frame, no spill)
+FLASH_TMA_KERNELS = ("flash_fwd_hopper", "flash_fwd_f32_hopper")
+
+
 # the qmatmul kernels of the TMA routes (no stack frame, no spill) and every
 # instantiation of them that the route table launches
 QMM_TMA_KERNELS = ("qmm_hopper", "qmm_decode", "split_planes")
@@ -509,9 +520,9 @@ def _qmm_label(mangled: str) -> str:
 
 def phase_build():
     """Build every source; print nvcc's seconds and ptxas's report, each
-    flash_attention and qmatmul kernel by name. A flash_fwd_hopper
-    instantiation with a stack frame or spills fails the run, and so does a
-    width the route table sends to flash_fwd_hopper that ptxas did not
+    flash_attention and qmatmul kernel by name. A flash kernel fed by TMA
+    (``FLASH_TMA_KERNELS``) with a stack frame or spills fails the run, and
+    so does a (dtype, width) whose kernel by the route table ptxas did not
     report; the same holds for qmatmul's TMA-route kernels
     (``QMM_TMA_INSTANCES``)."""
     import torch
@@ -552,14 +563,14 @@ def phase_build():
                 print(f"    {label}: {r.get('registers')} registers, {r.get('stack')} bytes "
                       f"stack frame, spill stores/loads {r.get('spill_stores')}/"
                       f"{r.get('spill_loads')}")
-                if "flash_fwd_hopper" in fn and (r.get("stack") != 0 or r.get("spill_stores")
-                                                 or r.get("spill_loads")):
+                if label.split("<")[0] in FLASH_TMA_KERNELS and (
+                        r.get("stack") != 0 or r.get("spill_stores") or r.get("spill_loads")):
                     _fail(f"{label} has a stack frame or spills: {r}")
-            want = {f"flash_fwd_hopper<{D}>" for D in kfa.HEAD_DIMS
-                    if kfa.kernel_design(torch.bfloat16, D) == "flash_fwd_hopper"}
-            if not want or want - labels:
-                _fail(f"ptxas reported no {sorted(want - labels) or 'flash_fwd_hopper'} "
-                      "instantiation")
+            # every width of every dtype: the kernel the route table names
+            want = {f"{kfa.kernel_design(dt, D)}<{D}>" for D in kfa.HEAD_DIMS
+                    for dt in kfa._DTYPE_CODE}
+            if want - labels:
+                _fail(f"ptxas reported no {sorted(want - labels)} instantiation")
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -831,6 +842,13 @@ FLASH_CASES = (
     ("kimi-k2-1t-a32b Sq > Sk", 1, 2048, 1024, 64, 8, 112, True, "bfloat16"),
 )
 OPS_FLASH_CASES = FLASH_CASES[5:]
+# the f32 route at serving shapes: the serve phase's layer (Qwen3-8B) and
+# StableLM-1.6B's MHA at D 64, both in f32 (the configs' default
+# compute_dtype), drawn last so the earlier cases keep their draws
+F32_FLASH_CASES = (
+    ("qwen3-8b f32", 4, 2048, 2048, 32, 8, 128, True, "float32"),
+    ("stablelm-1.6b f32", 2, 1024, 1024, 32, 32, 64, True, "float32"),
+)
 FAMILY_FLASH_CASES = (
     ("kimi-k2-1t-a32b prefill", 4, 2048, 2048, 64, 8, 112, True, "bfloat16"),
     ("arctic-480b prefill", 4, 2048, 2048, 56, 8, 128, True, "bfloat16"),
@@ -838,7 +856,7 @@ FAMILY_FLASH_CASES = (
     ("zamba2-2.7b prefill", 4, 2048, 2048, 32, 32, 80, True, "bfloat16"),
     ("whisper-tiny decoder prefill", 4, 2048, 2048, 6, 6, 64, True, "bfloat16"),
 )
-FLASH_CASES += FAMILY_FLASH_CASES
+FLASH_CASES += FAMILY_FLASH_CASES + F32_FLASH_CASES
 
 
 def _flash_inputs(case, gen, dev):
@@ -855,7 +873,8 @@ def _flash_tol(dtype) -> str:
     from repro_torch.kernels import flash_attention as kfa
 
     return (f"(tolerance per element {kfa.TOL_ULPS:g} ulps of |plain| + "
-            f"{kfa.TOL_ATOL[dtype]!r}, share differing <= {kfa.TOL_SHARE[dtype]!r})")
+            f"{kfa.TOL_ATOL[dtype]!r}, share differing <= {kfa.TOL_SHARE[dtype]!r} or "
+            f"{kfa.TOL_N0[dtype]} elements)")
 
 
 def check_flash(dev, timing: bool):
@@ -902,7 +921,10 @@ def check_flash(dev, timing: bool):
             _fail(f"flash kernel != plain beyond tolerance ({label}): {mm}")
         if timing:
             nbytes, flops = flash_work(B, Sq, Sk, H, KV, D, causal, q.element_size())
-            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            # f32 at f32 accuracy on the tensor cores is six exact bf16 plane
+            # products a product (row 6's basis): its least time is theirs,
+            # whichever units the kernel runs on
+            bound_flops = flops if dtype == torch.bfloat16 else 6.0 * flops
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
             def sdpa():
@@ -912,14 +934,23 @@ def check_flash(dev, timing: bool):
             r = {
                 "case": label, "design": design,
                 "ms": cuda_ms(lambda: kfa.flash_mha(q, k, v, causal=causal)),
-                "bound_ms": bound_ms(nbytes, flops, peak),
-                "bound_by": bound_by(nbytes, flops, peak),
+                "bound_ms": bound_ms(nbytes, bound_flops, BF16_FLOPS),
+                "bound_by": bound_by(nbytes, bound_flops, BF16_FLOPS),
+                "bound_basis": ("bytes over HBM rate, or 4D flops a (query, key) pair"
+                                if dtype == torch.bfloat16 else
+                                "bytes over HBM rate, or 6 x 4D flops a (query, key) pair "
+                                "(both products as six exact bf16 plane products)")
+                + " over the bf16 tensor-core rate",
                 "bound_bytes": nbytes, "bound_flops": flops,
             }
+            if dtype == torch.float32:  # the same work on the f32 CUDA cores
+                r["bound_f32_cores_ms"] = bound_ms(nbytes, flops, F32_FLOPS)
             r["ms_queued"] = cuda_ms_queued(lambda: kfa.flash_mha(q, k, v, causal=causal))
+            r["of_bound_queued"] = r["bound_ms"] / r["ms_queued"]
             r["library_ms"], why = _time_library(sdpa)
             if why is None:
                 r["library_ms_queued"] = cuda_ms_queued(sdpa)
+                r["library_of_bound_queued"] = r["bound_ms"] / r["library_ms_queued"]
                 r["library_max_abs_diff"] = float(
                     (sdpa().transpose(1, 2).float() - plain.float()).abs().max())
             else:
@@ -1732,12 +1763,69 @@ def _sparse_queries_and_slab(storage, Q, D, Np, n, gen, dev):
             None if scales is None else torch.from_numpy(scales).to(dev))
 
 
+# row 6's routes for shapes TMA cannot load, at Qwen3-8B's w_gate (K 4,096,
+# N 12,288): (x dtype, M, N, how the shape defeats TMA); "ragged" is N
+# 12,280 (not a multiple of 16), "x off" x one element off 16-byte
+# alignment, "w off" w one byte off it
+ROWS_QMM = (("bfloat16", 4, 12280, "ragged"), ("bfloat16", 1000, 12280, "ragged"),
+            ("bfloat16", 4, 12288, "x off"), ("bfloat16", 1000, 12288, "x off"),
+            ("bfloat16", 4, 12288, "w off"),
+            ("float32", 4, 12280, "ragged"), ("float32", 1000, 12280, "ragged"))
+ROWS_QMM_K = 4096
+
+
+def _rows_qmatmul(dev) -> dict:
+    """Row 6 at ROWS_QMM: each case's route (``kernel_design``), held to
+    ``qmatmul.mismatch``'s rule against the plain version, timed one call
+    and queued beside its bound (bytes, or 2MNK over the bf16 tensor-core
+    rate; f32 x three such products, with the f32 CUDA-core figure beside)
+    and ``torch.matmul`` on the weights dequantized beforehand (not timed)."""
+    import torch
+
+    from repro_torch.kernels.qmatmul import kernel_design, mismatch, qmatmul, qmatmul_plain
+
+    gen = torch.Generator(device=dev).manual_seed(36)
+    K, recs = ROWS_QMM_K, {}
+    for dt, M, N, how in ROWS_QMM:
+        dtype = getattr(torch, dt)
+        wbuf = torch.randint(-127, 128, (K * N + 1,), generator=gen, device=dev,
+                             dtype=torch.int8)
+        w = (wbuf[1:] if how == "w off" else wbuf[:-1]).view(K, N)
+        scale = torch.rand((N,), generator=gen, device=dev) / 64
+        xbuf = torch.randn((M * K + 1,), generator=gen, device=dev).to(dtype)
+        x = (xbuf[1:] if how == "x off" else xbuf[:-1]).view(M, K)
+        out = qmatmul(x, w, scale)
+        plain = qmatmul_plain(x, w, scale)
+        mm = mismatch(out, plain, x, w, scale)
+        if not mm["within"]:
+            _fail(f"qmatmul {dt} M={M} N={N} ({how}) beyond its rule: {mm}")
+        flops = 2.0 * M * N * K
+        ops = flops if dt == "bfloat16" else 3.0 * flops
+        nbytes = tensor_bytes(x, w, scale) + 4.0 * M * N
+        w_deq = (w.float() * scale).to(dtype)
+        rec = dict(design=kernel_design(dtype, M, N, K, x, w), max_ratio=mm["max_ratio"],
+                   ms=cuda_ms(lambda: qmatmul(x, w, scale)),
+                   ms_queued=cuda_ms_queued(lambda: qmatmul(x, w, scale)),
+                   bound_ms=bound_ms(nbytes, ops, BF16_FLOPS),
+                   bound_by=bound_by(nbytes, ops, BF16_FLOPS),
+                   library_ms=cuda_ms(lambda: torch.matmul(x, w_deq)),
+                   library_ms_queued=cuda_ms_queued(lambda: torch.matmul(x, w_deq)))
+        if dt == "float32":
+            rec["bound_f32_cores_ms"] = bound_ms(nbytes, flops, F32_FLOPS)
+        rec["of_bound_queued"] = rec["bound_ms"] / rec["ms_queued"]
+        recs[f"qmatmul {dt} M={M} K={K} N={N} {how}"] = rec
+        del wbuf, w, xbuf, x, out, plain, w_deq
+    return recs
+
+
 def phase_rows(dev):
     """Rows 1-3 at the barrier round's shapes on seeded data (no training):
     the superpose of the round's first storage group, the folds of the
     rest, the planner's top-k and the ops phase's; each held bit for bit
     against its plain version and timed one call (``ms``) and queued
-    (``ms_queued``). Seconds of work: the way to read two trees in turns."""
+    (``ms_queued``). Then row 6's routes for shapes TMA cannot load
+    (``_rows_qmatmul``). Seconds of work: the way to read two trees in
+    turns."""
     import torch
 
     from repro_torch.kernels import ota_fused as kota
@@ -1785,6 +1873,7 @@ def phase_rows(dev):
         topk_calls[name] = (lambda qm=qm, data=data, sc=sc, n=n, k=k:
                             ktk.topk_cosine(qm, data, sc, n, k=k))
         recs[name] = dict(ms=cuda_ms(topk_calls[name]), ms_queued=cuda_ms_queued(topk_calls[name]))
+    recs.update(_rows_qmatmul(dev))
     for name, rec in recs.items():
         print(f"  rows {name}: " + json.dumps(rec))
     prof = {"ota_superpose": profiled_kernel_us(sup), "ota_fold": profiled_kernel_us(folds)}

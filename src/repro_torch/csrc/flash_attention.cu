@@ -1,6 +1,7 @@
 // Flash attention forward, causal (top-left) or not, Sq != Sk allowed, in
-// two kernels: bf16 on Hopper's wgmma (flash_fwd_hopper, every width), f32
-// on scalar FMAs (flash_fwd_f32).
+// two kernels, both fed by TMA at every width: bf16 (flash_fwd_hopper, both
+// products on wgmma) and f32 (flash_fwd_f32_hopper, both products on the
+// CUDA cores in the plain version's order).
 //
 // Replaces the TPU kernel flash_attention (src/repro/kernels/
 // flash_attention.py:87, reached through ops.flash_mha). That kernel walks a
@@ -70,10 +71,32 @@
 // exp2f(m - m') (the f32 kernel uses expf); the element and share limits
 // hold unchanged.
 //
-// flash_fwd_f32: 128 threads, 32 query rows per CTA, 4 threads per row; each
-// thread scores 32 of the tile's 128 keys with scalar fmaf (no TF32), the
-// row's p goes through shared memory, and each thread accumulates D / 4
-// output columns of its row.
+// flash_fwd_f32_hopper (f32, every D): the shape of flash_fwd_hopper (384
+// threads, 128 query rows, a TMA producer warpgroup, two consumer
+// warpgroups of 64 rows), with both products on the CUDA cores. That is not
+// a choice of speed. The f32 rule holds the kernel to 2 ulps + 1e-6 of the
+// plain version, and the plain version's own f32 rounding is of that size
+// (its scores carry a few ulps that the softmax turns into ~1e-6 where a few
+// keys dominate a row, and its P V sums a tile's keys in order): at
+// Qwen3-8B's serving shape in f32 the exact result is 1.55e-6 beyond the
+// rule (scripts/flash_tolerance_probe.py), and a tensor-core P V (p and v as
+// three exact bf16 planes on wgmma, no TF32) put elements of the whisper
+// card test beyond it (PERF.md). So each score is one fmaf chain over
+// d in order, and each output's P V one fmaf chain over the tile's keys in
+// order from zero, then acc = acc * corr + pv with the plain version's two
+// roundings. Q, K and V arrive in f32 by TMA (128-byte swizzled blocks of 32
+// columns) through a ring of 32 KB stages (a key tile's K in parts of 64
+// columns, then its V), three at D 80-128 and four at D 32 and 64. The two
+// threads g and g ^ 1 of a quad's t share four rows: for S = Q K^T each
+// takes half the keys, so a float4 of K feeds 16 fmaf (with two rows a
+// thread it fed 8 and left the loop bound by shared memory's bandwidth),
+// the eight lanes of a shared-memory phase reading eight distinct chunks;
+// for P V each takes a quarter of the columns, with p through P, a 64 KB
+// shared tile the warp writes and reads back (so the key loop stays a loop:
+// a register holding p cannot be indexed by it). The softmax is the plain
+// version's in f32: s * scale, expf(s - m'), expf(m - m'), each row's
+// maximum and sum over the eight lanes holding it. Per consumer thread: 64
+// scores, D / 2 output and D / 2 block accumulators.
 //
 // Bound: at the serving shapes (Qwen3-8B prefill, B = 4, S = 2048, H = 32,
 // KV = 8, D = 128) the causal work is 4 D S (S + 1) / 2 flops per head,
@@ -83,7 +106,15 @@
 // products on wgmma fed by TMA; within a consumer warpgroup the products
 // and the softmax still run one after another (no overlap of one tile's
 // softmax with the next tile's QK^T), which is what keeps it from that
-// bound.
+// bound. In f32 the bound is the same work at f32 accuracy on the tensor
+// cores, six exact bf16 plane products a product (row 6's basis for f32):
+// 0.834 ms at 989 TFLOP/s. flash_fwd_f32_hopper's design cannot reach it:
+// on the f32 CUDA cores, which the rule needs (above), the work takes at
+// least 2.05 ms at 67 TFLOP/s, 41% of the bound; on an H100 80GB HBM3 at
+// 700 W the kernel read 23% of the bound at this shape and 18% at
+// StableLM-1.6B's (PERF.md). Its Q K^T loop moves 1.25 bytes of shared
+// memory an fmaf (20 float4 loads for 256 fmaf) and its P V loop about as
+// much, where the SM feeds 1.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -99,147 +130,6 @@ constexpr int BK = 128;  // keys per tile
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ------------------------------------------------------------------- f32
-
-constexpr int BQ32 = 32;
-constexpr int THREADS32 = 128;
-
-template <int D>
-struct Tile32 {
-  static constexpr int PITCH = D + 4;    // floats per shared row of q/k/v
-  static constexpr int PPITCH = BK + 4;  // floats per shared row of p
-  static constexpr size_t BYTES =
-      ((size_t)(BQ32 + 2 * BK) * PITCH + (size_t)BQ32 * PPITCH) * sizeof(float);
-};
-
-template <int D, int R>
-__device__ __forceinline__ void load_tile32(float* sm, const float* g, long long stride, int r0,
-                                            int S) {
-  constexpr int CPR = D / 4;
-  constexpr int PITCH = Tile32<D>::PITCH;
-#pragma unroll 4
-  for (int c = threadIdx.x; c < R * CPR; c += THREADS32) {
-    const int r = c / CPR, col = (c % CPR) * 4;
-    const int row = r0 + r;
-    const float4 val = row < S ? *reinterpret_cast<const float4*>(g + (long long)row * stride + col)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(sm + r * PITCH + col) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS32)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
-                  int KV, int causal, float scale) {
-  constexpr int PITCH = Tile32<D>::PITCH;
-  constexpr int PPITCH = Tile32<D>::PPITCH;
-  constexpr int NK = BK / 4;   // keys per thread per tile
-  constexpr int NA = D / 16;   // float4 output groups per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + BQ32 * PITCH;
-  float* Vs = Ks + BK * PITCH;
-  float* Ps = Vs + BK * PITCH;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ32;
-  const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-  const float* qg = q + ((long long)b * Sq * H + h) * D;
-  const float* kg = k + ((long long)b * Sk * KV + kvh) * D;
-  const float* vg = v + ((long long)b * Sk * KV + kvh) * D;
-
-  const int r = threadIdx.x >> 2, qq = threadIdx.x & 3;
-  const int row = q0 + r;
-  const int last_row = min(q0 + BQ32, Sq) - 1;
-  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
-
-  load_tile32<D, BQ32>(Qs, qg, qstride, q0, Sq);
-  float acc[NA][4];
-#pragma unroll
-  for (int i = 0; i < NA; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-  float m_run = NEG_INF, l_run = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the previous tile's K, V are no longer read
-    load_tile32<D, BK>(Ks, kg, kstride, kt * BK, Sk);
-    load_tile32<D, BK>(Vs, vg, kstride, kt * BK, Sk);
-    __syncthreads();
-
-    float s[NK];
-#pragma unroll
-    for (int j = 0; j < NK; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + r * PITCH + d);
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + (j * 4 + qq) * PITCH + d);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-    const int key0 = kt * BK;
-    float mx = m_run;
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const int key = key0 + j * 4 + qq;
-      const float x = s[j] * scale;
-      s[j] = (key < Sk && (!causal || key <= row)) ? x : NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float corr = expf(m_run - mx);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const float p = expf(s[j] - mx);
-      rs += p;
-      Ps[r * PPITCH + j * 4 + qq] = p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l_run = l_run * corr + rs;
-    m_run = mx;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
-    }
-    __syncwarp();  // a row's p is written and read by the same four lanes
-#pragma unroll 4
-    for (int key = 0; key < BK; ++key) {
-      const float p = Ps[r * PPITCH + key];
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + key * PITCH + qq * 4 + 16 * i);
-        acc[i][0] = fmaf(p, vv.x, acc[i][0]);
-        acc[i][1] = fmaf(p, vv.y, acc[i][1]);
-        acc[i][2] = fmaf(p, vv.z, acc[i][2]);
-        acc[i][3] = fmaf(p, vv.w, acc[i][3]);
-      }
-    }
-  }
-
-  if (row < Sq) {
-    const float den = fmaxf(l_run, 1e-30f);
-    float* og = o + (((long long)b * Sq + row) * H + h) * D + qq * 4;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      *reinterpret_cast<float4*>(og + 16 * i) =
-          make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
-    }
-  }
 }
 
 // ------------------------------------------------------------ bf16 on Hopper
@@ -547,6 +437,277 @@ __global__ void __launch_bounds__(THREADS_H, 1)
   }
 }
 
+// ----------------------------------------------------------- f32 on Hopper
+
+// Shared memory of flash_fwd_f32_hopper, in column blocks of 128 rows x 32
+// f32 (BLK, 16 KB; TMA's 128-byte swizzle: 16-byte chunk c of row r at c ^
+// (r & 7)): Q's QB blocks; P, the tile's p (128 rows x 128 keys, 16-byte
+// chunk c of row r at c ^ (r & 7)); then a ring of NST stages of two blocks
+// each, holding a key tile's K in KP parts of 64 columns, then its V
+// likewise; then the mbarriers: Q full, full x NST, empty x NST. 224 KB at
+// D 64 and 112-128, 208 KB at D 32, 80 and 96.
+template <int D>
+struct TileF {
+  static constexpr uint32_t BLK = BK * 128;
+  static constexpr int QB = (D + 31) / 32;
+  static constexpr int KP = (QB + 1) / 2;
+  static constexpr int NPART = 2 * KP;  // ring stages a key tile takes
+  static constexpr uint32_t STAGE = 2 * BLK;
+  static constexpr int NST = D <= 64 ? 4 : 3;
+  static constexpr uint32_t P_OFF = QB * BLK;
+  static constexpr uint32_t RING_OFF = P_OFF + BQH * BK * 4;
+  static constexpr uint32_t BAR_OFF = RING_OFF + NST * STAGE;
+  static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 2 * NST) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_H, 1)
+    flash_fwd_f32_hopper(const __grid_constant__ CUtensorMap tmq,
+                         const __grid_constant__ CUtensorMap tmk,
+                         const __grid_constant__ CUtensorMap tmv, float* __restrict__ o, int Sq,
+                         int Sk, int H, int KV, int causal, float scale) {
+  static_assert(D % 16 == 0 && D >= 32 && D <= 128, "float4 steps, whole 16-column groups");
+  using T = TileF<D>;
+  constexpr int NST = T::NST, KP = T::KP, NPART = T::NPART, QB = T::QB;
+  constexpr uint32_t BLK = T::BLK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t Qs = base, Rs = base + T::RING_OFF;
+  const uint32_t q_full = base + T::BAR_OFF, full = q_full + 8, empty = full + 8 * NST;
+  const unsigned char* const sm = smem_raw + (base - raw);  // the same bytes, for plain loads
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQH;  // longest rows first
+  const int last_row = min(q0 + BQH, Sq) - 1;
+  const int n_kt = (causal ? min(last_row, Sk - 1) : Sk - 1) / BK + 1;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread loads Q, then streams each key tile's K and V
+    // parts through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, QB * BLK);
+#pragma unroll
+      for (int cb = 0; cb < QB; ++cb) tma_load4(Qs + cb * BLK, &tmq, cb * 32, h, q0, b, q_full);
+      for (int c = 0; c < NPART * n_kt; ++c) {
+        const int s = c % NST, u = c / NST, kt = c / NPART, j = c % NPART;
+        if (u > 0) mbar_wait(empty + 8 * s, (u & 1) ^ 1);
+        const int part = j % KP, nblk = min(2, QB - 2 * part);
+        mbar_expect_tx(full + 8 * s, nblk * BLK);
+        for (int x = 0; x < nblk; ++x)
+          tma_load4(Rs + s * T::STAGE + x * BLK, j < KP ? &tmk : &tmv, (2 * part + x) * 32, kvh,
+                    kt * BK, b, full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // The two threads g and g ^ 1 of a t share four rows of the warp's 16
+    // (rp, rp + 1, rp + 8, rp + 9); thread kh = g & 1 scores the keys 64 kh
+    // + 8 m + 2 t + e (m < 8, e < 2; e taken in the order e ^ kh, so the
+    // eight lanes of each shared-memory phase read eight distinct 16-byte
+    // chunks) and sums the output columns 32 j + 4 c8 + (0..3), c8 = lane &
+    // 7, of the four rows
+    const int rb = cw * 64 + warp * 16;  // the warp's rows in the CTA
+    const int kh = g & 1, rp = g & ~1, c8 = lane & 7;
+
+    float acc[16 * QB];  // acc[(r QB + j) 4 + i]: row r, column 32 j + 4 c8 + i
+#pragma unroll
+    for (int i = 0; i < 16 * QB; ++i) acc[i] = 0.f;
+    float m_run[4], l_run[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m_run[r] = NEG_INF, l_run[r] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int c0 = NPART * kt;
+      // S = Q K^T: each score one fmaf chain over d in order (the plain
+      // version's f32 rounding); each float4 of K feeds 16 fmaf
+      float a[64];  // a[(r 8 + m) 2 + e]: row r of the four, key 64 kh + 8 m + 2 t + (e ^ kh)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) a[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KP; ++j) {
+        const int st = (c0 + j) % NST;
+        mbar_wait(full + 8 * st, ((c0 + j) / NST) & 1);
+        const unsigned char* const kb = sm + T::RING_OFF + st * T::STAGE;
+        constexpr int W = 64;
+#pragma unroll 2
+        for (int dd = 0; dd < (D - 64 * j < W ? D - 64 * j : W); dd += 4) {
+          const int d = 64 * j + dd, ch = (d & 31) >> 2;
+          const unsigned char* const qb = sm + (d >> 5) * BLK + (rb + rp) * 128;
+          float4 qv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)  // rows rp, rp + 1, rp + 8, rp + 9
+            qv[r] = *reinterpret_cast<const float4*>(qb + ((r & 1) + 8 * (r >> 1)) * 128 +
+                                                     ((ch ^ (rp + (r & 1))) << 4));
+          const unsigned char* const kd = kb + ((d >> 5) & 1) * BLK;
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kl = 2 * t + (e ^ kh);  // the key's low three bits
+              const float4 kv = *reinterpret_cast<const float4*>(
+                  kd + (64 * kh + 8 * m + kl) * 128 + ((ch ^ kl) << 4));
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                float& x = a[(r * 8 + m) * 2 + e];
+                x = fmaf(qv[r].x, kv.x, x);
+                x = fmaf(qv[r].y, kv.y, x);
+                x = fmaf(qv[r].z, kv.z, x);
+                x = fmaf(qv[r].w, kv.w, x);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < KP; ++j) mbar_arrive(empty + 8 * ((c0 + j) % NST));
+      }
+
+      // the plain version's softmax: s * scale, p = expf(s - m'), corr =
+      // expf(m - m'), l' = l corr + rowsum p; a row's 128 keys lie in the
+      // eight lanes of its t's and its pair
+      const int key0 = kt * BK;
+      float mx[4], rs[4] = {0.f, 0.f, 0.f, 0.f}, corr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        mx[r] = m_run[r];
+        const int row = q0 + rb + rp + (r & 1) + 8 * (r >> 1);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = key0 + 64 * kh + 8 * m + 2 * t + (e ^ kh);
+            float& x = a[(r * 8 + m) * 2 + e];
+            x = (key < Sk && (!causal || key <= row)) ? x * scale : NEG_INF;
+            mx[r] = fmaxf(mx[r], x);
+          }
+        }
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 4));
+        corr[r] = expf(m_run[r] - mx[r]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          float& x = a[r * 16 + i];
+          x = expf(x - mx[r]);
+          rs[r] += x;
+        }
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 4);
+        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), rs[r]);
+        m_run[r] = mx[r];
+      }
+
+      // p to P (the warp's own 16 rows), then P V as the plain version sums
+      // it: pv = one fmaf chain over the tile's keys in order from zero, then
+      // acc * corr + pv
+      unsigned char* const pw = const_cast<unsigned char*>(sm) + T::P_OFF;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int R = rb + rp + (r & 1) + 8 * (r >> 1);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 64 * kh + 8 * m + 2 * t + (e ^ kh);
+            *reinterpret_cast<float*>(pw + R * (BK * 4) + (((key >> 2) ^ (R & 7)) << 4) +
+                                      (key & 3) * 4) = a[(r * 8 + m) * 2 + e];
+          }
+        }
+      }
+      __syncwarp();
+      const unsigned char* vb[KP];
+#pragma unroll
+      for (int j = 0; j < KP; ++j) {
+        const int st = (c0 + KP + j) % NST;
+        mbar_wait(full + 8 * st, ((c0 + KP + j) / NST) & 1);
+        vb[j] = sm + T::RING_OFF + st * T::STAGE;
+      }
+      float pv[16 * QB];
+#pragma unroll
+      for (int i = 0; i < 16 * QB; ++i) pv[i] = 0.f;
+#pragma unroll 2
+      for (int k4 = 0; k4 < BK; k4 += 4) {
+        float4 p4[4];  // p of the four rows at keys k4 .. k4 + 3
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int R = rb + rp + (r & 1) + 8 * (r >> 1);
+          p4[r] = *reinterpret_cast<const float4*>(pw + R * (BK * 4) +
+                                                   (((k4 >> 2) ^ (R & 7)) << 4));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int key = k4 + kk;
+#pragma unroll
+          for (int j = 0; j < QB; ++j) {
+            const float4 v4 = *reinterpret_cast<const float4*>(
+                vb[j >> 1] + (j & 1) * BLK + key * 128 + ((c8 ^ (key & 7)) << 4));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float pk = kk == 0 ? p4[r].x : kk == 1 ? p4[r].y : kk == 2 ? p4[r].z : p4[r].w;
+              float* y = pv + (r * QB + j) * 4;
+              y[0] = fmaf(pk, v4.x, y[0]);
+              y[1] = fmaf(pk, v4.y, y[1]);
+              y[2] = fmaf(pk, v4.z, y[2]);
+              y[3] = fmaf(pk, v4.w, y[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4 * QB; ++i)
+          acc[r * 4 * QB + i] = __fadd_rn(__fmul_rn(acc[r * 4 * QB + i], corr[r]),
+                                          pv[r * 4 * QB + i]);
+      }
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < KP; ++j) mbar_arrive(empty + 8 * ((c0 + KP + j) % NST));
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + rb + rp + (r & 1) + 8 * (r >> 1);
+      if (row < Sq) {
+        const float den = fmaxf(l_run[r], 1e-30f);
+        float* og = o + (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < QB; ++j) {
+          const int col = 32 * j + 4 * c8;
+          const float* y = acc + (r * QB + j) * 4;
+          if (col < D)
+            *reinterpret_cast<float4*>(og + col) =
+                make_float4(y[0] / den, y[1] / den, y[2] / den, y[3] / den);
+        }
+      }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up in libcuda at run time (the build links
 // only the runtime)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -573,21 +734,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// rank-4 map of a (B, S, heads, D) bf16 tensor as (D, heads, S, B), boxes of
-// (64, 1, 128, 1), 128-byte swizzle, zeros past every edge: rows past S and,
-// where D is not a multiple of 64, the last box's columns past D
-int make_map(CUtensorMap* map, const void* t, int D, int heads, int S, int B) {
+// rank-4 map of a (B, S, heads, D) bf16 (elem 2) or f32 (elem 4) tensor as
+// (D, heads, S, B), boxes of 128 bytes of D (64 or 32 values) x 1 x 128 rows
+// x 1, 128-byte swizzle, zeros past every edge: rows past S and, where D is
+// not a multiple of the box, the last box's columns past D
+int make_map(CUtensorMap* map, const void* t, int D, int heads, int S, int B, int elem = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[3] = {(cuuint64_t)D * elem, (cuuint64_t)heads * D * elem,
+                                 (cuuint64_t)S * heads * D * elem};
+  const cuuint32_t box[4] = {128u / elem, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(t), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -609,22 +772,27 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, i
   return (int)cudaGetLastError();
 }
 
+// flash_fwd_f32_hopper over f32 maps of q, k and v
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                int H, int KV, int causal, float scale, cudaStream_t st) {
-  const size_t smem = Tile32<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
+  CUtensorMap tmq, tmk, tmv;
+  int rc = make_map(&tmq, q, D, H, Sq, B, 4);
+  if (rc == 0) rc = make_map(&tmk, k, D, KV, Sk, B, 4);
+  if (rc == 0) rc = make_map(&tmv, v, D, KV, Sk, B, 4);
+  if (rc != 0) return rc;
+  const size_t smem = TileF<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_hopper<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Sq + BQ32 - 1) / BQ32);
-  flash_fwd_f32<D><<<grid, THREADS32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Sk, H, KV, causal, scale);
+  const dim3 grid(B * H, (Sq + BQH - 1) / BQH);
+  flash_fwd_f32_hopper<D><<<grid, THREADS_H, smem, st>>>(tmq, tmk, tmv, static_cast<float*>(o),
+                                                         Sq, Sk, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // The kernel a (dtype, D) runs, fixed by the two alone: 1 flash_fwd_hopper
-// (bf16), 0 flash_fwd_f32; -1 for a D with no instantiation.
+// (bf16), 0 flash_fwd_f32_hopper (float32); -1 for a D with no instantiation.
 // kernels/flash_attention.kernel_design is the same table.
 int design(int D, int is_bf16) {
   if (D != 32 && D != 64 && D != 80 && D != 96 && D != 112 && D != 128) return -1;

@@ -19,6 +19,9 @@ reference's padding precondition raise ``ValueError``. The route table
 pure function, held here; ``chip_smoke.py`` holds the C launcher to it.
 """
 
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -28,6 +31,14 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.qmatmul import split3_plain
+
+# the plain model of f32 attention on the tensor cores' bf16 plane products
+# lives beside the probe that reads its planted faults on the card
+_PROBE = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "flash_tolerance_probe.py"
+_spec = importlib.util.spec_from_file_location("flash_tolerance_probe", _PROBE)
+probe = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(probe)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -109,8 +120,9 @@ def test_kernel_head_dim_is_the_next_instantiated_width(D, want):
 @pytest.mark.parametrize("D", kfa.HEAD_DIMS)
 def test_kernel_design_routes_every_instantiated_width(dtype, D):
     """bf16 at every width runs the Hopper kernel (D 32, 80, 96 and 112 in
-    part-filled column blocks); float32 the scalar kernel."""
-    want = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_hopper"
+    part-filled column blocks); float32 at every width the TMA-fed f32
+    kernel."""
+    want = "flash_fwd_f32_hopper" if dtype == torch.float32 else "flash_fwd_hopper"
     assert kfa.kernel_design(dtype, D) == want
     assert want in kfa.DESIGNS
 
@@ -120,8 +132,9 @@ def test_kernel_design_routes_every_instantiated_width(dtype, D):
                                     (120, "flash_fwd_hopper")])
 def test_kernel_design_follows_the_padded_width(D, want):
     """Padded widths (1 -> 32, 40 -> 64, 65 -> 80, 100 -> 112, 120 -> 128)
-    run the Hopper kernel too."""
+    run the Hopper kernel too, and in float32 the f32 kernel."""
     assert kfa.kernel_design(torch.bfloat16, D) == want
+    assert kfa.kernel_design(torch.float32, D) == "flash_fwd_f32_hopper"
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 192),
@@ -129,3 +142,115 @@ def test_kernel_design_follows_the_padded_width(D, want):
 def test_kernel_design_rejects_what_no_kernel_takes(dtype, D):
     with pytest.raises(ValueError):
         kfa.kernel_design(dtype, D)
+
+
+# the exact split that puts f32 on the tensor cores (row 6's f32 route; the
+# tensor-core model of row 7's): q, k, v as a model gives them, p in [0, 1],
+# and the edges (subnormals, the largest finite, +-inf, NaN, signed zeros)
+SPLIT_EDGES = np.array([0.0, -0.0, 1.0, -1.0, 2.0**-126, 2.0**-149, 3 * 2.0**-140, -(2.0**-130),
+                        2.0**-110, 2.0**-100, 3.4028235e38, -3.4028235e38, np.inf, -np.inf,
+                        np.nan, 1 - 2.0**-24, 2.0**-24, 0.1, 1 / 3], dtype=np.float32)
+
+
+def _split_sum(x):
+    hi, mid, lo = split3_plain(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    return hi.double() + mid.double() + lo.double(), (hi, mid, lo)
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v", "p"])
+def test_split3_is_exact_on_attention_operands(what):
+    """hi + mid + lo == x exactly (in f64) for q, k, v draws and p in [0, 1]:
+    every bit of x is in one plane; |mid| < 2**-7 |x| and |lo| < 2**-14
+    |x|, the bounds the dropped pairs are reckoned from."""
+    rng = np.random.RandomState({"q": 1, "k": 2, "v": 3, "p": 4}[what])
+    if what == "p":  # p = exp(s - m): (0, 1], many tiny
+        x = np.exp(-rng.exponential(8.0, 20000)).astype(np.float32)
+    else:
+        x = (rng.randn(20000) * 10.0 ** rng.uniform(-6, 3, 20000)).astype(np.float32)
+    t = torch.from_numpy(x)
+    total, (hi, mid, lo) = _split_sum(t)
+    assert torch.equal(total, t.double())
+    assert bool((mid.double().abs() < 2.0**-7 * t.double().abs()).all())
+    assert bool((lo.double().abs() < 2.0**-14 * t.double().abs()).all())
+
+
+def test_split3_keeps_the_edges():
+    """Exact from the largest finite down to subnormals that are multiples
+    of 2**-133 (bf16's smallest); an f32 subnormal's bits under 2**-133
+    cannot be in any bf16 and are dropped (a p that small moves no output).
+    A non-finite x is hi alone (inf keeps its sign, NaN stays NaN) with mid
+    = lo = 0."""
+    t = torch.from_numpy(SPLIT_EDGES)
+    total, (hi, mid, lo) = _split_sum(t)
+    fin = torch.isfinite(t)
+    on_grid = fin & (torch.remainder(t.double(), 2.0**-133) == 0)
+    assert int(on_grid.sum()) == len(SPLIT_EDGES) - 5  # all but 2**-149, 3 2**-140, inf, nan
+    assert torch.equal(total[on_grid], t.double()[on_grid])
+    assert bool(((total - t.double()).abs()[fin] < 2.0**-133).all())
+    inf = torch.isinf(t)
+    assert torch.equal(hi[inf].float(), t[inf])
+    assert bool(torch.isnan(hi[torch.isnan(t)]).all())
+    assert not bool(mid[~fin].any()) and not bool(lo[~fin].any())
+
+
+# (B, Sq, Sk, H, KV, D, causal): causal, non-causal, GQA
+SPLIT3_CASES = [(1, 256, 256, 4, 4, 64, True), (2, 128, 384, 4, 4, 32, False),
+                (1, 300, 300, 8, 2, 128, True)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal", SPLIT3_CASES)
+def test_split3_model_is_within_the_f32_rule(B, Sq, Sk, H, KV, D, causal):
+    """The tensor-core model (scores as the plain version's, PV as the six
+    plane pairs, small first) is within mismatch's f32 rule of the plain
+    version at small shapes."""
+    q, k, v = map(_t, _qkv(B + Sq + Sk + D, B, Sq, Sk, H, KV, D))
+    plain = kfa.flash_attention_plain(q, k, v, causal=causal)
+    model = probe.split3_attention(q, k, v, causal=causal)
+    assert model.shape == plain.shape and model.dtype == torch.float32
+    mm = kfa.mismatch(model, plain)
+    assert mm["within"], mm
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal", SPLIT3_CASES)
+def test_split3_model_with_the_hi_plane_alone_is_outside_the_rule(B, Sq, Sk, H, KV, D, causal):
+    """One bf16 pass (p's and v's hi planes alone) is far outside the f32
+    rule: the check sees a kernel that drops the lower planes."""
+    q, k, v = map(_t, _qkv(B + Sq + Sk + D, B, Sq, Sk, H, KV, D))
+    plain = kfa.flash_attention_plain(q, k, v, causal=causal)
+    one = probe.split3_attention(q, k, v, causal=causal, pairs=((0, 0),))
+    mm = kfa.mismatch(one, plain)
+    assert not mm["within"] and mm["over_element_bound"] > 0.1 * one.numel(), mm
+
+
+def _moved(n, k, dtype=torch.bfloat16, seed=11):
+    """A plain output of n elements and a copy with its first k elements
+    one ulp away (within the element bound)."""
+    plain = torch.from_numpy(np.random.RandomState(seed).randn(n).astype(np.float32)).to(dtype)
+    out = plain.float().clone()
+    out[:k] += kfa.ulp(out[:k], dtype)
+    return out.to(dtype), plain
+
+
+@pytest.mark.parametrize("k,within", [(3, True), (kfa.TOL_N0[torch.bfloat16], True),
+                                      (kfa.TOL_N0[torch.bfloat16] + 1, False)])
+def test_mismatch_reads_a_small_output_by_its_floor(k, within):
+    """On 256 elements 1% is 2.56: the floor TOL_N0 lets a cluster of a few
+    one-ulp flips through (the card test's draw had 3), and no more."""
+    out, plain = _moved(256, k)
+    mm = kfa.mismatch(out, plain)
+    assert mm["differing"] == k and mm["over_element_bound"] == 0
+    assert mm["within"] is within
+
+
+@pytest.mark.parametrize("n", [256, 2**20])
+def test_mismatch_fails_a_planted_share_on_small_and_large_outputs(n):
+    """26% of the elements one ulp off (the smallest share a planted bf16
+    fault has changed in the probe's readings) fails at 256 elements and at
+    2**20, where the 1% share governs as before."""
+    out, plain = _moved(n, int(0.26 * n))
+    mm = kfa.mismatch(out, plain)
+    assert mm["over_element_bound"] == 0 and not mm["within"]
+    if n > kfa.TOL_N0[torch.bfloat16] / kfa.TOL_SHARE[torch.bfloat16]:
+        ok, plain = _moved(n, int(0.009 * n))
+        assert kfa.mismatch(ok, plain)["within"]

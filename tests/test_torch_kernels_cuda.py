@@ -469,17 +469,49 @@ def test_flash_hopper_kernel_equals_plain(dev, D, B, Sq, Sk, H, KV, causal):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, D) for D in kfa.HEAD_DIMS])
-def test_flash_other_routes_keep_their_kernel(dev, dtype, D):
-    """Every float32 width stays on the scalar kernel (flash_fwd_f32), within
-    the rule."""
+def test_flash_f32_routes_take_the_f32_hopper_kernel(dev, dtype, D):
+    """Every float32 width runs the TMA-fed f32 kernel (flash_fwd_f32_hopper),
+    within the rule."""
     gen = torch.Generator(device=dev).manual_seed(D)
     q = torch.randn((2, 200, 8, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((2, 256, 2, D), generator=gen, device=dev).to(dtype)
     out = kfa.flash_mha(q, k, v, causal=True)
-    assert kfa.kernel_design(dtype, D) == "flash_fwd_f32"
+    assert kfa.kernel_design(dtype, D) == "flash_fwd_f32_hopper"
     mm = kfa.mismatch(out, kfa.flash_attention_plain(q, k, v, causal=True))
     assert mm["within"], mm
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_f32_hopper_gives_the_same_bits_on_each_launch(dev, D, causal):
+    """Two launches of the f32 kernel on the same inputs give the same bits
+    (no atomics, every sum in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(3 * D + causal)
+    q = torch.randn((2, 640, 8, D), generator=gen, device=dev)
+    k = torch.randn((2, 640, 2, D), generator=gen, device=dev)
+    v = torch.randn((2, 640, 2, D), generator=gen, device=dev)
+    if not causal:
+        k, v = k[:, :512].contiguous(), v[:, :512].contiguous()
+    a = kfa.flash_mha(q, k, v, causal=causal)
+    b = kfa.flash_mha(q, k, v, causal=causal)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert kfa.mismatch(a, kfa.flash_attention_plain(q, k, v, causal=causal))["within"]
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_f32_hopper_fault_through_the_inputs_is_caught(dev, D):
+    """q and k given to the kernel as their hi planes alone (truncated to
+    bf16, as a kernel that took them through one bf16 pass would), held
+    against the plain version on the full f32 inputs: the check sees it."""
+    gen = torch.Generator(device=dev).manual_seed(D + 5)
+    q = torch.randn((2, 384, 8, D), generator=gen, device=dev)
+    k = torch.randn((2, 384, 2, D), generator=gen, device=dev)
+    v = torch.randn((2, 384, 2, D), generator=gen, device=dev)
+    plain = kfa.flash_attention_plain(q, k, v)
+    assert kfa.mismatch(kfa.flash_mha(q, k, v), plain)["within"]
+    q_hi, k_hi = (split3_plain(t)[0].float().contiguous() for t in (q, k))
+    assert not kfa.mismatch(kfa.flash_mha(q_hi, k_hi, v), plain)["within"]
 
 
 @pytest.mark.parametrize("D", [80, 96, 112])
