@@ -302,8 +302,9 @@ phases (no result lines); ``--phases build,flash`` (left out of a full
 run, which runs the same check in ``kernels``) the flash cases alone,
 timed, the way to compare trees in turns. ``--phases build,rows``
 reads rows 1-3 at the barrier round's shapes on seeded data without
-training, and row 6's routes for shapes TMA cannot load (``ROWS_QMM``)
-beside ``torch.matmul`` (``phase_rows``): seconds a tree, to compare two
+training, and row 6 at shapes TMA cannot load as tiles (``ROWS_QMM``, the
+``_ldw`` routes, each beside its aligned neighbour) beside
+``torch.matmul`` (``phase_rows``): seconds a tree, to compare two
 trees in one call. ``--phases
 build,trainprof`` profiles one full-width training step (``phase_trainprof``:
 device busy and idle share, kernel time by class and name, the chunked
@@ -497,19 +498,21 @@ def _kernel_label(mangled: str) -> str:
 FLASH_TMA_KERNELS = ("flash_fwd_hopper", "flash_fwd_f32_hopper")
 
 
-# the qmatmul kernels of the TMA routes (no stack frame, no spill) and every
-# instantiation of them that the route table launches
-QMM_TMA_KERNELS = ("qmm_hopper", "qmm_decode", "split_planes")
-QMM_TMA_INSTANCES = ("qmm_hopper<1>", "qmm_hopper<3>", "qmm_decode<8,1>", "qmm_decode<16,1>",
-                     "qmm_decode<8,3>", "qmm_decode<16,3>", "split_planes")
+# the qmatmul kernels (no stack frame, no spill) and every instantiation of
+# them that the route table launches: qmm_hopper<P, LDW> and qmm_decode<NP,
+# P, LDW> (P 1 for bf16 x, 3 for f32's planes; LDW 1 where the producers
+# load w themselves), split_planes<P>
+QMM_KERNELS = ("qmm_hopper", "qmm_decode", "split_planes")
+QMM_INSTANCES = tuple(f"qmm_hopper<{p},{ldw}>" for p in (1, 3) for ldw in (0, 1)) + tuple(
+    f"qmm_decode<{np_},{p},{ldw}>" for np_ in (8, 16) for p in (1, 3) for ldw in (0, 1)) + (
+    "split_planes<1>", "split_planes<3>")
 
 
 def _qmm_label(mangled: str) -> str:
-    """``qmm_decode<8,3>`` from a mangled qmatmul kernel name."""
+    """``qmm_decode<8,3,1>`` from a mangled qmatmul kernel name."""
     import re
 
-    for name in ("qmm_decode", "qmm_hopper", "qmm_bf16", "qmm_f32", "splitk_reduce",
-                 "split_planes"):
+    for name in QMM_KERNELS:
         i = mangled.find(name)
         if i >= 0:
             m = re.match(r"I((?:Li\d+E)+)E", mangled[i + len(name):])
@@ -523,8 +526,7 @@ def phase_build():
     flash_attention and qmatmul kernel by name. A flash kernel fed by TMA
     (``FLASH_TMA_KERNELS``) with a stack frame or spills fails the run, and
     so does a (dtype, width) whose kernel by the route table ptxas did not
-    report; the same holds for qmatmul's TMA-route kernels
-    (``QMM_TMA_INSTANCES``)."""
+    report; the same holds for every qmatmul kernel (``QMM_INSTANCES``)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -542,15 +544,16 @@ def phase_build():
             for label, r in sorted(funcs.items()):
                 print(f"    {label}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
                       f"frame, spill stores/loads {r.get('spill_stores')}/{r.get('spill_loads')}")
-                if label.split("<")[0] in QMM_TMA_KERNELS and (
+                if label.split("<")[0] in QMM_KERNELS and (
                         r.get("stack") != 0 or r.get("spill_stores") or r.get("spill_loads")):
                     _fail(f"{label} has a stack frame or spills: {r}")
-            missing = sorted(set(QMM_TMA_INSTANCES) - set(funcs))
+            missing = sorted(set(QMM_INSTANCES) - set(funcs))
             if missing:
                 _fail(f"ptxas reported no {missing}")
             lib = _build.library("qmatmul")
-            held = {f"{'bf16' if bf16 else 'f32'} NP {np_}": lib.qmatmul_decode_clusters(bf16, np_, 8)
-                    for bf16 in (1, 0) for np_ in (8, 16)}
+            held = {f"{'bf16' if bf16 else 'f32'} NP {np_} LDW {ldw}":
+                    lib.qmatmul_decode_clusters(bf16, np_, ldw, 8)
+                    for bf16 in (1, 0) for np_ in (8, 16) for ldw in (0, 1)}
             print(f"    qmm_decode clusters of 8 CTAs held at once "
                   f"(cudaOccupancyMaxActiveClusters): {json.dumps(held)}")
             continue
@@ -874,7 +877,7 @@ def _flash_tol(dtype) -> str:
 
     return (f"(tolerance per element {kfa.TOL_ULPS:g} ulps of |plain| + "
             f"{kfa.TOL_ATOL[dtype]!r}, share differing <= {kfa.TOL_SHARE[dtype]!r} or "
-            f"{kfa.TOL_N0[dtype]} elements)")
+            f"{kfa.TOL_N0[dtype]!r} D elements)")
 
 
 def check_flash(dev, timing: bool):
@@ -1763,20 +1766,24 @@ def _sparse_queries_and_slab(storage, Q, D, Np, n, gen, dev):
             None if scales is None else torch.from_numpy(scales).to(dev))
 
 
-# row 6's routes for shapes TMA cannot load, at Qwen3-8B's w_gate (K 4,096,
-# N 12,288): (x dtype, M, N, how the shape defeats TMA); "ragged" is N
-# 12,280 (not a multiple of 16), "x off" x one element off 16-byte
-# alignment, "w off" w one byte off it
+# row 6 at shapes TMA cannot load, at Qwen3-8B's w_gate (K 4,096, N
+# 12,288): (x dtype, M, N, how the shape defeats TMA); "ragged" is N 12,280
+# (not a multiple of 16), "x off" x one element off 16-byte alignment, "w
+# off" w one byte off it; each beside its aligned neighbour (the same dtype
+# and M at N 12,288 on aligned bases, "aligned"), the TMA route it is held to
 ROWS_QMM = (("bfloat16", 4, 12280, "ragged"), ("bfloat16", 1000, 12280, "ragged"),
             ("bfloat16", 4, 12288, "x off"), ("bfloat16", 1000, 12288, "x off"),
             ("bfloat16", 4, 12288, "w off"),
-            ("float32", 4, 12280, "ragged"), ("float32", 1000, 12280, "ragged"))
+            ("float32", 4, 12280, "ragged"), ("float32", 1000, 12280, "ragged"),
+            ("bfloat16", 4, 12288, "aligned"), ("bfloat16", 1000, 12288, "aligned"),
+            ("float32", 4, 12288, "aligned"), ("float32", 1000, 12288, "aligned"))
 ROWS_QMM_K = 4096
 
 
 def _rows_qmatmul(dev) -> dict:
     """Row 6 at ROWS_QMM: each case's route (``kernel_design``), held to
-    ``qmatmul.mismatch``'s rule against the plain version, timed one call
+    ``qmatmul.mismatch``'s rule against the plain version and to a second
+    launch bit for bit, timed one call
     and queued beside its bound (bytes, or 2MNK over the bf16 tensor-core
     rate; f32 x three such products, with the f32 CUDA-core figure beside)
     and ``torch.matmul`` on the weights dequantized beforehand (not timed)."""
@@ -1803,7 +1810,10 @@ def _rows_qmatmul(dev) -> dict:
         ops = flops if dt == "bfloat16" else 3.0 * flops
         nbytes = tensor_bytes(x, w, scale) + 4.0 * M * N
         w_deq = (w.float() * scale).to(dtype)
-        rec = dict(design=kernel_design(dtype, M, N, K, x, w), max_ratio=mm["max_ratio"],
+        again = qmatmul(x, w, scale)
+        if not torch.equal(out, again):
+            _fail(f"qmatmul {dt} M={M} N={N} ({how}) not the same bits on a second launch")
+        rec = dict(design=kernel_design(dtype, M, N, w), max_ratio=mm["max_ratio"],
                    ms=cuda_ms(lambda: qmatmul(x, w, scale)),
                    ms_queued=cuda_ms_queued(lambda: qmatmul(x, w, scale)),
                    bound_ms=bound_ms(nbytes, ops, BF16_FLOPS),
@@ -1814,7 +1824,7 @@ def _rows_qmatmul(dev) -> dict:
             rec["bound_f32_cores_ms"] = bound_ms(nbytes, flops, F32_FLOPS)
         rec["of_bound_queued"] = rec["bound_ms"] / rec["ms_queued"]
         recs[f"qmatmul {dt} M={M} K={K} N={N} {how}"] = rec
-        del wbuf, w, xbuf, x, out, plain, w_deq
+        del wbuf, w, xbuf, x, out, again, plain, w_deq
     return recs
 
 
@@ -2390,8 +2400,9 @@ def host_us_per_call(dev) -> dict:
 
 def check_qmatmul_route_table(dev):
     """The C launcher's route (``qmatmul_design``) against ``kernel_design``
-    over dtype, M at 4/16/17, K and N at and off TMA's multiples, and bases
-    off 16-byte alignment; every design must be reached."""
+    over dtype, M at 4/16/17/8192, N at and off TMA's multiples (odd N
+    too), and w's base 0-16 bytes off 16-byte alignment; every design must
+    be reached."""
     import collections
 
     import torch
@@ -2400,23 +2411,19 @@ def check_qmatmul_route_table(dev):
     from repro_torch.kernels.qmatmul import DESIGNS, kernel_design
 
     lib = _build.library("qmatmul")
-    buf = torch.zeros(1 << 16, dtype=torch.float32, device=dev)
     w8 = torch.zeros(1 << 16, dtype=torch.int8, device=dev)
     seen = collections.Counter()
     for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        xb = buf.to(dtype)
         for M in (4, 16, 17, 8192):
-            for K in (64, 100, 4096, 4104):
-                for N in (16, 24, 1008, 12288):
-                    for xo, wo in ((0, 0), (1, 0), (0, 1), (8, 16)):
-                        x, w = xb[xo:], w8[wo:]
-                        got = DESIGNS[lib.qmatmul_design(code, M, N, K, x.data_ptr(),
-                                                         w.data_ptr())]
-                        want = kernel_design(dtype, M, N, K, x, w)
-                        if got != want:
-                            _fail(f"the C launcher routes {dtype} M={M} K={K} N={N} (offsets "
-                                  f"{xo}, {wo}) to {got}; kernel_design says {want}")
-                        seen[got] += 1
+            for N in (16, 24, 1001, 1008, 12280, 12288):
+                for wo in range(17):
+                    w = w8[wo:]
+                    got = DESIGNS[lib.qmatmul_design(code, M, N, w.data_ptr())]
+                    want = kernel_design(dtype, M, N, w)
+                    if got != want:
+                        _fail(f"the C launcher routes {dtype} M={M} N={N} (w offset {wo}) to "
+                              f"{got}; kernel_design says {want}")
+                    seen[got] += 1
     print(f"  qmatmul route table: C design() == kernel_design at {sum(seen.values())} cases "
           f"{json.dumps(dict(seen))}")
     if set(seen) != set(DESIGNS):
@@ -2540,7 +2547,7 @@ def phase_ops(dev):
         mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
         err_qmm, worst_ratio = max(err_qmm, mm["max_abs_err"]), max(worst_ratio, mm["max_ratio"])
         M, K, N = x.shape[0], x.shape[1], q.shape[1]
-        design = kernel_design(x.dtype, M, N, K, x, q)
+        design = kernel_design(x.dtype, M, N, q)
         again = qmm(x, q, s)  # a second launch: the same bits
         mm["bit_stable"] = bool(torch.equal(again, out))
         print(f"  qmatmul {label} K={K} N={N} design={design}: {json.dumps(mm)} (tolerance "
@@ -2617,7 +2624,7 @@ def phase_ops(dev):
         bound_flops = flops if dt == "bfloat16" else 3.0 * flops
         w_deq = (q.float() * s).to(x.dtype)  # dequantized beforehand, not timed
         rec = dict(
-            shape=f"{wn} x {dt} M={M} K={K} N={N}", design=kernel_design(x.dtype, M, N, K, x, q),
+            shape=f"{wn} x {dt} M={M} K={K} N={N}", design=kernel_design(x.dtype, M, N, q),
             ms=cuda_ms(lambda: qmm(x, q, s)),
             ms_queued=cuda_ms_queued(lambda: qmm(x, q, s)),
             plain_ms=cuda_ms(lambda: qmatmul_plain(x, q, s), reps=3),

@@ -30,7 +30,8 @@ Needs one CUDA card. Three parts:
    ``tests/test_torch_kernels_cuda.py`` Hopper cases with at most 2,048
    output elements (``SMALL_CASES``: one query row over one key, causal,
    and over 256 keys without the mask, 8 heads; 8 D elements), at every
-   bf16 width, over SMALL_SEEDS seeds and at the test's own draw: the count
+   bf16 width, over SMALL_SEEDS seeds (``--small-seeds``) and at the
+   test's own draw: the count
    of elements that differ from the plain version, for (a) the kernel,
    (b) the same source built under ``build/flash_probe/`` with
    flash_fwd_hopper's softmax rounded as the plain version's
@@ -42,10 +43,10 @@ Needs one CUDA card. Three parts:
    elements come in clusters, and at 8 D elements a cluster of three reads
    above TOL_SHARE. The summary gives the largest count of (a), the seeds
    each of (a) and (b) fails under the 1% share, the smallest count of any
-   fault that changes something, the largest floor ``N0`` the two allow:
-   min(2 x (a)'s largest, a quarter of (c)'s smallest), and the draws of
-   (a) and of the faults that ``mismatch`` (the share or ``TOL_N0``) calls
-   within and beyond.
+   fault that changes something, per head width (``per_d``) (a)'s
+   largest count, (c)'s smallest and the floor ``small_floor`` gives, and
+   the draws of (a) and of the faults that ``mismatch`` (the share or the
+   floor) calls within and beyond.
 
 ``--parts`` runs a subset (``kernel``, ``serve``, ``small``).
 
@@ -389,7 +390,7 @@ def launch_with(fn, q, k, v, causal):
     return out
 
 
-def small_readings(dev) -> dict:
+def small_readings(dev, n_seeds: int = SMALL_SEEDS) -> dict:
     import torch
 
     import chip_smoke
@@ -402,7 +403,7 @@ def small_readings(dev) -> dict:
             test_seed = B * 7 + Sq + Sk + D + H // KV  # the card test's draw
             n = B * Sq * H * D
             counts = {name: [] for name in ("kernel", "plain_rounding", *SMALL_FAULTS)}
-            for seed in (*range(SMALL_SEEDS), test_seed):
+            for seed in (*range(n_seeds), test_seed):
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 q = torch.randn((B, Sq, H, D), generator=gen, device=dev).bfloat16()
                 k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).bfloat16()
@@ -415,9 +416,9 @@ def small_readings(dev) -> dict:
                 for name, out in outs.items():
                     counts[name].append(int((out.float() != plain.float()).sum()))
             # what mismatch allows to differ: the share, or the floor TOL_N0
-            allowed = max(kfa.TOL_SHARE[torch.bfloat16] * n, kfa.TOL_N0[torch.bfloat16])
+            allowed = max(kfa.TOL_SHARE[torch.bfloat16] * n, kfa.small_floor(torch.bfloat16, D))
             r = {"small_case": f"B {B}, Sq {Sq}, Sk {Sk}, H {H}, KV {KV}, causal {causal}",
-                 "D": D, "n": n, "seeds": SMALL_SEEDS, "test_seed": test_seed}
+                 "D": D, "n": n, "seeds": n_seeds, "test_seed": test_seed}
             for name, c in counts.items():
                 seeds = c[:-1]
                 r[name] = {"max": max(seeds), "min": min(seeds), "test_draw": c[-1],
@@ -445,8 +446,15 @@ def small_readings(dev) -> dict:
                                                     for r in rows),
         "faults_min_differing": min(faults),
         "faults_changing_nothing": [(r["small_case"], r["D"], f) for r in rows
-                                    for f in SMALL_FAULTS if r[f]["seeds_changed"] < SMALL_SEEDS],
-        "n0_at_most": min(2 * max_a, min(faults) // 4),
+                                    for f in SMALL_FAULTS if r[f]["seeds_changed"] < n_seeds],
+        # per head width: the sound kernel's largest count, the faults'
+        # smallest where they change anything, and the floor TOL_N0 gives
+        "per_d": {D: {"kernel_max": max(r["kernel"]["max"] for r in rows if r["D"] == D),
+                      "faults_min": min((r[f]["min_changed"] for r in rows if r["D"] == D
+                                         for f in SMALL_FAULTS if r[f]["seeds_changed"]),
+                                        default=None),
+                      "floor": kfa.small_floor(torch.bfloat16, D)}
+                  for D in kfa.HEAD_DIMS},
     }
     # (b)'s cost at the serve layer, queued, in turns
     case = chip_smoke.FLASH_CASES[0]
@@ -468,6 +476,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "flash_probe.json"))
     ap.add_argument("--parts", default="kernel,serve,small")
+    ap.add_argument("--small-seeds", type=int, default=SMALL_SEEDS,
+                    help="random draws a case and width in part 3")
     args = ap.parse_args()
     parts = args.parts.split(",")
 
@@ -480,7 +490,7 @@ def main() -> None:
     t0 = time.perf_counter()
     res = {}
     for name, fn in (("kernel", kernel_readings), ("serve", serve_readings),
-                     ("small", small_readings)):
+                     ("small", lambda d: small_readings(d, args.small_seeds))):
         if name in parts:
             res[name] = fn(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -286,8 +286,8 @@ extern "C" int form_launch(int form, int is_bf16, const void* x, const int8_t* w
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vec_x = is_bf16 ? aligned16(x) && K % 8 == 0 : aligned16(x) && K % 4 == 0;
   if (form == 0)
-    return is_bf16 ? launch_decode<8, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
-                   : launch_decode<8, 3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
+    return is_bf16 ? launch_decode<8, 1, 0>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+                   : launch_decode<8, 3, 0>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
   return is_bf16 ? launch_ss<1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
                  : launch_ss<3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
 }

@@ -30,7 +30,19 @@ kernel's and the ``drop_lo`` kernel's largest distance from the plain
 version in ulps (``max_ulps``): the check that sees a dropped lo plane,
 which the tolerance cannot.
 
-Prints one line per reading and writes all of them as JSON to ``--out``.
+The routes of w TMA cannot load (``--parts ldw``): the sound kernel at
+Qwen3-8B's w_gate and w_down with w one byte off 16-byte alignment, at
+w_gate with a ragged N (12,280) and at w_gate with a K of a partial last
+tile (4,100), every ``chip_smoke.QMM_CASES`` (dtype, M), beside planted
+faults of the producers that fetch w themselves, each ``csrc/qmatmul.cu``
+rebuilt under ``build/qmatmul_probe/`` with one change (``LDW_FAULTS``):
+the realigning
+shift one byte off (``shift_off``), w's rows past K loaded and kept, not
+zeroed (``rows_past_k``), the last column below N masked away
+(``last_column``).
+
+``--parts`` runs a subset (``tma``, ``ldw``). Prints one line per reading
+and writes all of them as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -50,6 +62,20 @@ DESIGN_FAULTS = {"skip_k16": ("hopper", "hopper_f32"), "b_unswizzled": ("hopper"
                  "skip_plane_k16": ("hopper_f32",), "drop_rank": ("decode",),
                  "a_unswizzled": ("decode",)}
 F32_FAULTS = ("x_tf32", "drop_lo")
+# planted faults of the producers that load w themselves: source changes of
+# csrc/qmatmul.cu (each text must appear once)
+LDW_FAULTS = {
+    "shift_off": (("(uint32_t)k * (uint32_t)N + n0) & 15;", "(uint32_t)k * (uint32_t)N + n0 + 1) & 15;"),),
+    "rows_past_k": (("hi = lo + (uintptr_t)K * N;", "hi = lo + (uintptr_t)(K + BKH) * N;"),
+                    ("if (r >= 0 && k0 + r < K) {", "if (r >= 0) {"),
+                    ("if (k >= K || b <= 0) o[u] = 0u;", "if (b <= 0) o[u] = 0u;")),
+    "last_column": (("left = min(HT, N - n0) - 16 * c;", "left = min(HT, N - n0 - 1) - 16 * c;"),
+                    ("const bool edge = N - n0 < HT || k0 + BKH > K;", "const bool edge = true;")),
+}
+# (weight, K, N, w's byte offset): Qwen3-8B's widths, one byte off; a
+# ragged N; a K whose last 64-row tile is partial
+LDW_SHAPES = (("w_gate", 4096, 12288, 1), ("w_down", 12288, 4096, 1),
+              ("w_gate", 4096, 12280, 0), ("w_gate", 4100, 12288, 1))
 
 
 def _tf32(x):
@@ -155,7 +181,7 @@ def readings(dev) -> list:
         for dt, M in chip_smoke.QMM_CASES:
             x = torch.randn((M, shape[0]), generator=gen, device=dev).to(getattr(torch, dt))
             plain = qmatmul_plain(x, q, s)
-            design = kernel_design(x.dtype, M, shape[1], shape[0], x, q)
+            design = kernel_design(x.dtype, M, shape[1], q)
             for variant in ("kernel",) + FAULTS:
                 if variant in F32_FAULTS and dt != "float32":
                     continue
@@ -184,10 +210,89 @@ def readings(dev) -> list:
     return rows
 
 
+def fault_libraries() -> dict:
+    """``csrc/qmatmul.cu`` with each ``LDW_FAULTS`` change, built in parallel
+    under ``build/qmatmul_probe/`` and loaded as ``_build`` loads it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "qmatmul_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, changes in LDW_FAULTS.items():
+        src = (_build.CSRC / "qmatmul.cu").read_text()
+        for old, new in changes:
+            if src.count(old) != 1:
+                sys.exit(f"the source no longer has one {old!r}")
+            src = src.replace(old, new)
+        (out / f"qmatmul_{name}.cu").write_text(src)
+        procs[name] = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                                        str(out / f"libqmatmul_{name}.so"),
+                                        str(out / f"qmatmul_{name}.cu")])
+    libs = {}
+    for name, proc in procs.items():
+        if proc.wait(timeout=900) != 0:
+            sys.exit(f"nvcc failed for the {name} fault")
+        lib = ctypes.CDLL(str(out / f"libqmatmul_{name}.so"))
+        for fn, argtypes in _build.SIGNATURES["qmatmul"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def ldw_readings(dev) -> list:
+    """The ``_ldw`` routes at ``LDW_SHAPES`` x ``chip_smoke.QMM_CASES``: the
+    sound kernel and each planted fault of its producer, in error units
+    against the plain version (and the fault's largest difference from the
+    sound kernel's output)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.qmatmul import TOL_C, error_units, kernel_design, qmatmul_plain
+
+    faults = fault_libraries()
+    sound = _build.library("qmatmul")
+    gen = torch.Generator(device=dev).manual_seed(615)
+    rows = []
+    for wn, K, N, off in LDW_SHAPES:
+        # room past w for the rows_past_k fault's reads: one tile of rows
+        wbuf = torch.randint(-127, 128, (off + (K + 64) * N,), generator=gen, device=dev,
+                             dtype=torch.int8)
+        q = wbuf[off:off + K * N].view(K, N)
+        s = torch.rand((N,), generator=gen, device=dev) / 64
+        for dt, M in chip_smoke.QMM_CASES:
+            x = torch.randn((M, K), generator=gen, device=dev).to(getattr(torch, dt))
+            plain = qmatmul_plain(x, q, s)
+            design = kernel_design(x.dtype, M, N, q)
+            ref = ops.qmatmul(x, q, s)
+            for variant in ("kernel", *LDW_FAULTS):
+                _build._LIBS["qmatmul"] = sound if variant == "kernel" else faults[variant]
+                try:
+                    out = ops.qmatmul(x, q, s)
+                finally:
+                    _build._LIBS["qmatmul"] = sound
+                r = error_units(out, plain, x, q, s).flatten()
+                row = {"weight": wn, "dtype": dt, "M": M, "K": K, "N": N, "w_offset": off,
+                       "design": design, "variant": variant, "max_units": float(r.max()),
+                       "over_tol": int((r > TOL_C).sum()), "n": r.numel(),
+                       "max_abs_from_sound": float((out - ref).abs().max())}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+            del x, plain, ref, out
+        del wbuf, q
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "qmatmul_probe.json"))
+    ap.add_argument("--parts", default="tma,ldw")
     args = ap.parse_args()
+    parts = args.parts.split(",")
 
     import torch
 
@@ -196,7 +301,11 @@ def main() -> None:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    res = {"readings": readings(dev)}
+    res = {}
+    if "tma" in parts:
+        res["readings"] = readings(dev)
+    if "ldw" in parts:
+        res["ldw"] = ldw_readings(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     res["card"] = smi.stdout.strip().splitlines()[0]

@@ -15,13 +15,18 @@
 // kernels/qmatmul.kernel_design): never a fallback. "w TMA-loadable" means
 // N % 16 == 0 and a 16-byte-aligned w (TMA's row stride and base rules).
 //
-//   qmm_decode   M <= 16, w TMA-loadable, bf16 or f32 x (any alignment)
-//   qmm_hopper   M > 16, w TMA-loadable: bf16 x that TMA loads too (K % 8
-//                == 0, 16-byte-aligned base), and f32 x through its three
-//                bf16 planes (split_planes, one launch before it)
-//   qmm_bf16     other bf16 x (w not TMA-loadable, or M > 16 with an x
-//                TMA cannot load)
-//   qmm_f32      other f32 x (w not TMA-loadable)
+//   qmm_decode<NP, P, 0>  M <= 16, w TMA-loadable, bf16 or f32 x (any
+//                         alignment)
+//   qmm_hopper<P, 0>      M > 16, w TMA-loadable: bf16 x (P = 1) and f32 x
+//                         through its three bf16 planes (P = 3)
+//   qmm_decode<NP, P, 1>, qmm_hopper<P, 1>   the same where TMA cannot load
+//                         w as tiles: its producers fetch w's rows themselves
+//                         and realign them (LDW, below)
+//
+// x reaches qmm_hopper by TMA. f32 x always goes through split_planes<3>
+// (one launch before it, into scratch); bf16 x that TMA cannot load (K % 8
+// != 0 or a base off 16-byte alignment) through split_planes<1>, which
+// copies it to rows of 16-byte pitch.
 //
 // f32 x on the tensor cores, exactly. An int8 weight (|q| <= 128) is exact
 // in bf16, and an f32 x is the sum of three bf16 parts, x = hi + mid + lo:
@@ -96,17 +101,38 @@
 // across the n tiles, so the CTAs in flight share a few x row blocks and w
 // column blocks in L2.
 //
-// qmm_bf16 (mma.sync.m16n8k16, bf16 in, f32 accumulate; block tile BM x
-// 128 x 32, 4 warps side by side along n, BM = 64 or 16 at M <= 16) and
-// qmm_f32 (scalar fmaf on BM x 64 x 16 tiles, 256 threads, BM = 64 or 16):
-// the routes of shapes TMA cannot load. The next k tile is loaded from
-// device memory into registers while the current one is multiplied out of
-// shared memory (two shared buffers, one barrier a tile). Rows past M,
-// columns past N and k past K are zero-filled on load and never stored:
-// 16-byte loads where the row is aligned and whole, element loads at the
-// edges. At M <= 16 the wrapper splits k into `splits` ranges of k_chunk
-// (a multiple of 32): block z writes its unscaled partial sums to ws[z] and
-// splitk_reduce adds them in z order and applies the scale.
+// w where TMA cannot load it as (N, K) tiles (LDW = 1: N % 16 != 0 or w
+// off 16-byte alignment, so row k, which starts at w + k N, has an
+// alignment of its own). Only the producers change: they fill the same
+// 128-byte swizzled stages as TMA would (the int8 stage of qmm_decode; the
+// bf16 B tile of qmm_hopper, which then has no int8 ring), so the
+// consumers and each output's summation order are the TMA routes'. Rows 16
+// apart are 16 N bytes apart, a 16-byte multiple: seen from floor16(w), w
+// is a tensor of "super-rows" of 16 rows with a legal TMA stride, and one
+// box (144 B x 4 super-rows, no swizzle, its inner coordinate a 16-byte
+// multiple) fetches four rows of one residue k % 16, each from the aligned
+// block that holds its byte n0. A 64 x 128 tile is 16 such boxes into a
+// staging slot (LST = 4 slots, one mbarrier each); row 15 of a super-row
+// runs d0 = w % 16 bytes past the view's row, so residue 15 comes from the
+// same view 16 bytes on. Where a tile's rows are not all in whole
+// super-rows (the last tile, K % 16 != 0) each row is one 1-D bulk copy of
+// its aligned blocks. The boxes need N >= 16 (w_map says why); a narrower
+// w stages every row by a bulk copy. No load leaves the 16-byte blocks that
+// hold w (the maps start at floor16(w) and end in w's last block), and such
+// a block lies in a page that holds w. The bulk copies read the blocks that
+// hold w's first and last bytes byte by byte (edge_block); fault safety
+// does not need that, but the build without it read 2.5-8% slower on every
+// _ldw route (PERF.md, PR 37), so it stays. Once a slot has landed, each
+// producer lane takes 16-byte chunks of its warp's 16 rows (two
+// conflict-free 16-byte shared loads), funnel-shifts them by the row's byte
+// offset, zeroes n >= N and rows k >= K, and stores the chunk (qmm_hopper
+// converts it to bf16 first); then the warpgroup refills the slot LST tiles
+// ahead. Measured at Qwen3-8B's
+// w_gate (PERF.md, PR 37): plain 32-bit loads, in registers or by
+// cp.async, read 3.6x the TMA decode route; 16-byte cp.async and one bulk
+// copy a row 2.1-2.3x; the boxes 1.9x (the producer's realignment and
+// tile issue then take the time the consumers wait; the clock64 trace
+// is in PERF.md).
 //
 // Bound: at a decode step (M = 4, Qwen3-8B's 4,096 x 12,288 w_gate) the
 // 50.3 MB int8 weight read (0.015 ms at 3.35 TB/s); at prefill (M = 8,192)
@@ -126,43 +152,7 @@
 
 namespace {
 
-// ------------------------------------------------------------------ bf16
-
-constexpr int BN16 = 128;  // columns per block
-constexpr int BK16 = 32;   // k per tile
-constexpr int T16 = 128;   // threads per block (4 warps)
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                          const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a)
-               : "memory");
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// ------------------------------------------------------------ x loads
 
 // 8 bf16 of x's row `row`, columns [c, c + 8); zero outside rows < M, c < kend
 __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* x, int M, int K, int row, int c,
@@ -178,145 +168,6 @@ __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* x, int M, int K, i
   return r;
 }
 
-// 16 int8 of w's row k, columns [c, c + 16); zero outside k < kend, c < N
-__device__ __forceinline__ uint4 load_w16(const int8_t* w, int N, int k, int c, int kend,
-                                          bool vec) {
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (k >= kend) return r;
-  const int8_t* p = w + (long long)k * N + c;
-  if (vec && c + 16 <= N) return *reinterpret_cast<const uint4*>(p);
-  int8_t* e = reinterpret_cast<int8_t*>(&r);
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    if (c + j < N) e[j] = p[j];
-  return r;
-}
-
-template <int MT>
-__global__ void __launch_bounds__(T16)
-    qmm_bf16(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ ws,
-             int M, int N, int K, int k_chunk, int vec_x, int vec_w) {
-  constexpr int BM = 16 * MT;
-  constexpr int PA = BK16 + 8;  // bf16 per shared row of x (conflict-free ldmatrix)
-  constexpr int PB = BN16 + 8;  // bf16 per shared row of w
-  constexpr int A_CHUNKS = BM * BK16 / 8;
-  constexpr int A_PER = (A_CHUNKS + T16 - 1) / T16;
-  constexpr int B_PER = BK16 * BN16 / 16 / T16;
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM * PA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][BK16 * PB];
-
-  const int n0 = blockIdx.x * BN16, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  const int n_kt = (kend - kbeg + BK16 - 1) / BK16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  uint4 ra[A_PER], rb[B_PER];
-  auto gload = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = threadIdx.x + i * T16;
-      if (c < A_CHUNKS) ra[i] = load_x8(x, M, K, m0 + c / 4, k0 + (c % 4) * 8, kend, vec_x);
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int c = threadIdx.x + i * T16;
-      rb[i] = load_w16(w, N, k0 + c / 8, n0 + (c % 8) * 16, kend, vec_w);
-    }
-  };
-  auto sstore = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = threadIdx.x + i * T16;
-      if (c < A_CHUNKS) *reinterpret_cast<uint4*>(&As[buf][(c / 4) * PA + (c % 4) * 8]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int c = threadIdx.x + i * T16;
-      const int8_t* e = reinterpret_cast<const int8_t*>(&rb[i]);
-      uint32_t o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = pack_bf16((float)e[2 * j], (float)e[2 * j + 1]);
-      __nv_bfloat16* dst = &Bs[buf][(c / 8) * PB + (c % 8) * 16];
-      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
-    }
-  };
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // ldmatrix row addresses (lane -> row of one of the four 8x8 matrices)
-  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * PA + (lane >> 4) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * PB + warp * 32 + (lane >> 4) * 8;
-
-  gload(kbeg);
-  sstore(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < n_kt;
-    if (more) gload(kbeg + (kt + 1) * BK16);
-#pragma unroll
-    for (int kk = 0; kk < BK16 / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(a[mt][0], a[mt][1], a[mt][2], a[mt][3], &As[cur][a_off + mt * 16 * PA + kk * 16]);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3, &Bs[cur][b_off + kk * 16 * PB + np * 16]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(acc[mt][2 * np], a[mt], b0, b1);
-          mma16816(acc[mt][2 * np + 1], a[mt], b2, b3);
-        }
-      }
-    }
-    if (more) sstore(cur ^ 1);
-    __syncthreads();
-  }
-
-  const long long mn = (long long)M * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + warp * 32 + nt * 8 + 2 * t + e;
-          if (col >= N) continue;
-          const float v = acc[mt][nt][2 * half + e];
-          const long long i = (long long)row * N + col;
-          if (gridDim.z > 1) {
-            ws[blockIdx.z * mn + i] = v;
-          } else {
-            out[i] = __fmul_rn(v, scale[col]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------- f32
-
-constexpr int BN32 = 64;  // columns per block
-constexpr int BK32 = 16;  // k per tile
-constexpr int T32 = 256;  // threads per block: 16 row groups x 16 column quads
-
 // 4 floats of x's row `row`, columns [c, c + 4); zero outside rows < M, c < kend
 __device__ __forceinline__ float4 load_x4(const float* x, int M, int K, int row, int c, int kend,
                                           bool vec) {
@@ -331,124 +182,6 @@ __device__ __forceinline__ float4 load_x4(const float* x, int M, int K, int row,
   return r;
 }
 
-template <int TM>
-__global__ void __launch_bounds__(T32)
-    qmm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ ws, int M,
-            int N, int K, int k_chunk, int vec_x, int vec_w) {
-  constexpr int BM = 16 * TM;
-  constexpr int PA = BM + 4;    // floats per shared row of x^T (k-major)
-  constexpr int PB = BN32 + 4;  // floats per shared row of w
-  constexpr int A_CHUNKS = BM * BK32 / 4;
-  constexpr int A_PER = (A_CHUNKS + T32 - 1) / T32;
-  constexpr int B_CHUNKS = BK32 * BN32 / 16;
-  __shared__ __align__(16) float As[2][BK32 * PA];
-  __shared__ __align__(16) float Bs[2][BK32 * PB];
-
-  const int n0 = blockIdx.x * BN32, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  const int n_kt = (kend - kbeg + BK32 - 1) / BK32;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  float4 ra[A_PER];
-  uint4 rb;
-  auto gload = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = threadIdx.x + i * T32;
-      if (c < A_CHUNKS) ra[i] = load_x4(x, M, K, m0 + c / 4, k0 + (c % 4) * 4, kend, vec_x);
-    }
-    if (threadIdx.x < B_CHUNKS) {
-      const int c = threadIdx.x;
-      rb = load_w16(w, N, k0 + c / 4, n0 + (c % 4) * 16, kend, vec_w);
-    }
-  };
-  auto sstore = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = threadIdx.x + i * T32;
-      if (c < A_CHUNKS) {
-        const int r = c / 4, k = (c % 4) * 4;
-        As[buf][(k + 0) * PA + r] = ra[i].x;
-        As[buf][(k + 1) * PA + r] = ra[i].y;
-        As[buf][(k + 2) * PA + r] = ra[i].z;
-        As[buf][(k + 3) * PA + r] = ra[i].w;
-      }
-    }
-    if (threadIdx.x < B_CHUNKS) {
-      const int c = threadIdx.x;
-      const int8_t* e = reinterpret_cast<const int8_t*>(&rb);
-      float* dst = &Bs[buf][(c / 4) * PB + (c % 4) * 16];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(dst + 4 * j) = make_float4(
-            (float)e[4 * j], (float)e[4 * j + 1], (float)e[4 * j + 2], (float)e[4 * j + 3]);
-    }
-  };
-
-  float acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  gload(kbeg);
-  sstore(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < n_kt;
-    if (more) gload(kbeg + (kt + 1) * BK32);
-#pragma unroll
-    for (int kk = 0; kk < BK32; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[cur][kk * PB + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float a = As[cur][kk * PA + ty + 16 * i];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
-      }
-    }
-    if (more) sstore(cur ^ 1);
-    __syncthreads();
-  }
-
-  const long long mn = (long long)M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= N) continue;
-      const long long idx = (long long)row * N + col;
-      if (gridDim.z > 1) {
-        ws[blockIdx.z * mn + idx] = acc[i][j];
-      } else {
-        out[idx] = __fmul_rn(acc[i][j], scale[col]);
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------- split k
-
-// out[i] = (ws[0][i] + ws[1][i] + ... in z order) * scale[i % N]
-__global__ void __launch_bounds__(256)
-    splitk_reduce(const float* __restrict__ ws, int splits, long long mn, int N,
-                  const float* __restrict__ scale, float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn; i += stride) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[z * mn + i]);
-    out[i] = __fmul_rn(s, scale[i % N]);
-  }
-}
-
 // ------------------------------------------------- bf16 on Hopper (prefill)
 
 constexpr int HT = 128;        // n columns of a CTA tile; rows of a consumer warpgroup
@@ -458,11 +191,22 @@ constexpr int THREADS_H = 384;  // warpgroup 0 loads and converts, warpgroups 1 
 constexpr uint32_t W8_BYTES = BKH * HT;       // 8 KB: 64 k rows x 128 B
 constexpr uint32_t B_BYTES = BKH * HT * 2;    // 16 KB: two 64-n blocks of 64 k rows x 128 B
 constexpr uint32_t B_BLOCK = BKH * 128;       // one 64-n block of the B tile
+// The staging ring of the producers that load w themselves (LDW): LST
+// slots of a 64 k x 128 n tile's rows as loaded, each row the (at most
+// nine) aligned 16-byte blocks that cover its 128 bytes, 144 bytes a row;
+// each slot completes on its own mbarrier.
+constexpr int LST = 4;
+constexpr int ROW_BLOCKS = 9;
+constexpr uint32_t ROW_PITCH = 16 * ROW_BLOCKS;
+constexpr uint32_t BOX_BYTES = 4 * ROW_PITCH;  // a box of the super-row map: 4 rows of 144 B
+constexpr uint32_t BOX_PITCH = 640;            // a box's place in a slot (128-byte aligned)
+constexpr uint32_t STAGE_BYTES = 16 * BOX_PITCH;
 
 // qmm_hopper's tiles and rings by x's planes: P = 1 (bf16 x) 256 rows, four
 // x stages of 32 KB and three B stages; P = 3 (f32 x's planes) 128 rows,
-// three x stages of 48 KB and two B stages
-template <int P>
+// three x stages of 48 KB and two B stages; then the int8 ring where TMA
+// loads w (LDW = 0), or the staging ring where the producers do (LDW = 1)
+template <int P, int LDW>
 struct HopperTile {
   static constexpr int BM = P == 1 ? 256 : 128;   // m rows of a CTA tile
   static constexpr int MT = BM / 128;             // m64 tiles of a consumer warpgroup
@@ -471,9 +215,9 @@ struct HopperTile {
   static constexpr uint32_t PLANE = BM * BKH * 2;  // one plane's box: BM rows x 128 B
   static constexpr uint32_t X_BYTES = P * PLANE;
   static constexpr uint32_t STG_OFF = XST * X_BYTES;
-  static constexpr uint32_t BS_OFF = STG_OFF + XST * W8_BYTES;
-  static constexpr uint32_t BAR_OFF = BS_OFF + BST * B_BYTES;  // 2 (XST + BST) mbarriers
-  static constexpr size_t SMEM = BAR_OFF + 16 * (XST + BST) + 1024;
+  static constexpr uint32_t BS_OFF = STG_OFF + (LDW ? LST * STAGE_BYTES : XST * W8_BYTES);
+  static constexpr uint32_t BAR_OFF = BS_OFF + BST * B_BYTES;  // 2 (XST + BST) + LST mbarriers
+  static constexpr size_t SMEM = BAR_OFF + 16 * (XST + BST) + 8 * LST + 1024;
 };
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
@@ -614,7 +358,7 @@ __device__ __forceinline__ void convert_w(uint32_t stg, uint32_t bs, int tid) {
 template <int P>
 __device__ __forceinline__ void load_x(uint32_t xs, uint32_t x_full, const CUtensorMap* tmx,
                                        int kt, int m0, int M) {
-  using T = HopperTile<P>;
+  using T = HopperTile<P, 0>;  // the x ring is the same with either w route
   const int s = kt % T::XST;
   mbar_expect_tx(x_full + 8 * s, T::X_BYTES);
 #pragma unroll
@@ -629,6 +373,146 @@ __device__ __forceinline__ void load_w(uint32_t stg, uint32_t w_full, const CUte
   tma_load2(stg + s * W8_BYTES, tmw, n0, kt * BKH, w_full + 8 * s);
 }
 
+// ------------------------------------------- w by plain loads (LDW = 1)
+
+// one 1-D bulk copy (no tensor map) of `bytes` (a 16-byte multiple) from
+// src (16-byte aligned) to shared memory at dst, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, uintptr_t src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared4(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared4(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+// the aligned 16-byte block at src into shared memory at dst, byte by
+// byte, its bytes outside w's [lo, hi) zero
+__device__ __forceinline__ void edge_block(uint32_t dst, uintptr_t src, uintptr_t lo,
+                                           uintptr_t hi) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (src + b >= lo && src + b < hi)
+      v[b >> 2] |= (uint32_t)__ldg(reinterpret_cast<const unsigned char*>(src + b))
+                   << (8 * (b & 3));
+  st_shared16(dst, v[0], v[1], v[2], v[3]);
+}
+
+// Row r of a w tile (w's row k0 + r, bytes [n0, n0 + 128)) into shared
+// memory at `row`: the aligned 16-byte blocks from floor16(row start) that
+// hold its bytes below N, by one bulk copy completing on bar (an arrival
+// with its bytes expected); the block that holds w's first byte, or its
+// last, is copied byte by byte (edge_block). Every producer thread arrives
+// on bar once a tile, with or without a row; rows k >= K are not copied
+// (realign_rows zeroes them).
+__device__ __forceinline__ void stage_row(uint32_t row, uint32_t bar, const int8_t* w, int N,
+                                          int K, int k0, int n0, int r) {
+  if (r >= 0 && k0 + r < K) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(w), hi = lo + (uintptr_t)K * N;
+    const uintptr_t a = lo + (uintptr_t)(k0 + r) * N + n0, a0 = a & ~(uintptr_t)15;
+    const uintptr_t end = (a + min(HT, N - n0) + 15) & ~(uintptr_t)15;  // past the last block
+    int j0 = 0, j1 = (int)((end - a0) >> 4);
+    if (a0 < lo) {
+      edge_block(row, a0, lo, hi);
+      j0 = 1;
+    }
+    if (end > hi && j1 > j0) {
+      edge_block(row + 16 * (j1 - 1), end - 16, lo, hi);
+      --j1;
+    }
+    if (j1 > j0) {
+      const uint32_t bytes = 16u * (j1 - j0);
+      mbar_expect_tx(bar, bytes);  // the arrival, with the copy's bytes
+      bulk_load(row + 16 * j0, a0 + 16 * j0, bytes, bar);
+      return;
+    }
+  }
+  mbar_arrive(bar);
+}
+
+// Tile k0 of w into staging slot `stg`, completing on bar, by the 128
+// producer threads (lane `lane` of warp q). Where its 64 rows lie in whole
+// super-rows (`boxed`): rows of residue r0 = k % 16 by 16 boxes (rows r0,
+// r0 + 16, r0 + 32, r0 + 48, each from the aligned 16-byte block that
+// holds its byte n0, at stg + r0 BOX_PITCH, 144 bytes a row), issued by
+// lanes 0-3 of each warp: r0 < 15 from the super-row map tmw, r0 = 15 from
+// tmw15 (the same view 16 bytes on, which holds row 15 whole) where its
+// super-rows lie in it (`boxed15`), else row 16 q + 15 by stage_row at stg
+// + 15 BOX_PITCH + q ROW_PITCH, by lane 4 of warp q. Not boxed: row 16 q
+// + i by stage_row at stg + r ROW_PITCH, by lane i < 16 of warp q.
+__device__ __forceinline__ void stage_tile(uint32_t stg, uint32_t bar, const CUtensorMap* tmw,
+                                           const CUtensorMap* tmw15, const int8_t* w, int N,
+                                           int K, int k0, int n0, bool boxed, bool boxed15,
+                                           int q, int lane) {
+  const int r0 = 4 * q + lane, d0 = (int)(reinterpret_cast<uintptr_t>(w) & 15);
+  if (!boxed) {
+    const int r = lane < 16 ? 16 * q + lane : -1;
+    stage_row(stg + r * ROW_PITCH, bar, w, N, K, k0, n0, r);
+  } else if (lane < 4 && r0 < 15) {
+    mbar_expect_tx(bar, BOX_BYTES);  // the arrival, with the box's bytes
+    tma_load2(stg + r0 * BOX_PITCH, tmw, (d0 + r0 * N + n0) & ~15, k0 / 16, bar);
+  } else if (lane == 3 && boxed15) {  // r0 == 15
+    mbar_expect_tx(bar, BOX_BYTES);
+    tma_load2(stg + 15 * BOX_PITCH, tmw15, (d0 + 15 * N + n0 - 16) & ~15, k0 / 16, bar);
+  } else if (lane == 4 && !boxed15) {
+    stage_row(stg + 15 * BOX_PITCH + q * ROW_PITCH, bar, w, N, K, k0, n0, 16 * q + 15);
+  } else {
+    mbar_arrive(bar);
+  }
+}
+
+// ROWS staged rows from r0 of a tile staged by stage_tile, by one warp,
+// 16 bytes at a time: lane l takes chunk c = l % 8 (int8 n0 + 16 c .. + 15)
+// of rows r0 + l / 8 + 4 j, j < ROWS / 4, and hands each to put(r, c,
+// words) (element 0 in the low byte); zero at n >= N and in rows k >= K.
+// Each staged row starts with the aligned block that holds its byte n0, so
+// it is shifted by its offset in that block.
+template <int ROWS, class Put>
+__device__ __forceinline__ void realign_rows(uint32_t stg, const int8_t* w, int N, int K, int k0,
+                                             int n0, int r0, int lane, bool boxed, Put put) {
+  const int c = lane & 7, left = min(HT, N - n0) - 16 * c;  // bytes of the chunk below N
+  const bool edge = N - n0 < HT || k0 + BKH > K;  // a tile with bytes to zero
+#pragma unroll 2
+  for (int j = 0; j < ROWS / 4; ++j) {
+    const int r = r0 + (lane >> 3) + 4 * j, k = k0 + r;
+    // the row's offset in its first block (mod 16, so 32 bits will do):
+    // whole words d, then bytes
+    const uint32_t off =
+        ((uint32_t)reinterpret_cast<uintptr_t>(w) + (uint32_t)k * (uint32_t)N + n0) & 15;
+    const uint32_t row =
+        boxed ? stg + (r & 15) * BOX_PITCH + (r >> 4) * ROW_PITCH : stg + r * ROW_PITCH;
+    // blocks c and c + 1 of the row: eight lanes read one row's 128 bytes,
+    // so neither load meets another lane's in a bank
+    const uint4 b0 = ld_shared16(row + 16 * c), b1 = ld_shared16(row + 16 * c + 16);
+    const uint32_t v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const uint32_t d = off >> 2, sh = 8 * (off & 3);
+    uint32_t x[5], o[4];
+#pragma unroll
+    for (int u = 0; u < 5; ++u)  // word u + d, by selects (no indexed registers)
+      x[u] = d == 0 ? v[u] : d == 1 ? v[u + 1] : d == 2 ? v[u + 2] : v[u + 3];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[u] = __funnelshift_r(x[u], x[u + 1], sh);
+    if (edge) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int b = left - 4 * u;  // bytes of word u below N
+        if (k >= K || b <= 0) o[u] = 0u;
+        else if (b < 4) o[u] &= (1u << (8 * b)) - 1u;
+      }
+    }
+    put(r, c, o);
+  }
+}
+
 // out = acc * scale from a consumer warpgroup's accumulator (the m16n8 C
 // layout per warp: element 4 j + 2 r + e at row g + 8 r, column 8 j + 2 t + e)
 __device__ __forceinline__ void store_tile(const float (&acc)[64], const float* __restrict__ scale,
@@ -641,20 +525,29 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], const float* 
     float* o = out + (long long)row * N;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int col = col0 + 8 * j;
-      if (col >= N) continue;  // N % 16 == 0: col + 1 < N too
-      *reinterpret_cast<float2*>(o + col) =
-          make_float2(__fmul_rn(acc[4 * j + 2 * r], scale[col]),
-                      __fmul_rn(acc[4 * j + 2 * r + 1], scale[col + 1]));
+      const int col = col0 + 8 * j;  // even
+      if (col >= N) continue;
+      const float v0 = __fmul_rn(acc[4 * j + 2 * r], scale[col]);
+      if (col + 1 >= N) {
+        o[col] = v0;
+      } else if (N & 1) {  // an odd N: rows of out alternate 8-byte alignment
+        o[col] = v0;
+        o[col + 1] = __fmul_rn(acc[4 * j + 2 * r + 1], scale[col + 1]);
+      } else {
+        *reinterpret_cast<float2*>(o + col) =
+            make_float2(v0, __fmul_rn(acc[4 * j + 2 * r + 1], scale[col + 1]));
+      }
     }
   }
 }
 
-template <int P>
+template <int P, int LDW>
 __global__ void __launch_bounds__(THREADS_H, 1)
     qmm_hopper(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-               const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K) {
-  using T = HopperTile<P>;
+               const __grid_constant__ CUtensorMap tmw15, const int8_t* __restrict__ w,
+               const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K,
+               int super_rows, int super_rows15) {
+  using T = HopperTile<P, LDW>;
   constexpr int XST = T::XST, BST = T::BST, MT = T::MT;
   constexpr int LX = XST - BST;  // x loads run LX tiles ahead of the conversion
   constexpr int LW = XST - 1;    // int8 w loads LW tiles ahead
@@ -662,9 +555,11 @@ __global__ void __launch_bounds__(THREADS_H, 1)
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
   const uint32_t XS = base, STG = base + T::STG_OFF, BS = base + T::BS_OFF;
-  // mbarriers: x full x XST, int8 w full x XST, B full x BST, B empty x BST
+  // mbarriers: x full x XST, int8 w full x XST, B full x BST, B empty x
+  // BST, staging slot full x LST
   const uint32_t x_full = base + T::BAR_OFF, w_full = x_full + 8 * XST;
   const uint32_t b_full = w_full + 8 * XST, b_empty = b_full + 8 * BST;
+  const uint32_t s_full = b_empty + 8 * BST;
   // this CTA's tile: GROUP_M m tiles at a time, n tiles across each group,
   // so the CTAs in flight share a few x row blocks and w column blocks in L2
   const int tm = (M + T::BM - 1) / T::BM, tn = (N + HT - 1) / HT;
@@ -685,37 +580,86 @@ __global__ void __launch_bounds__(THREADS_H, 1)
       mbar_init(b_full + 8 * s, 128);  // every producer thread, after its proxy fence
       mbar_init(b_empty + 8 * s, 8);   // one arrival per consumer warp
     }
+#pragma unroll
+    for (int s = 0; s < LST; ++s)
+      if (LDW) mbar_init(s_full + 8 * s, 128);  // every producer thread, a row or none
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == 0) {
-    // producer: thread 0 keeps the TMA loads ahead (x LX tiles, int8 w LW
-    // tiles ahead of the conversion); the warpgroup converts each w tile
-    const int tid = threadIdx.x;
-    if (tid == 0) {
-      for (int t = 0; t < LX && t < n_kt; ++t) load_x<P>(XS, x_full, &tmx, t, m0, M);
-      for (int t = 0; t < LW && t < n_kt; ++t) load_w(STG, w_full, &tmw, t, t % XST, n0);
-    }
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int bs = kt % BST;
-      // the consumers have released tile kt - BST: its B stage is free, and
-      // so is the x stage of tile kt + LX (that of tile kt + LX - XST)
-      if (kt >= BST) mbar_wait(b_empty + 8 * bs, ((kt / BST) & 1) ^ 1);
-      if (tid == 0) {
-        if (kt + LX < n_kt) load_x<P>(XS, x_full, &tmx, kt + LX, m0, M);
-        // its int8 stage held tile kt - 1, converted in the last iteration
-        if (kt + LW < n_kt) load_w(STG, w_full, &tmw, kt + LW, (kt + LW) % XST, n0);
+    if constexpr (LDW) {
+      // producer, w where TMA cannot load it as tiles: thread 0 keeps x's
+      // TMA loads LX tiles ahead; the warpgroup stages each w tile LST tiles
+      // ahead (stage_tile), and warp q realigns and converts rows 16 q ..
+      // 16 q + 15 into the B tile
+      const int tid = threadIdx.x, q = tid >> 5, lane = tid & 31;
+      auto boxed = [&](int kt) { return (kt + 1) * BKH <= 16 * super_rows; };
+      auto stage = [&](int kt) {
+        if (kt < n_kt)
+          stage_tile(STG + (kt % LST) * STAGE_BYTES, s_full + 8 * (kt % LST), &tmw, &tmw15, w, N,
+                     K, kt * BKH, n0, boxed(kt), (kt + 1) * BKH <= 16 * super_rows15, q, lane);
+      };
+      if (tid == 0)
+        for (int t = 0; t < LX && t < n_kt; ++t) load_x<P>(XS, x_full, &tmx, t, m0, M);
+      for (int t = 0; t < LST; ++t) stage(t);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int bs = kt % BST, sl = kt % LST;
+        if (kt >= BST) mbar_wait(b_empty + 8 * bs, ((kt / BST) & 1) ^ 1);
+        if (tid == 0 && kt + LX < n_kt) load_x<P>(XS, x_full, &tmx, kt + LX, m0, M);
+        mbar_wait(s_full + 8 * sl, (kt / LST) & 1);
+        // chunk c of row kr as 16 bf16: chunks 2 (c % 4) and + 1 of 64-n
+        // block c / 4 (block 1 stores its upper half first, so the two
+        // blocks' stores meet in no bank)
+        const uint32_t b = BS + bs * B_BYTES;
+        realign_rows<16>(STG + sl * STAGE_BYTES, w, N, K, kt * BKH, n0, 16 * q, lane, boxed(kt),
+                         [&](int kr, int c, const uint32_t (&o)[4]) {
+                           uint4 h0, h1;  // n 16 c .. + 7 and + 8 .. + 15
+                           i8x4_to_bf16(o[0], h0.x, h0.y);
+                           i8x4_to_bf16(o[1], h0.z, h0.w);
+                           i8x4_to_bf16(o[2], h1.x, h1.y);
+                           i8x4_to_bf16(o[3], h1.z, h1.w);
+                           const uint32_t row = b + (c >> 2) * B_BLOCK + kr * 128;
+                           const int c0 = (c & 3) * 2, sw = kr & 7, up = c >> 2;
+                           const uint4 f = up ? h1 : h0, g = up ? h0 : h1;
+                           st_shared16(row + (((c0 + up) ^ sw) << 4), f.x, f.y, f.z, f.w);
+                           st_shared16(row + (((c0 + 1 - up) ^ sw) << 4), g.x, g.y, g.z, g.w);
+                         });
+        // the slot is read out by every producer thread (the values are
+        // stored: no proxy fence before the copies that refill it)
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        stage(kt + LST);
+        fence_proxy_async();  // the B tile (st.shared) is read by wgmma
+        mbar_arrive(b_full + 8 * bs);
       }
-      mbar_wait(w_full + 8 * (kt % XST), (kt / XST) & 1);
-      convert_w(STG + (kt % XST) * W8_BYTES, BS + bs * B_BYTES, tid);
-      // the B tile was written by st.shared (the generic proxy) and is read
-      // by wgmma (the async proxy): fence before releasing it, or wgmma may
-      // read stale bytes; the fence also orders this thread's reads of the
-      // int8 stage before the TMA write that refills it
-      fence_proxy_async();
-      mbar_arrive(b_full + 8 * bs);
-      asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the int8 stage is read out
+    } else {
+      // producer: thread 0 keeps the TMA loads ahead (x LX tiles, int8 w LW
+      // tiles ahead of the conversion); the warpgroup converts each w tile
+      const int tid = threadIdx.x;
+      if (tid == 0) {
+        for (int t = 0; t < LX && t < n_kt; ++t) load_x<P>(XS, x_full, &tmx, t, m0, M);
+        for (int t = 0; t < LW && t < n_kt; ++t) load_w(STG, w_full, &tmw, t, t % XST, n0);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int bs = kt % BST;
+        // the consumers have released tile kt - BST: its B stage is free, and
+        // so is the x stage of tile kt + LX (that of tile kt + LX - XST)
+        if (kt >= BST) mbar_wait(b_empty + 8 * bs, ((kt / BST) & 1) ^ 1);
+        if (tid == 0) {
+          if (kt + LX < n_kt) load_x<P>(XS, x_full, &tmx, kt + LX, m0, M);
+          // its int8 stage held tile kt - 1, converted in the last iteration
+          if (kt + LW < n_kt) load_w(STG, w_full, &tmw, kt + LW, (kt + LW) % XST, n0);
+        }
+        mbar_wait(w_full + 8 * (kt % XST), (kt / XST) & 1);
+        convert_w(STG + (kt % XST) * W8_BYTES, BS + bs * B_BYTES, tid);
+        // the B tile was written by st.shared (the generic proxy) and is read
+        // by wgmma (the async proxy): fence before releasing it, or wgmma may
+        // read stale bytes; the fence also orders this thread's reads of the
+        // int8 stage before the TMA write that refills it
+        fence_proxy_async();
+        mbar_arrive(b_full + 8 * bs);
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the int8 stage is read out
+      }
     }
   } else {
     // consumers: warpgroup cw owns rows cw BM / 2 .. + BM / 2 - 1 of the
@@ -800,24 +744,33 @@ __device__ __forceinline__ void split3x4(float4 v, uint32_t (&o)[3][2]) {
   o[2][1] = l[2] | (l[3] << 16);
 }
 
-// x (M, K) f32 -> planes (3 M, Kp) bf16, plane p's row m at row p M + m
-// (Kp = K rounded up to 8, so a row is a whole 16-byte multiple; the
-// padding holds zeros); a thread takes 8 k of one row
+// x (M, K) -> P bf16 planes (P M, Kp), plane p's row m at row p M + m (Kp
+// = K rounded up to 8, so a row is a whole 16-byte multiple; the padding
+// holds zeros): f32 x (P = 3) split into hi, mid, lo; bf16 x (P = 1)
+// copied as it is, for an x TMA cannot load (K % 8 != 0 or a base off
+// 16-byte alignment). A thread takes 8 k of one row.
+template <int P>
 __global__ void __launch_bounds__(256)
-    split_planes(const float* __restrict__ x, uint16_t* __restrict__ planes, int M, int K,
-                 int Kp, int vec_x) {
+    split_planes(const void* __restrict__ x, uint16_t* __restrict__ planes, int M, int K, int Kp,
+                 int vec_x) {
   const int cpr = Kp / 8;
   const long long total = (long long)M * cpr;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
     const int m = (int)(i / cpr), c = (int)(i % cpr) * 8;
-    uint32_t a[3][2], b[3][2];
-    split3x4(load_x4(x, M, K, m, c, K, vec_x), a);
-    split3x4(load_x4(x, M, K, m, c + 4, K, vec_x), b);
+    if constexpr (P == 1) {
+      *reinterpret_cast<uint4*>(planes + (long long)m * Kp + c) =
+          load_x8(static_cast<const __nv_bfloat16*>(x), M, K, m, c, K, vec_x);
+    } else {
+      const float* xf = static_cast<const float*>(x);
+      uint32_t a[3][2], b[3][2];
+      split3x4(load_x4(xf, M, K, m, c, K, vec_x), a);
+      split3x4(load_x4(xf, M, K, m, c + 4, K, vec_x), b);
 #pragma unroll
-    for (int p = 0; p < 3; ++p)
-      *reinterpret_cast<uint4*>(planes + ((long long)p * M + m) * Kp + c) =
-          make_uint4(a[p][0], a[p][1], b[p][0], b[p][1]);
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint4*>(planes + ((long long)p * M + m) * Kp + c) =
+            make_uint4(a[p][0], a[p][1], b[p][0], b[p][1]);
+    }
   }
 }
 
@@ -826,15 +779,17 @@ __global__ void __launch_bounds__(256)
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
 // a decode CTA's shared memory: DST stages, each an int8 w tile and P x
-// planes of NP rows x 128 B; the 128 x NP partial
-template <int NP, int P>
+// planes of NP rows x 128 B; the 128 x NP partial; with LDW the staging
+// ring
+template <int NP, int P, int LDW>
 struct DecodeTile {
   static constexpr int DST = 4;              // stages of the ring
   static constexpr uint32_t XT = NP * 128;   // one plane's x tile
   static constexpr uint32_t X_OFF = DST * W8_BYTES;
   static constexpr uint32_t RED_OFF = X_OFF + DST * P * XT;
-  static constexpr uint32_t BAR_OFF = RED_OFF + NP * HT * 4;  // 3 DST mbarriers
-  static constexpr size_t SMEM = BAR_OFF + 8 * 3 * DST + 1024;
+  static constexpr uint32_t STG_OFF = RED_OFF + NP * HT * 4;
+  static constexpr uint32_t BAR_OFF = STG_OFF + (LDW ? LST * STAGE_BYTES : 0);
+  static constexpr size_t SMEM = BAR_OFF + 8 * (3 * DST + LST) + 1024;  // the mbarriers
 };
 
 // d (64 x NP, f32) += A (64 x 16, bf16 from registers: the m16n8k16 A
@@ -864,21 +819,12 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t ld_shared4(uint32_t a) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
-  return v;
-}
-
 // The decode route's k order inside a k16 step. Thread t of a quad holds
 // the A fragment's k columns 2t, 2t + 1, 2t + 8, 2t + 9; they are taken to
 // be w's k rows 4t .. 4t + 3 of the step, so that one 32-bit load of a w
 // row serves them. B (x) follows: of the step's eight physical bf16 pairs
 // (2i, 2i + 1), chunk 0 (logical k 0..7) holds pairs 0, 2, 4, 6 and chunk
 // 1 (logical 8..15) pairs 1, 3, 5, 7.
-__device__ __forceinline__ void st_shared4(uint32_t a, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
-}
 
 // 4 bf16 of x's row `row`, columns [c, c + 4); zero past K
 __device__ __forceinline__ uint2 load_x4h(const __nv_bfloat16* x, int K, int row, int c,
@@ -912,43 +858,51 @@ __device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, uint32_t w2, u
 }
 
 // 384 threads: warpgroup 0 loads (warp 0 TMA for w, warps 1-3 plain loads
-// for x), warpgroups 1 and 2 convert w in registers and multiply, c taking
-// k16 steps 2 c and 2 c + 1 of each tile
-template <int NP, int P>
+// for x; with LDW every warp plain loads of both), warpgroups 1 and 2
+// convert w in registers and multiply, c taking k16 steps 2 c and 2 c + 1
+// of each tile
+template <int NP, int P, int LDW>
 __global__ void __launch_bounds__(384, 2)
-    qmm_decode(const __grid_constant__ CUtensorMap tmw, const void* __restrict__ xv,
-               const float* __restrict__ scale, float* __restrict__ out, int M, int N, int K,
-               int k_chunk, int vec_x) {
+    qmm_decode(const __grid_constant__ CUtensorMap tmw, const __grid_constant__ CUtensorMap tmw15,
+               const int8_t* __restrict__ w,
+               const void* __restrict__ xv, const float* __restrict__ scale,
+               float* __restrict__ out, int M, int N, int K, int k_chunk, int vec_x,
+               int super_rows, int super_rows15) {
   namespace cg = cooperative_groups;
-  using T = DecodeTile<NP, P>;
+  using T = DecodeTile<NP, P, LDW>;
   constexpr int DST = T::DST;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t WS = base, XS = base + T::X_OFF;
+  const uint32_t WS = base, XS = base + T::X_OFF, STG = base + T::STG_OFF;
   float* red = reinterpret_cast<float*>(smem_raw + (base - raw) + T::RED_OFF);
-  // mbarriers: w full (TMA), x full (the loaders), empty (the consumers)
+  // mbarriers: w full (TMA, or the w loaders), x full (the x loaders),
+  // empty (the consumers), with LDW staging slot full
   const uint32_t w_full = base + T::BAR_OFF, x_full = w_full + 8 * DST;
-  const uint32_t empty = x_full + 8 * DST;
+  const uint32_t empty = x_full + 8 * DST, s_full = empty + 8 * DST;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int n0 = (int)(blockIdx.x / S) * HT;
   const int kt0 = rank * (k_chunk / BKH);
   const int n_kt = max(0, min(k_chunk / BKH, (K + BKH - 1) / BKH - kt0));
   const int tid = threadIdx.x;
+  constexpr int XTHREADS = LDW ? 128 : 96;  // the x loaders: warps 1-3, or all of warpgroup 0
 
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < DST; ++s) {
-      mbar_init(w_full + 8 * s, 1);
-      mbar_init(x_full + 8 * s, 96);  // every x thread, after its proxy fence
-      mbar_init(empty + 8 * s, 8);     // one arrival per consumer warp
+      mbar_init(w_full + 8 * s, LDW ? 128 : 1);
+      mbar_init(x_full + 8 * s, XTHREADS);  // every x thread, after its proxy fence
+      mbar_init(empty + 8 * s, 8);          // one arrival per consumer warp
     }
+#pragma unroll
+    for (int s = 0; s < LST; ++s)
+      if (LDW) mbar_init(s_full + 8 * s, 128);  // every producer thread, a row or none
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid < 32) {
+  if (!LDW && tid < 32) {
     // warp 0: the int8 tiles' TMA loads, each as soon as its stage is free
     for (int i = 0; i < n_kt; ++i) {
       const int s = i % DST;
@@ -957,22 +911,33 @@ __global__ void __launch_bounds__(384, 2)
       if (tid == 0) load_w(WS, w_full, &tmw, kt0 + i, s, n0);
     }
   } else if (tid < 128) {
-    // warps 1-3: x. A slot e = 16 m + 4 q + u is 4 k of row m at 16 q + 4 u:
-    // physical pairs 2 u and 2 u + 1 of k16 step q, which go to word u of
-    // the step's chunks 0 and 1 (the decode k order above). Each
-    // thread's slots are loaded two tiles ahead into registers (an L2
-    // round trip), split into planes for f32, and stored; the planes' rows
-    // past M stay zero (written once here, never again)
-    const int xt = tid - 32;
-    for (uint32_t o = xt * 16; o < DST * P * T::XT; o += 96 * 16) st_shared16(XS + o, 0u, 0u, 0u, 0u);
-    constexpr int SLOTS = 3;  // 16 rows x 16 slots over 96 threads
+    // x by warps 1-3 (all four warps with LDW). A slot e = 16 m + 4 qs + u
+    // is 4 k of row m at 16 qs + 4 u: physical pairs 2 u and 2 u + 1 of k16
+    // step qs, which go to word u of the step's chunks 0 and 1 (the decode
+    // k order above). Each thread's slots are loaded two tiles ahead into
+    // registers (an L2 round trip), split into planes for f32, and stored;
+    // the planes' rows past M stay zero (written once here, never again).
+    // With LDW, lane i < 16 of warp q also stages row 16 q + i of each w
+    // tile LST tiles ahead (stage_row), and warp q realigns those 16 rows
+    // into the int8 stage as TMA would store them.
+    const int xt = LDW ? tid : tid - 32, q = tid >> 5, lane = tid & 31;
+    for (uint32_t o = xt * 16; o < DST * P * T::XT; o += XTHREADS * 16)
+      st_shared16(XS + o, 0u, 0u, 0u, 0u);
+    constexpr int SLOTS = (16 * 16 + XTHREADS - 1) / XTHREADS;  // 16 rows x 16 slots
     struct XRegs {
       uint4 v[SLOTS];
+    };
+    auto boxed = [&](int i) { return (kt0 + i + 1) * BKH <= 16 * super_rows; };
+    auto stage = [&](int i) {
+      if (i < n_kt)
+        stage_tile(STG + (i % LST) * STAGE_BYTES, s_full + 8 * (i % LST), &tmw, &tmw15, w, N, K,
+                   (kt0 + i) * BKH, n0, boxed(i), (kt0 + i + 1) * BKH <= 16 * super_rows15, q,
+                   lane);
     };
     auto load_xr = [&](int i, XRegs& r) {
 #pragma unroll
       for (int j = 0; j < SLOTS; ++j) {
-        const int e = xt + 96 * j, m = e >> 4, k = (kt0 + i) * BKH + 4 * (e & 15);
+        const int e = xt + XTHREADS * j, m = e >> 4, k = (kt0 + i) * BKH + 4 * (e & 15);
         r.v[j] = make_uint4(0u, 0u, 0u, 0u);
         if (i >= n_kt || m >= M) continue;
         if (P == 1) {
@@ -991,10 +956,10 @@ __global__ void __launch_bounds__(384, 2)
       if (i >= DST) mbar_wait(empty + 8 * s, ((i / DST) & 1) ^ 1);
 #pragma unroll
       for (int j = 0; j < SLOTS; ++j) {
-        const int e = xt + 96 * j, m = e >> 4, q = (e >> 2) & 3, u = e & 3, sw = m & 7;
+        const int e = xt + XTHREADS * j, m = e >> 4, qs = (e >> 2) & 3, u = e & 3, sw = m & 7;
         if (m >= M) continue;
-        const uint32_t at0 = XS + s * P * T::XT + m * 128 + (((2 * q) ^ sw) << 4) + 4 * u;
-        const uint32_t at1 = XS + s * P * T::XT + m * 128 + (((2 * q + 1) ^ sw) << 4) + 4 * u;
+        const uint32_t at0 = XS + s * P * T::XT + m * 128 + (((2 * qs) ^ sw) << 4) + 4 * u;
+        const uint32_t at1 = XS + s * P * T::XT + m * 128 + (((2 * qs + 1) ^ sw) << 4) + 4 * u;
         if (P == 1) {
           st_shared4(at0, r.v[j].x);
           st_shared4(at1, r.v[j].y);
@@ -1014,8 +979,27 @@ __global__ void __launch_bounds__(384, 2)
       fence_proxy_async();
       mbar_arrive(x_full + 8 * s);
       load_xr(i + 2, r);
+      if constexpr (LDW) {
+        // after x, which is at hand: the consumers convert w first, then
+        // wait for x
+        const int sl = i % LST;
+        mbar_wait(s_full + 8 * sl, (i / LST) & 1);
+        // chunk c of row kr swizzled as TMA stores it: at c ^ (kr & 7)
+        realign_rows<16>(STG + sl * STAGE_BYTES, w, N, K, (kt0 + i) * BKH, n0, 16 * q, lane,
+                         boxed(i), [&](int kr, int c, const uint32_t (&o)[4]) {
+                           st_shared16(WS + s * W8_BYTES + kr * 128 + ((c ^ (kr & 7)) << 4),
+                                       o[0], o[1], o[2], o[3]);
+                         });
+        // the slot is read out by every producer thread (the values are
+        // stored: no proxy fence before the copies that refill it)
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        stage(i + LST);
+        mbar_arrive(w_full + 8 * s);
+      }
     };
     XRegs xa, xb;
+    if constexpr (LDW)
+      for (int t = 0; t < LST; ++t) stage(t);
     load_xr(0, xa);
     load_xr(1, xb);
     for (int i = 0; i < n_kt; i += 2) {
@@ -1144,7 +1128,8 @@ EncodeTiled encode_tiled() {
 // rank-2 map of a row-major (outer, inner) tensor of row_bytes a row, boxes
 // of (box_inner, box_outer), 128-byte swizzle, zeros past every edge
 int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* t, uint64_t inner,
-             uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+             uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
@@ -1152,38 +1137,70 @@ int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* t, uint64_t i
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, dt, 2, const_cast<void*>(t), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// x_rows x K bf16 at x_pitch bytes a row: bf16 x (M rows), or f32 x's
-// three planes (3 M rows)
-template <int P>
+// w's map: where TMA loads w (LDW = 0), its (N, K) tiles; else its
+// super-row view (the LDW producers' boxes; rows k = 16 t + r0 as (16 N
+// bytes, t) from floor16(w) = w - d0, a row stride of 16 N, a 16-byte
+// multiple; boxes of 144 B x 4 super-rows, no swizzle, zeros past every
+// edge), super_rows = K / 16 of them, or none (0) where N < 16 or K < 16.
+// Row r0 of a super-row ends at byte d0 + (r0 + 1) N of it, so rows r0 < 15
+// lie whole in its 16 N bytes only where d0 <= N: N >= 16 makes that so
+// for every d0 (with N < 16 the boxes would zero-fill a row's last d0 - N
+// bytes, so those shapes stage every row by stage_row instead).
+//
+// map15 is the same view from floor16(w) + 16, which holds each super-row's
+// row 15 whole (rows k = 16 t + 15 from byte d0 + 15 N - 16); its last
+// super-row would end 16 - d0 bytes past w where K % 16 == 0, so it holds
+// (K - 1) / 16 of them (super_rows15)
+int w_map(CUtensorMap* map, CUtensorMap* map15, const int8_t* w, int N, int K, int ldw,
+          int* super_rows, int* super_rows15) {
+  *super_rows = *super_rows15 = 0;
+  if (!ldw) return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, (uint64_t)N, HT, BKH);
+  if (K < 16 || N < 16) return 0;
+  const uintptr_t d0 = reinterpret_cast<uintptr_t>(w) & 15;
+  *super_rows = K / 16;
+  int rc = make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w - d0, 16ULL * N, K / 16, 16ULL * N,
+                    ROW_PITCH, 4, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0 || (K - 1) / 16 < 1) return rc;
+  *super_rows15 = (K - 1) / 16;
+  return make_map(map15, CU_TENSOR_MAP_DATA_TYPE_UINT8, w - d0 + 16, 16ULL * N, (K - 1) / 16,
+                  16ULL * N, ROW_PITCH, 4, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// x_rows x K bf16 at x_pitch bytes a row: bf16 x (M rows), or the planes
+// of split_planes (P M rows)
+template <int P, int LDW>
 int launch_hopper(const void* x, int x_rows, uint64_t x_pitch, const int8_t* w,
                   const float* scale, float* out, int M, int N, int K, cudaStream_t st) {
-  using T = HopperTile<P>;
+  using T = HopperTile<P, LDW>;
   const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + HT - 1) / HT);
   if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  CUtensorMap tmx, tmw;
+  CUtensorMap tmx, tmw = {}, tmw15 = {};
+  int super_rows = 0, super_rows15 = 0;
   int rc = make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, x_rows, x_pitch, BKH, T::BM);
-  if (rc == 0) rc = make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, (uint64_t)N, HT, BKH);
+  if (rc == 0) rc = w_map(&tmw, &tmw15, w, N, K, LDW, &super_rows, &super_rows15);
   if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(qmm_hopper<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)T::SMEM);
+  cudaError_t e = cudaFuncSetAttribute(qmm_hopper<P, LDW>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  qmm_hopper<P><<<(unsigned)tiles, THREADS_H, T::SMEM, st>>>(tmx, tmw, scale, out, M, N, K);
+  qmm_hopper<P, LDW><<<(unsigned)tiles, THREADS_H, T::SMEM, st>>>(
+      tmx, tmw, tmw15, w, scale, out, M, N, K, super_rows, super_rows15);
   return (int)cudaGetLastError();
 }
 
 // one launch: grid (N / 128 tiles x S), one cluster of S CTAs a tile, rank
 // r taking k_chunk / 64 k tiles from r k_chunk
-template <int NP, int P>
+template <int NP, int P, int LDW>
 int launch_decode(const void* x, const int8_t* w, const float* scale, float* out, int M, int N,
                   int K, int splits, int k_chunk, int vec_x, cudaStream_t st) {
-  using T = DecodeTile<NP, P>;
-  CUtensorMap tmw;
-  const int rc = make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, (uint64_t)N, HT, BKH);
+  using T = DecodeTile<NP, P, LDW>;
+  CUtensorMap tmw = {}, tmw15 = {};
+  int super_rows = 0, super_rows15 = 0;
+  const int rc = w_map(&tmw, &tmw15, w, N, K, LDW, &super_rows, &super_rows15);
   if (rc != 0) return rc;
   // past 48 KB the kernel needs a larger dynamic shared memory limit, set
   // once for each device
@@ -1192,7 +1209,7 @@ int launch_decode(const void* x, const int8_t* w, const float* scale, float* out
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64 || !set[dev]) {
-    e = cudaFuncSetAttribute(qmm_decode<NP, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(qmm_decode<NP, P, LDW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) set[dev] = true;
@@ -1209,15 +1226,23 @@ int launch_decode(const void* x, const int8_t* w, const float* scale, float* out
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, qmm_decode<NP, P>, tmw, x, scale, out, M, N, K, k_chunk, vec_x);
+  e = cudaLaunchKernelEx(&cfg, qmm_decode<NP, P, LDW>, tmw, tmw15, w, x, scale, out, M, N, K,
+                         k_chunk, vec_x, super_rows, super_rows15);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int NP, int P>
+template <int P, int LDW>
+int launch_decode_np(const void* x, const int8_t* w, const float* scale, float* out, int M, int N,
+                     int K, int splits, int k_chunk, int vec_x, cudaStream_t st) {
+  return M <= 8 ? launch_decode<8, P, LDW>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+                : launch_decode<16, P, LDW>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
+}
+
+template <int NP, int P, int LDW>
 int decode_clusters(int splits) {
-  using T = DecodeTile<NP, P>;
-  if (cudaFuncSetAttribute(qmm_decode<NP, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using T = DecodeTile<NP, P, LDW>;
+  if (cudaFuncSetAttribute(qmm_decode<NP, P, LDW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)T::SMEM) != cudaSuccess)
     return -1;
   cudaLaunchAttribute attr[1];
@@ -1232,23 +1257,46 @@ int decode_clusters(int splits) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = -1;
-  return cudaOccupancyMaxActiveClusters(&n, qmm_decode<NP, P>, &cfg) == cudaSuccess ? n : -1;
+  return cudaOccupancyMaxActiveClusters(&n, qmm_decode<NP, P, LDW>, &cfg) == cudaSuccess ? n : -1;
 }
 
 constexpr int SMALL_M = 16;  // M at or below this: a decode step
 
 // The kernel a call runs, fixed by dtype, shape and alignment alone:
-// 3 qmm_decode (M <= 16, w TMA-loadable: N % 16 == 0, 16-byte-aligned
-// base), 2 qmm_hopper (bf16 x, M > 16, w and x TMA-loadable: K % 8 == 0,
-// 16-byte-aligned base), 4 qmm_hopper on f32 x's planes (f32 x, M > 16, w
-// TMA-loadable), 1 qmm_bf16 (other bf16), 0 qmm_f32 (other f32).
+// 0 qmm_decode (M <= SMALL_M), 1 qmm_hopper on bf16 x, 2 qmm_hopper on f32
+// x's planes, where TMA can load w (N % 16 == 0, a 16-byte-aligned base);
+// 3, 4, 5 the same with w by plain loads (LDW) where it cannot.
 // kernels/qmatmul.kernel_design is the same table.
-int design(int is_bf16, int M, int N, int K, const void* x, const void* w) {
-  const bool w_tma = N % 16 == 0 && aligned16(w);
-  if (!w_tma) return is_bf16 ? 1 : 0;
-  if (M <= SMALL_M) return 3;
-  if (!is_bf16) return 4;
-  return (K % 8 == 0 && aligned16(x)) ? 2 : 1;
+int design(int is_bf16, int M, int N, const void* w) {
+  const int ldw = (N % 16 == 0 && aligned16(w)) ? 0 : 3;
+  if (M <= SMALL_M) return ldw;
+  return ldw + (is_bf16 ? 1 : 2);
+}
+
+// qmm_hopper after split_planes<P> into ws (f32 x's three planes, or bf16
+// x repitched to 16-byte rows), or on bf16 x itself where TMA can load it
+template <int LDW>
+int launch_prefill(const void* x, int is_bf16, const int8_t* w, const float* scale, float* out,
+                   void* ws, int M, int N, int K, cudaStream_t st) {
+  if (is_bf16 && K % 8 == 0 && aligned16(x))
+    return launch_hopper<1, LDW>(x, M, (uint64_t)K * 2, w, scale, out, M, N, K, st);
+  const int P = is_bf16 ? 1 : 3;
+  if (ws == nullptr || !aligned16(ws) || (long long)P * M > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const int Kp = (K + 7) / 8 * 8;
+  const long long chunks = (long long)M * (Kp / 8);
+  long long blocks = (chunks + 255) / 256;
+  if (blocks > 8192) blocks = 8192;
+  uint16_t* planes = static_cast<uint16_t*>(ws);
+  if (is_bf16)  // never TMA-loadable here: element loads
+    split_planes<1><<<(unsigned)blocks, 256, 0, st>>>(x, planes, M, K, Kp, 0);
+  else
+    split_planes<3><<<(unsigned)blocks, 256, 0, st>>>(x, planes, M, K, Kp,
+                                                      aligned16(x) && K % 4 == 0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return is_bf16 ? launch_hopper<1, LDW>(ws, M, (uint64_t)Kp * 2, w, scale, out, M, N, K, st)
+                 : launch_hopper<3, LDW>(ws, 3 * M, (uint64_t)Kp * 2, w, scale, out, M, N, K, st);
 }
 
 }  // namespace
@@ -1258,10 +1306,9 @@ int design(int is_bf16, int M, int N, int K, const void* x, const void* w) {
 // ranges of k_chunk (splits == ceil(K / k_chunk)). By design():
 //   qmm_decode: splits is the cluster size (1, 2, 4 or 8), k_chunk a
 //     multiple of 64; no scratch.
-//   qmm_hopper: splits == 1; on f32 x, ws holds 3 M Kp bf16 (Kp = K
-//     rounded up to 8) for the planes, written by a launch before it.
-//   qmm_bf16 / qmm_f32: k_chunk a multiple of 32; with splits > 1, ws holds
-//     splits M N f32 of partials and a second launch reduces them.
+//   qmm_hopper: splits == 1; ws holds P M Kp bf16 (Kp = K rounded up to 8)
+//     for split_planes<P>, which runs first: f32 x (P = 3), and bf16 x with
+//     K % 8 != 0 or a base off 16-byte alignment (P = 1); else unused.
 // Launches on ``stream``; returns cudaGetLastError().
 extern "C" int qmatmul_launch(const void* x, int is_bf16, const int8_t* w, const float* scale,
                               float* out, void* ws, int M, int N, int K, int splits,
@@ -1270,80 +1317,38 @@ extern "C" int qmatmul_launch(const void* x, int is_bf16, const int8_t* w, const
       (long long)(splits - 1) * k_chunk >= K || (long long)splits * k_chunk < K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = design(is_bf16, M, N, K, x, w);
-  if (d == 2 || d == 4) {
+  const int d = design(is_bf16, M, N, w);
+  const bool ldw = d >= 3;
+  if (d % 3 != 0) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
-    if (d == 2)
-      return launch_hopper<1>(x, M, (uint64_t)K * 2, w, scale, out, M, N, K, st);
-    if (ws == nullptr || !aligned16(ws) || 3LL * M > 0x7FFFFFFFLL)
-      return (int)cudaErrorInvalidValue;
-    const int Kp = (K + 7) / 8 * 8;
-    const long long chunks = (long long)M * (Kp / 8);
-    long long blocks = (chunks + 255) / 256;
-    if (blocks > 8192) blocks = 8192;
-    split_planes<<<(unsigned)blocks, 256, 0, st>>>(static_cast<const float*>(x),
-                                                   static_cast<uint16_t*>(ws), M, K, Kp,
-                                                   aligned16(x) && K % 4 == 0);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    return launch_hopper<3>(ws, 3 * M, (uint64_t)Kp * 2, w, scale, out, M, N, K, st);
+    return ldw ? launch_prefill<1>(x, is_bf16, w, scale, out, ws, M, N, K, st)
+               : launch_prefill<0>(x, is_bf16, w, scale, out, ws, M, N, K, st);
   }
-  if (d == 3) {
-    if (splits > MAX_CLUSTER || (splits & (splits - 1)) != 0 || k_chunk % BKH != 0)
-      return (int)cudaErrorInvalidValue;
-    const int np = M <= 8 ? 8 : 16;
-    if (is_bf16) {
-      const int vec_x = aligned16(x) && K % 8 == 0;
-      return np == 8 ? launch_decode<8, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
-                     : launch_decode<16, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
-    }
-    const int vec_x = aligned16(x) && K % 4 == 0;
-    return np == 8 ? launch_decode<8, 3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
-                   : launch_decode<16, 3>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
-  }
-  if (k_chunk % 32 != 0 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  float* wsf = static_cast<float*>(ws);
-  const bool small = M <= SMALL_M;
-  const int bm = small ? 16 : 64;
-  const long long m_tiles = (M + bm - 1) / bm;
-  if (m_tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
-  const int vec_w = aligned16(w) && N % 16 == 0;
-  if (is_bf16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    const int vec_x = aligned16(x) && K % 8 == 0;
-    const dim3 grid((N + BN16 - 1) / BN16, (unsigned)m_tiles, splits);
-    if (small) {
-      qmm_bf16<1><<<grid, T16, 0, st>>>(xb, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
-    } else {
-      qmm_bf16<4><<<grid, T16, 0, st>>>(xb, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
-    }
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    const int vec_x = aligned16(x) && K % 4 == 0;
-    const dim3 grid((N + BN32 - 1) / BN32, (unsigned)m_tiles, splits);
-    if (small) {
-      qmm_f32<1><<<grid, T32, 0, st>>>(xf, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
-    } else {
-      qmm_f32<4><<<grid, T32, 0, st>>>(xf, w, scale, out, wsf, M, N, K, k_chunk, vec_x, vec_w);
-    }
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long mn = (long long)M * N;
-  long long blocks = (mn + 255) / 256;
-  if (blocks > 8192) blocks = 8192;
-  splitk_reduce<<<(unsigned)blocks, 256, 0, st>>>(wsf, splits, mn, N, scale, out);
-  return (int)cudaGetLastError();
+  if (splits > MAX_CLUSTER || (splits & (splits - 1)) != 0 || k_chunk % BKH != 0)
+    return (int)cudaErrorInvalidValue;
+  const int vec_x = aligned16(x) && K % (is_bf16 ? 8 : 4) == 0;
+  if (is_bf16)
+    return ldw ? launch_decode_np<1, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+               : launch_decode_np<1, 0>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
+  return ldw ? launch_decode_np<3, 1>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st)
+             : launch_decode_np<3, 0>(x, w, scale, out, M, N, K, splits, k_chunk, vec_x, st);
 }
 
 // design() above, for the wrapper to hold its table against
-extern "C" int qmatmul_design(int is_bf16, int M, int N, int K, const void* x, const void* w) {
-  return design(is_bf16, M, N, K, x, w);
+extern "C" int qmatmul_design(int is_bf16, int M, int N, const void* w) {
+  return design(is_bf16, M, N, w);
 }
 
-// clusters of `splits` decode CTAs (NP = 8 or 16 rows, bf16 or f32 x) the
-// device holds at once (cudaOccupancyMaxActiveClusters), or -1 on an error
-extern "C" int qmatmul_decode_clusters(int is_bf16, int np, int splits) {
-  if (is_bf16) return np == 8 ? decode_clusters<8, 1>(splits) : decode_clusters<16, 1>(splits);
-  return np == 8 ? decode_clusters<8, 3>(splits) : decode_clusters<16, 3>(splits);
+// clusters of `splits` decode CTAs (NP = 8 or 16 rows, bf16 or f32 x, w
+// by TMA (ldw 0) or by the LDW producers (ldw 1)) the device holds at once
+// (cudaOccupancyMaxActiveClusters), or -1 on an error. The wrapper's split
+// (kernels/qmatmul.cluster_split) reads no occupancy: this is for checks.
+extern "C" int qmatmul_decode_clusters(int is_bf16, int np, int ldw, int splits) {
+  using F = int (*)(int);
+  static const F f[2][2][2] = {  // [ldw][is_bf16][np == 16]
+      {{decode_clusters<8, 3, 0>, decode_clusters<16, 3, 0>},
+       {decode_clusters<8, 1, 0>, decode_clusters<16, 1, 0>}},
+      {{decode_clusters<8, 3, 1>, decode_clusters<16, 3, 1>},
+       {decode_clusters<8, 1, 1>, decode_clusters<16, 1, 1>}}};
+  return f[ldw != 0][is_bf16 != 0][np == 16](splits);
 }

@@ -80,8 +80,8 @@ SIGNATURES = {
     },
     "qmatmul": {
         "qmatmul_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "qmatmul_design": [_I, _I, _I, _I, _P, _P],
-        "qmatmul_decode_clusters": [_I, _I, _I],
+        "qmatmul_design": [_I, _I, _I, _P],
+        "qmatmul_decode_clusters": [_I, _I, _I, _I],
     },
 }
 

@@ -13,24 +13,28 @@ the two differ by summation order and by where the scale is rounded in, so
 they agree within the tolerance below, element by element. M, K and N may
 be any size; the kernel masks the ragged edges itself.
 
-Routes, fixed by dtype, M and alignment alone (``kernel_design``; the C
-launcher's ``design()`` is the same table); "w TMA-loadable" is N % 16 ==
-0 and a 16-byte-aligned base:
+Routes, fixed by dtype, M and w's alignment alone (``kernel_design``; the
+C launcher's ``design()`` is the same table); "w TMA-loadable" is N % 16
+== 0 and a 16-byte-aligned base:
 
-- ``decode`` (``qmm_decode``): M <= SMALL_M, w TMA-loadable, bf16 or f32
-  x of any alignment. One launch computes out^T = w^T x^T on wgmma (N on
-  the 64-row side), k split across the CTAs of a thread-block cluster and
-  summed through distributed shared memory in rank order
-  (``cluster_split`` picks the cluster size); no scratch.
-- ``hopper`` (``qmm_hopper``): bf16 x, M > SMALL_M, x and w TMA-loadable
-  (K % 8 == 0, 16-byte-aligned bases): wgmma on 256 x 128 tiles, each int8
-  weight tile converted to bf16 in shared memory.
-- ``hopper_f32``: f32 x, M > SMALL_M, w TMA-loadable: one pass writes x
-  as three bf16 planes (``split3_plain`` is its plain version) into
-  scratch, and ``qmm_hopper`` multiplies each converted weight tile by the
-  three planes into one f32 accumulator (128 x 128 tiles).
-- ``bf16`` (``qmm_bf16``, mma.sync; split k at M <= SMALL_M) and ``f32``
-  (``qmm_f32``, scalar fmaf): the shapes TMA cannot load.
+- ``decode`` (``qmm_decode``): M <= SMALL_M, bf16 or f32 x of any
+  alignment. One launch computes out^T = w^T x^T on wgmma (N on the 64-row
+  side), k split across the CTAs of a thread-block cluster and summed
+  through distributed shared memory in rank order (``cluster_split`` picks
+  the cluster size); no scratch.
+- ``hopper`` (``qmm_hopper``): bf16 x, M > SMALL_M: wgmma on 256 x 128
+  tiles, each int8 weight tile converted to bf16 in shared memory. An x
+  TMA cannot load (K % 8 != 0 or a base off 16-byte alignment) is first
+  copied into scratch rows of 16-byte pitch.
+- ``hopper_f32``: f32 x, M > SMALL_M: one pass writes x as three bf16
+  planes (``split3_plain`` is its plain version) into scratch, and
+  ``qmm_hopper`` multiplies each converted weight tile by the three planes
+  into one f32 accumulator (128 x 128 tiles).
+- ``decode_ldw``, ``hopper_ldw``, ``hopper_f32_ldw``: the same kernels
+  where TMA cannot load w as tiles; their producers fetch w's rows
+  themselves (boxes of a view of w whose row stride is 16 N) and realign
+  them into the same shared-memory layout, so each output's summation
+  order is the TMA route's.
 
 f32 x reaches the tensor cores without losing f32 accuracy: x = hi + mid
 + lo exactly, each a bf16 (hi and mid truncations to 16 bits, lo the rest,
@@ -54,12 +58,9 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-BK = 32  # k_chunk granularity: a multiple of both kernels' k tile
-SMALL_M = 16  # M at or below this is a decode step (the decode route, or 16-row tiles)
-MAX_SPLITS = 32
-BLOCKS_PER_SM = 4  # split k until about this many blocks per SM are in flight
+SMALL_M = 16  # M at or below this is a decode step (the decode routes)
 # the kernels by the code csrc/qmatmul.cu's design() gives them
-DESIGNS = ("f32", "bf16", "hopper", "decode", "hopper_f32")
+DESIGNS = ("decode", "hopper", "hopper_f32", "decode_ldw", "hopper_ldw", "hopper_f32_ldw")
 DECODE_BK = 64  # the decode route's k tile: its k_chunk is a multiple of it
 DECODE_BN = 128  # columns of a decode CTA
 MAX_CLUSTER = 8  # the portable thread-block cluster size
@@ -152,7 +153,15 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # 1.5, near the geometric middle of 0.46 and 1.9 (the first run's nearest
 # fault). x without its lo plane reads 0.08-0.54, under the limit: a
 # one-hot x (``one_hot_reference``, ``ulps``) catches it instead, at
-# 213-494 ulps against the sound kernel's 1-2.
+# 213-494 ulps against the sound kernel's 1-2. The ``_ldw`` routes (their
+# consumers, so each output's summation order, are the TMA routes') read
+# 0.006-0.545 at Qwen3-8B's w_gate and w_down one byte off alignment, a
+# ragged N and a partial last k tile (``--parts ldw``); planted faults of
+# their producer: the realigning shift one byte off 10,730-53,850, the last
+# column below N masked away 1,492-24,500 (its M elements); w's rows past
+# K loaded and not zeroed changes no output bit (x is zero there) and is
+# caught instead by ``scripts/qmatmul_bounds_check.py``, where its loads
+# past w fault.
 TOL_C = 1.0
 
 
@@ -181,20 +190,6 @@ def mismatch(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor, w_q: torch
 
 
 @functools.lru_cache(maxsize=256)
-def split_k(M: int, N: int, K: int, bf16: bool, sms: int) -> Tuple[int, int]:
-    """(splits, k_chunk): cut k into ranges of k_chunk (a multiple of BK)
-    until the (m, n) tiles times the splits give about BLOCKS_PER_SM blocks
-    an SM; at most MAX_SPLITS, and no range empty."""
-    bm = 16 if M <= SMALL_M else 64
-    bn = 128 if bf16 else 64
-    tiles = -(-M // bm) * -(-N // bn)
-    k_tiles = -(-K // BK)
-    want = max(1, min(-(-BLOCKS_PER_SM * sms // tiles), k_tiles, MAX_SPLITS))
-    k_chunk = -(-k_tiles // want) * BK
-    return -(-K // k_chunk), k_chunk
-
-
-@functools.lru_cache(maxsize=256)
 def cluster_split(N: int, K: int, sms: int) -> Tuple[int, int]:
     """(S, k_chunk) of the decode route: a cluster of S CTAs (1, 2, 4 or 8)
     a 128-column tile, rank r taking k_chunk (a multiple of DECODE_BK) from
@@ -213,23 +208,15 @@ def cluster_split(N: int, K: int, sms: int) -> Tuple[int, int]:
     return S, chunk(S)
 
 
-def kernel_design(dtype: torch.dtype, M: int, N: int, K: int, x: torch.Tensor,
-                  w_q: torch.Tensor) -> str:
+def kernel_design(dtype: torch.dtype, M: int, N: int, w_q: torch.Tensor) -> str:
     """The kernel a card call launches for x (M, K) of ``dtype`` and w_q
-    (K, N): where TMA can load w (N % 16 == 0, a 16-byte-aligned base)
-    ``"decode"`` at M <= SMALL_M, else ``"hopper_f32"`` for float32 and
-    ``"hopper"`` for bfloat16 where TMA can load x too (K % 8 == 0, a
-    16-byte-aligned base); elsewhere ``"bf16"`` or ``"f32"`` by dtype."""
+    (K, N): ``"decode"`` at M <= SMALL_M, else ``"hopper"`` for bfloat16
+    and ``"hopper_f32"`` for float32; with ``"_ldw"`` where TMA cannot load
+    w (N % 16 != 0 or a base off 16-byte alignment)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"no qmatmul kernel for x of {dtype}")
-    bf16 = dtype == torch.bfloat16
-    if not (N % 16 == 0 and w_q.data_ptr() % 16 == 0):
-        return DESIGNS[_DTYPE_CODE[dtype]]
-    if M <= SMALL_M:
-        return "decode"
-    if not bf16:
-        return "hopper_f32"
-    return "hopper" if K % 8 == 0 and x.data_ptr() % 16 == 0 else "bf16"
+    route = "decode" if M <= SMALL_M else "hopper" if dtype == torch.bfloat16 else "hopper_f32"
+    return route if N % 16 == 0 and w_q.data_ptr() % 16 == 0 else route + "_ldw"
 
 
 _SMS: Dict[int, int] = {}
@@ -265,18 +252,15 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError("x and w_q must be contiguous")
     if scale.dtype is not torch.float32 or not scale.is_contiguous():
         scale = scale.to(torch.float32).contiguous()
-    design = kernel_design(x.dtype, M, N, K, x, w_q)
     ws = None
-    if design == "decode":
+    if M <= SMALL_M:
         splits, k_chunk = cluster_split(N, K, _sm_count(idx))
-    elif design in ("hopper", "hopper_f32"):  # one pass over k, no split
-        splits, k_chunk = 1, -(-K // BK) * BK
-        if design == "hopper_f32":  # x's three bf16 planes, rows of 16-byte pitch
-            ws = torch.empty(3 * M * (-(-K // 8) * 8), dtype=torch.bfloat16, device=x.device)
-    else:
-        splits, k_chunk = split_k(M, N, K, code == 1, _sm_count(idx))
-        if splits > 1:
-            ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
+    else:  # one pass over k; x through scratch rows of 16-byte pitch where TMA cannot load it
+        splits, k_chunk = 1, K
+        planes = 3 if code == 0 else 0 if K % 8 == 0 and x.data_ptr() % 16 == 0 else 1
+        if planes:
+            ws = torch.empty(planes * M * (-(-K // 8) * 8), dtype=torch.bfloat16,
+                             device=x.device)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _build.launch(_build.library("qmatmul").qmatmul_launch, idx,
                   x.data_ptr(), code, w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),

@@ -223,21 +223,25 @@ def test_split3_model_with_the_hi_plane_alone_is_outside_the_rule(B, Sq, Sk, H, 
     assert not mm["within"] and mm["over_element_bound"] > 0.1 * one.numel(), mm
 
 
-def _moved(n, k, dtype=torch.bfloat16, seed=11):
-    """A plain output of n elements and a copy with its first k elements
-    one ulp away (within the element bound)."""
+def _moved(n, k, D, dtype=torch.bfloat16, seed=11):
+    """A plain output of n elements as (1, S, 8 heads, D) and a copy with its
+    first k elements one ulp away (within the element bound)."""
     plain = torch.from_numpy(np.random.RandomState(seed).randn(n).astype(np.float32)).to(dtype)
     out = plain.float().clone()
     out[:k] += kfa.ulp(out[:k], dtype)
-    return out.to(dtype), plain
+    return out.to(dtype).view(1, -1, 8, D), plain.view(1, -1, 8, D)
 
 
-@pytest.mark.parametrize("k,within", [(3, True), (kfa.TOL_N0[torch.bfloat16], True),
-                                      (kfa.TOL_N0[torch.bfloat16] + 1, False)])
-def test_mismatch_reads_a_small_output_by_its_floor(k, within):
-    """On 256 elements 1% is 2.56: the floor TOL_N0 lets a cluster of a few
-    one-ulp flips through (the card test's draw had 3), and no more."""
-    out, plain = _moved(256, k)
+@pytest.mark.parametrize("D", kfa.HEAD_DIMS)
+@pytest.mark.parametrize("moved,within", [("three", True), ("floor", True), ("past", False)])
+def test_mismatch_reads_a_small_output_by_its_floor(D, moved, within):
+    """One query row over 8 heads at width D (8 D elements, the card's small
+    cases): 1% is under one moved row, so the floor small_floor(D) =
+    TOL_N0 D lets that many one-ulp flips through (3 at the card test's
+    draw of PR 34), and no more."""
+    n0 = kfa.small_floor(torch.bfloat16, D)
+    k = {"three": 3, "floor": n0, "past": n0 + 1}[moved]
+    out, plain = _moved(8 * D, k, D)
     mm = kfa.mismatch(out, plain)
     assert mm["differing"] == k and mm["over_element_bound"] == 0
     assert mm["within"] is within
@@ -245,12 +249,13 @@ def test_mismatch_reads_a_small_output_by_its_floor(k, within):
 
 @pytest.mark.parametrize("n", [256, 2**20])
 def test_mismatch_fails_a_planted_share_on_small_and_large_outputs(n):
-    """26% of the elements one ulp off (the smallest share a planted bf16
-    fault has changed in the probe's readings) fails at 256 elements and at
-    2**20, where the 1% share governs as before."""
-    out, plain = _moved(n, int(0.26 * n))
+    """13% of the elements one ulp off (the smallest share a planted bf16
+    fault has changed in the probe's readings: 35 of 256 at D 32) fails at
+    256 elements and at 2**20, where the 1% share governs as before."""
+    D = 32 if n == 256 else 128
+    out, plain = _moved(n, int(0.13 * n), D)
     mm = kfa.mismatch(out, plain)
     assert mm["over_element_bound"] == 0 and not mm["within"]
-    if n > kfa.TOL_N0[torch.bfloat16] / kfa.TOL_SHARE[torch.bfloat16]:
-        ok, plain = _moved(n, int(0.009 * n))
+    if n > kfa.small_floor(torch.bfloat16, D) / kfa.TOL_SHARE[torch.bfloat16]:
+        ok, plain = _moved(n, int(0.009 * n), D)
         assert kfa.mismatch(ok, plain)["within"]

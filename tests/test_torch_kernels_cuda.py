@@ -771,13 +771,15 @@ def test_ota_aggregate_kernel_equals_plain(dev, K, M, offset):
 @pytest.mark.parametrize("M,K,N", [(4, 4096, 12288), (4, 12288, 4096), (16, 64, 48),
                                    (17, 300, 129), (37, 301, 130), (300, 4096, 1000),
                                    (1000, 4096, 12288), (8192, 4096, 12288),
-                                   (8192, 12288, 4096), (1000, 4104, 1008), (17, 64, 16)])
+                                   (8192, 12288, 4096), (1000, 4104, 1008), (17, 64, 16),
+                                   (4, 4096, 12280), (1000, 4096, 12280), (5, 64, 1001),
+                                   (33, 130, 15)])
 def test_qmatmul_kernel_within_tolerance_of_plain(dev, dtype, M, K, N):
     """The decode route (M <= 16, a cluster's ranks summed in rank order) and
     the Hopper route (bf16, and f32 through its three planes), ragged M, K
-    and N (TMA's zero fill, plain loads of x at the decode step; element
-    loads on the old routes), Qwen3-8B's MLP widths; two launches give the
-    same bits."""
+    and N (TMA's zero fill, plain loads of x at the decode step; plain loads
+    of w where N % 16 != 0, odd N included), Qwen3-8B's MLP widths; two
+    launches give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
@@ -795,29 +797,107 @@ def test_qmatmul_launcher_route_table_is_kernel_design(dev):
     for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
         xb = buf.to(dtype)
         for M, K, N in ((4, 64, 16), (16, 64, 16), (17, 64, 16), (17, 100, 16), (17, 64, 24),
-                        (8192, 4096, 12288), (1000, 4104, 1008)):
+                        (8192, 4096, 12288), (1000, 4104, 1008), (4, 64, 1001)):
             for xo, wo in ((0, 0), (1, 0), (0, 1), (8, 16)):
                 x, w = xb[xo:], w8[wo:]
-                got = DESIGNS[lib.qmatmul_design(code, M, N, K, x.data_ptr(), w.data_ptr())]
-                assert got == kernel_design(dtype, M, N, K, x, w), (dtype, M, K, N, xo, wo)
+                got = DESIGNS[lib.qmatmul_design(code, M, N, w.data_ptr())]
+                assert got == kernel_design(dtype, M, N, w), (dtype, M, K, N, xo, wo)
                 seen.add(got)
     assert seen == set(DESIGNS)
 
 
-def test_qmatmul_misaligned_view_takes_the_old_kernel(dev):
-    """A contiguous bf16 x 2 bytes off alignment cannot be a TMA source: it
-    runs qmm_bf16 (element loads), within the rule and bit-stable."""
+def test_qmatmul_decode_routes_hold_the_same_clusters(dev):
+    """qmm_decode with w by its own producers (LDW, 40 KB more shared
+    memory for the staging slots) holds as many clusters of 8 CTAs at once
+    as the TMA form, for both dtypes and both row counts."""
+    lib = _build.library("qmatmul")
+    for bf16 in (1, 0):
+        for np_ in (8, 16):
+            held = [lib.qmatmul_decode_clusters(bf16, np_, ldw, 8) for ldw in (0, 1)]
+            assert held[0] > 0 and held[0] == held[1], (bf16, np_, held)
+
+
+def _profiled_kernels(fn):
+    """The names of the kernels one call of fn launches, and the allocations
+    it makes (the caching allocator's count). A profile that recorded no
+    device activity at all (the tracer, not the call: seen once in 12 runs
+    on the card) is taken again, at most twice."""
+    fn()  # built and warm
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    return kernels, allocs
+
+
+def test_qmatmul_misaligned_x_view_is_repitched_for_tma(dev):
+    """A contiguous bf16 x 2 bytes off alignment cannot be a TMA source: the
+    Hopper route copies it into scratch rows of 16-byte pitch first
+    (split_planes<1>, then qmm_hopper), within the rule and bit-stable."""
     M, K, N = 300, 4096, 1024
     gen = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn(M * K + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(M, K)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
     assert x.is_contiguous() and x.data_ptr() % 16 == 2
-    assert kernel_design(x.dtype, M, N, K, x, q) == "bf16"
+    assert kernel_design(x.dtype, M, N, q) == "hopper"
+    kernels, allocs = _profiled_kernels(lambda: ops.qmatmul(x, q, s))
+    assert len(kernels) == 2 and "split_planes" in kernels[0] and "qmm_hopper" in kernels[1]
+    assert allocs == 2, kernels  # the output and the scratch
     before = kqmm.launches
     out = ops.qmatmul(x, q, s)
     mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
     assert mm["within"], mm
     assert torch.equal(out, ops.qmatmul(x, q, s)) and kqmm.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("w_off", range(1, 16))
+def test_qmatmul_w_off_alignment_at_every_byte_offset(dev, dtype, M, w_off):
+    """w a view 1-15 bytes past a 16-byte boundary, with a ragged N (so each
+    row's alignment differs): the ``_ldw`` routes' producers realign every
+    row, within the rule and bit-stable."""
+    K, N = 300, 1001
+    gen = torch.Generator(device=dev).manual_seed(w_off + M)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    wbuf = torch.randint(-127, 128, (w_off + K * N,), generator=gen, device=dev, dtype=torch.int8)
+    q = wbuf[w_off:].view(K, N)
+    s = torch.rand((N,), generator=gen, device=dev) / 64
+    assert q.data_ptr() % 16 == w_off and kernel_design(dtype, M, N, q).endswith("_ldw")
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+    assert torch.equal(out, ops.qmatmul(x, q, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 40])
+@pytest.mark.parametrize("N", [9, 10, 14, 15, 16, 17])
+@pytest.mark.parametrize("w_off", range(1, 16))
+def test_qmatmul_narrow_w_off_alignment_at_every_byte_offset(dev, dtype, M, N, w_off):
+    """w 9-17 columns wide, 1-15 bytes off alignment, K a multiple of 16 (so
+    every k tile lies in whole super-rows of 16 rows): where w % 16 > N a
+    row of a super-row runs past the super-row's 16 N bytes, so those
+    shapes must not take the super-row boxes, whose zero fill would drop the
+    row's last columns. Within the rule and bit-stable on both routes."""
+    K = 256
+    gen = torch.Generator(device=dev).manual_seed(1000 * N + 16 * M + w_off)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    wbuf = torch.randint(-127, 128, (w_off + K * N,), generator=gen, device=dev, dtype=torch.int8)
+    q = wbuf[w_off:].view(K, N)
+    s = torch.rand((N,), generator=gen, device=dev) / 64
+    assert q.data_ptr() % 16 == w_off and kernel_design(dtype, M, N, q).endswith("_ldw")
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert mm["within"], mm
+    assert torch.equal(out, ops.qmatmul(x, q, s))
 
 
 def _one_hot(gen, dev, M, K):
@@ -834,18 +914,21 @@ def _one_hot(gen, dev, M, K):
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 4096, 12288), (4, 12288, 4096), (13, 1000, 1008),
-                                   (1000, 4096, 12288), (300, 12288, 4096)])
+                                   (1000, 4096, 12288), (300, 12288, 4096), (4, 4096, 12280),
+                                   (13, 1000, 1001), (1000, 4096, 12280)])
 def test_qmatmul_one_hot_f32_within_two_ulps(dev, M, K, N):
-    """One nonzero a row: both f32 routes (decode, hopper_f32) are within 2
-    ulps of the reference kernel's rounding (the dot rounded once, then the
-    scale: ``one_hot_reference``), and within 3 of the plain version, which
-    rounds q * scale first (each is within 1.5 ulps of the exact value); x
-    without its lo plane (hi + mid, which splits into hi, mid and a zero lo:
-    the kernel with its lo plane dropped) is not."""
+    """One nonzero a row: every f32 route (decode, hopper_f32 and, at a
+    ragged N, their ``_ldw`` forms) is within 2 ulps of the reference
+    kernel's rounding (the dot rounded once, then the scale:
+    ``one_hot_reference``), and within 3 of the plain version, which rounds
+    q * scale first (each is within 1.5 ulps of the exact value); x without
+    its lo plane (hi + mid, which splits into hi, mid and a zero lo: the
+    kernel with its lo plane dropped) is not."""
     gen = torch.Generator(device=dev).manual_seed(M + K)
     x = _one_hot(gen, dev, M, K)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
-    assert kernel_design(x.dtype, M, N, K, x, q) == ("decode" if M <= 16 else "hopper_f32")
+    route = "decode" if M <= 16 else "hopper_f32"
+    assert kernel_design(x.dtype, M, N, q) == (route if N % 16 == 0 else route + "_ldw")
     ref, plain = one_hot_reference(x, q, s), qmatmul_plain(x, q, s)
     out = ops.qmatmul(x, q, s)
     assert int(ulps(out, ref).max()) <= 2 and int(ulps(out, plain).max()) <= 3
@@ -861,23 +944,36 @@ def test_qmatmul_decode_is_one_launch_without_scratch(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn((4, 4096), generator=gen, device=dev).to(dtype)
     q, s = ops.quantize_weights(torch.randn((4096, 12288), generator=gen, device=dev) * 0.02)
-    ops.qmatmul(x, q, s)  # built and warm
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out = ops.qmatmul(x, q, s)
-        torch.cuda.synchronize()
-    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1 and "qmm_decode" in kernels[0], kernels
-    assert out.shape == (4, 12288)
+    kernels, allocs = _profiled_kernels(lambda: ops.qmatmul(x, q, s))
+    assert allocs == 1 and len(kernels) == 1 and "qmm_decode" in kernels[0], kernels
+    assert ops.qmatmul(x, q, s).shape == (4, 12288)
 
 
-@pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (300, 4096, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,w_off", [(12280, 0), (12288, 1)])
+def test_qmatmul_ragged_decode_is_one_launch_without_scratch(dev, dtype, N, w_off):
+    """A decode step whose w TMA cannot load (a ragged N, or w one byte off
+    alignment) is one launch of qmm_decode too, with plain loads of w, and
+    allocates only its output."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((4, 4096), generator=gen, device=dev).to(dtype)
+    wbuf = torch.randint(-127, 128, (w_off + 4096 * N,), generator=gen, device=dev,
+                         dtype=torch.int8)
+    q, s = wbuf[w_off:].view(4096, N), torch.rand((N,), generator=gen, device=dev) / 64
+    assert kernel_design(x.dtype, 4, N, q) == "decode_ldw"
+    kernels, allocs = _profiled_kernels(lambda: ops.qmatmul(x, q, s))
+    assert allocs == 1 and len(kernels) == 1 and "qmm_decode" in kernels[0], kernels
+    out = ops.qmatmul(x, q, s)
+    mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)
+    assert out.shape == (4, N) and mm["within"], mm
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 1024), (300, 4096, 1024), (4, 4096, 1001),
+                                   (300, 4096, 1001)])
 def test_qmatmul_f32_non_finite_x(dev, M, K, N):
     """inf, -inf and NaN in x: hi carries them (mid = lo = 0), so each row
     holds the plain version's inf, -inf or NaN; the finite rows stay within
-    the rule."""
+    the rule (on the ``_ldw`` routes too, at N 1,001)."""
     gen = torch.Generator(device=dev).manual_seed(M)
     x = torch.randn((M, K), generator=gen, device=dev)
     x[0, 5] = float("inf")
@@ -913,7 +1009,7 @@ def test_qmatmul_decode_takes_x_off_alignment(dev):
     gen = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(M * K + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(M, K)
     q, s = ops.quantize_weights(torch.randn((K, N), generator=gen, device=dev) * 0.02)
-    assert x.data_ptr() % 16 == 2 and kernel_design(x.dtype, M, N, K, x, q) == "decode"
+    assert x.data_ptr() % 16 == 2 and kernel_design(x.dtype, M, N, q) == "decode"
     assert cluster_split(N, K, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
     out = ops.qmatmul(x, q, s)
     mm = mismatch(out, qmatmul_plain(x, q, s), x, q, s)

@@ -39,7 +39,7 @@ from repro_torch.kernels import _build, ota_fused, topk_similarity
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.qmatmul import (TOL_C, cluster_split, kernel_design, mismatch,
                                          one_hot_reference, qmatmul_planes_plain, split3_plain,
-                                         split_k, ulps)
+                                         ulps)
 from repro_torch.kernels.quantize import fake_quant_2d, fake_quant_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -190,7 +190,9 @@ def test_quantize_weights_int4_bit_equal_to_reference():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (37, 300, 129), (130, 129, 200)])
+@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (37, 300, 129), (130, 129, 200),
+                                   # ragged and odd shapes: the routes of w TMA cannot load
+                                   (17, 100, 24), (5, 64, 1001), (33, 130, 15)])
 def test_qmatmul_within_tolerance_of_reference(m, k, n, dtype):
     rng = np.random.RandomState(m + k + n)
     x = rng.randn(m, k).astype(np.float32)
@@ -241,40 +243,56 @@ def test_qmatmul_mismatch_rule_bounds_each_element():
     (torch.bfloat16, 4, 4096, 12288, 0, 0, "decode"),  # Qwen3-8B w_gate at batch 4
     (torch.bfloat16, 16, 64, 16, 1, 0, "decode"),  # x off alignment: plain loads of x
     (torch.bfloat16, 16, 100, 16, 0, 0, "decode"),  # K % 8: the decode route takes it
-    (torch.bfloat16, 17, 100, 16, 0, 0, "bf16"),  # K % 8: x's rows not 16-byte multiples
-    (torch.bfloat16, 17, 64, 24, 0, 0, "bf16"),  # N % 16: w's rows not 16-byte multiples
-    (torch.bfloat16, 17, 64, 16, 1, 0, "bf16"),  # x a view 2 bytes off alignment
-    (torch.bfloat16, 17, 64, 16, 0, 1, "bf16"),  # w a view 1 byte off alignment
-    (torch.bfloat16, 4, 64, 16, 0, 1, "bf16"),  # w off alignment at a decode step
+    (torch.bfloat16, 17, 100, 16, 0, 0, "hopper"),  # K % 8: x repitched for TMA
+    (torch.bfloat16, 17, 64, 16, 1, 0, "hopper"),  # x a view 2 bytes off alignment
+    (torch.bfloat16, 17, 64, 24, 0, 0, "hopper_ldw"),  # N % 16: w's rows not 16-byte multiples
+    (torch.bfloat16, 17, 64, 16, 0, 1, "hopper_ldw"),  # w a view 1 byte off alignment
+    (torch.bfloat16, 4, 64, 16, 0, 1, "decode_ldw"),  # w off alignment at a decode step
+    (torch.bfloat16, 4, 4096, 12280, 0, 0, "decode_ldw"),  # a ragged N at batch 4
     (torch.bfloat16, 17, 64, 16, 8, 16, "hopper"),  # views 16 bytes in: aligned again
     (torch.float32, 8192, 4096, 12288, 0, 0, "hopper_f32"),  # through the three planes
     (torch.float32, 1000, 4104, 1008, 0, 0, "hopper_f32"),
     (torch.float32, 17, 100, 16, 1, 0, "hopper_f32"),  # the planes pass takes any x
     (torch.float32, 4, 64, 16, 0, 0, "decode"),
     (torch.float32, 4, 12288, 4096, 0, 0, "decode"),  # Qwen3-8B w_down at batch 4
-    (torch.float32, 4, 64, 24, 0, 0, "f32"),  # N % 16
-    (torch.float32, 1000, 64, 16, 0, 1, "f32"),  # w off alignment
+    (torch.float32, 4, 64, 24, 0, 0, "decode_ldw"),  # N % 16
+    (torch.float32, 1000, 64, 16, 0, 1, "hopper_f32_ldw"),  # w off alignment
+    (torch.float32, 1000, 4096, 12280, 0, 0, "hopper_f32_ldw"),  # a ragged N
 ])
 def test_kernel_design_takes_hopper_only_where_tma_can_load(dtype, M, K, N, x_off, w_off,
                                                              want):
     x = torch.zeros(x_off + min(M * K, 1 << 16), dtype=dtype)[x_off:]
     w = torch.zeros(w_off + min(K * N, 1 << 16), dtype=torch.int8)[w_off:]
-    assert kernel_design(dtype, M, N, K, x, w) == want
+    assert x.data_ptr() % 16 == (2 if dtype == torch.bfloat16 else 4) * x_off % 16
+    assert kernel_design(dtype, M, N, w) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("w_off", range(1, 16))
+def test_kernel_design_loads_w_itself_at_every_byte_offset(dtype, M, w_off):
+    """w a view 1-15 bytes past a 16-byte boundary is no TMA source at any
+    offset: its producers load it (the ``_ldw`` routes); 16 bytes in, TMA
+    takes it again."""
+    w = torch.zeros(32 + 64 * 16, dtype=torch.int8)
+    route = "decode" if M <= 16 else "hopper" if dtype == torch.bfloat16 else "hopper_f32"
+    assert kernel_design(dtype, M, 16, w[w_off:]) == route + "_ldw"
+    assert kernel_design(dtype, M, 16, w[16:]) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 300])
+# N % 16 in {1, 8, 15}; an odd N; narrower than a 16-byte block
+@pytest.mark.parametrize("N", [12289, 12296, 12303, 1001, 10, 14])
+def test_kernel_design_loads_w_itself_at_a_ragged_n(dtype, M, N):
+    w = torch.zeros(64 * N, dtype=torch.int8)
+    assert w.data_ptr() % 16 == 0 and kernel_design(dtype, M, N, w).endswith("_ldw")
 
 
 def test_kernel_design_rejects_what_no_kernel_takes():
     x = torch.zeros((17, 64), dtype=torch.float16)
     with pytest.raises(ValueError):
-        kernel_design(torch.float16, 17, 16, 64, x, torch.zeros((64, 16), dtype=torch.int8))
-
-
-@pytest.mark.parametrize("M,N,K,bf16", [(4, 12288, 4096, True), (4, 4096, 12288, True),
-                                        (8192, 12288, 4096, True), (1000, 12288, 4096, False),
-                                        (3, 10, 33, False)])
-def test_split_k_cuts_k_into_nonempty_ranges(M, N, K, bf16):
-    splits, k_chunk = split_k(M, N, K, bf16, 132)
-    assert k_chunk % 32 == 0 and 1 <= splits <= 32
-    assert (splits - 1) * k_chunk < K <= splits * k_chunk
+        kernel_design(torch.float16, 17, 16, torch.zeros((64, 16), dtype=torch.int8))
 
 
 @pytest.mark.parametrize("N,K,sms", [(12288, 4096, 132), (4096, 12288, 132), (16, 64, 132),
